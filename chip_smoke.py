@@ -162,6 +162,31 @@ def profile_stage(pstage, card):
 
 # ------------------------------------------------------------ phase 3 ----
 
+def profile_request(pred, img, rate, wall_ms, card):
+    """Device time of one request by kernel (torch.profiler), and the share
+    of the request's wall time (an unprofiled run's) the device is busy."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        pred(img, rate)
+        torch.cuda.synchronize()
+    kernels = sorted(((e.key, e.self_device_time_total / 1e3)
+                      for e in prof.key_averages() if e.self_device_time_total > 0),
+                     key=lambda kv: -kv[1])
+    busy_ms = sum(ms for _, ms in kernels)
+    stage_ms = sum(ms for k, ms in kernels
+                   if any(n in k for n in ("k_gram", "k_softmax", "k_apply")))
+    out = dict(wall_ms=wall_ms, device_busy_ms=busy_ms, stage_kernels_ms=stage_ms,
+               idle_share=1 - busy_ms / wall_ms,
+               top=[dict(kernel=k[:120], ms=ms) for k, ms in kernels[:12]])
+    log(f"request profile 512x512: wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms "
+        f"(idle share {out['idle_share']:.3f}), stage kernels {stage_ms:.2f} ms [{card}]")
+    for row in out["top"][:6]:
+        log(f"  {row['ms']:8.3f} ms  {row['kernel'][:100]}")
+    return out
+
+
 def sonar_frame(h, w, seed):
     """uint8 RGB speckle-like noise with a fan of exact zeros around it."""
     rng = np.random.default_rng(seed)
@@ -259,7 +284,9 @@ def phase_slice(results, card):
         assert all(torch.isfinite(v).all().item() for v in o.values())
 
     results.update(main_path_launches=launches, gate_predicted=want,
-                   latency_ms=lat_ms, agreement=agree)
+                   latency_ms=lat_ms, agreement=agree,
+                   request_profile=profile_request(pred, *frames[0],
+                                                   min(lat_ms[:4]), card))
     for (img, rate), ms in zip(frames, lat_ms):
         log(f"request {img.shape[0]}x{img.shape[1]} rate {rate}: {ms:.2f} ms [{card}]")
     return launches, lat_ms

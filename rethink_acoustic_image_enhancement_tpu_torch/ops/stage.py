@@ -14,9 +14,10 @@ launches per block, see the note there) and counts the call in
 ``stage_plain``, the same arithmetic in plain PyTorch: bf16 operands with
 float32 accumulation for the five products, the qkv and W_in outputs
 rounded to bf16 before their float32 depthwise 3x3, two-pass LayerNorm and
-exact-erf GELU. Blocks hand their output to the next in float32; only the
-stage's output is cast to x's dtype (the TPU kernel stored every block's
-output in x's dtype).
+exact-erf GELU (the kernel's Abramowitz-Stegun erf is within 1.5e-7).
+Blocks hand their output to the next in float32; only the stage's output
+is cast to x's dtype (the TPU kernel stored every block's output in x's
+dtype).
 """
 
 from __future__ import annotations
@@ -166,10 +167,10 @@ def _pack(x, ln1_w, w_qkv, dw_qkv, temperature, w_proj, ln2_w, w_in, w_dw,
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "raie_stage_smem_bytes": [_I] * 5,
-    "raie_stage_gram": [_P, _I, _P, _P, _P, _P] + [_I] * 9 + [ctypes.c_float, _P],
+    "raie_stage_smem_bytes": [_I] * 6,
+    "raie_stage_gram": [_P, _I, _P, _P, _P, _P, _P] + [_I] * 9 + [ctypes.c_float, _P],
     "raie_stage_softmax": [_P, _P, _P, _I, _I, _I, _I, _P],
-    "raie_stage_apply": [_P, _I, _P, _I] + [_P] * 9 + [_I] * 8 + [ctypes.c_float, _P],
+    "raie_stage_apply": [_P, _I, _P, _I] + [_P] * 7 + [_I] * 8 + [ctypes.c_float, _P],
 }
 
 
@@ -192,12 +193,14 @@ def _check(lib, code: int, what: str) -> None:
         raise RuntimeError(f"stage kernel {what} failed ({code}): {msg}")
 
 
-def plan_tiles(lib, c: int, heads: int) -> tuple[tuple[int, int], tuple[int, int]]:
-    """The largest (th, tw) of kernels A and C whose shared memory fits."""
+def plan_tiles(lib, c: int, heads: int,
+               fp: int) -> tuple[tuple[int, int], tuple[int, int]]:
+    """The largest (th, tw) of kernels A and C whose shared memory fits in
+    its smaller layout (the kernel takes the larger one where that fits)."""
 
     def pick(kind, cands):
         for th, tw in cands:
-            if lib.raie_stage_smem_bytes(kind, th, tw, c, heads) <= _SMEM_LIMIT:
+            if lib.raie_stage_smem_bytes(kind, th, tw, c, heads, fp) <= _SMEM_LIMIT:
                 return th, tw
         raise ValueError(f"no stage-kernel tile fits {c} channels")
 
@@ -218,14 +221,15 @@ def _stage_cuda(x, ln_eps, **weights) -> torch.Tensor:
         raise ValueError(f"stage kernel needs C/heads a multiple of 16 "
                          f"(C={c}, heads={heads})")
     lib = _lib()
-    (gth, gtw), (ath, atw) = plan_tiles(lib, c, heads)
+    (gth, gtw), (ath, atw) = plan_tiles(lib, c, heads, p["fp"])
     n_gram_tiles = -(-h // gth) * -(-w // gtw)
     n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
-    groups = max(1, min(n_gram_tiles, -(-2 * n_sm // b)))
+    groups = max(1, min(n_gram_tiles, -(-n_sm // b)))  # (A) in one wave
     part = torch.empty(b, groups, heads * hc * hc + 2 * c,
                        dtype=torch.float32, device=x.device)
     attn_t = torch.empty(b, heads, hc, hc, dtype=torch.bfloat16,
                          device=x.device)
+    v = torch.empty(x.shape, dtype=torch.bfloat16, device=x.device)
     # blocks hand over in float32; only the last writes x's dtype
     out = torch.empty_like(x)
     bufs = [torch.empty(x.shape, dtype=torch.float32, device=x.device)
@@ -238,15 +242,14 @@ def _stage_cuda(x, ln_eps, **weights) -> torch.Tensor:
         _check(lib, lib.raie_stage_gram(
             src.data_ptr(), src_bf16, p["ln1"][i].data_ptr(),
             p["wqkv"][i].data_ptr(), p["dwqkv"][i].data_ptr(),
-            part.data_ptr(), b, h, w, c, heads, p["fp"], gth, gtw, groups,
-            ln_eps, stream), "A (Gram)")
+            part.data_ptr(), v.data_ptr(), b, h, w, c, heads, p["fp"], gth,
+            gtw, groups, ln_eps, stream), "A (Gram)")
         _check(lib, lib.raie_stage_softmax(
             part.data_ptr(), p["temp"][i].data_ptr(), attn_t.data_ptr(),
             b, c, heads, groups, stream), "B (softmax)")
         _check(lib, lib.raie_stage_apply(
             src.data_ptr(), src_bf16, dst.data_ptr(),
-            int(dst.dtype == torch.bfloat16), p["ln1"][i].data_ptr(), p["wqkv"][i].data_ptr(),
-            p["dwqkv"][i].data_ptr(), attn_t.data_ptr(),
+            int(dst.dtype == torch.bfloat16), v.data_ptr(), attn_t.data_ptr(),
             p["wproj"][i].data_ptr(), p["ln2"][i].data_ptr(),
             p["win"][i].data_ptr(), p["wdw"][i].data_ptr(),
             p["wout"][i].data_ptr(), b, h, w, c, heads, p["fp"], ath, atw,

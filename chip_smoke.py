@@ -6,14 +6,25 @@
 Phases (any failure exits non-zero; nothing is caught):
   1. environment: torch/CUDA versions, the card's name and power limit;
      build every csrc/*.cu for sm_90a (one nvcc each, all at once).
-  2. each kernel against its plain PyTorch version on the card, at the
-     shapes the main path gives it, in bf16 and fp32, with its time, the
-     plain version's time and the bound for the same work.
-  3. the slice: the full-width flagship KDLAE-T (seeded random weights)
-     served through TeacherPredictor(fused=True, bf16) on synthetic sonar
-     frames, with the stage-kernel launch count checked against the gate
-     and the uint8 outputs against the same predictor with the plain stage.
-Prints a "kernels" JSON line, the card line, and as its last line
+  2. each kernel (stage, LayerNorm, LN+GDFN, whole block) against its plain
+     PyTorch version on the card, at the shapes its paths give it, in bf16
+     and fp32, with its time, the plain version's time, the bound for the
+     same work and, where one PyTorch call computes the same function, that
+     call's time.
+  3. whole-image serving: the full-width flagship KDLAE-T (seeded random
+     weights) through TeacherPredictor(fused=True, bf16) on synthetic sonar
+     frames, with the stage-kernel call count checked against the gate and
+     the uint8 outputs against the same predictor with the plain stage.
+  4. the per-block paths at full width, on the flagship decoder_level1
+     geometry (4 blocks of 96 channels at 512x512, BiasFree and WithBias):
+     TransformerBlock(fused=True) through the block kernel, and the blocks
+     composed from the public LayerNorm and LN+GDFN functions, both against
+     the eager blocks.
+  5. tiled serving: the same predictor's denoise_tiled in 256x256 tiles and
+     in full-width strips, 8 tiles per call, with the stage-kernel call
+     count checked against the gate and the outputs against the plain stage.
+Each path runs with every launch count set to 0 just before it and read just
+after. Prints a "kernels" JSON line, the card line, and as its last line
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 """
 
@@ -30,8 +41,11 @@ import numpy as np
 PORT = "rethink_acoustic_image_enhancement_tpu_torch"
 HERE = os.path.dirname(os.path.abspath(__file__))
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
+PEAK_FP32_FLOPS = 67e12   # H100 SXM fp32 rate outside the tensor cores
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 TOL_REL = 1e-2            # kernel vs plain, max|d| / max|ref|
+TOL_PATH = 2e-2           # a 4-block bf16 kernel path vs the eager blocks in fp32
+PALLAS = "rethink_acoustic_image_enhancement_tpu/ops/pallas"
 
 
 def log(*a):
@@ -51,6 +65,28 @@ def cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps):
+    """Mean device time of all that fn() launches over reps runs, by
+    torch.profiler: free of the host's gaps, which outlast a kernel of a few
+    tens of microseconds."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()  # warm-up
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+        # every kernel of fn() must show up reps times over: the profiler
+        # has been seen to hand back a part of a window's launches
+        if events and all(e.count % reps == 0 for e in events):
+            return sum(e.self_device_time_total for e in events) / reps / 1e3
+    raise RuntimeError("torch.profiler dropped kernel events three times running")
 
 
 # ------------------------------------------------------------ phase 2 ----
@@ -95,7 +131,7 @@ def phase_kernels(results, card):
 
     c, f = 96, int(96 * 2.66)
     cases = [((1, 512, 512, c), 4, 1), ((1, 256, 256, c), 6, 2),
-             ((2, 256, 256, c), 2, 2)]
+             ((2, 256, 256, c), 2, 2), ((8, 256, 256, c), 4, 1)]  # the last: a tile batch
     rows = []
     for dtype in (torch.bfloat16, torch.float32):
         for shape, n, heads in cases:
@@ -160,6 +196,178 @@ def profile_stage(pstage, card):
     return per_kernel
 
 
+def reset_counts():
+    """Every kernel wrapper's launch count to 0."""
+    from rethink_acoustic_image_enhancement_tpu_torch.ops import block, gdfn, layernorm, stage
+
+    fns = dict(stage=stage.fused_transformer_stage, layernorm=layernorm.fused_channel_layernorm,
+               gdfn=gdfn.fused_ln_gdfn, block=block.fused_transformer_block)
+    for fn in fns.values():
+        fn.launches = 0
+    return fns
+
+
+def read_counts(fns):
+    return {name: fn.launches for name, fn in fns.items()}
+
+
+def seeded(rng, *shape, scale=1.0, shift=0.0):
+    import torch
+
+    return torch.from_numpy(rng.normal(size=shape).astype(np.float32) * scale + shift).cuda()
+
+
+def held_to_plain(name, kernel, plain, x, flops, nbytes, peak_flops, card, results_row,
+                  library=None, elementwise_ulp=None, tol=TOL_REL, plain_reps=2):
+    """Run kernel() and plain() on the card, compare, time both (and the
+    library call), and fill the row; fails on disagreement. The kernel's
+    time is the device time of its wrapper's launches; the plain version's
+    and the library call's are CUDA-event times."""
+    import torch
+
+    got = kernel()
+    torch.cuda.synchronize()
+    ref = plain()
+    torch.cuda.synchronize()
+    assert got.shape == x.shape and got.dtype == x.dtype, (got.shape, got.dtype)
+    assert torch.isfinite(got).all().item(), f"{name}: non-finite kernel output"
+    d = (got.float() - ref.float()).abs()
+    diff, scale = d.max().item(), ref.float().abs().max().item()
+    rel = diff / scale
+    ring = torch.ones(x.shape[1:3], dtype=torch.bool, device=x.device)
+    ring[1:-1, 1:-1] = False
+    ring_rel = d[:, ring].max().item() / scale
+    t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / PEAK_BYTES * 1e3
+    row = dict(results_row, shape=list(x.shape), dtype=str(x.dtype).replace("torch.", ""),
+               max_abs_err=diff, max_abs_ref=scale, rel_err=rel, ring_rel_err=ring_rel,
+               ms=device_ms(kernel, 5), ms_with_host_gaps=cuda_ms(kernel, 5),
+               plain_ms=cuda_ms(plain, plain_reps),
+               library_ms=cuda_ms(library, 5) if library else None,
+               bound_ms=max(t_ops, t_bytes),
+               bound_by="operations" if t_ops >= t_bytes else "bytes",
+               flops=flops, bytes=nbytes)
+    lib_txt = f", library {row['library_ms']:.4f} ms" if library else ""
+    log(f"{name} {row['dtype']} {tuple(x.shape)} "
+        f"{results_row}: kernel {row['ms']:.4f} ms, plain "
+        f"{row['plain_ms']:.4f} ms{lib_txt}, bound {row['bound_ms']:.4f} ms "
+        f"({row['bound_by']}), max|d| {diff:.3e} rel {rel:.3e} ring {ring_rel:.3e} [{card}]")
+    if elementwise_ulp is not None:
+        ok = (d <= ref.float().abs() * elementwise_ulp + 1e-6).all().item()
+        assert ok, f"{name}: more than one ulp from plain"
+    else:
+        assert rel <= tol and ring_rel <= tol, f"{name} disagrees with plain: {rel}, ring {ring_rel}"
+    return row
+
+
+def phase_layernorm_kernel(results, card):
+    import torch
+    import torch.nn.functional as F
+
+    from rethink_acoustic_image_enhancement_tpu_torch.ops import layernorm as pln
+
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape in ((1, 512, 512, 96), (1, 256, 256, 192)):
+            for bias_free in (True, False):
+                rng = np.random.default_rng(len(rows))
+                c = shape[-1]
+                x = seeded(rng, *shape, scale=2.0, shift=0.5).to(dtype)
+                w, b = seeded(rng, c, scale=0.2, shift=1.0), seeded(rng, c, scale=0.5)
+                n = x.numel()
+                library = None
+                if not bias_free:  # F.layer_norm is the WithBias variant
+                    wl, bl = w.to(dtype), b.to(dtype)
+                    library = lambda: F.layer_norm(x, (c,), wl, bl, 1e-5)
+                rows.append(held_to_plain(
+                    "layernorm", lambda: pln.fused_channel_layernorm(x, w, b, bias_free),
+                    lambda: pln.layernorm_plain(x, w, b, bias_free), x,
+                    8 * n, 2 * n * x.element_size() + 8 * c, PEAK_FP32_FLOPS, card,
+                    dict(bias_free=bias_free), library=library, plain_reps=5,
+                    elementwise_ulp=2.0 ** -7 if dtype == torch.bfloat16 else None,
+                    tol=1e-5))
+    results["layernorm_cases"] = rows
+    return rows
+
+
+def gdfn_work(b, h, w, c, f, esize):
+    """(flops, bytes) of LN+GDFN: the two products and the depthwise 3x3 per
+    pixel; x read once, out written once, weights once."""
+    per_px = 2 * c * 2 * f + 2 * 9 * 2 * f + 2 * f * c
+    return (per_px * b * h * w,
+            2 * b * h * w * c * esize + 2 * (2 * c * f + f * c) + 4 * (18 * f + 2 * c))
+
+
+def phase_gdfn_kernel(results, card):
+    import torch
+
+    from rethink_acoustic_image_enhancement_tpu_torch.ops import gdfn as pgdfn
+
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape in ((1, 512, 512, 96), (2, 256, 256, 192), (1, 64, 64, 384),
+                      (1, 52, 44, 96)):
+            for bias_free in (True, False):
+                rng = np.random.default_rng(100 + len(rows))
+                c = shape[-1]
+                f = int(c * 2.66)
+                x = seeded(rng, *shape).to(dtype)
+                args = (seeded(rng, c, scale=0.1, shift=1.0),
+                        None if bias_free else seeded(rng, c, scale=0.5),
+                        seeded(rng, 1, 1, c, 2 * f, scale=c ** -0.5),
+                        seeded(rng, 3, 3, 1, 2 * f, scale=1 / 3),
+                        seeded(rng, 1, 1, f, c, scale=f ** -0.5))
+                flops, nbytes = gdfn_work(*shape, f, x.element_size())
+                rows.append(held_to_plain(
+                    "ln_gdfn", lambda: pgdfn.fused_ln_gdfn(x, *args, bias_free=bias_free),
+                    lambda: pgdfn.gdfn_plain(x, *args, bias_free=bias_free), x,
+                    flops, nbytes, PEAK_BF16_FLOPS, card, dict(bias_free=bias_free)))
+    results["gdfn_cases"] = rows
+    return rows
+
+
+def phase_block_kernel(results, card):
+    import torch
+
+    from rethink_acoustic_image_enhancement_tpu_torch.ops import block as pblock
+    from rethink_acoustic_image_enhancement_tpu_torch.ops import stage as pstage
+
+    names = ("ln1_w", "ln1_b", "w_qkv", "dw_qkv", "temperature", "w_proj", "ln2_w",
+             "ln2_b", "w_in", "w_dw", "w_out")
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape, heads in (((1, 512, 512, 96), 1), ((1, 256, 256, 96), 2),
+                             ((1, 64, 64, 48), 2), ((1, 64, 64, 48), 4),
+                             ((1, 64, 64, 48), 8)):
+            for bias_free in (True, False):
+                rng = np.random.default_rng(200 + len(rows))
+                c = shape[-1]
+                f = int(c * 2.66)
+                wts = {k: v[0] for k, v in
+                       seeded_stage_weights(rng, 1, c, heads, f, "cuda").items()}
+                wts["ln1_b"] = None if bias_free else seeded(rng, c, scale=0.5)
+                wts["ln2_b"] = None if bias_free else seeded(rng, c, scale=0.5)
+                args = tuple(wts[k] for k in names)
+                x = seeded(rng, *shape).to(dtype)
+                flops, nbytes = stage_work(*shape, 1, heads, f, x.element_size())
+                rows.append(held_to_plain(
+                    "block", lambda: pblock.fused_transformer_block(
+                        x, *args, bias_free=bias_free, num_heads=heads),
+                    lambda: pblock.block_plain(x, *args, bias_free=bias_free, num_heads=heads),
+                    x, flops, nbytes, PEAK_BF16_FLOPS, card,
+                    dict(heads=heads, bias_free=bias_free)))
+                if bias_free and c // heads % 16 == 0:
+                    # one BiasFree block is a one-block stage
+                    one = pblock.fused_transformer_block(x, *args, num_heads=heads)
+                    stage = pstage.fused_transformer_stage(
+                        x, **{k: wts[k][None] for k in names if wts[k] is not None})
+                    d = (one.float() - stage.float()).abs().max().item()
+                    assert d <= TOL_REL * stage.float().abs().max().item(), d
+                    rows[-1]["max_abs_diff_to_one_block_stage"] = d
+    results["block_cases"] = rows
+    return rows
+
+
+
 # ------------------------------------------------------------ phase 3 ----
 
 def profile_request(pred, img, rate, wall_ms, card):
@@ -215,9 +423,8 @@ def phase_slice(results, card):
     model = init_weights_(flagship_teacher(static="train"),
                           torch.Generator().manual_seed(0))
     pred = TeacherPredictor(model, fused=True, dtype=torch.bfloat16)
-    frames = [(sonar_frame(512, 512, s), r)
-              for s, r in ((0, 1.0), (1, 0.6), (2, 1.0), (3, 0.6))]
-    frames.append((sonar_frame(500, 380, 4), 1.0))
+    frames = [(sonar_frame(512, 512, 0), 1.0), (sonar_frame(512, 512, 1), 0.6),
+              (sonar_frame(500, 380, 4), 1.0)]
 
     # what the gate admits, read off each stage's input shape in the run
     seen = []
@@ -233,7 +440,7 @@ def phase_slice(results, card):
     pred(*frames[0])  # warm-up: cuDNN plans, allocator
     torch.cuda.synchronize()
     seen.clear()
-    pstage.fused_transformer_stage.launches = 0
+    counts = reset_counts()
     outs, lat_ms, want = [], [], 0
     for img, rate in frames:
         n0 = len(seen)
@@ -246,10 +453,10 @@ def phase_slice(results, card):
         outs.append(out)
         if img.shape[:2] == (512, 512):
             assert want_i == 5, f"gate admits {want_i} stages at 512^2, not 5"
-    launches = pstage.fused_transformer_stage.launches
+    launches = read_counts(counts)["stage"]
     for h in hooks:
         h.remove()
-    log(f"main path: {launches} stage-kernel calls over {len(frames)} requests "
+    log(f"whole-image path: {launches} stage-kernel calls over {len(frames)} requests "
         f"(gate predicts {want})")
     assert launches == want, (launches, want)
 
@@ -286,10 +493,205 @@ def phase_slice(results, card):
     results.update(main_path_launches=launches, gate_predicted=want,
                    latency_ms=lat_ms, agreement=agree,
                    request_profile=profile_request(pred, *frames[0],
-                                                   min(lat_ms[:4]), card))
+                                                   min(lat_ms[:2]), card))
     for (img, rate), ms in zip(frames, lat_ms):
         log(f"request {img.shape[0]}x{img.shape[1]} rate {rate}: {ms:.2f} ms [{card}]")
-    return launches, lat_ms
+    return launches, lat_ms, pred
+
+
+# ------------------------------------------------------------ phase 4 ----
+
+def level1_blocks(bias_free, fused, seed):
+    """The flagship decoder_level1 geometry, 4 x TransformerBlock(96, 1 head),
+    seeded like the teacher, a WithBias LayerNorm with non-zero biases."""
+    import torch
+    from torch import nn
+
+    from rethink_acoustic_image_enhancement_tpu_torch.models import init_weights_
+    from rethink_acoustic_image_enhancement_tpu_torch.models.blocks import TransformerBlock
+
+    gen = torch.Generator().manual_seed(seed)
+    blocks = init_weights_(nn.Sequential(*[
+        TransformerBlock(96, 1, bias_free_ln=bias_free, fused=fused) for _ in range(4)]), gen)
+    with torch.no_grad():
+        for name, p in blocks.named_parameters():
+            if name.endswith("body.bias"):
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.5)
+    return blocks.to(device="cuda", dtype=torch.bfloat16).eval()
+
+
+def ops_path_block(blk, x):
+    """One TransformerBlock composed from the public LayerNorm and LN+GDFN
+    functions (NHWC), the attention between them eager."""
+    from rethink_acoustic_image_enhancement_tpu_torch.models.blocks import flax_block_tree
+    from rethink_acoustic_image_enhancement_tpu_torch.ops.gdfn import fused_ln_gdfn
+    from rethink_acoustic_image_enhancement_tpu_torch.ops.layernorm import (
+        fused_channel_layernorm,
+    )
+
+    p = flax_block_tree(blk)
+    bias_free = blk.bias_free_ln
+    xn = fused_channel_layernorm(x, p["norm1"]["weight"], p["norm1"].get("bias"), bias_free)
+    r = x + blk.attn(xn.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+    return fused_ln_gdfn(r.contiguous(), p["norm2"]["weight"], p["norm2"].get("bias"),
+                         p["ffn"]["project_in"]["kernel"], p["ffn"]["dwconv"]["kernel"],
+                         p["ffn"]["project_out"]["kernel"], bias_free=bias_free)
+
+
+def phase_block_paths(results, card):
+    """(1, 96, 512, 512) bf16 through 4 blocks: fused=True (block kernel)
+    and the LayerNorm + LN+GDFN composition, against the eager blocks
+    (fused=False) in float32."""
+    import torch
+
+    paths, totals = [], dict(block=0, layernorm=0, gdfn=0)
+    for bias_free in (True, False):
+        fused = level1_blocks(bias_free, True, seed=3)
+        eager = level1_blocks(bias_free, False, seed=3)
+        x = seeded(np.random.default_rng(11), 1, 96, 512, 512, scale=0.5).bfloat16()
+        with torch.inference_mode():
+            # the reference: the same eager blocks in float32 (in bf16 the
+            # eager blocks round after every op and are themselves a few
+            # bf16 ulps off)
+            ref = level1_blocks(bias_free, False, seed=3).float()(x.float())
+            fused(x)  # warm-up
+            torch.cuda.synchronize()
+
+            counts = reset_counts()
+            t0 = time.perf_counter()
+            got = fused(x)
+            torch.cuda.synchronize()
+            block_ms = (time.perf_counter() - t0) * 1e3
+            n_block = read_counts(counts)
+
+            counts = reset_counts()
+            y = x.permute(0, 2, 3, 1).contiguous()
+            for blk in eager:
+                y = ops_path_block(blk, y)
+            torch.cuda.synchronize()
+            n_ops = read_counts(counts)
+            via_ops = y.permute(0, 3, 1, 2)
+            eager_ms = cuda_ms(lambda: eager(x), 2)
+        scale = ref.float().abs().max().item()
+        rel_block = (got.float() - ref.float()).abs().max().item() / scale
+        rel_ops = (via_ops.float() - ref.float()).abs().max().item() / scale
+        row = dict(bias_free=bias_free, block_calls=n_block["block"],
+                   layernorm_calls=n_ops["layernorm"], gdfn_calls=n_ops["gdfn"],
+                   rel_err_block_path=rel_block, rel_err_ops_path=rel_ops,
+                   fused_wall_ms=block_ms, eager_ms=eager_ms)
+        paths.append(row)
+        log(f"per-block paths (1,96,512,512) bf16 x4 blocks {row} [{card}]")
+        assert n_block == dict(stage=0, layernorm=0, gdfn=0, block=4), n_block
+        assert n_ops == dict(stage=0, layernorm=4, gdfn=4, block=0), n_ops
+        assert torch.isfinite(got).all().item() and torch.isfinite(via_ops).all().item()
+        assert rel_block <= TOL_PATH and rel_ops <= TOL_PATH, (rel_block, rel_ops)
+        totals["block"] += n_block["block"]
+        totals["layernorm"] += n_ops["layernorm"]
+        totals["gdfn"] += n_ops["gdfn"]
+    results["block_paths"] = paths
+    return totals
+
+
+# ------------------------------------------------------------ phase 5 ----
+
+def phase_tiled(results, card, pred):
+    """denoise_tiled at full width: 256x256 tiles and full-width strips, 8
+    per call, against the same calls with the plain stage."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from rethink_acoustic_image_enhancement_tpu_torch.models import TransformerStage
+    from rethink_acoustic_image_enhancement_tpu_torch.models import kdlae_teacher
+    from rethink_acoustic_image_enhancement_tpu_torch.ops import stage as pstage
+    from rethink_acoustic_image_enhancement_tpu_torch.ops import stage_gate
+
+    imgs = [sonar_frame(512, 512, 5), sonar_frame(512, 512, 6), sonar_frame(500, 380, 7)]
+    seen = []
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, args: seen.append((mod, tuple(args[0].shape))) or None)
+        for m in pred.model.modules() if isinstance(m, TransformerStage)]
+    modes = [dict(tile=256, halo=0, tile_batch=8),
+             dict(tile=(256, 512), halo=(8, 0), tile_batch=8)]
+    rows, total = [], 0
+    for kw in modes:
+        pred.denoise_tiled(imgs, 0.8, **kw)  # warm-up: cuDNN plans at this batch
+        torch.cuda.synchronize()
+        seen.clear()
+        counts = reset_counts()
+        t0 = time.perf_counter()
+        outs = pred.denoise_tiled(imgs, 0.8, **kw)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = read_counts(counts)["stage"]
+        admitted = [(m, shp) for m, shp in seen if stage_gate.stage_worthwhile(
+            shp[0], shp[2], shp[3], m.dim, m.num_heads, m.bias_free_ln, m.use_bias,
+            m.ffn_expansion_factor)]
+        stage_shapes = sorted({shp for _, shp in admitted})
+        chunks = sum(1 for m, _ in seen if m is pred.model.encoder_level1)
+        assert launches == len(admitted) > 0, (launches, len(admitted))
+        assert all(shp[0] == 8 for shp in stage_shapes), stage_shapes
+
+        plain_model_stage = kdlae_teacher.fused_transformer_stage
+        kdlae_teacher.fused_transformer_stage = pstage.stage_plain
+        try:
+            refs = pred.denoise_tiled(imgs, 0.8, **kw)
+        finally:
+            kdlae_teacher.fused_transformer_stage = plain_model_stage
+        agree = []
+        for img, out, ref in zip(imgs, outs, refs):
+            h, w = img.shape[:2]
+            mask = np.all(img == 0, axis=-1)
+            for key, s in (("hq", 1), ("sr", 2)):
+                o = out[key]
+                assert o.dtype == np.uint8 and o.shape == (h * s, w * s, 3), (key, o.shape)
+                m = np.repeat(np.repeat(mask, s, 0), s, 1)
+                assert not o[m].any(), f"{key}: zero-mask pixels not 0"
+                d = np.abs(o.astype(np.int16) - ref[key].astype(np.int16))
+                frac = float((d <= 1).mean())
+                agree.append(dict(shape=[h, w], key=key, within_1_level=frac,
+                                  max_levels=int(d.max())))
+                assert frac >= 0.99, f"{key}: only {frac:.4f} of pixels within 1 level"
+
+        # a call that is exactly one chunk of 8 tiles: wall time, device busy
+        # time, idle share (host prep and reassembly included)
+        t_h, t_w = (kw["tile"],) * 2 if isinstance(kw["tile"], int) else kw["tile"]
+        one_chunk = [sonar_frame(512, 512, 20 + i)
+                     for i in range(8 * t_h * t_w // (512 * 512))]
+        t0 = time.perf_counter()
+        pred.denoise_tiled(one_chunk, 0.8, **kw)
+        torch.cuda.synchronize()
+        chunk_ms = (time.perf_counter() - t0) * 1e3
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            pred.denoise_tiled(one_chunk, 0.8, **kw)
+            torch.cuda.synchronize()
+        kernels = [(e.key, e.self_device_time_total / 1e3) for e in prof.key_averages()
+                   if e.self_device_time_total > 0]
+        busy_ms = sum(ms for _, ms in kernels)
+        stage_ms = sum(ms for k, ms in kernels
+                       if any(n in k for n in ("k_gram", "k_softmax", "k_apply")))
+        row = dict(kw, images=len(imgs), chunks=chunks, stage_calls=launches,
+                   gate_predicted=len(admitted), stage_shapes=[list(t) for t in stage_shapes],
+                   wall_s=wall_s, images_per_s=len(imgs) / wall_s, chunk_wall_ms=chunk_ms,
+                   chunk_device_busy_ms=busy_ms, chunk_stage_kernels_ms=stage_ms,
+                   chunk_idle_share=1 - busy_ms / chunk_ms,
+                   chunk_top=[dict(kernel=k[:120], ms=ms) for k, ms in
+                              sorted(kernels, key=lambda kv: -kv[1])[:8]],
+                   agreement=agree)
+        rows.append(row)
+        total += launches
+        log(f"tiled path {kw}: {len(imgs)} images in {wall_s * 1e3:.1f} ms "
+            f"({row['images_per_s']:.2f} images/s), {chunks} chunks, {launches} stage calls "
+            f"(gate predicts {len(admitted)}) at {stage_shapes}; one chunk: wall "
+            f"{chunk_ms:.2f} ms, device busy {busy_ms:.2f} ms (idle share "
+            f"{row['chunk_idle_share']:.3f}), stage kernels {stage_ms:.2f} ms; "
+            f"within 1 level of the plain stage: "
+            f"{min(a['within_1_level'] for a in agree):.4f} [{card}]")
+        for top in row["chunk_top"][:5]:
+            log(f"  {top['ms']:8.3f} ms  {top['kernel'][:100]}")
+    for h in hooks:
+        h.remove()
+    results["tiled"] = rows
+    return total
 
 
 # ------------------------------------------------------------ main -------
@@ -328,19 +730,38 @@ def main() -> int:
 
     results = {"card": card, "torch": torch.__version__,
                "cuda": torch.version.cuda, "build_s": build_s}
-    rows = phase_kernels(results, card)
-    launches, lat_ms = phase_slice(results, card)
+    stage_rows = phase_kernels(results, card)
+    ln_rows = phase_layernorm_kernel(results, card)
+    gdfn_rows = phase_gdfn_kernel(results, card)
+    block_rows = phase_block_kernel(results, card)
+    whole_launches, lat_ms, pred = phase_slice(results, card)
+    path_launches = phase_block_paths(results, card)
+    tiled_launches = phase_tiled(results, card, pred)
+    results["path_launches"] = dict(whole_image=whole_launches, tiled=tiled_launches,
+                                    **path_launches)
 
-    main_row = rows[0]  # bf16, 512x512x96, 4 blocks: decoder_level1's shape
-    kernels = {"kernels": [{
-        "name": "fused_transformer_stage", "route": "cuda",
-        "source": f"{PORT}/csrc/stage.cu",
-        "replaces": "rethink_acoustic_image_enhancement_tpu/ops/pallas/stage.py:324",
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
-        "library_ms": None}]}
+    def entry(name, source, replaces, launches, rows, main_row):
+        assert launches > 0, f"{name}: no launch on a driven path"
+        return {"name": name, "route": "cuda", "source": f"{PORT}/csrc/{source}",
+                "replaces": f"{PALLAS}/{replaces}", "launches": launches,
+                "max_abs_err": max(r["max_abs_err"] for r in rows),
+                "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+                "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
+                "library_ms": main_row.get("library_ms")}
+
+    # each kernel's row at (1, 512, 512, 96) bf16: decoder_level1's shape
+    # (4 blocks for the stage, WithBias for the LayerNorm, which has the
+    # library call)
+    kernels = {"kernels": [
+        entry("fused_transformer_stage", "stage.cu", "stage.py:324",
+              whole_launches + tiled_launches, stage_rows, stage_rows[0]),
+        entry("fused_channel_layernorm", "layernorm.cu", "layernorm.py:58",
+              path_launches["layernorm"], ln_rows, ln_rows[1]),
+        entry("fused_ln_gdfn", "gdfn.cu", "gdfn.py:277",
+              path_launches["gdfn"], gdfn_rows, gdfn_rows[0]),
+        entry("fused_transformer_block", "stage.cu", "block.py:338",
+              path_launches["block"], block_rows, block_rows[0]),
+    ]}
     results["kernels"] = kernels["kernels"]
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as fh:

@@ -1,0 +1,101 @@
+// LayerNorm -> GDFN -> residual kernel for Hopper (sm_90a):
+//   out = x + W_out (gelu(t1) * t2),  t = dwconv3x3(W_in LN(x)),
+// with either LayerNorm (BiasFree, or WithBias where a bias is given) or
+// none, on NHWC x of any batch, height and width.
+//
+// Replaces: rethink_acoustic_image_enhancement_tpu/ops/pallas/gdfn.py
+//           ::fused_ln_gdfn (its pallas_call at gdfn.py:277).
+//
+// Bound on an H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s HBM). Per pixel
+// 2*C*2F + 2*9*2F + 2*F*C operations, F = int(2.66*C): 156,060 at C = 96,
+// so 40.9 GFLOP and 41 us at 512x512, against 101 MB (x read once, out
+// written once, bf16) and 30 us: bound by the tensor-core rate.
+//
+// Design. One thread block per spatial tile (8x8 where it fits, smaller at
+// C >= 192) reads x once on the tile's 1-pixel halo, and the 2F hidden
+// channels never leave shared memory: tile_ops.cuh::gdfn_tile, the same
+// device code as the second half of stage.cu's kernel (C), runs them in
+// chunks of 64 (32 at C = 384) with the W_out product accumulated onto x.
+// The TPU kernel zero-padded x, so its LayerNorm gave the bias, not 0, on
+// the ring outside the image; here LN(x) is masked to 0 there, which is
+// what torch's padding=1 of the depthwise input means. Partial tiles at the
+// right and bottom edges are masked on load and store.
+//
+// Against the bound: as kernel (C) of stage.cu, phases separated by
+// barriers, one block per SM, and (10*10)/(8*8) of the W_in product spent
+// on the halo.
+
+#include "tile_ops.cuh"
+
+namespace {
+
+template <int FC, class T>
+__global__ void __launch_bounds__(NT)
+k_gdfn(const T* __restrict__ x, T* __restrict__ y, const float* __restrict__ lnw,
+       const float* __restrict__ lnb, FfnWeights wt, Geo g, float eps, bool dbl,
+       bool apply_ln) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const FfnSmem L(g.th, g.tw, g.C, g.fc, dbl, false);
+  const FfnBufs s(smem, L);
+  const int b = blockIdx.y, tile = blockIdx.x;
+  const int y0 = (tile / g.ntj) * g.th, x0 = (tile % g.ntj) * g.tw;
+  const int m1 = round16((g.th + 2) * (g.tw + 2));
+  if (apply_ln) {
+    copy_async(s.lnw, lnw, g.C * 4);
+    if (lnb != nullptr) copy_async(s.lnb, lnb, g.C * 4);
+  }
+  ffn_load_chunk<FC>(s, wt, g, 0);
+  load_region(x, s.r, g.C + PADF, g, b, y0, x0, 1, m1);
+  cp_async_wait();
+  __syncthreads();
+  gdfn_tile<FC>(s, y, wt, g, b, y0, x0, eps, dbl, apply_ln, lnb != nullptr);
+}
+
+template <int FC, class T>
+int launch_fc(const void* x, void* y, const float* lnw, const float* lnb, FfnWeights wt,
+           const Geo& g, float eps, int apply_ln, cudaStream_t stream) {
+  const bool dbl = FfnSmem(g.th, g.tw, g.C, g.fc, true, false).total <= (size_t)SMEM_LIMIT;
+  const size_t bytes = FfnSmem(g.th, g.tw, g.C, g.fc, dbl, false).total;
+  const int err = opt_in(k_gdfn<FC, T>, bytes);
+  if (err) return err;
+  k_gdfn<FC, T><<<dim3(g.ntiles, g.B), NT, bytes, stream>>>((const T*)x, (T*)y, lnw, lnb, wt, g, eps,
+                                                         dbl, apply_ln != 0);
+  return (int)cudaGetLastError();
+}
+
+template <class T>
+int launch(const void* x, void* y, const float* lnw, const float* lnb, FfnWeights wt,
+           const Geo& g, float eps, int apply_ln, cudaStream_t stream) {
+  return g.fc == 64 ? launch_fc<64, T>(x, y, lnw, lnb, wt, g, eps, apply_ln, stream)
+                    : launch_fc<32, T>(x, y, lnw, lnb, wt, g, eps, apply_ln, stream);
+}
+
+}  // namespace
+
+// ---- C interface (ctypes). Pointers are device pointers of contiguous
+// tensors; the call launches on `stream` and returns cudaGetLastError() (or
+// ERR_SMEM / ERR_SHAPE without launching). x and y have one dtype; the
+// weights are laid out as tile_ops.cuh::FfnWeights says; a null ln_b selects
+// the BiasFree LayerNorm, apply_ln = 0 none. ---------------------------------
+
+extern "C" {
+
+int raie_gdfn_smem_bytes(int th, int tw, int C, int fc) {
+  return (int)FfnSmem(th, tw, C, fc, false, false).total;  // one weight buffer
+}
+
+const char* raie_gdfn_error_string(int code) { return tile_error_string(code); }
+
+int raie_gdfn(const void* x, void* y, int is_bf16, const void* ln_w, const void* ln_b,
+              int apply_ln, const void* win, const void* wdw, const void* wout, int B, int H,
+              int W, int C, int Fp, int fc, int th, int tw, float eps, void* stream) {
+  if (!ffn_shape_ok(C, Fp, fc, th, tw)) return ERR_SHAPE;
+  const Geo g = make_geo(B, H, W, C, 1, Fp, fc, th, tw);
+  const FfnWeights wt{(const bf16*)win, (const float*)wdw, (const bf16*)wout};
+  cudaStream_t s = (cudaStream_t)stream;
+  if (is_bf16)
+    return launch<bf16>(x, y, (const float*)ln_w, (const float*)ln_b, wt, g, eps, apply_ln, s);
+  return launch<float>(x, y, (const float*)ln_w, (const float*)ln_b, wt, g, eps, apply_ln, s);
+}
+
+}  // extern "C"

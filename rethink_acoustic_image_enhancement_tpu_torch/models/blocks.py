@@ -10,7 +10,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import stage_gate
 from ..ops.attention import mdta_core
+from ..ops.block import fused_transformer_block
 from ..ops.norm import channel_layernorm
 
 
@@ -76,20 +78,73 @@ class GDFN(nn.Module):
 
 
 class TransformerBlock(nn.Module):
-    """Pre-norm residual LN->MDTA, LN->GDFN (KDLAE_model.py:150-163)."""
+    """Pre-norm residual LN->MDTA, LN->GDFN (KDLAE_model.py:150-163).
+
+    With ``fused`` set, a call the block gate admits
+    (``stage_gate.mega_worthwhile``: batch 1, bias-free convs, at least
+    256x256 pixels, ...) runs as one ``fused_transformer_block`` on NHWC
+    with the module's own weights; any other runs the composition below."""
 
     def __init__(self, dim: int, num_heads: int,
                  ffn_expansion_factor: float = 2.66, bias: bool = False,
-                 bias_free_ln: bool = False):
+                 bias_free_ln: bool = False, fused: bool = False):
         super().__init__()
         self.norm1 = ChannelLayerNorm(dim, bias_free_ln)
         self.attn = MDTA(dim, num_heads, bias)
         self.norm2 = ChannelLayerNorm(dim, bias_free_ln)
         self.ffn = GDFN(dim, ffn_expansion_factor, bias)
+        self.dim = dim
+        self.num_heads = num_heads
+        self.ffn_expansion_factor = ffn_expansion_factor
+        self.use_bias = bias
+        self.bias_free_ln = bias_free_ln
+        self.fused = fused
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, _, h, w = x.shape
+        if self.fused and stage_gate.mega_worthwhile(
+                b, h, w, self.dim, self.num_heads, self.bias_free_ln,
+                self.use_bias, self.ffn_expansion_factor):
+            p = flax_block_tree(self)
+            y = fused_transformer_block(
+                x.permute(0, 2, 3, 1).contiguous(),
+                p["norm1"]["weight"], p["norm1"].get("bias"),
+                p["attn"]["qkv"]["kernel"], p["attn"]["qkv_dwconv"]["kernel"],
+                p["attn"]["temperature"], p["attn"]["project_out"]["kernel"],
+                p["norm2"]["weight"], p["norm2"].get("bias"),
+                p["ffn"]["project_in"]["kernel"], p["ffn"]["dwconv"]["kernel"],
+                p["ffn"]["project_out"]["kernel"],
+                bias_free=self.bias_free_ln, num_heads=self.num_heads)
+            return y.permute(0, 3, 1, 2).contiguous()
         x = x + self.attn(self.norm1(x))
         return x + self.ffn(self.norm2(x))
+
+
+def flax_block_tree(blk: TransformerBlock) -> dict:
+    """One block's weights in the flax layouts the block and stage kernels
+    take (conv (O, I, kh, kw) -> (kh, kw, I, O)); a WithBias LayerNorm adds
+    its 'bias'."""
+
+    def hwio(conv):
+        return conv.weight.permute(2, 3, 1, 0)
+
+    def norm(ln):
+        tree = {"weight": ln.body.weight}
+        if ln.body.bias is not None:
+            tree["bias"] = ln.body.bias
+        return tree
+
+    return {
+        "norm1": norm(blk.norm1),
+        "attn": {"qkv": {"kernel": hwio(blk.attn.qkv)},
+                 "qkv_dwconv": {"kernel": hwio(blk.attn.qkv_dwconv)},
+                 "temperature": blk.attn.temperature,
+                 "project_out": {"kernel": hwio(blk.attn.project_out)}},
+        "norm2": norm(blk.norm2),
+        "ffn": {"project_in": {"kernel": hwio(blk.ffn.project_in)},
+                "dwconv": {"kernel": hwio(blk.ffn.dwconv)},
+                "project_out": {"kernel": hwio(blk.ffn.project_out)}},
+    }
 
 
 class OverlapPatchEmbed(nn.Module):

@@ -15,34 +15,18 @@ from torch import nn
 
 from ..ops import stage_gate
 from ..ops.stage import fused_transformer_stage, stack_block_params
-from .blocks import Downsample, OverlapPatchEmbed, TransformerBlock, Upsample
-
-
-def _flax_block_tree(blk: TransformerBlock) -> dict:
-    """One block's weights in the flax layouts the stage takes
-    (conv (O, I, kh, kw) -> (kh, kw, I, O))."""
-
-    def hwio(conv):
-        return conv.weight.permute(2, 3, 1, 0)
-
-    return {
-        "norm1": {"weight": blk.norm1.body.weight},
-        "attn": {"qkv": {"kernel": hwio(blk.attn.qkv)},
-                 "qkv_dwconv": {"kernel": hwio(blk.attn.qkv_dwconv)},
-                 "temperature": blk.attn.temperature,
-                 "project_out": {"kernel": hwio(blk.attn.project_out)}},
-        "norm2": {"weight": blk.norm2.body.weight},
-        "ffn": {"project_in": {"kernel": hwio(blk.ffn.project_in)},
-                "dwconv": {"kernel": hwio(blk.ffn.dwconv)},
-                "project_out": {"kernel": hwio(blk.ffn.project_out)}},
-    }
+from .blocks import (Downsample, OverlapPatchEmbed, TransformerBlock, Upsample,
+                     flax_block_tree)
 
 
 class TransformerStage(nn.Sequential):
     """A sequence of TransformerBlocks (the reference's nn.Sequential).
 
     With ``fused`` set, a stage the gate admits runs as one call of
-    ``fused_transformer_stage`` on NHWC (one layout change in, one out)."""
+    ``fused_transformer_stage`` on NHWC (one layout change in, one out).
+    Its blocks are built with ``fused=False``: no model reaches the
+    per-block kernel, which ``TransformerBlock(fused=True)`` alone routes
+    to."""
 
     def __init__(self, dim: int, num_heads: int, num_blocks: int,
                  ffn_expansion_factor: float = 2.66, bias: bool = False,
@@ -62,7 +46,7 @@ class TransformerStage(nn.Sequential):
         if self.fused and stage_gate.stage_worthwhile(
                 b, h, w, self.dim, self.num_heads, self.bias_free_ln,
                 self.use_bias, self.ffn_expansion_factor):
-            stacked = stack_block_params([_flax_block_tree(blk)
+            stacked = stack_block_params([flax_block_tree(blk)
                                           for blk in self])
             y = fused_transformer_stage(x.permute(0, 2, 3, 1).contiguous(),
                                         **stacked)

@@ -2,7 +2,9 @@
 
 Each source compiles with ``nvcc`` for Hopper (``sm_90a``) into a shared
 library with a plain C interface under ``build/`` at the checkout root,
-named by the source's content hash, and is bound with ``ctypes``. A build
+named by the content hash of the source and of every header (``csrc/*.cuh``:
+an edited header must not load a stale library), and is bound with
+``ctypes``. A build
 happens on first use, never at import; ``build_all`` starts one ``nvcc``
 for each source at once. ptxas' register and spill report is kept beside
 each library as ``<lib>.log``.
@@ -34,9 +36,10 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
-    return BUILD / f"lib{name}-{digest}.so"
+    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    return BUILD / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def _start(name: str):
@@ -83,6 +86,30 @@ def load(name: str) -> ctypes.CDLL:
         _finish(name, proc, tmp, out)
         _loaded[name] = ctypes.CDLL(str(out))
     return _loaded[name]
+
+
+def bind(name: str, signatures: dict[str, list]) -> ctypes.CDLL:
+    """``load(name)`` with the argument types of its int-returning entry
+    points set (a pointer passed untyped would be cut to 32 bits) and its
+    ``raie_<name>_error_string`` typed."""
+    lib = load(name)
+    if not getattr(lib, "_raie_typed", False):
+        for fn_name, args in signatures.items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes = args
+            fn.restype = ctypes.c_int
+        err = getattr(lib, f"raie_{name}_error_string")
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+        lib._raie_typed = True
+    return lib
+
+
+def check(lib: ctypes.CDLL, name: str, code: int, what: str) -> None:
+    """Raise unless an entry point of csrc/<name>.cu returned 0."""
+    if code != 0:
+        msg = getattr(lib, f"raie_{name}_error_string")(code).decode()
+        raise RuntimeError(f"{name} kernel {what} failed ({code}): {msg}")
 
 
 def build_log(name: str) -> str:

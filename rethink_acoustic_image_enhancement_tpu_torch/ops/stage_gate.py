@@ -1,11 +1,11 @@
-"""Which TransformerStages run through the stage kernel: a pure function of
-shape, copied from the JAX package so that both route exactly the same
-stages (``ops/pallas/gdfn.py:68-107``, ``ops/pallas/block.py:53-68``,
+"""Which shapes run through the GDFN, block and stage kernels: pure functions
+of shape, copied from the JAX package so that both route exactly the same
+calls (``ops/pallas/gdfn.py:29-107``, ``ops/pallas/block.py:53-68``,
 ``ops/pallas/stage.py:217-230``).
 
 The tiling budget below is the reference kernel's on-chip memory budget.
-Here it decides routing only; the CUDA kernel picks its own tiles
-(``ops/stage.py::plan_tiles``).
+Here it decides routing only; the CUDA kernels pick their own tiles
+(``ops/block.py::plan_tiles``, ``ops/gdfn.py``).
 """
 
 from __future__ import annotations
@@ -45,6 +45,26 @@ def _pick_tiles(h: int, w: int, c_pad: int, f_pad: int):
         if t is not None:
             return th, t
     return None
+
+
+def supports_shape(h: int, w: int, c: int | None = None,
+                   expansion: float = 2.66) -> bool:
+    """The GDFN gate's shape test: H and W have multiple-of-8 tiles (and,
+    given C, one within the routing budget)."""
+    if c is None:
+        return _pick_tile(h, 32) is not None and _pick_tile(w, 256) is not None
+    c_pad = -(-c // 128) * 128
+    f_pad = -(-int(c * expansion) // 128) * 128
+    return _pick_tiles(h, w, c_pad, f_pad) is not None
+
+
+def worthwhile(h: int, w: int, c: int, expansion: float = 2.66) -> bool:
+    """The GDFN gate: a supported shape, at least 256x256 pixels and at most
+    1.5x channel padding to 128."""
+    if not supports_shape(h, w, c, expansion):
+        return False
+    c_pad = -(-c // 128) * 128
+    return h * w >= 256 * 256 and (c_pad / c) <= 1.5
 
 
 def mega_worthwhile(batch: int, h: int, w: int, c: int, num_heads: int,

@@ -24,7 +24,9 @@ def _port_modules():
 
 def test_every_port_module_imports_without_jax():
     modules = _port_modules()
-    assert f"{PORT}.ops.stage" in modules and f"{PORT}.eval.infer" in modules
+    for name in ("ops.stage", "ops.layernorm", "ops.gdfn", "ops.block",
+                 "eval.infer"):
+        assert f"{PORT}.{name}" in modules, name
     code = "\n".join([
         "import importlib, sys",
         *[f"sys.modules[{name!r}] = None" for name in sorted(FORBIDDEN_ROOTS)],

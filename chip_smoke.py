@@ -5,12 +5,19 @@
 
 Phases (any failure exits non-zero; nothing is caught):
   1. environment: torch/CUDA versions, the card's name and power limit;
-     build every csrc/*.cu for sm_90a (one nvcc each, all at once).
+     build every csrc/*.cu for sm_90a, and the instrumented variant of
+     stage.cu (one nvcc each, all at once).
   2. each kernel (stage, LayerNorm, LN+GDFN, whole block) against its plain
      PyTorch version on the card, at the shapes its paths give it, in bf16
      and fp32, with its time, the plain version's time, the bound for the
      same work and, where one PyTorch call computes the same function, that
-     call's time.
+     call's time; the same stage call twice gives the same bits, and one
+     BiasFree block the bits of a one-block stage. A "stage_phases" JSON
+     line: from the instrumented build, the share of a tile's cycles in each
+     phase of the block's two tile kernels and the cycles per tile, at
+     (1,512,512,96) and (8,256,256,96); the thread blocks resident per SM
+     (the device's occupancy answer), the grid's tail, and registers and
+     spill bytes from ptxas' report.
   3. whole-image serving: the full-width flagship KDLAE-T (seeded random
      weights) through TeacherPredictor(fused=True, bf16) on synthetic sonar
      frames, with the stage-kernel call count checked against the gate and
@@ -170,7 +177,45 @@ def phase_kernels(results, card):
             del got, ref, x
     results["stage_cases"] = rows
     results["stage_profile_us"] = profile_stage(pstage, card)
+    results["stage_phases"] = stage_phases(card)
+    print(json.dumps({"stage_phases": results["stage_phases"]}), flush=True)
     return rows
+
+
+def stage_phases(card):
+    """Cycles per phase inside a tile of the block's kernels (the
+    instrumented build, which nothing else loads), with what the device and
+    ptxas say of the normal build's kernels."""
+    import torch
+
+    from rethink_acoustic_image_enhancement_tpu_torch.ops import _build, block, phase_clocks, stage
+
+    out = {"card": card, "ptxas": _build.kernel_resources("stage"), "shapes": {}}
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    for shape in ((1, 512, 512, 96), (8, 256, 256, 96)):
+        rng = np.random.default_rng(1)
+        wts = seeded_stage_weights(rng, 1, 96, 1, 255, "cuda")
+        x = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).cuda().bfloat16()
+        a = stage.fused_transformer_stage(x, **wts)
+        b = stage.fused_transformer_stage(x, **wts)
+        assert torch.equal(a, b), f"two stage calls at {shape} differ"
+        row = phase_clocks.block_phase_shares(x, **wts)
+        plan = block.plan_tiles(block.lib(), 96, 1)
+        n_blocks = row["k_apply"]["thread_blocks"]
+        row["plan"] = plan._asdict()
+        # thread blocks of kernel (C) left for the last, partly filled wave
+        row["k_apply_grid_tail"] = n_blocks % (n_sm * plan.apply_blocks)
+        out["shapes"]["x".join(map(str, shape))] = row
+        for name in ("k_gram", "k_apply"):
+            shares = ", ".join(f"{k} {v:.3f}" for k, v in row[name]["share"].items())
+            log(f"phases {name} {shape}: {row[name]['cycles_per_tile']:.0f} cycles a tile "
+                f"({shares}) [{card}]")
+        log(f"  resident blocks per SM: k_gram {plan.gram_blocks}, k_apply "
+            f"{plan.apply_blocks}; k_apply grid {n_blocks}, tail {row['k_apply_grid_tail']}; "
+            f"bit-identical twice: yes")
+    log(f"  ptxas: {out['ptxas']}")
+    assert plan.apply_blocks >= 2, "kernel (C) is not resident twice per SM at C = 96"
+    return out
 
 
 def profile_stage(pstage, card):
@@ -361,7 +406,7 @@ def phase_block_kernel(results, card):
                     stage = pstage.fused_transformer_stage(
                         x, **{k: wts[k][None] for k in names if wts[k] is not None})
                     d = (one.float() - stage.float()).abs().max().item()
-                    assert d <= TOL_REL * stage.float().abs().max().item(), d
+                    assert torch.equal(one, stage), f"block and one-block stage differ by {d}"
                     rows[-1]["max_abs_diff_to_one_block_stage"] = d
     results["block_cases"] = rows
     return rows

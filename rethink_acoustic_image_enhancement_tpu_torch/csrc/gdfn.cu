@@ -11,55 +11,60 @@
 // so 40.9 GFLOP and 41 us at 512x512, against 101 MB (x read once, out
 // written once, bf16) and 30 us: bound by the tensor-core rate.
 //
-// Design. One thread block per spatial tile (8x8 where it fits, smaller at
-// C >= 192) reads x once on the tile's 1-pixel halo, and the 2F hidden
-// channels never leave shared memory: tile_ops.cuh::gdfn_tile, the same
-// device code as the second half of stage.cu's kernel (C), runs them in
-// chunks of 64 (32 at C = 384) with the W_out product accumulated onto x.
-// The TPU kernel zero-padded x, so its LayerNorm gave the bias, not 0, on
-// the ring outside the image; here LN(x) is masked to 0 there, which is
-// what torch's padding=1 of the depthwise input means. Partial tiles at the
-// right and bottom edges are masked on load and store.
+// Design. One thread block of 256 threads per spatial tile (8x8 at C <= 96,
+// smaller above) reads x once on the tile's 1-pixel halo, straight into mma
+// accumulator fragments, takes LN(x) from those registers, and the 2F hidden
+// channels never leave shared memory: tile_ops.cuh's r_ln_tile and
+// gdfn_chunks, the same device code as stage.cu's kernel (C) less its
+// attention half, run them in chunks of 64 or 32 with the W_out product
+// accumulated in registers onto x. Two blocks are resident on an SM at
+// C = 96 (see the note in tile_ops.cuh). The TPU kernel zero-padded x, so its
+// LayerNorm gave the bias, not 0, on the ring outside the image; here LN(x)
+// is masked to 0 there, which is what torch's padding=1 of the depthwise
+// input means. Partial tiles at the right and bottom edges are masked on
+// load and store.
 //
-// Against the bound: as kernel (C) of stage.cu, phases separated by
-// barriers, one block per SM, and (10*10)/(8*8) of the W_in product spent
+// Against the bound: as kernel (C) of stage.cu, latency between short phases
+// rather than the tensor cores, and (10*10)/(8*8) of the W_in product spent
 // on the halo.
+
+#include <climits>
 
 #include "tile_ops.cuh"
 
 namespace {
 
 template <int FC, class T>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(NTA, 2)
 k_gdfn(const T* __restrict__ x, T* __restrict__ y, const float* __restrict__ lnw,
-       const float* __restrict__ lnb, FfnWeights wt, Geo g, float eps, bool dbl,
-       bool apply_ln) {
+       const float* __restrict__ lnb, FfnWeights wt, Geo g, float eps, bool apply_ln) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const FfnSmem L(g.th, g.tw, g.C, g.fc, dbl, false);
+  const FfnSmem L(g.th, g.tw, g.C, g.C, g.fc, false);
   const FfnBufs s(smem, L);
+  PHASE_CLOCK(pc);
   const int b = blockIdx.y, tile = blockIdx.x;
   const int y0 = (tile / g.ntj) * g.th, x0 = (tile % g.ntj) * g.tw;
-  const int m1 = round16((g.th + 2) * (g.tw + 2));
   if (apply_ln) {
     copy_async(s.lnw, lnw, g.C * 4);
     if (lnb != nullptr) copy_async(s.lnb, lnb, g.C * 4);
   }
-  ffn_load_chunk<FC>(s, wt, g, 0);
-  load_region(x, s.r, g.C + PADF, g, b, y0, x0, 1, m1);
-  cp_async_wait();
-  __syncthreads();
-  gdfn_tile<FC>(s, y, wt, g, b, y0, x0, eps, dbl, apply_ln, lnb != nullptr);
+  ffn_load_chunk<FC>(s, wt, g, 0, 0);
+  r_ln_tile<false, true>(s, x, AttnIn{}, g, b, y0, x0, eps, apply_ln, lnb != nullptr, [] {}, pc);
+  gdfn_chunks<FC>(s, y, wt, g, b, y0, x0, pc);
+}
+
+size_t gdfn_bytes(int th, int tw, int C, int fc) {
+  return FfnSmem(th, tw, C, C, fc, false).total;
 }
 
 template <int FC, class T>
 int launch_fc(const void* x, void* y, const float* lnw, const float* lnb, FfnWeights wt,
            const Geo& g, float eps, int apply_ln, cudaStream_t stream) {
-  const bool dbl = FfnSmem(g.th, g.tw, g.C, g.fc, true, false).total <= (size_t)SMEM_LIMIT;
-  const size_t bytes = FfnSmem(g.th, g.tw, g.C, g.fc, dbl, false).total;
+  const size_t bytes = gdfn_bytes(g.th, g.tw, g.C, g.fc);
   const int err = opt_in(k_gdfn<FC, T>, bytes);
   if (err) return err;
-  k_gdfn<FC, T><<<dim3(g.ntiles, g.B), NT, bytes, stream>>>((const T*)x, (T*)y, lnw, lnb, wt, g, eps,
-                                                         dbl, apply_ln != 0);
+  k_gdfn<FC, T><<<dim3(g.ntiles, g.B), NTA, bytes, stream>>>((const T*)x, (T*)y, lnw, lnb, wt, g,
+                                                          eps, apply_ln != 0);
   return (int)cudaGetLastError();
 }
 
@@ -80,8 +85,19 @@ int launch(const void* x, void* y, const float* lnw, const float* lnb, FfnWeight
 
 extern "C" {
 
+// Dynamic shared memory of the kernel on th x tw tiles with chunks of fc
+// hidden channels; INT_MAX for a shape it does not take.
 int raie_gdfn_smem_bytes(int th, int tw, int C, int fc) {
-  return (int)FfnSmem(th, tw, C, fc, false, false).total;  // one weight buffer
+  return ffn_shape_ok(C, fc, fc, th, tw) ? (int)gdfn_bytes(th, tw, C, fc) : INT_MAX;
+}
+
+// Thread blocks of it the device keeps resident on one SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor); 0 where it cannot launch.
+int raie_gdfn_blocks_per_sm(int th, int tw, int C, int fc) {
+  if (!ffn_shape_ok(C, fc, fc, th, tw)) return 0;
+  const size_t bytes = gdfn_bytes(th, tw, C, fc);
+  return fc == 64 ? resident_blocks(k_gdfn<64, float>, NTA, bytes)
+                  : resident_blocks(k_gdfn<32, float>, NTA, bytes);
 }
 
 const char* raie_gdfn_error_string(int code) { return tile_error_string(code); }

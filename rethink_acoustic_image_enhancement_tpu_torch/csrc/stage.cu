@@ -17,18 +17,33 @@
 // 30 us. At 256x256x96 with two heads: 16.6 GFLOP (17 us) against 25 MB
 // (7.5 us). Both are bound by the tensor-core rate, not by memory.
 //
+// What holds the kernels back on this card is neither: a tile's products
+// are a few thousand mma.sync in short phases that each end in a barrier,
+// and measured phase by phase (the -DRAIE_PHASE_CLOCKS build) a tile spends
+// its cycles waiting on ldmatrix -> mma chains, cp.async and barriers, with
+// only the depthwise steps near an instruction-rate bound. So the design keeps two
+// thread blocks of 256 threads resident on every SM at C = 96 (each under
+// half of the SM's shared memory, 128 registers a thread), one block's waits
+// filled by the other's work, and keeps in registers what would otherwise
+// bounce through shared memory; tile_ops.cuh says how.
+//
 // Design. Everything that grows with the 2F = 510 hidden channels stays in
 // shared memory, so device memory sees x, y, v (bf16) and a small
 // per-sample Gram. The TPU kernel carried the Gram and the q/k norms across
 // a sequential grid; blocks here run in no order, so one TransformerBlock
 // is three launches, all deterministic (no atomics):
-//   (A) k_gram, one block per SM walking a group of 8x8 tiles: LN1 (zero
+//   (A) k_gram, two blocks per SM each walking a group of 8x8 tiles (one
+//       wave: groups * batch <= 2 * SMs): x on the tile's 1-pixel halo read
+//       straight into accumulator fragments, LN1 from those registers (zero
 //       on the ring outside the image, where torch zero-pads the qkv
-//       depthwise input) -> qkv 1x1 on the tile's 1-pixel halo (W_qkv stays
-//       in shared memory for the group) -> dw3x3; v goes to device memory,
-//       and the per-head Gram q^T k and the squared q/k norms over the
-//       tile's true pixels add up over the group's tiles in shared memory,
-//       written once per group.
+//       depthwise input), then q, k and v a third at a time: the 1x1 product
+//       on the halo against one third of W_qkv in shared memory, then the
+//       dw3x3, while the next third loads. v goes to device memory; the
+//       per-head Gram q^T k adds up over the group's tiles in mma
+//       accumulator fragments that never leave the registers (up to 5 a
+//       warp; a wider Gram accumulates in shared memory), the squared q/k
+//       norms over the tile's true pixels in shared memory; both are written
+//       once per group.
 //   (B) k_softmax, per (sample, head, query channel): sum the groups,
 //       divide by max(||q||, 1e-12) max(||k||, 1e-12), times the per-head
 //       temperature, softmax within the head, store attn^T in bf16. Where
@@ -36,197 +51,300 @@
 //       the full C x C Gram and (B) takes the softmax within each true head,
 //       leaving zeros between heads: attn is block-diagonal and attn @ v
 //       stays one C x C product.
-//   (C) k_apply, per 8x8 output tile: attn @ v, W_proj + residual r on the
-//       1-pixel halo, LN2 (zero on the ring outside the image, where torch
-//       zero-pads the GDFN depthwise input), then the GDFN in chunks of 64
-//       hidden channels (tile_ops.cuh::gdfn_tile, shared with gdfn.cu):
-//       W_in chunk, dw3x3 over the real halo, GELU gate (the
-//       Abramowitz-Stegun erf of the TPU kernel), and W_out accumulated
-//       onto r in shared memory. In a stage the tile is written to the
-//       other of two float32 ping-pong buffers (the last block writes the
-//       stage's dtype); the block loop runs in the wrapper. Weight slices
-//       and attn^T are copied to shared memory with cp.async into two
-//       buffers, each loading while the other feeds a product.
+//   (C) k_apply, per 8x8 output tile, two blocks per SM: attn @ v and
+//       W_proj + residual r on the 1-pixel halo with r in accumulator
+//       fragments, LN2 from those registers (zero on the ring outside the
+//       image, where torch zero-pads the GDFN depthwise input), then the
+//       GDFN in chunks of 64 hidden channels (tile_ops.cuh::r_ln_tile and
+//       gdfn_chunks, shared with gdfn.cu): W_in chunk, dw3x3 over the real
+//       halo, GELU gate (the Abramowitz-Stegun erf of the TPU kernel), and
+//       W_out accumulated onto r in registers. In a stage the tile is
+//       written to the other of two float32 ping-pong buffers (the last
+//       block writes the stage's dtype); the block loop runs in the wrapper.
+//       attn^T, W_proj and the weight chunks are copied to shared memory
+//       with cp.async, each chunk a phase ahead of its use.
 // Products are bf16 mma.sync m16n8k16 on ldmatrix fragments with fp32
-// accumulation (each warp a 16 x 16NF strip sharing its A fragments; the
-// Gram q^T k, whose A is column-major, through WMMA); the
+// accumulation (the Gram's A = q^T through a transposing ldmatrix), a k-step's
+// fragments loaded before its mma run and, where registers allow, a step
+// ahead; the
 // qkv and W_in outputs round to bf16 before the depthwise step and the
 // depthwise taps are fp32, as in the TPU kernel. LayerNorm uses the
 // two-pass variance of ops/norm.py (the TPU kernel's is one-pass
-// E[x^2] - mean^2), 8 lanes to a row at C = 96. Depthwise steps slide a
-// 3x3 window down a tile column in registers. Rows in shared memory are
-// padded (PAD) so fragment loads are free of bank conflicts.
+// E[x^2] - mean^2), over the 4 lanes that hold a row's fragments. Depthwise
+// steps slide a 3-row window down two tile columns in registers. Rows in
+// shared memory are padded (PAD) so fragment loads are free of bank
+// conflicts. Where a width does not fit twice on an SM (C > 96) the same
+// code runs one block per SM; the host asks the occupancy calculator.
 //
-// Against the bound: one 227 KB block per SM and 16 warps, whose phases
-// (loads, LayerNorm, products, depthwise steps) are separated by barriers,
-// so the tensor cores idle through every phase but the products; the halo
-// costs (10*10)/(8*8) on the qkv, attn@v, W_proj and W_in products. The
-// next steps are wgmma with TMA and overlapping phases across warps.
+// Against the bound: still ~15x. The halo costs (10*10)/(8*8) on the qkv,
+// attn@v, W_proj and W_in products; 16 warps an SM leave scheduler slots and
+// shared-memory cycles unused between barriers. A third resident block
+// needs under 76 KB and 85 registers a thread; wgmma needs 64-row operand
+// tiles that an 8x8 tile's 112 halo rows do not fill.
 
-#include <mma.h>
+#include <climits>
 
 #include "tile_ops.cuh"
-
-using namespace nvcuda;
 
 namespace {
 
 constexpr int NT_SOFTMAX = 128;
-constexpr int NCH = 64;             // W_qkv columns staged at a time in (A)
 
-// ---- shared-memory layouts (host and device agree through these) --------
+// Phases of kernel (A) in the instrumented build (kernel (C)'s are in
+// tile_ops.cuh); PH_G_REST is the set-up and the write of the partials.
+enum { PH_G_LN1, PH_G_QKV, PH_G_DW, PH_G_GRAM, PH_G_REST };
+#ifdef RAIE_PHASE_CLOCKS
+__device__ long long* phase_buf_gram = nullptr;
+__device__ long long* phase_buf_apply = nullptr;
+#define PHASE_BUF(name) name
+#else
+#define PHASE_BUF(name) nullptr
+#endif
 
-// With `resident`, all of W_qkv stays in shared memory (where it fits);
-// else NCH columns are staged at a time.
+// ---- shared-memory layout of kernel (A) (host and device agree through it)
+
+// q, k and v go through the product and the depthwise step a third at a
+// time, so one third of W_qkv (w) and of qkv on the halo (t) is held; the
+// Gram accumulates in registers where a warp's share of its 16x16 fragments
+// is at most MAXG (`regs`), else in `gram` as fp32.
 struct GramSmem {
-  size_t wb, xq, t, gram, nrm, taps, lnw, lnb, total;
-  __host__ __device__ GramSmem(int th, int tw, int C, int heads, bool resident) {
-    const int m1 = round16((th + 2) * (tw + 2)), P = th * tw, hc = C / heads;
-    const size_t xn_bytes = (size_t)m1 * (C + PAD) * 2, qk_bytes = (size_t)P * (2 * C + PAD) * 2;
+  size_t xn, w, t, qk, nrm, taps, lnw, lnb, stat, gram, total;
+  bool regs;
+  __host__ __device__ GramSmem(int th, int tw, int C, int heads) {
+    const int m1 = round16((th + 2) * (tw + 2)), P = th * tw, hc = C / heads, LX = C + PAD;
+    regs = heads * (hc / 16) * (hc / 16) <= MAXG * NWA;
     size_t o = 0;
-    wb = o;    o += align128((size_t)C * ((resident ? 3 * C : NCH) + PAD) * 2);
-    xq = o;    o += align128(xn_bytes > qk_bytes ? xn_bytes : qk_bytes);  // LN1(x), then q|k
-    t = o;     o += align128((size_t)m1 * (3 * C + PAD) * 2);           // x, then qkv
-    gram = o;  o += align128((size_t)heads * hc * (hc + PADF) * 4);
-    nrm = o;   o += align128((size_t)2 * C * tw * 4);                   // [2C][tw]
-    taps = o;  o += align128((size_t)9 * 3 * C * 4);                    // dw_qkv
-    lnw = o;   o += align128((size_t)C * 4);                            // LN1's weight
-    lnb = o;   o += align128((size_t)C * 4);                            // and bias
+    xn = o;    o += align128((size_t)m1 * LX * 2);             // LN1(x) on the halo
+    w = o;     o += align128((size_t)C * LX * 2);              // W_q, W_k or W_v
+    t = o;     o += align128((size_t)m1 * LX * 2);             // q, k or v before the dw3x3
+    qk = o;    o += align128((size_t)P * (2 * C + PAD) * 2);   // q | k on the tile
+    nrm = o;   o += align128((size_t)2 * C * tw * 4);          // [2C][tw]
+    taps = o;  o += align128((size_t)9 * 3 * C * 4);           // dw_qkv
+    lnw = o;   o += align128((size_t)C * 4);                   // LN1's weight
+    lnb = o;   o += align128((size_t)C * 4);                   // and bias
+    stat = o;  o += C > 16 * MAXF ? align128((size_t)2 * m1 * 4 * 4) : 0;
+    gram = o;  o += regs ? 0 : align128((size_t)heads * hc * (hc + PADF) * 4);
     total = o;
   }
 };
 
 // ---- (A) q, k, v; Gram and squared norms over groups of tiles ------------
 
+// One block of NTA threads walks a group of tiles, two blocks resident on an
+// SM at C = 96. Per tile: x on the halo straight into accumulator fragments
+// and LN1 from them (r_ln_tile), then for q, k and v in turn the 1x1 product
+// on the halo and the dw3x3 on the tile, the next third of W_qkv loading
+// while the depthwise step runs; the Gram product of the tile shares v's
+// product phase. Seven barriers a tile.
 template <class T>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(NTA, 2)
 k_gram(const T* __restrict__ x, const float* __restrict__ ln1,
        const float* __restrict__ ln1b, const bf16* __restrict__ wqkv,
-       const float* __restrict__ dwqkv, float* __restrict__ part, bf16* __restrict__ vout, Geo g, int groups, float eps,
-       bool resident) {
+       const float* __restrict__ dwqkv, float* __restrict__ part, bf16* __restrict__ vout, Geo g, int groups, float eps) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const GramSmem L(g.th, g.tw, g.C, g.heads, resident);
-  bf16* wb = (bf16*)(smem + L.wb);
-  bf16* xn = (bf16*)(smem + L.xq);
-  bf16* qk = xn;
+  const GramSmem L(g.th, g.tw, g.C, g.heads);
+  bf16* xn = (bf16*)(smem + L.xn);
+  bf16* wb = (bf16*)(smem + L.w);
   bf16* t = (bf16*)(smem + L.t);
-  T* xs = (T*)(smem + L.t);
+  bf16* qk = (bf16*)(smem + L.qk);
   float* gram = (float*)(smem + L.gram);
   float* nrm = (float*)(smem + L.nrm);
   float* taps = (float*)(smem + L.taps);
-  float* lnw = (float*)(smem + L.lnw);
-  float* lnb = (float*)(smem + L.lnb);
+  FfnBufs s;  // what r_ln_tile uses of it
+  s.rn = xn;
+  s.seed = nullptr;
+  s.lnw = (float*)(smem + L.lnw);
+  s.lnb = (float*)(smem + L.lnb);
+  s.stat = (float*)(smem + L.stat);
 
-  const int b = blockIdx.y, grp = blockIdx.x;
+  const int b = blockIdx.y, grp = blockIdx.x, warp = threadIdx.x >> 5;
   const int C = g.C, C2 = 2 * C, C3 = 3 * C, hc = g.hc, th = g.th, tw = g.tw;
-  const int LX = C + PAD, LT = C3 + PAD, LQ = C2 + PAD, LG = hc + PADF;
-  const int w1 = tw + 2, n1 = (th + 2) * w1, m1 = round16(n1), P = th * tw;
-  const int gsize = g.heads * hc * LG;
-  for (int i = threadIdx.x; i < gsize; i += NT) gram[i] = 0.f;
-  for (int i = threadIdx.x; i < C2 * tw; i += NT) nrm[i] = 0.f;
-  // W_qkv, nch columns at a time (all of it once, for all of the group's
-  // tiles, where it fits)
-  const int nch = resident ? C3 : NCH;
-  if (resident) load_b_async(wb, C, C3, [&](int k, int n) { return wqkv + (size_t)k * C3 + n; });
-  for (int i = threadIdx.x; i < 9 * C3; i += NT) taps[i] = dwqkv[i];
-  for (int i = threadIdx.x; i < C; i += NT) {
-    lnw[i] = ln1[i];
-    if (ln1b != nullptr) lnb[i] = ln1b[i];
+  const int LX = C + PAD, LQ = C2 + PAD, LG = hc + PADF;
+  const int w1 = tw + 2, m1 = round16((th + 2) * w1), P = th * tw;
+  const int nh = hc / 16, per_head = nh * nh, nfrags = g.heads * per_head;
+  PHASE_CLOCK(pc);
+  if (!L.regs)
+    for (int i = threadIdx.x; i < g.heads * hc * LG; i += NTA) gram[i] = 0.f;
+  for (int i = threadIdx.x; i < C2 * tw; i += NTA) nrm[i] = 0.f;
+  for (int i = threadIdx.x; i < 9 * C3; i += NTA) taps[i] = dwqkv[i];
+  for (int i = threadIdx.x; i < C; i += NTA) {
+    s.lnw[i] = ln1[i];
+    if (ln1b != nullptr) s.lnb[i] = ln1b[i];
   }
+  // this warp's 16x16 fragments of the per-head Gram, f = warp, warp + NWA,
+  // ..., as mma accumulators (columns 0-7 and 8-15)
+  const int lane = threadIdx.x & 31, gq = lane >> 2, q2 = (lane & 3) * 2;
+  float gacc[MAXG][2][4];
+#pragma unroll
+  for (int i = 0; i < MAXG; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) gacc[i][0][e] = gacc[i][1][e] = 0.f;
+  // acc += q^T k of fragment f over the tile: Gram[h][c][d] += sum_p
+  // q[p][c] k[p][d]. A = q^T is q | k's rows read down a column: a
+  // transposing ldmatrix whose lanes point at pixel (lane % 8) + 8 (lane /
+  // 16) and channel half (lane / 8) % 2; B = k is read as every other B.
+  auto gram_frag = [&](float (&acc)[2][4], int f) {
+    const int h = f / per_head, m0 = (f % per_head) / nh * 16, n0 = (f % nh) * 16;
+    const bf16* qa = qk + ((lane & 7) + (lane >> 4) * 8) * LQ + h * hc + m0 + ((lane >> 3) & 1) * 8;
+    const bf16* kb = qk + (lane & 15) * LQ + C + h * hc + n0 + (lane >> 4) * 8;
+    for (int k = 0; k < P; k += 16) {
+      unsigned af[4], bf[4];
+      ldsm_x4_t(af, qa + k * LQ);
+      ldsm_x4_t(bf, kb + k * LQ);
+      frag_mma(acc[0], acc[1], af, bf);
+    }
+  };
+  // where fragment f's accumulator rows gq and gq + 8 begin in a row-major
+  // Gram of row stride ld
+  auto frag_at = [&](float* base, int ld, int f) {
+    return base + ((f / per_head) * hc + (f % per_head) / nh * 16 + gq) * ld + (f % nh) * 16 + q2;
+  };
+  // third s3 of W_qkv's columns (q, k or v) into wb
+  auto load_third = [&](int s3) {
+    const bf16* src = wqkv + s3 * C;
+    load_b_async(wb, C, C, [=](int k, int n) { return src + (size_t)k * C3 + n; });
+  };
+  load_third(0);
 
   for (int tile = grp; tile < g.ntiles; tile += groups) {
     const int y0 = (tile / g.ntj) * th, x0 = (tile % g.ntj) * tw;
-    __syncthreads();
-    load_region(x, xs, C, g, b, y0, x0, 1, m1);
-    __syncthreads();
+    pc.mark(tile == grp ? PH_G_REST : PH_G_DW);
     // LN1 on the 1-pixel halo, zero outside the image (x is 0 there, but
-    // with a bias LN1(0) is not, and the depthwise step must see 0)
-    ln_rows(xs, C, lnw, ln1b != nullptr ? lnb : nullptr, xn, LX, m1, C, eps,
-            [&](int p) { return p < n1 && inside(g, y0 - 1 + p / w1, x0 - 1 + p % w1); });
-    // t = bf16(LN1(x) @ W_qkv) on the 1-pixel halo
-    for (int n0 = 0; n0 < C3; n0 += nch) {
-      const int nc = C3 - n0 < nch ? C3 - n0 : nch;
-      if (!resident)
-        load_b_async(wb, C, nc, [&](int k, int n) { return wqkv + (size_t)k * C3 + n0 + n; });
-      cp_async_wait();
-      __syncthreads();
-      gemm(m1, nc, C, nc / 16, [&](int m, int, int k) { return xn + m * LX + k; }, LX,
-           [&](int k, int n) { return wb + k * (nc + PAD) + n; }, t + n0, LT);
-      __syncthreads();
-    }
-    // depthwise 3x3 (fp32 taps) of q, k and v down each column of the tile,
-    // two channels at a time: a thread keeps one (channel pair, column)'s
-    // taps and 3x3 windows in registers for the whole kernel, so the q/k
-    // squared norms sum without atomics, in a fixed order; v goes to device
-    // memory (bf16) for (C)
-    const int C3h = C3 / 2;
-    for (int idx = threadIdx.x; idx < C3h * tw; idx += NT) {
-      const int ch = idx % C3h * 2, j = idx / C3h;
-      auto at = [&](int row, int col) { return ld2(t + (row * w1 + col) * LT + ch); };
-      float2 wk[9], win[3][3];
+    // with a bias LN1(0) is not, and the depthwise step must see 0). Its
+    // barrier follows the last tile's depthwise step (t is free) and waits
+    // for W_q.
+    r_ln_tile<false, false>(s, x, AttnIn{}, g, b, y0, x0, eps, true, ln1b != nullptr, [] {}, pc);
+    __syncthreads();  // LN1(x) is complete
+    pc.mark(PH_G_LN1);
+    for (int s3 = 0; s3 < 3; ++s3) {
+      // t = bf16(LN1(x) @ W_qkv[:, third]) on the 1-pixel halo
+      gemm(m1, C, C, C / 16, [&](int m, int, int k) { return xn + m * LX + k; }, LX,
+                [&](int k, int n) { return wb + k * LX + n; }, t, LX);
+      if (s3 == 2) {
+        pc.mark(PH_G_QKV);
+        // q and k of this tile are complete (the barrier after k's
+        // depthwise step): the tile's Gram product shares v's product phase
+        if (L.regs) {
 #pragma unroll
-      for (int tap = 0; tap < 9; ++tap) wk[tap] = *reinterpret_cast<const float2*>(taps + tap * C3 + ch);
+          for (int i = 0; i < MAXG; ++i)
+            if (warp + i * NWA < nfrags) gram_frag(gacc[i], warp + i * NWA);
+        } else {
+          for (int f = warp; f < nfrags; f += NWA) {
+            float* at = frag_at(gram, LG, f);
+            float acc[2][4];
 #pragma unroll
-      for (int di = 0; di < 2; ++di)
+            for (int e = 0; e < 2; ++e) {
+              const float2 lo = ld2(at + 8 * e), hi = ld2(at + 8 * LG + 8 * e);
+              acc[e][0] = lo.x, acc[e][1] = lo.y, acc[e][2] = hi.x, acc[e][3] = hi.y;
+            }
+            gram_frag(acc, f);
 #pragma unroll
-        for (int dj = 0; dj < 3; ++dj) win[di + 1][dj] = at(di, j + dj);
-      float2 nacc = make_float2(0.f, 0.f);
-#pragma unroll 2
-      for (int i = 0; i < th; ++i) {
-        float2 a = make_float2(0.f, 0.f);
-#pragma unroll
-        for (int dj = 0; dj < 3; ++dj) {
-          win[0][dj] = win[1][dj];
-          win[1][dj] = win[2][dj];
-          win[2][dj] = at(i + 2, j + dj);
-#pragma unroll
-          for (int di = 0; di < 3; ++di) fma2(a, win[di][dj], wk[di * 3 + dj]);
-        }
-        const int yy = y0 + i, xx = x0 + j;
-        const bool in = inside(g, yy, xx);
-        if (ch < C2) {
-          if (!in) a = make_float2(0.f, 0.f);
-          st2(qk + (i * tw + j) * LQ + ch, a);
-          nacc.x += a.x * a.x;
-          nacc.y += a.y * a.y;
-        } else if (in) {
-          st2(vout + (((size_t)b * g.H + yy) * g.W + xx) * C + ch - C2, a);
+            for (int e = 0; e < 2; ++e) {
+              st2(at + 8 * e, make_float2(acc[e][0], acc[e][1]));
+              st2(at + 8 * LG + 8 * e, make_float2(acc[e][2], acc[e][3]));
+            }
+          }
         }
       }
-      if (ch < C2) {
-        nrm[ch * tw + j] += nacc.x;
-        nrm[(ch + 1) * tw + j] += nacc.y;
+      // t is complete and wb free (after v's product: LN1(x) and q | k too,
+      // for the next tile)
+      __syncthreads();
+      pc.mark(s3 == 2 ? PH_G_GRAM : PH_G_QKV);
+      if (s3 < 2) load_third(s3 + 1);
+      else if (tile + groups < g.ntiles) load_third(0);  // W_q for the next tile
+      // depthwise 3x3 (fp32 taps) of this third: a thread takes two channels
+      // and two adjacent columns of the tile down all its rows, its taps and
+      // three halo rows by four halo columns in registers, the rows' slots
+      // rotating by index. A thread meets the same (channels, columns) in
+      // every tile, so the q/k squared norms sum without atomics, in a fixed
+      // order; v goes to device memory (bf16) for (C).
+      const int Ch = C / 2;
+      for (int idx = threadIdx.x; idx < Ch * (tw / 2); idx += NTA) {
+        const int ch = idx % Ch * 2, j = idx / Ch * 2;
+        auto at = [&](int row, int col) { return ld2(t + (row * w1 + col) * LX + ch); };
+        float2 wk[9], u[3][4];
+#pragma unroll
+        for (int tap = 0; tap < 9; ++tap)
+          wk[tap] = *reinterpret_cast<const float2*>(taps + tap * C3 + s3 * C + ch);
+#pragma unroll
+        for (int row = 0; row < 2; ++row)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) u[row][c] = at(row, j + c);
+        float2 nacc[2] = {make_float2(0.f, 0.f), make_float2(0.f, 0.f)};
+        for (int i0 = 0; i0 < th; i0 += 3) {
+#pragma unroll
+          for (int sl = 0; sl < 3; ++sl) {
+            const int i = i0 + sl;  // output row; halo row i + di lies in slot (sl + di) % 3
+            if (i >= th) break;
+#pragma unroll
+            for (int c = 0; c < 4; ++c) u[(sl + 2) % 3][c] = at(i + 2, j + c);
+            float2 a[2] = {make_float2(0.f, 0.f), make_float2(0.f, 0.f)};
+#pragma unroll
+            for (int dj = 0; dj < 3; ++dj)
+#pragma unroll
+              for (int di = 0; di < 3; ++di)
+#pragma unroll
+                for (int o = 0; o < 2; ++o) fma2(a[o], u[(sl + di) % 3][o + dj], wk[di * 3 + dj]);
+#pragma unroll
+            for (int o = 0; o < 2; ++o) {
+              const int yy = y0 + i, xx = x0 + j + o;
+              const bool in = inside(g, yy, xx);
+              if (s3 < 2) {
+                if (!in) a[o] = make_float2(0.f, 0.f);
+                st2(qk + (i * tw + j + o) * LQ + s3 * C + ch, a[o]);
+                nacc[o].x += a[o].x * a[o].x;
+                nacc[o].y += a[o].y * a[o].y;
+              } else if (in) {
+                st2(vout + (((size_t)b * g.H + yy) * g.W + xx) * C + ch, a[o]);
+              }
+            }
+          }
+        }
+        if (s3 < 2) {
+#pragma unroll
+          for (int o = 0; o < 2; ++o) {
+            nrm[(s3 * C + ch) * tw + j + o] += nacc[o].x;
+            nrm[(s3 * C + ch + 1) * tw + j + o] += nacc[o].y;
+          }
+        }
+      }
+      if (s3 < 2) {
+        // this third of q | k is complete, t is free, the next third of
+        // W_qkv has landed
+        cp_async_wait();
+        __syncthreads();
+        pc.mark(PH_G_DW);
       }
     }
-    __syncthreads();
-    // per-head Gram[c][d] += sum_p q[p][c] k[p][d]; A = q^T (column-major)
-    const int nh = hc / 16, per_head = nh * nh;
-    const int warp = threadIdx.x >> 5;
-    for (int f = warp; f < g.heads * per_head; f += NW) {
-      const int h = f / per_head, m0 = (f % per_head) / nh * 16, n0 = (f % nh) * 16;
-      float* accp = gram + h * hc * LG;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::load_matrix_sync(acc, accp + m0 * LG + n0, LG, wmma::mem_row_major);
-      for (int k = 0; k < P; k += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bb;
-        wmma::load_matrix_sync(a, qk + k * LQ + h * hc + m0, LQ);
-        wmma::load_matrix_sync(bb, qk + k * LQ + C + h * hc + n0, LQ);
-        wmma::mma_sync(acc, a, bb, acc);
-      }
-      wmma::store_matrix_sync(accp + m0 * LG + n0, acc, LG, wmma::mem_row_major);
-    }
+    pc.tile();
   }
-  __syncthreads();
+  __syncthreads();  // the last tile's norms (and Gram) are complete
+  pc.mark(PH_G_DW);
   // part[b][grp] = (Gram [heads][hc][hc], norms [2C]) unpadded
   const int gout = g.heads * hc * hc;
   float* out = part + ((size_t)b * groups + grp) * (gout + C2);
-  for (int i = threadIdx.x; i < gout; i += NT) out[i] = gram[(i / hc) * LG + i % hc];
-  for (int i = threadIdx.x; i < C2; i += NT) {
+  if (L.regs) {
+#pragma unroll
+    for (int i = 0; i < MAXG; ++i) {
+      const int f = warp + i * NWA;
+      if (f >= nfrags) continue;
+      float* at = frag_at(out, hc, f);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        st2(at + 8 * e, make_float2(gacc[i][e][0], gacc[i][e][1]));
+        st2(at + 8 * hc + 8 * e, make_float2(gacc[i][e][2], gacc[i][e][3]));
+      }
+    }
+  } else {
+    for (int i = threadIdx.x; i < gout; i += NTA) out[i] = gram[(i / hc) * LG + i % hc];
+  }
+  for (int i = threadIdx.x; i < C2; i += NTA) {
     float sq = 0.f;
     for (int j = 0; j < tw; ++j) sq += nrm[i * tw + j];
     out[gout + i] = sq;
   }
+  pc.mark(PH_G_REST);
+  pc.flush(PHASE_BUF(phase_buf_gram));
 }
 
 // ---- (B) normalised, tempered softmax per query channel ------------------
@@ -307,64 +425,54 @@ k_softmax(const float* __restrict__ part, const float* __restrict__ temp,
 
 // ---- (C) attention apply, projection, LN2, GDFN, residuals ---------------
 
+// One block of NTA threads per output tile, two resident on an SM where the
+// layout allows (C = 96).
 template <int FC, class Tin, class Tout>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(NTA, 2)
 k_apply(const Tin* __restrict__ x, Tout* __restrict__ y, const bf16* __restrict__ vin,
         const bf16* __restrict__ attn_t, const bf16* __restrict__ wproj,
         const float* __restrict__ ln2, const float* __restrict__ ln2b, FfnWeights wt, Geo g,
-        float eps, bool dbl) {
+        float eps) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const FfnSmem L(g.th, g.tw, g.C, g.fc, dbl, true);
+  const FfnSmem L(g.th, g.tw, g.C, g.hc, g.fc, true);
   const FfnBufs s(smem, L);
-  bf16* v = s.rn;  // v first, LN2(r) later
-  bf16* oa = (bf16*)(smem + L.oa);
-  float* r = s.r;
+  bf16* at_s = (bf16*)(smem + L.w);
+  bf16* wp_s = (bf16*)(smem + L.wproj);
+  bf16* v = (bf16*)(smem + L.x);
 
+  PHASE_CLOCK(pc);
   const int b = blockIdx.y, tile = blockIdx.x;
   const int y0 = (tile / g.ntj) * g.th, x0 = (tile % g.ntj) * g.tw;
   const int C = g.C, hc = g.hc;
-  const int LX = C + PAD, LB = C + PAD, LA = C + PADF;
   const int m1 = round16((g.th + 2) * (g.tw + 2));
-  auto at_ld = [](const bf16* base, int ld) {
-    return [=](int k, int n) { return base + k * ld + n; };
-  };
 
-  // attn^T of every head side by side: wb0[d][h*hc + c] = attn[h][c][d];
-  // W_proj; v and x on the 1-pixel halo (0 outside the image)
+  // attn^T of every head side by side: at_s[d][h*hc + c] = attn[h][c][d];
+  // W_proj; v on the 1-pixel halo (0 outside the image)
   const bf16* at = attn_t + (size_t)b * g.heads * hc * hc;
-  load_b_async(s.wb0, hc, C, [&](int k, int n) { return at + (size_t)(n / hc) * hc * hc + k * hc + n % hc; });
+  load_b_async(at_s, hc, C, [&](int k, int n) {
+    return at + (size_t)(n / hc) * hc * hc + k * hc + n % hc;
+  });
+  load_b_async(wp_s, C, C, [&](int k, int n) { return wproj + (size_t)k * C + n; });
   copy_async(s.lnw, ln2, C * 4);
   if (ln2b != nullptr) copy_async(s.lnb, ln2b, C * 4);
-  auto proj = [&] { load_b_async(s.wb1, C, C, [&](int k, int n) { return wproj + (size_t)k * C + n; }); };
-  if (dbl) proj();
-  load_region(vin, v, LX, g, b, y0, x0, 1, m1);
-  load_region(x, r, LA, g, b, y0, x0, 1, m1);
+  load_halo_async(vin, v, C + PAD, g, b, y0, x0, m1);
   cp_async_wait();
-  __syncthreads();
-  // oa[p][h*hc + c] = sum_d v[p][h*hc + d] attn[h][c][d]  (hc % 16 == 0, so
-  // every 16-column fragment lies within one head)
-  gemm(m1, C, hc, hc / 16, [&](int m, int n, int k) { return v + m * LX + (n / hc) * hc + k; },
-       LX, at_ld(s.wb0, LB), oa, LX);
-  __syncthreads();
-  if (dbl) {
-    ffn_load_chunk<FC>(s, wt, g, 0);
-  } else {
-    proj();
-    cp_async_wait();
-    __syncthreads();
-  }
-  // r += bf16(oa) @ W_proj on the 1-pixel halo
-  gemm_acc(m1, C, C, [&](int m, int, int k) { return oa + m * LX + k; }, LX, at_ld(s.wb1, LB), r,
-           LA);
-  __syncthreads();
-  if (!dbl) ffn_load_chunk<FC>(s, wt, g, 0);
-  gdfn_tile<FC>(s, y, wt, g, b, y0, x0, eps, dbl, true, ln2b != nullptr);
+  __syncthreads();  // attn^T, W_proj, v and the LayerNorm's weights are visible
+  pc.mark(PH_LOAD);
+  // r = x + (attn @ v) @ W_proj and LN2(r), r in registers; W_in's first
+  // chunk loads over attn^T and W_proj once the products are done
+  const AttnIn a{v, at_s, wp_s, s.rn};
+  r_ln_tile<true, true>(s, x, a, g, b, y0, x0, eps, true, ln2b != nullptr,
+                  [&] { ffn_load_chunk<FC>(s, wt, g, 0, 0); }, pc);
+  gdfn_chunks<FC>(s, y, wt, g, b, y0, x0, pc);
+  pc.flush(PHASE_BUF(phase_buf_apply));
 }
 
-// C/heads a multiple of 16 on top of what every tile kernel needs.
-bool shape_ok(int C, int heads, int Fp, int fc, int th, int tw) {
+// C/heads a multiple of 16 on top of what the tile kernels need: (A) with
+// kind 0, (C) with kind 1.
+bool shape_ok(int kind, int C, int heads, int Fp, int fc, int th, int tw) {
   return heads > 0 && C % heads == 0 && (C / heads) % 16 == 0 &&
-         ffn_shape_ok(C, Fp, fc, th, tw);
+         (kind == 0 ? tile_shape_ok(C, th, tw) : ffn_shape_ok(C, Fp, fc, th, tw));
 }
 
 struct ApplyArgs {
@@ -379,7 +487,6 @@ struct ApplyArgs {
   Geo g;
   float eps;
   size_t bytes;
-  bool dbl;
   cudaStream_t stream;
 };
 
@@ -387,9 +494,8 @@ template <int FC, class Tin, class Tout>
 int launch_apply_fc(const ApplyArgs& a) {
   int err = opt_in(k_apply<FC, Tin, Tout>, a.bytes);
   if (err) return err;
-  k_apply<FC, Tin, Tout><<<dim3(a.g.ntiles, a.g.B), NT, a.bytes, a.stream>>>(
-      (const Tin*)a.x, (Tout*)a.y, a.vin, a.attn_t, a.wproj, a.ln2, a.ln2b, a.wt, a.g, a.eps,
-      a.dbl);
+  k_apply<FC, Tin, Tout><<<dim3(a.g.ntiles, a.g.B), NTA, a.bytes, a.stream>>>(
+      (const Tin*)a.x, (Tout*)a.y, a.vin, a.attn_t, a.wproj, a.ln2, a.ln2b, a.wt, a.g, a.eps);
   return (int)cudaGetLastError();
 }
 
@@ -409,35 +515,57 @@ int launch_apply(const ApplyArgs& a) {
 
 extern "C" {
 
+// Dynamic shared memory of kernel (A) (kind 0) or (C) (kind 1) on th x tw
+// tiles; INT_MAX for a shape the kernel does not take.
 int raie_stage_smem_bytes(int kind, int th, int tw, int C, int heads, int fc) {
-  // the smaller layouts (W_qkv staged in chunks, one weight buffer)
-  return kind == 0 ? (int)GramSmem(th, tw, C, heads, false).total
-                   : (int)FfnSmem(th, tw, C, fc, false, true).total;
+  if (!shape_ok(kind, C, heads, fc, fc, th, tw)) return INT_MAX;
+  return kind == 0 ? (int)GramSmem(th, tw, C, heads).total
+                   : (int)FfnSmem(th, tw, C, C / heads, fc, true).total;
+}
+
+// Thread blocks of that kernel the device keeps resident on one SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), with the layout a launch
+// would take; 0 where it cannot launch.
+int raie_stage_blocks_per_sm(int kind, int th, int tw, int C, int heads, int fc) {
+  if (!shape_ok(kind, C, heads, fc, fc, th, tw)) return 0;
+  if (kind == 0) return resident_blocks(k_gram<float>, NTA, GramSmem(th, tw, C, heads).total);
+  const size_t bytes = FfnSmem(th, tw, C, C / heads, fc, true).total;
+  return fc == 64 ? resident_blocks(k_apply<64, float, float>, NTA, bytes)
+                  : resident_blocks(k_apply<32, float, float>, NTA, bytes);
 }
 
 const char* raie_stage_error_string(int code) { return tile_error_string(code); }
+
+#ifdef RAIE_PHASE_CLOCKS
+// Where kernels (A) and (C) write their cycles per phase: one row of
+// PHASE_SLOTS int64 for each thread block of a launch (null: nowhere).
+int raie_stage_phase_buffers(void* gram_rows, void* apply_rows) {
+  cudaError_t err = cudaMemcpyToSymbol(phase_buf_gram, &gram_rows, sizeof(void*));
+  if (err == cudaSuccess) err = cudaMemcpyToSymbol(phase_buf_apply, &apply_rows, sizeof(void*));
+  return (int)err;
+}
+#endif
 
 int raie_stage_gram(const void* x, int x_is_bf16, const void* ln1, const void* ln1b,
                     const void* wqkv, const void* dwqkv, void* part, void* vout, int B, int H,
                     int W, int C, int heads, int th, int tw, int groups, float eps,
                     void* stream) {
-  if (!shape_ok(C, heads, 64, 64, th, tw)) return ERR_SHAPE;
+  if (!shape_ok(0, C, heads, 0, 0, th, tw)) return ERR_SHAPE;
   const Geo g = make_geo(B, H, W, C, heads, 0, 0, th, tw);
-  const bool resident = GramSmem(th, tw, C, heads, true).total <= (size_t)SMEM_LIMIT;
-  const size_t bytes = GramSmem(th, tw, C, heads, resident).total;
+  const size_t bytes = GramSmem(th, tw, C, heads).total;
   const dim3 grid(groups, B);
   cudaStream_t s = (cudaStream_t)stream;
   int err;
   if (x_is_bf16) {
     if ((err = opt_in(k_gram<bf16>, bytes))) return err;
-    k_gram<bf16><<<grid, NT, bytes, s>>>((const bf16*)x, (const float*)ln1, (const float*)ln1b,
-                                         (const bf16*)wqkv, (const float*)dwqkv,
-                                         (float*)part, (bf16*)vout, g, groups, eps, resident);
+    k_gram<bf16><<<grid, NTA, bytes, s>>>((const bf16*)x, (const float*)ln1, (const float*)ln1b,
+                                          (const bf16*)wqkv, (const float*)dwqkv,
+                                          (float*)part, (bf16*)vout, g, groups, eps);
   } else {
     if ((err = opt_in(k_gram<float>, bytes))) return err;
-    k_gram<float><<<grid, NT, bytes, s>>>((const float*)x, (const float*)ln1, (const float*)ln1b,
-                                          (const bf16*)wqkv, (const float*)dwqkv,
-                                          (float*)part, (bf16*)vout, g, groups, eps, resident);
+    k_gram<float><<<grid, NTA, bytes, s>>>((const float*)x, (const float*)ln1, (const float*)ln1b,
+                                           (const bf16*)wqkv, (const float*)dwqkv,
+                                           (float*)part, (bf16*)vout, g, groups, eps);
   }
   return (int)cudaGetLastError();
 }
@@ -455,13 +583,12 @@ int raie_stage_apply(const void* x, int x_is_bf16, void* y, int y_is_bf16,
                      const void* ln2b, const void* win, const void* wdw, const void* wout,
                      int B, int H, int W, int C, int heads, int Fp, int fc, int th, int tw,
                      float eps, void* stream) {
-  if (!shape_ok(C, heads, Fp, fc, th, tw)) return ERR_SHAPE;
+  if (!shape_ok(1, C, heads, Fp, fc, th, tw)) return ERR_SHAPE;
   const Geo g = make_geo(B, H, W, C, heads, Fp, fc, th, tw);
-  const bool dbl = FfnSmem(th, tw, C, fc, true, true).total <= (size_t)SMEM_LIMIT;
   const ApplyArgs a{x, y, (const bf16*)vin, (const bf16*)attn_t, (const bf16*)wproj,
                     (const float*)ln2, (const float*)ln2b,
                     FfnWeights{(const bf16*)win, (const float*)wdw, (const bf16*)wout}, g, eps,
-                    FfnSmem(th, tw, C, fc, dbl, true).total, dbl, (cudaStream_t)stream};
+                    FfnSmem(th, tw, C, g.hc, fc, true).total, (cudaStream_t)stream};
   if (x_is_bf16) return y_is_bf16 ? launch_apply<bf16, bf16>(a) : launch_apply<bf16, float>(a);
   return y_is_bf16 ? launch_apply<float, bf16>(a) : launch_apply<float, float>(a);
 }

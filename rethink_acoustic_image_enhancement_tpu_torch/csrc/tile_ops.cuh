@@ -1,9 +1,31 @@
 // Device code shared by the tile kernels of stage.cu (whole
-// TransformerBlocks) and gdfn.cu (LN -> GDFN -> residual): LayerNorm of
-// pixel rows, cp.async weight loads, bf16 mma.sync products on ldmatrix
-// fragments, the halo loader, and gdfn_tile, the GDFN half of a block on one
-// spatial tile. Everything here works on one thread block of NT threads and
-// its shared memory; the kernels that include it lay that memory out.
+// TransformerBlocks) and gdfn.cu (LN -> GDFN -> residual): cp.async weight
+// and halo loads, bf16 mma.sync products on ldmatrix fragments, the clocks of
+// the instrumented build, and the two halves of a tile that ends in the
+// GDFN: r_ln_tile (the residual r and LN(r), in registers) and gdfn_chunks
+// (the GDFN over chunks of hidden channels). Everything here works on one
+// thread block and its shared memory; the kernels that include it lay that
+// memory out through FfnSmem.
+//
+// What bounds these tiles on an H100 is latency, not the tensor-core rate:
+// a tile's products are a few thousand mma.sync, each phase is short and ends
+// in a barrier, and a warp waits on ldmatrix, cp.async and the barrier far
+// longer than it executes. So a block is kept small enough (NTA = 256 threads,
+// under half of an SM's shared memory and registers at C = 96) for two blocks
+// to be resident on an SM, each filling the other's waits, and what used to
+// make round trips through shared memory stays in registers:
+//   - r = x + attn-out @ W_proj is never stored: a warp owns 16 halo pixels by
+//     up to 96 channels as mma accumulator fragments (48 registers), seeded
+//     with x straight from device memory in the fragment's own layout, and
+//     takes LN(r)'s two-pass statistics from them with two shuffles over the
+//     4 lanes that share a row (above 96 channels several warps share a row
+//     and swap partial sums through a few floats of shared memory);
+//   - the W_out accumulator (tile pixels x C, fp32) lives in registers over
+//     all chunks, seeded once with r on the tile's own pixels, and is written
+//     to device memory from registers.
+// Buffers alias by lifetime (see FfnSmem): attn^T and W_proj share their
+// bytes with the W_in / W_out chunks, attn @ v with LN(r), and v with the
+// seed of the W_out accumulator and then with the hidden chunk.
 
 #pragma once
 
@@ -11,24 +33,26 @@
 #include <cuda_runtime.h>
 
 #include <cstddef>
-#include <type_traits>
 
 typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int NT = 512;        // threads of the tile kernels
-constexpr int NW = NT / 32;    // warps
+constexpr int NTA = 256;       // threads of a tile kernel's block
+constexpr int NWA = NTA / 32;  // its warps
+constexpr int MAXF = 6;        // 16-channel fragments of r a warp holds (96 channels)
+constexpr int OUTF = 3;        // 16x16 fragments of the W_out accumulator a warp holds
+constexpr int MAXG = 5;        // 16x16 fragments of the Gram a warp holds
 constexpr int SMEM_LIMIT = 232448;  // 227 KB a block may opt into
 constexpr int ERR_SMEM = 100001;    // tile does not fit in shared memory
 constexpr int ERR_SHAPE = 100002;   // shape the kernels do not take
-constexpr int MAX_LN_REGS = 12;     // LayerNorm rows up to 384 channels
+constexpr int MAX_C = 384;          // widest rows the kernels take
 // Shared-memory rows are padded by PAD bf16 (16 bytes) so the 8 rows an
-// ldmatrix reads fall in different banks; fp32 accumulators by PADF floats.
+// ldmatrix reads fall in different banks; fp32 rows by PADF floats.
 constexpr int PAD = 8;
 constexpr int PADF = 4;
 
-// fc: GDFN hidden channels per chunk (64, or 32 where 64 does not fit).
+// fc: GDFN hidden channels per chunk (64 or 32).
 struct Geo {
   int B, H, W, C, heads, hc, Fp, fc, th, tw, ntj, ntiles;
 };
@@ -37,112 +61,31 @@ __host__ __device__ inline int round16(int n) { return (n + 15) / 16 * 16; }
 __host__ __device__ inline size_t align128(size_t n) { return (n + 127) / 128 * 128; }
 __host__ __device__ inline size_t max2(size_t a, size_t b) { return a > b ? a : b; }
 
-__device__ __forceinline__ float ldf(const float* p) { return *p; }
-__device__ __forceinline__ float ldf(const bf16* p) { return __bfloat162float(*p); }
-__device__ __forceinline__ void st4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
-__device__ __forceinline__ void st4(bf16* p, float4 v) {
-  __nv_bfloat162 h[2] = {__floats2bfloat162_rn(v.x, v.y), __floats2bfloat162_rn(v.z, v.w)};
-  *reinterpret_cast<uint2*>(p) = *reinterpret_cast<const uint2*>(h);
-}
-
-// Channel LayerNorm (two-pass variance, fp32 statistics) of `rows` pixels' C
-// channels, src row stride lds, to bf16 dst row stride ldd. BiasFree where
-// b is null, x / sqrt(var + eps) * w (the mean is not subtracted); else
-// WithBias, (x - mean) / sqrt(var + eps) * w + b. Rows where keep(p) is
-// false are pixels outside the image, which the callers hold as all-zero
-// rows; they must come out 0, the zero padding the depthwise step after the
-// next product sees there. BiasFree gives that by itself (LN(0) = 0) and
-// never asks keep; WithBias, where LN(0) = b, does. LPR lanes take a row
-// (C <= LPR * MAX_LN_REGS), so a warp normalises 32 / LPR rows at once. Bias
-// says whether b is given (the BiasFree variant then keeps no bias
-// registers).
-template <int LPR, bool Bias, class S, class Keep>
-__device__ void ln_rows_t(const S* src, int lds, const float* w, const float* b, bf16* dst,
-                          int ldd, int rows, int C, float eps, Keep keep) {
-  constexpr int RPW = 32 / LPR;
-  const int lane = threadIdx.x & 31, sub = lane % LPR;
-  float wr[MAX_LN_REGS], br[Bias ? MAX_LN_REGS : 1];
-#pragma unroll
-  for (int i = 0; i < MAX_LN_REGS; ++i) {
-    const int c = sub + LPR * i;
-    wr[i] = c < C ? w[c] : 0.f;
-    if constexpr (Bias) br[i] = c < C ? b[c] : 0.f;
-  }
-  for (int p0 = (threadIdx.x >> 5) * RPW; p0 < rows; p0 += NW * RPW) {
-    const int p = p0 + lane / LPR;
-    bool ok = p < rows;
-    if constexpr (Bias) ok = ok && keep(p);
-    float v[MAX_LN_REGS];
-    float s = 0.f;
-#pragma unroll
-    for (int i = 0; i < MAX_LN_REGS; ++i) {
-      const int c = sub + LPR * i;
-      v[i] = ok && c < C ? ldf(src + (size_t)p * lds + c) : 0.f;
-      s += v[i];
-    }
-#pragma unroll
-    for (int o = LPR / 2; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-    const float mean = s / C;
-    float q = 0.f;
-#pragma unroll
-    for (int i = 0; i < MAX_LN_REGS; ++i) {
-      const float d = v[i] - mean;
-      if (sub + LPR * i < C) q += d * d;
-    }
-#pragma unroll
-    for (int o = LPR / 2; o > 0; o >>= 1) q += __shfl_xor_sync(0xffffffffu, q, o);
-    const float inv = rsqrtf(q / C + eps);
-    if (p < rows) {
-#pragma unroll
-      for (int i = 0; i < MAX_LN_REGS; ++i) {
-        const int c = sub + LPR * i;
-        float o = v[i] * inv * wr[i];
-        if constexpr (Bias) o = ok ? (v[i] - mean) * inv * wr[i] + br[i] : 0.f;
-        if (c < C) dst[(size_t)p * ldd + c] = __float2bfloat16(o);
-      }
-    }
-  }
-}
-
-template <class S, class Keep>
-__device__ void ln_rows(const S* src, int lds, const float* w, const float* b, bf16* dst,
-                        int ldd, int rows, int C, float eps, Keep keep) {
-  if (b != nullptr) {
-    if (C <= 8 * MAX_LN_REGS)
-      ln_rows_t<8, true>(src, lds, w, b, dst, ldd, rows, C, eps, keep);
-    else if (C <= 16 * MAX_LN_REGS)
-      ln_rows_t<16, true>(src, lds, w, b, dst, ldd, rows, C, eps, keep);
-    else
-      ln_rows_t<32, true>(src, lds, w, b, dst, ldd, rows, C, eps, keep);
-  } else {
-    if (C <= 8 * MAX_LN_REGS)
-      ln_rows_t<8, false>(src, lds, w, b, dst, ldd, rows, C, eps, keep);
-    else if (C <= 16 * MAX_LN_REGS)
-      ln_rows_t<16, false>(src, lds, w, b, dst, ldd, rows, C, eps, keep);
-    else
-      ln_rows_t<32, false>(src, lds, w, b, dst, ldd, rows, C, eps, keep);
-  }
-}
-
 // dst[K][N] (row stride N + PAD) = B[K][N] (bf16), 16-byte cp.async copies
-// by the whole block: the products then read B from shared memory. The
-// call returns at once; the data is there after cp_async_wait() and a
-// barrier, so the copy overlaps the work between. bptr(k, n) points at
+// by the whole block of NTA threads: the products then read B from shared
+// memory. The call returns at once; the data is there after cp_async_wait()
+// and a barrier, so the copy overlaps the work between. bptr(k, n) points at
 // element (k, n), n a multiple of 8.
 template <class BP>
 __device__ void load_b_async(bf16* dst, int K, int N, BP bptr) {
-  const int n8 = N / 8, ld = N + PAD, total = K * n8;
-  for (int i = threadIdx.x; i < total; i += NT) {
-    const unsigned s = (unsigned)__cvta_generic_to_shared(dst + (i / n8) * ld + (i % n8) * 8);
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-                 "l"(bptr(i / n8, (i % n8) * 8)));
+  const int n8 = N / 8, ld = N + PAD;
+  // copy i is row i / n8, columns 8 (i % n8) and on; a thread's copies are
+  // NTA apart, which it carries as rows and columns with no further division
+  const int dr = NTA / n8, dc = NTA % n8;
+  int r = threadIdx.x / n8, c = threadIdx.x % n8;
+  while (r < K) {
+    const unsigned s = (unsigned)__cvta_generic_to_shared(dst + r * ld + c * 8);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(bptr(r, c * 8)));
+    r += dr;
+    c += dc;
+    if (c >= n8) c -= n8, ++r;
   }
   asm volatile("cp.async.commit_group;\n" ::);
 }
 
 // bytes (a multiple of 16) from src to dst with cp.async, as load_b_async.
 __device__ void copy_async(void* dst, const void* src, int bytes) {
-  for (int i = threadIdx.x; i < bytes / 16; i += NT) {
+  for (int i = threadIdx.x; i < bytes / 16; i += NTA) {
     const unsigned s = (unsigned)__cvta_generic_to_shared((char*)dst + 16 * i);
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
                  "l"((const char*)src + 16 * i));
@@ -157,39 +100,49 @@ __device__ __forceinline__ void cp_async_wait() {
 // How many 16-column fragments (NF) a warp takes side by side, sharing
 // each A fragment: the NF in {1, 2, 3, 4} dividing `unit` (N / 16, or the
 // fragments per head where A depends on the head) with the fewest
-// fragment products on the busiest warp, the larger NF on a tie.
-__device__ __forceinline__ int pick_nf(int M, int N, int unit) {
+// fragment products on the busiest of nw warps, the larger NF on a tie.
+__device__ __forceinline__ int pick_nf(int M, int N, int unit, int nw) {
   int best = 1, best_cost = 1 << 30;
   for (int nf = 1; nf <= 4; ++nf) {
     if (unit % nf) continue;
     const int items = (M / 16) * (N / (16 * nf));
-    const int cost = (items + NW - 1) / NW * nf;
+    const int cost = (items + nw - 1) / nw * nf;
     if (cost <= best_cost) best = nf, best_cost = cost;
   }
   return best;
 }
 
 // Abramowitz-Stegun 7.1.26 erf, |error| < 1.5e-7 (the TPU kernel's
-// _erf_approx, ops/pallas/gdfn.py:58-65), with the fast exp and divide:
-// much cheaper than erff in the GELU gate.
+// _erf_approx, ops/pallas/gdfn.py:58-65), on the hardware's approximate
+// reciprocal and 2^x (1 + 0.33 |x| is never subnormal, and a flushed
+// exp(-x^2) is an erf of +-1): much cheaper than erff in the GELU gate.
 __device__ __forceinline__ float erf_as(float x) {
   const float ax = fabsf(x);
-  const float t = __fdividef(1.f, 1.f + 0.3275911f * ax);
+  float t, e;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(t) : "f"(1.f + 0.3275911f * ax));
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(e) : "f"(ax * ax * -1.4426950408889634f));
   const float poly = t * (0.254829592f + t * (-0.284496736f + t * (1.421413741f +
                      t * (-1.453152027f + t * 1.061405429f))));
-  return copysignf(1.f - poly * __expf(-ax * ax), x);
+  return copysignf(1.f - poly * e, x);
 }
 
 __device__ __forceinline__ float gelu(float x) {
   return 0.5f * x * (1.f + erf_as(x * 0.70710678118654752f));
 }
 
-// Two adjacent bf16 as float2, and back (4-byte aligned); a += u * w.
+// Two adjacent values as float2, and back (bf16 4-byte, float 8-byte
+// aligned); a += u * w.
 __device__ __forceinline__ float2 ld2(const bf16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
+__device__ __forceinline__ float2 ld2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
 __device__ __forceinline__ void st2(bf16* p, float2 v) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v.x, v.y);
+}
+__device__ __forceinline__ void st2(float* p, float2 v) {
+  *reinterpret_cast<float2*>(p) = v;
 }
 __device__ __forceinline__ void fma2(float2& a, float2 u, float2 w) {
   a.x += u.x * w.x;
@@ -212,7 +165,9 @@ __device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const bf16* p) {
                : "memory");
 }
 
-// d[16x8] += a[16x16] b[16x8], bf16 operands, fp32 accumulation.
+// d[16x8] += a[16x16] b[16x8], bf16 operands, fp32 accumulation. A thread
+// holds rows lane/4 and lane/4 + 8 of d at columns 2 (lane%4) and + 1:
+// d[0], d[1] of the first row, d[2], d[3] of the second.
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
                                          unsigned b1) {
   asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
@@ -221,164 +176,196 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// C[M][N] = A[M][K] B[K][N], bf16 operands, fp32 accumulation, with
-// mma.sync m16n8k16 on ldmatrix fragments. With Acc, C is fp32 in shared
-// memory at accp (row stride ldc) and C += A B; else C is rounded to bf16
-// at out (row stride ldo). Each warp takes a 16 x (16 NF) strip of C at a
-// time; aptr(m0, n0, k0) gives the origin of A's 16x16 fragment (A may
-// depend on the output column, as per-head attention does), bptr(k, n)
-// element (k, n) of B. Row strides are multiples of 8 elements.
-template <int NF, bool Acc, class AP, class BP>
-__device__ void gemm_nf(int M, int N, int K, AP aptr, int lda, BP bptr, bf16* out, int ldo,
-                        float* accp, int ldc) {
+// lo, hi += A[16 x 16] B[16 x 16]: the two mma of one 16-column fragment
+// (lo its columns 0-7, hi 8-15) on B's 16x16 block as one transposing
+// ldmatrix left it in b.
+__device__ __forceinline__ void frag_mma(float (&lo)[4], float (&hi)[4], const unsigned (&a)[4],
+                                         const unsigned (&b)[4]) {
+  mma_bf16(lo, a, b[0], b[1]);
+  mma_bf16(hi, a, b[2], b[3]);
+}
+
+// out[M][N] (bf16, row stride ldo) = A[M][K] B[K][N], bf16 operands, fp32
+// accumulation, with mma.sync m16n8k16 on ldmatrix fragments, by a block of
+// NTA threads. Each warp takes a 16 x (16 NF) strip at a time;
+// aptr(m0, n0, k0) gives the origin of A's 16x16 fragment (A may depend on
+// the output column, as per-head attention does), bptr(k, n) element (k, n)
+// of B. Row strides are multiples of 8 elements. A k-step's fragments are all
+// loaded before its mma run. (A second register set loaded a step ahead was
+// tried and lost to spills at 128 registers a thread.)
+template <int NF, class AP, class BP>
+__device__ void gemm_nf(int M, int N, int K, AP aptr, int lda, BP bptr, bf16* out, int ldo) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, q2 = (lane & 3) * 2;  // the accumulator's row and column pair
   const int ng = N / (16 * NF), items = (M / 16) * ng;
-  for (int it = warp; it < items; it += NW) {
+  for (int it = warp; it < items; it += NWA) {
     const int m0 = (it / ng) * 16, n0 = (it % ng) * 16 * NF;
     float acc[2 * NF][4];
 #pragma unroll
-    for (int j = 0; j < 2 * NF; ++j) {
-      if constexpr (Acc) {
-        const float* c = accp + (m0 + g) * ldc + n0 + 8 * j + q2;
-        const float2 lo = *reinterpret_cast<const float2*>(c);
-        const float2 hi = *reinterpret_cast<const float2*>(c + 8 * ldc);
-        acc[j][0] = lo.x, acc[j][1] = lo.y, acc[j][2] = hi.x, acc[j][3] = hi.y;
-      } else {
-        acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-      }
-    }
+    for (int j = 0; j < 2 * NF; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
     for (int k = 0; k < K; k += 16) {
-      unsigned a[4];
+      unsigned a[4], b[NF][4];
       ldsm_x4(a, aptr(m0, n0, k) + (lane & 15) * lda + (lane >> 4) * 8);
 #pragma unroll
-      for (int j = 0; j < NF; ++j) {
-        unsigned b[4];
-        ldsm_x4_t(b, bptr(k + (lane & 15), n0 + 16 * j + (lane >> 4) * 8));
-        mma_bf16(acc[2 * j], a, b[0], b[1]);
-        mma_bf16(acc[2 * j + 1], a, b[2], b[3]);
-      }
+      for (int j = 0; j < NF; ++j)
+        ldsm_x4_t(b[j], bptr(k + (lane & 15), n0 + 16 * j + (lane >> 4) * 8));
+#pragma unroll
+      for (int j = 0; j < NF; ++j) frag_mma(acc[2 * j], acc[2 * j + 1], a, b[j]);
     }
 #pragma unroll
     for (int j = 0; j < 2 * NF; ++j) {
-      if constexpr (Acc) {
-        float* c = accp + (m0 + g) * ldc + n0 + 8 * j + q2;
-        *reinterpret_cast<float2*>(c) = make_float2(acc[j][0], acc[j][1]);
-        *reinterpret_cast<float2*>(c + 8 * ldc) = make_float2(acc[j][2], acc[j][3]);
-      } else {
-        bf16* o = out + (m0 + g) * ldo + n0 + 8 * j + q2;
-        *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(acc[j][0], acc[j][1]);
-        *reinterpret_cast<__nv_bfloat162*>(o + 8 * ldo) = __floats2bfloat162_rn(acc[j][2], acc[j][3]);
-      }
+      bf16* o = out + (m0 + g) * ldo + n0 + 8 * j + q2;
+      st2(o, make_float2(acc[j][0], acc[j][1]));
+      st2(o + 8 * ldo, make_float2(acc[j][2], acc[j][3]));
     }
   }
 }
 
-template <bool Acc, class AP, class BP>
-__device__ void gemm_any(int M, int N, int K, int unit, AP aptr, int lda, BP bptr, bf16* out,
-                         int ldo, float* accp, int ldc) {
-  switch (pick_nf(M, N, unit)) {
-    case 4: gemm_nf<4, Acc>(M, N, K, aptr, lda, bptr, out, ldo, accp, ldc); break;
-    case 3: gemm_nf<3, Acc>(M, N, K, aptr, lda, bptr, out, ldo, accp, ldc); break;
-    case 2: gemm_nf<2, Acc>(M, N, K, aptr, lda, bptr, out, ldo, accp, ldc); break;
-    default: gemm_nf<1, Acc>(M, N, K, aptr, lda, bptr, out, ldo, accp, ldc);
-  }
-}
-
-// out[M][N] = bf16(A[M][K] B[K][N]); `unit` as in pick_nf.
+// gemm_nf with the NF that pick_nf chooses; `unit` as there.
 template <class AP, class BP>
 __device__ void gemm(int M, int N, int K, int unit, AP aptr, int lda, BP bptr, bf16* out,
                      int ldo) {
-  gemm_any<false>(M, N, K, unit, aptr, lda, bptr, out, ldo, nullptr, 0);
-}
-
-// acc[M][N] (fp32, shared, row-major, ldc) += A[M][K] B[K][N].
-template <class AP, class BP>
-__device__ void gemm_acc(int M, int N, int K, AP aptr, int lda, BP bptr, float* accp, int ldc) {
-  gemm_any<true>(M, N, K, N / 16, aptr, lda, bptr, nullptr, 0, accp, ldc);
+  switch (pick_nf(M, N, unit, NWA)) {
+    case 4: gemm_nf<4>(M, N, K, aptr, lda, bptr, out, ldo); break;
+    case 3: gemm_nf<3>(M, N, K, aptr, lda, bptr, out, ldo); break;
+    case 2: gemm_nf<2>(M, N, K, aptr, lda, bptr, out, ldo); break;
+    default: gemm_nf<1>(M, N, K, aptr, lda, bptr, out, ldo);
+  }
 }
 
 __device__ __forceinline__ bool inside(const Geo& g, int yy, int xx) {
   return yy >= 0 && yy < g.H && xx >= 0 && xx < g.W;
 }
 
-// Copy the (th+2R) x (tw+2R) pixels around a tile (C channels each) into
-// shared-memory rows of stride ldd (a multiple of 4 floats or 8 bf16), with
-// 16-byte loads by the whole block, U in flight per thread; pixels outside
-// the image and rows n..m are zero. bf16 x may go to a float dst.
-template <class T, class D>
-__device__ void load_region(const T* x, D* dst, int ldd, const Geo& g, int b, int y0,
-                            int x0, int R, int m) {
-  constexpr int VE = 16 / sizeof(T), U = 4;
-  const int wr = g.tw + 2 * R, n = (g.th + 2 * R) * wr, nv = g.C / VE, total = m * nv;
-  for (int i0 = threadIdx.x; i0 < total; i0 += NT * U) {
-    uint4 v[U];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int i = i0 + u * NT, p = i / nv;
-      const int yy = y0 - R + p / wr, xx = x0 - R + p % wr;
-      v[u] = make_uint4(0u, 0u, 0u, 0u);
-      if (i < total && p < n && inside(g, yy, xx))
-        v[u] = *reinterpret_cast<const uint4*>(
-            x + (((size_t)b * g.H + yy) * g.W + xx) * g.C + (i % nv) * VE);
+// Copy the (th+2) x (tw+2) pixels around a tile (C bf16 channels each) into
+// shared-memory rows of stride ldd (a multiple of 8) with 16-byte cp.async
+// copies by the whole block of NTA threads, as one group: the copy overlaps
+// what follows until cp_async_wait() and a barrier. Pixels outside the image
+// and rows n..m are zeroed with plain stores.
+__device__ void load_halo_async(const bf16* x, bf16* dst, int ldd, const Geo& g, int b, int y0,
+                                int x0, int m) {
+  const int wr = g.tw + 2, n = (g.th + 2) * wr, nv = g.C / 8;
+  const int dr = NTA / nv, dc = NTA % nv;  // a thread's next copy, with no division
+  int p = threadIdx.x / nv, c = threadIdx.x % nv;
+  while (p < m) {
+    const int yy = y0 - 1 + p / wr, xx = x0 - 1 + p % wr;
+    bf16* d = dst + p * ldd + c * 8;
+    if (p < n && inside(g, yy, xx)) {
+      const unsigned sd = (unsigned)__cvta_generic_to_shared(d);
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(sd),
+                   "l"(x + (((size_t)b * g.H + yy) * g.W + xx) * g.C + c * 8));
+    } else {
+      *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
     }
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int i = i0 + u * NT;
-      if (i >= total) continue;
-      D* d = dst + (i / nv) * ldd + (i % nv) * VE;
-      if constexpr (std::is_same<T, D>::value) {
-        *reinterpret_cast<uint4*>(d) = v[u];
-      } else {
-        static_assert(std::is_same<T, bf16>::value && std::is_same<D, float>::value, "");
-        const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v[u]);
-        const float2 f0 = __bfloat1622float2(h[0]), f1 = __bfloat1622float2(h[1]);
-        const float2 f2 = __bfloat1622float2(h[2]), f3 = __bfloat1622float2(h[3]);
-        reinterpret_cast<float4*>(d)[0] = make_float4(f0.x, f0.y, f1.x, f1.y);
-        reinterpret_cast<float4*>(d)[1] = make_float4(f2.x, f2.y, f3.x, f3.y);
-      }
-    }
+    p += dr;
+    c += dc;
+    if (c >= nv) c -= nv, ++p;
   }
+  asm volatile("cp.async.commit_group;\n" ::);
 }
 
-// ---- the GDFN half of a block on one tile --------------------------------
+// ---- cycles per phase (the -DRAIE_PHASE_CLOCKS build only) ---------------
 
-// Shared memory of a block that ends in gdfn_tile (host and device agree
-// through this). With `attn`, the layout of stage.cu's kernel (C), whose
-// weight buffers also hold attn^T and W_proj and which keeps v and attn@v;
-// else that of gdfn.cu's kernel. With `dbl`, two weight buffers (one is read
-// while the other loads, where they fit); else one.
+// In the instrumented build thread 0 of a block reads clock64() at each phase
+// boundary and adds the difference to that phase's slot, kept in shared
+// memory and written at the block's end to its row of a device buffer that
+// the host sets beforehand. The normal build compiles all of it away.
+constexpr int PHASE_SLOTS = 16;  // per block; the last slot counts tiles
+#ifdef RAIE_PHASE_CLOCKS
+struct PhaseClock {
+  long long* acc;
+  long long last;
+  __device__ PhaseClock(long long* shared_slots) : acc(shared_slots) {
+    if (threadIdx.x == 0) {
+      for (int i = 0; i < PHASE_SLOTS; ++i) acc[i] = 0;
+      last = clock64();
+    }
+  }
+  __device__ __forceinline__ void mark(int phase) {
+    if (threadIdx.x == 0) {
+      const long long t = clock64();
+      acc[phase] += t - last;
+      last = t;
+    }
+  }
+  __device__ __forceinline__ void tile() {
+    if (threadIdx.x == 0) acc[PHASE_SLOTS - 1] += 1;
+  }
+  // a barrier that only the instrumented build needs, to end a phase
+  __device__ __forceinline__ void sync() { __syncthreads(); }
+  __device__ void flush(long long* buf) {
+    if (threadIdx.x == 0 && buf != nullptr) {
+      long long* row = buf + (size_t)(blockIdx.y * gridDim.x + blockIdx.x) * PHASE_SLOTS;
+      for (int i = 0; i < PHASE_SLOTS; ++i) row[i] = acc[i];
+    }
+  }
+};
+#define PHASE_CLOCK(pc)                          \
+  __shared__ long long pc##_slots[PHASE_SLOTS];  \
+  PhaseClock pc(pc##_slots)
+#else
+struct PhaseClock {
+  __device__ __forceinline__ void mark(int) {}
+  __device__ __forceinline__ void tile() {}
+  __device__ __forceinline__ void sync() {}
+  __device__ __forceinline__ void flush(long long*) {}
+};
+#define PHASE_CLOCK(pc) PhaseClock pc
+#endif
+
+// Phases of a block that ends in gdfn_tile (stage.cu's kernel (C) counts all
+// of them, gdfn.cu's kernel from PH_LN2 on).
+enum { PH_LOAD, PH_ATTN_V, PH_PROJ, PH_LN2, PH_W_IN, PH_DW_GATE, PH_W_OUT, PH_STORE };
+
+// ---- a tile that ends in the GDFN ----------------------------------------
+
+// Shared memory of such a block (host and device agree through this). With
+// `attn`, the layout of stage.cu's kernel (C), which first holds attn^T,
+// W_proj, v and attn @ v; else that of gdfn.cu's kernel. Three regions alias
+// by lifetime:
+//   w:  attn^T and W_proj side by side, dead after the W_proj product; then
+//       one W_in chunk (win) and one W_out chunk (wout).
+//   rn: attn @ v (bf16), dead after the W_proj product; then LN(r).
+//   x:  v on the halo, dead after the attn @ v product; then the seed of the
+//       W_out accumulator (r on the tile's own pixels, fp32), dead once every
+//       warp has it in registers; then the hidden chunk t2 and the gate gg.
+// Not aliased: two sets of a chunk's depthwise taps (one loads while the
+// other is read), the LayerNorm's weight and bias, and the partial row sums
+// that warps swap where more than one shares a row of r (C > 96).
 struct FfnSmem {
-  size_t wb0, wb1, rn, oa, r, t2, gg, acc, taps, lnw, lnb, total;
-  __host__ __device__ FfnSmem(int th, int tw, int C, int fc, bool dbl, bool attn) {
-    const int m1 = round16((th + 2) * (tw + 2)), P = th * tw, LX = C + PAD, LA = C + PADF;
-    size_t wb_elems = max2((size_t)C * (2 * fc + PAD), (size_t)fc * (C + PAD));
-    if (attn) wb_elems = max2(wb_elems, (size_t)C * (C + PAD));
-    const size_t wb_bytes = align128(wb_elems * 2);
+  size_t w, wproj, win, wout, rn, x, t2, gg, taps, lnw, lnb, stat, total;
+  __host__ __device__ FfnSmem(int th, int tw, int C, int hc, int fc, bool attn) {
+    const int m1 = round16((th + 2) * (tw + 2)), P = th * tw, LX = C + PAD;
+    const size_t win_b = align128((size_t)C * (2 * fc + PAD) * 2);
+    const size_t wout_b = align128((size_t)fc * LX * 2);
+    const size_t attn_b = align128((size_t)hc * LX * 2), proj_b = align128((size_t)C * LX * 2);
+    const size_t rows_b = align128((size_t)m1 * LX * 2);
+    const size_t t2_b = align128((size_t)m1 * (2 * fc + PAD) * 2);
+    const size_t gg_b = align128((size_t)P * (fc + PAD) * 2);
+    const size_t seed_b = align128((size_t)P * (C + PADF) * 4);
     size_t o = 0;
-    wb0 = o;   o += wb_bytes;
-    wb1 = dbl ? o : wb0;  o += dbl ? wb_bytes : 0;
-    rn = o;    o += align128((size_t)m1 * LX * 2);  // (v, then) LN(r)
-    oa = o;    o += attn ? align128((size_t)m1 * LX * 2) : 0;  // attn@v
-    r = o;     o += align128((size_t)m1 * LA * 4);
-    t2 = o;    o += align128((size_t)m1 * (2 * fc + PAD) * 2);
-    gg = o;    o += align128((size_t)P * (fc + PAD) * 2);
-    acc = o;   o += align128((size_t)P * LA * 4);
-    taps = o;  o += align128((size_t)18 * fc * 4);  // one chunk's dw taps
-    lnw = o;   o += align128((size_t)C * 4);        // the LayerNorm's weight
-    lnb = o;   o += align128((size_t)C * 4);        // and bias
+    w = o;      win = w;  wout = w + win_b;  wproj = w + attn_b;
+    o += max2(win_b + wout_b, attn ? attn_b + proj_b : 0);
+    rn = o;     o += rows_b;
+    x = o;      t2 = x;  gg = x + t2_b;
+    o += max2(max2(t2_b + gg_b, seed_b), attn ? rows_b : 0);
+    taps = o;   o += align128((size_t)2 * 18 * fc * 4);
+    lnw = o;    o += align128((size_t)C * 4);
+    lnb = o;    o += align128((size_t)C * 4);
+    stat = o;   o += C > 16 * MAXF ? align128((size_t)2 * m1 * 4 * 4) : 0;
     total = o;
   }
 };
 
 struct FfnBufs {
-  bf16 *wb0, *wb1, *rn, *t2, *gg;
-  float *r, *acc, *taps, *lnw, *lnb;
+  bf16 *win, *wout, *rn, *t2, *gg;
+  float *seed, *taps, *lnw, *lnb, *stat;
+  __device__ FfnBufs() {}
   __device__ FfnBufs(unsigned char* smem, const FfnSmem& L)
-      : wb0((bf16*)(smem + L.wb0)), wb1((bf16*)(smem + L.wb1)), rn((bf16*)(smem + L.rn)),
-        t2((bf16*)(smem + L.t2)), gg((bf16*)(smem + L.gg)), r((float*)(smem + L.r)),
-        acc((float*)(smem + L.acc)), taps((float*)(smem + L.taps)),
-        lnw((float*)(smem + L.lnw)), lnb((float*)(smem + L.lnb)) {}
+      : win((bf16*)(smem + L.win)), wout((bf16*)(smem + L.wout)), rn((bf16*)(smem + L.rn)),
+        t2((bf16*)(smem + L.t2)), gg((bf16*)(smem + L.gg)), seed((float*)(smem + L.x)),
+        taps((float*)(smem + L.taps)), lnw((float*)(smem + L.lnw)),
+        lnb((float*)(smem + L.lnb)), stat((float*)(smem + L.stat)) {}
 };
 
 // The GDFN's weights in the kernels' layout: W_in (C, 2Fp) with the gate's
@@ -391,133 +378,418 @@ struct FfnWeights {
 };
 
 // Start the loads of hidden chunk [f0, f0 + FC): W_in's columns of both
-// halves side by side into wb0, and the 18 rows of depthwise taps.
+// halves side by side into s.win, and the 18 rows of depthwise taps into
+// set `set` (0 or 1) of s.taps. One cp.async group.
 template <int FC>
-__device__ __forceinline__ void ffn_load_chunk(const FfnBufs& s, const FfnWeights& wt, const Geo& g, int f0) {
+__device__ __forceinline__ void ffn_load_chunk(const FfnBufs& s, const FfnWeights& wt,
+                                               const Geo& g, int f0, int set) {
   constexpr int fc = FC, f4 = FC / 4;
   const int Fp = g.Fp, F2 = 2 * Fp;
-  for (int i = threadIdx.x; i < 18 * f4; i += NT) {
+  float* taps = s.taps + set * 18 * fc;
+  for (int i = threadIdx.x; i < 18 * f4; i += NTA) {
     const int row = i / f4, tap = row % 9, half = row / 9;
-    const unsigned d = (unsigned)__cvta_generic_to_shared(s.taps + row * fc + (i % f4) * 4);
+    const unsigned d = (unsigned)__cvta_generic_to_shared(taps + row * fc + (i % f4) * 4);
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
                  "l"(wt.wdw + (size_t)tap * F2 + half * Fp + f0 + (i % f4) * 4));
   }
   const bf16* win = wt.win;
-  load_b_async(s.wb0, g.C, 2 * fc, [=](int k, int n) {
+  load_b_async(s.win, g.C, 2 * fc, [=](int k, int n) {
     return win + (size_t)k * F2 + (n < fc ? f0 + n : Fp + f0 + n - fc);
   });
 }
 
+// What stage.cu's kernel (C) gives r_ln_tile beyond the tile, all in shared
+// memory: v on the halo and attn @ v (m1 rows of stride C + PAD), attn^T (hc
+// rows) and W_proj (C rows) of the same stride.
+struct AttnIn {
+  const bf16* v;
+  const bf16* attn_t;
+  const bf16* wproj;
+  bf16* oa;
+};
+
+// r = x [+ (attn @ v) @ W_proj] on the tile's 1-pixel halo, LN(r) (bf16) to
+// s.rn, and with Seed r on the tile's own pixels (fp32) to s.seed; r itself
+// stays in registers. It reads s.lnw, s.lnb and s.stat besides. A warp owns
+// 16 halo rows by nf <= MAXF fragments of 16 channels
+// as mma accumulators: a row's channels then lie in the 4 lanes of a quad,
+// and where C > 96 in the quads of the ncw warps that share the row. The
+// 16-row tiles go round by round where there are more of them than warps.
+// With Attn, a warp first takes attn @ v of its rows (per head) and stores
+// it as bf16 to a.oa: where one warp owns whole rows (ncw = 1) nobody else
+// reads them and the W_proj product follows after a __syncwarp alone.
+// LN(r) is zero on the ring outside the image, where torch zero-pads the
+// depthwise input (BiasFree gives that by itself, r being 0 there; WithBias
+// masks); without apply_ln, bf16(r) stands in for LN(r).
+// products_done() runs once every product has read the w region, which the
+// caller may then load the first W_in chunk into. On return, s.rn and s.seed
+// are written but not yet fenced: gdfn_chunks begins with the barrier.
+// NFS > 0 fixes nf at compile time (C = 16 NFS <= 96, one warp to a row), so
+// the fragment loops carry no runtime bounds; NFS = 0 is any C.
+template <bool Attn, bool Seed, int NFS, class Tin, class F>
+__device__ __forceinline__ void r_ln_tile_n(const FfnBufs& s, const Tin* __restrict__ x,
+                                            const AttnIn& a, const Geo& g, int b, int y0, int x0,
+                                            float eps, bool apply_ln, bool with_bias,
+                                            F products_done, PhaseClock& pc) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, q2 = (lane & 3) * 2;        // accumulator row and column pair
+  const int lrow = lane & 15, lcol = (lane >> 4) * 8;  // this lane's ldmatrix row, column
+  const int C = g.C, NC = C / 16;
+  const int ncw = (NC + MAXF - 1) / MAXF, fpw = (NC + ncw - 1) / ncw;
+  const int LX = C + PAD, LS = C + PADF;
+  const int w1 = g.tw + 2, n1 = (g.th + 2) * w1, mtiles = round16(n1) / 16;
+  const int mt_round = NWA / ncw, rounds = (mtiles + mt_round - 1) / mt_round;
+  const int cg = warp % ncw, f_lo = cg * fpw;
+  int nf_any = NC - f_lo < fpw ? NC - f_lo : fpw;
+  if (nf_any < 0 || warp / ncw >= mt_round) nf_any = 0;
+  const int nf = NFS > 0 ? NFS : nf_any;
+
+  if constexpr (Attn) {
+    const int hc = g.hc;
+    int hoff[MAXF];  // first channel of the head each fragment lies in
+#pragma unroll
+    for (int j = 0; j < MAXF; ++j) hoff[j] = (f_lo + j) * 16 / hc * hc;
+    // all of this warp's fragments in one head: they share each A fragment
+    const bool one_head = nf == 0 || hoff[0] == (f_lo + nf - 1) * 16 / hc * hc;
+    for (int rd = 0; rd < rounds; ++rd) {
+      const int m0 = (rd * mt_round + warp / ncw) * 16;
+      if (nf == 0 || m0 >= mtiles * 16) continue;
+      float acc[2 * MAXF][4];
+#pragma unroll
+      for (int j = 0; j < 2 * MAXF; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+      // oa[p][h*hc + c] = sum_d v[p][h*hc + d] attn[h][c][d]; hc % 16 == 0,
+      // so a fragment lies within one head
+      // every fragment of a k-step is loaded before its mma run
+      for (int k = 0; k < hc; k += 16) {
+        unsigned bf[MAXF][4];
+#pragma unroll
+        for (int j = 0; j < MAXF; ++j)
+          if (j < nf) ldsm_x4_t(bf[j], a.attn_t + (k + lrow) * LX + (f_lo + j) * 16 + lcol);
+        if (one_head) {
+          unsigned af[4];
+          ldsm_x4(af, a.v + (m0 + lrow) * LX + hoff[0] + k + lcol);
+#pragma unroll
+          for (int j = 0; j < MAXF; ++j)
+            if (j < nf) frag_mma(acc[2 * j], acc[2 * j + 1], af, bf[j]);
+        } else {
+          unsigned af[MAXF][4];
+#pragma unroll
+          for (int j = 0; j < MAXF; ++j)
+            if (j < nf) ldsm_x4(af[j], a.v + (m0 + lrow) * LX + hoff[j] + k + lcol);
+#pragma unroll
+          for (int j = 0; j < MAXF; ++j)
+            if (j < nf) frag_mma(acc[2 * j], acc[2 * j + 1], af[j], bf[j]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 2 * MAXF; ++j) {
+        if (j >= 2 * nf) continue;
+        bf16* o = a.oa + (m0 + gq) * LX + f_lo * 16 + 8 * j + q2;
+        st2(o, make_float2(acc[j][0], acc[j][1]));
+        st2(o + 8 * LX, make_float2(acc[j][2], acc[j][3]));
+      }
+    }
+    // attn @ v is read along whole rows: by the warp that wrote them where it
+    // owns them, else by the row's other warps too
+    if (ncw > 1) __syncthreads(); else __syncwarp();
+    pc.mark(PH_ATTN_V);
+  }
+
+  for (int rd = 0; rd < rounds; ++rd) {
+    const int m0 = (rd * mt_round + warp / ncw) * 16;
+    const bool active = nf > 0 && m0 < mtiles * 16;
+    const int row0 = m0 + gq, row1 = row0 + 8;
+    const int hy0 = row0 / w1, hx0 = row0 % w1, hy1 = row1 / w1, hx1 = row1 % w1;
+    const int yy0 = y0 - 1 + hy0, xx0 = x0 - 1 + hx0, yy1 = y0 - 1 + hy1, xx1 = x0 - 1 + hx1;
+    const bool in0 = active && row0 < n1 && inside(g, yy0, xx0);
+    const bool in1 = active && row1 < n1 && inside(g, yy1, xx1);
+    const int c0 = f_lo * 16 + q2;  // this lane's first channel
+    const Tin* px0 = x + (((size_t)b * g.H + (in0 ? yy0 : 0)) * g.W + (in0 ? xx0 : 0)) * C + c0;
+    const Tin* px1 = x + (((size_t)b * g.H + (in1 ? yy1 : 0)) * g.W + (in1 ? xx1 : 0)) * C + c0;
+    // the accumulators start at x, read in their own layout (0 outside the
+    // image and on the padding rows)
+    float acc[2 * MAXF][4];
+#pragma unroll
+    for (int j = 0; j < 2 * MAXF; ++j) {
+      const float2 lo = in0 && j < 2 * nf ? ld2(px0 + 8 * j) : make_float2(0.f, 0.f);
+      const float2 hi = in1 && j < 2 * nf ? ld2(px1 + 8 * j) : make_float2(0.f, 0.f);
+      acc[j][0] = lo.x, acc[j][1] = lo.y, acc[j][2] = hi.x, acc[j][3] = hi.y;
+    }
+    if constexpr (Attn) {
+      if (active) {
+        // r = x + bf16(attn @ v) @ W_proj
+        for (int k = 0; k < C; k += 16) {
+          unsigned af[4], bf[MAXF][4];
+          ldsm_x4(af, a.oa + (m0 + lrow) * LX + k + lcol);
+#pragma unroll
+          for (int j = 0; j < MAXF; ++j)
+            if (j < nf) ldsm_x4_t(bf[j], a.wproj + (k + lrow) * LX + (f_lo + j) * 16 + lcol);
+#pragma unroll
+          for (int j = 0; j < MAXF; ++j)
+            if (j < nf) frag_mma(acc[2 * j], acc[2 * j + 1], af, bf[j]);
+        }
+      }
+      pc.mark(PH_PROJ);
+    }
+    // two-pass statistics of rows row0 and row1 over all C channels
+    float mean0 = 0.f, mean1 = 0.f, inv0 = 1.f, inv1 = 1.f;
+    if (apply_ln) {
+      // sums over the quad, then over the row's warps (in a fixed order)
+      auto row_sums = [&](float& v0, float& v1, float* st) {
+        v0 += __shfl_xor_sync(0xffffffffu, v0, 1);
+        v1 += __shfl_xor_sync(0xffffffffu, v1, 1);
+        v0 += __shfl_xor_sync(0xffffffffu, v0, 2);
+        v1 += __shfl_xor_sync(0xffffffffu, v1, 2);
+        if (ncw > 1) {
+          if (active && (lane & 3) == 0) st[row0 * 4 + cg] = v0, st[row1 * 4 + cg] = v1;
+          __syncthreads();  // every warp's partial sums of this round's rows are written
+          if (active) {
+            v0 = v1 = 0.f;
+            for (int c = 0; c < ncw; ++c) v0 += st[row0 * 4 + c], v1 += st[row1 * 4 + c];
+          }
+        }
+      };
+      float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < 2 * MAXF; ++j) {
+        if (j >= 2 * nf) continue;
+        s0 += acc[j][0] + acc[j][1];
+        s1 += acc[j][2] + acc[j][3];
+      }
+      row_sums(s0, s1, s.stat);
+      mean0 = s0 / C, mean1 = s1 / C;
+      float d0 = 0.f, d1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < 2 * MAXF; ++j) {
+        if (j >= 2 * nf) continue;
+        const float e0 = acc[j][0] - mean0, e1 = acc[j][1] - mean0;
+        const float e2 = acc[j][2] - mean1, e3 = acc[j][3] - mean1;
+        d0 += e0 * e0 + e1 * e1;
+        d1 += e2 * e2 + e3 * e3;
+      }
+      row_sums(d0, d1, s.stat + 4 * 16 * mtiles);
+      inv0 = rsqrtf(d0 / C + eps), inv1 = rsqrtf(d1 / C + eps);
+    }
+    // Every warp is past this round's products, and the LayerNorm's weights
+    // (copied with cp.async) have landed: attn @ v and v are dead, so LN(r)
+    // and the seed may overwrite them; after the last round attn^T and
+    // W_proj are dead too.
+    cp_async_wait();
+    __syncthreads();
+    if (rd == rounds - 1) products_done();
+    if (!active) continue;
+    const bool bias = apply_ln && with_bias;
+    // the tile's own pixels among the halo rows, at their index in the tile
+    const bool own0 = hy0 >= 1 && hy0 <= g.th && hx0 >= 1 && hx0 <= g.tw;
+    const bool own1 = hy1 >= 1 && hy1 <= g.th && hx1 >= 1 && hx1 <= g.tw;
+    float* seed0 = s.seed + ((hy0 - 1) * g.tw + hx0 - 1) * LS + c0;
+    float* seed1 = s.seed + ((hy1 - 1) * g.tw + hx1 - 1) * LS + c0;
+    bf16* rn0 = s.rn + row0 * LX + c0;
+#pragma unroll
+    for (int j = 0; j < 2 * MAXF; ++j) {
+      if (j >= 2 * nf) continue;
+      float2 lo = make_float2(acc[j][0], acc[j][1]), hi = make_float2(acc[j][2], acc[j][3]);
+      if constexpr (Seed) {
+        if (own0) st2(seed0 + 8 * j, lo);
+        if (own1) st2(seed1 + 8 * j, hi);
+      }
+      if (apply_ln) {
+        const float2 w = *reinterpret_cast<const float2*>(s.lnw + c0 + 8 * j);
+        if (bias) {
+          const float2 bb = *reinterpret_cast<const float2*>(s.lnb + c0 + 8 * j);
+          lo = in0 ? make_float2((lo.x - mean0) * inv0 * w.x + bb.x,
+                                 (lo.y - mean0) * inv0 * w.y + bb.y)
+                   : make_float2(0.f, 0.f);
+          hi = in1 ? make_float2((hi.x - mean1) * inv1 * w.x + bb.x,
+                                 (hi.y - mean1) * inv1 * w.y + bb.y)
+                   : make_float2(0.f, 0.f);
+        } else {
+          lo = make_float2(lo.x * inv0 * w.x, lo.y * inv0 * w.y);
+          hi = make_float2(hi.x * inv1 * w.x, hi.y * inv1 * w.y);
+        }
+      }
+      st2(rn0 + 8 * j, lo);
+      st2(rn0 + 8 * LX + 8 * j, hi);
+    }
+  }
+}
+
+template <bool Attn, bool Seed, class Tin, class F>
+__device__ __forceinline__ void r_ln_tile(const FfnBufs& s, const Tin* __restrict__ x,
+                                          const AttnIn& a, const Geo& g, int b, int y0, int x0,
+                                          float eps, bool apply_ln, bool with_bias,
+                                          F products_done, PhaseClock& pc) {
+  if (g.C == 16 * MAXF)
+    r_ln_tile_n<Attn, Seed, MAXF>(s, x, a, g, b, y0, x0, eps, apply_ln, with_bias,
+                                  products_done, pc);
+  else
+    r_ln_tile_n<Attn, Seed, 0>(s, x, a, g, b, y0, x0, eps, apply_ln, with_bias,
+                               products_done, pc);
+}
+
 // y = r + W_out (gelu(t1) * t2), t = dw3x3(W_in LN(r)), on the tile at
-// (y0, x0) of sample b. s.r holds r in fp32 on the tile's 1-pixel halo (m1
-// rows of stride C + PADF, 0 outside the image). LN(r) is zero on the ring
-// outside the image, where torch zero-pads the depthwise input; without
-// apply_ln, bf16(r) stands in for it. The hidden channels go in chunks of
-// FC (= g.fc, a template parameter so the depthwise step's strides are
-// constants): W_in chunk, dw3x3 over the real halo, GELU gate, W_out accumulated
-// onto r in s.acc. With two weight buffers W_out's chunk loads during the
-// W_in product and W_in's next chunk during the W_out product; with one,
-// each loads while the depthwise step runs. The caller has started chunk
-// 0's load (ffn_load_chunk) and its copies into s.lnw / s.lnb have landed.
+// (y0, x0) of sample b, after r_ln_tile: s.rn holds LN(r) on the tile's
+// 1-pixel halo (m1 rows of stride C + PAD) and s.seed r on the tile's own
+// pixels. The hidden channels go in chunks of FC (= g.fc, a template
+// parameter so the depthwise step's strides are constants): W_in chunk,
+// dw3x3 over the real halo, GELU gate, W_out accumulated in registers: a warp
+// keeps up to OUTF 16x16 fragments of the tile-pixels x C output from the
+// seed to the store. The caller has started chunk 0's loads (ffn_load_chunk
+// into taps set 0). Weights load a phase ahead: W_in's next chunk and W_out's
+// current one while the depthwise step runs. Two barriers a chunk.
 template <int FC, class Tout>
-__device__ __forceinline__ void gdfn_tile(const FfnBufs& s, Tout* __restrict__ y, const FfnWeights& wt,
-                          const Geo& g, int b, int y0, int x0, float eps, bool dbl,
-                          bool apply_ln, bool with_bias) {
+__device__ __forceinline__ void gdfn_chunks(const FfnBufs& s, Tout* __restrict__ y,
+                                            const FfnWeights& wt, const Geo& g, int b, int y0,
+                                            int x0, PhaseClock& pc) {
   constexpr int fc = FC, LT2 = 2 * FC + PAD, LGG = FC + PAD;
-  const int C = g.C, Fp = g.Fp, th = g.th, tw = g.tw;
-  const int LX = C + PAD, LB = C + PAD, LA = C + PADF;
-  const int w1 = tw + 2, n1 = (th + 2) * w1, m1 = round16(n1), P = th * tw;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, q2 = (lane & 3) * 2;
+  const int lrow = lane & 15, lcol = (lane >> 4) * 8;
+  const int C = g.C, NC = C / 16, Fp = g.Fp, th = g.th, tw = g.tw;
+  const int LX = C + PAD, LS = C + PADF;
+  const int w1 = tw + 2, m1 = round16((th + 2) * w1), P = th * tw;
   bf16* rn = s.rn;
   bf16* t2 = s.t2;
   bf16* gg = s.gg;
-  float* acc = s.acc;
-  const float* taps = s.taps;
-  auto at_ld = [](const bf16* base, int ld) {
-    return [=](int k, int n) { return base + k * ld + n; };
-  };
-  const int C4 = C / 4;
-  if (apply_ln) {
-    ln_rows(s.r, LA, s.lnw, with_bias ? s.lnb : nullptr, rn, LX, m1, C, eps,
-            [&](int p) { return p < n1 && inside(g, y0 - 1 + p / w1, x0 - 1 + p % w1); });
-  } else {
-    for (int idx = threadIdx.x; idx < m1 * C4; idx += NT) {
-      const int p = idx / C4, c = idx % C4 * 4;
-      st4(rn + p * LX + c, *reinterpret_cast<const float4*>(s.r + p * LA + c));
+  // this warp's fragments of the output: [lo, lo + nmine) of the P/16 x NC,
+  // row-major, so neighbours share gg's rows
+  const int total = (P / 16) * NC, fpw = (total + NWA - 1) / NWA;
+  const int lo = warp * fpw;
+  const int nmine = total - lo < fpw ? (total - lo < 0 ? 0 : total - lo) : fpw;
+  int orow[OUTF], ocol[OUTF];  // each fragment's first tile pixel and channel
+#pragma unroll
+  for (int i = 0; i < OUTF; ++i) orow[i] = (lo + i) / NC * 16, ocol[i] = (lo + i) % NC * 16;
+  // all OUTF fragments are this warp's and lie in the same 16 pixels: they
+  // share each A fragment, and the product loop needs no bounds
+  const bool one_row = nmine == OUTF && orow[0] == orow[OUTF - 1];
+
+  cp_async_wait();
+  __syncthreads();  // LN(r), the seed, W_in's chunk 0 and its taps are visible
+  float oacc[2 * OUTF][4];
+#pragma unroll
+  for (int i = 0; i < OUTF; ++i) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float* sp = s.seed + (orow[i] + gq) * LS + ocol[i] + 8 * h + q2;
+      const float2 a0 = i < nmine ? ld2(sp) : make_float2(0.f, 0.f);
+      const float2 a1 = i < nmine ? ld2(sp + 8 * LS) : make_float2(0.f, 0.f);
+      oacc[2 * i + h][0] = a0.x, oacc[2 * i + h][1] = a0.y;
+      oacc[2 * i + h][2] = a1.x, oacc[2 * i + h][3] = a1.y;
     }
   }
-  // the output accumulator starts at r
-  for (int idx = threadIdx.x; idx < P * C4; idx += NT) {
-    const int p = idx / C4, c = idx % C4 * 4;
-    *reinterpret_cast<float4*>(acc + p * LA + c) =
-        *reinterpret_cast<const float4*>(s.r + ((p / tw + 1) * w1 + p % tw + 1) * LA + c);
-  }
-  cp_async_wait();
-  __syncthreads();
-  for (int f0 = 0; f0 < Fp; f0 += fc) {
-    const bool more = f0 + fc < Fp;
-    auto wout_chunk = [&] {
-      const bf16* wout = wt.wout;
-      load_b_async(s.wb1, fc, C, [=](int k, int n) { return wout + (size_t)(f0 + k) * C + n; });
-    };
-    if (dbl) wout_chunk();
-    gemm(m1, 2 * fc, C, 2 * fc / 16, [&](int m, int, int k) { return rn + m * LX + k; }, LX,
-         at_ld(s.wb0, LT2), t2, LT2);
+  __syncthreads();  // every warp has its seed: t2 and gg may overwrite it
+  pc.mark(PH_LN2);
+
+  int set = 0;
+  for (int f0 = 0; f0 < Fp; f0 += fc, set ^= 1) {
+    // t2 = bf16(LN(r) @ W_in[:, chunk]) on the halo, both halves side by side
+    const bf16* win = s.win;
+    gemm_nf<4>(m1, 2 * fc, C, [=](int m, int, int k) { return rn + m * LX + k; }, LX,
+                    [=](int k, int n) { return win + k * LT2 + n; }, t2, LT2);
+    // t2 is complete; and every warp is past the last chunk's W_out product,
+    // so s.win, s.wout and gg are free
     __syncthreads();
-    if (!dbl) wout_chunk();
-    // dw3x3 + GELU gate down each column of the tile; a thread keeps one
-    // (hidden channel, column)'s 18 taps and two 3x3 windows in registers
-    for (int idx = threadIdx.x; idx < fc * tw; idx += NT) {
-      const int f = idx % fc, j = idx / fc;
-      float w1k[9], w2k[9], u1[3][3], u2[3][3];
+    pc.mark(PH_W_IN);
+    if (f0 + fc < Fp) ffn_load_chunk<FC>(s, wt, g, f0 + fc, set ^ 1);
+    {
+      const bf16* wout = wt.wout + (size_t)f0 * C;
+      load_b_async(s.wout, fc, C, [=](int k, int n) { return wout + (size_t)k * C + n; });
+    }
+    // dw3x3 + GELU gate: a thread takes one hidden channel and two adjacent
+    // columns of the tile down all its rows, with the channel's 18 taps and
+    // three halo rows by four halo columns of each half in registers. The
+    // rows' slots rotate by index, three rows to a turn of the loop, so no
+    // value moves between registers.
+    const float* taps = s.taps + set * 18 * fc;
+    for (int idx = threadIdx.x; idx < fc * (tw / 2); idx += NTA) {
+      const int f = idx % fc, j = idx / fc * 2;
+      float w1k[9], w2k[9], u1[3][4], u2[3][4];
 #pragma unroll
       for (int tap = 0; tap < 9; ++tap) {
         w1k[tap] = taps[tap * fc + f];
         w2k[tap] = taps[(9 + tap) * fc + f];
       }
 #pragma unroll
-      for (int di = 0; di < 2; ++di)
+      for (int row = 0; row < 2; ++row)
 #pragma unroll
-        for (int dj = 0; dj < 3; ++dj) {
-          const bf16* tp = t2 + (di * w1 + j + dj) * LT2;
-          u1[di + 1][dj] = __bfloat162float(tp[f]);
-          u2[di + 1][dj] = __bfloat162float(tp[fc + f]);
+        for (int c = 0; c < 4; ++c) {
+          const bf16* tp = t2 + (row * w1 + j + c) * LT2;
+          u1[row][c] = __bfloat162float(tp[f]);
+          u2[row][c] = __bfloat162float(tp[fc + f]);
         }
-#pragma unroll 2
-      for (int i = 0; i < th; ++i) {
-        float a1 = 0.f, a2 = 0.f;
+      for (int i0 = 0; i0 < th; i0 += 3) {
 #pragma unroll
-        for (int dj = 0; dj < 3; ++dj) {
-          const bf16* tp = t2 + ((i + 2) * w1 + j + dj) * LT2;
-          u1[0][dj] = u1[1][dj]; u1[1][dj] = u1[2][dj]; u1[2][dj] = __bfloat162float(tp[f]);
-          u2[0][dj] = u2[1][dj]; u2[1][dj] = u2[2][dj]; u2[2][dj] = __bfloat162float(tp[fc + f]);
+        for (int sl = 0; sl < 3; ++sl) {
+          const int i = i0 + sl;  // output row; halo row i + di lies in slot (sl + di) % 3
+          if (i >= th) break;
 #pragma unroll
-          for (int di = 0; di < 3; ++di) {
-            a1 += u1[di][dj] * w1k[di * 3 + dj];
-            a2 += u2[di][dj] * w2k[di * 3 + dj];
+          for (int c = 0; c < 4; ++c) {
+            const bf16* tp = t2 + ((i + 2) * w1 + j + c) * LT2;
+            u1[(sl + 2) % 3][c] = __bfloat162float(tp[f]);
+            u2[(sl + 2) % 3][c] = __bfloat162float(tp[fc + f]);
           }
+          float a1[2] = {0.f, 0.f}, a2[2] = {0.f, 0.f};
+#pragma unroll
+          for (int dj = 0; dj < 3; ++dj)
+#pragma unroll
+            for (int di = 0; di < 3; ++di)
+#pragma unroll
+              for (int o = 0; o < 2; ++o) {
+                a1[o] += u1[(sl + di) % 3][o + dj] * w1k[di * 3 + dj];
+                a2[o] += u2[(sl + di) % 3][o + dj] * w2k[di * 3 + dj];
+              }
+          gg[(i * tw + j) * LGG + f] = __float2bfloat16(gelu(a1[0]) * a2[0]);
+          gg[(i * tw + j + 1) * LGG + f] = __float2bfloat16(gelu(a1[1]) * a2[1]);
         }
-        gg[(i * tw + j) * LGG + f] = __float2bfloat16(gelu(a1) * a2);
       }
     }
+    // gg is complete and t2 free; this chunk's W_out and the next one's W_in
+    // and taps have landed
     cp_async_wait();
     __syncthreads();
-    if (dbl && more) ffn_load_chunk<FC>(s, wt, g, f0 + fc);
-    gemm_acc(P, C, fc, [&](int m, int, int k) { return gg + m * LGG + k; }, LGG,
-             at_ld(s.wb1, LB), acc, LA);
-    if (!dbl) {
-      __syncthreads();
-      if (more) ffn_load_chunk<FC>(s, wt, g, f0 + fc);
+    pc.mark(PH_DW_GATE);
+    // out += gg @ W_out[chunk, :], in registers
+    if (one_row) {
+#pragma unroll
+      for (int k = 0; k < fc; k += 16) {
+        unsigned af[4], bf[OUTF][4];
+        ldsm_x4(af, gg + (orow[0] + lrow) * LGG + k + lcol);
+#pragma unroll
+        for (int i = 0; i < OUTF; ++i) ldsm_x4_t(bf[i], s.wout + (k + lrow) * LX + ocol[i] + lcol);
+#pragma unroll
+        for (int i = 0; i < OUTF; ++i) frag_mma(oacc[2 * i], oacc[2 * i + 1], af, bf[i]);
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < fc; k += 16) {
+        unsigned af[OUTF][4], bf[OUTF][4];
+#pragma unroll
+        for (int i = 0; i < OUTF; ++i) {
+          if (i >= nmine) continue;
+          ldsm_x4(af[i], gg + (orow[i] + lrow) * LGG + k + lcol);
+          ldsm_x4_t(bf[i], s.wout + (k + lrow) * LX + ocol[i] + lcol);
+        }
+#pragma unroll
+        for (int i = 0; i < OUTF; ++i)
+          if (i < nmine) frag_mma(oacc[2 * i], oacc[2 * i + 1], af[i], bf[i]);
+      }
     }
-    cp_async_wait();
-    __syncthreads();
+    pc.mark(PH_W_OUT);
   }
-  for (int idx = threadIdx.x; idx < P * C4; idx += NT) {
-    const int p = idx / C4, c = idx % C4 * 4;
-    const int yy = y0 + p / tw, xx = x0 + p % tw;
-    if (inside(g, yy, xx))
-      st4(y + (((size_t)b * g.H + yy) * g.W + xx) * C + c,
-          *reinterpret_cast<const float4*>(acc + p * LA + c));
+#pragma unroll
+  for (int i = 0; i < OUTF; ++i) {
+    if (i >= nmine) continue;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int p = orow[i] + gq + 8 * r, yy = y0 + p / tw, xx = x0 + p % tw;
+      if (!inside(g, yy, xx)) continue;
+      Tout* o = y + (((size_t)b * g.H + yy) * g.W + xx) * C + ocol[i] + q2;
+      st2(o, make_float2(oacc[2 * i][2 * r], oacc[2 * i][2 * r + 1]));
+      st2(o + 8, make_float2(oacc[2 * i + 1][2 * r], oacc[2 * i + 1][2 * r + 1]));
+    }
   }
+  pc.mark(PH_STORE);
+  pc.tile();
 }
 
 // ---- host helpers ----------------------------------------------------------
@@ -531,26 +803,51 @@ inline Geo make_geo(int B, int H, int W, int C, int heads, int Fp, int fc, int t
   return g;
 }
 
-// What every tile kernel needs: 16-channel fragments, LayerNorm rows that
-// fit the registers, whole chunks of hidden channels, whole 16-row
-// fragments of tile pixels.
-inline bool ffn_shape_ok(int C, int Fp, int fc, int th, int tw) {
-  return C > 0 && C % 16 == 0 && C <= 32 * MAX_LN_REGS && (fc == 32 || fc == 64) &&
-         Fp > 0 && Fp % fc == 0 && th > 0 && tw > 0 && (th * tw) % 16 == 0;
+// What every tile kernel needs: 16-channel fragments up to MAX_C channels
+// (4 warps of MAXF fragments to a row), whole 16-row fragments of tile pixels.
+inline bool tile_shape_ok(int C, int th, int tw) {
+  return C > 0 && C % 16 == 0 && C <= MAX_C && th > 0 && tw > 0 &&
+         (th * tw) % 16 == 0;
 }
 
+// And a kernel that ends in the GDFN: whole chunks of hidden channels,
+// pairs of tile columns for the depthwise step, and an output tile whose
+// fragments fit the registers of NWA warps.
+inline bool ffn_shape_ok(int C, int Fp, int fc, int th, int tw) {
+  return tile_shape_ok(C, th, tw) && (fc == 32 || fc == 64) && Fp > 0 && Fp % fc == 0 &&
+         tw % 2 == 0 && (th * tw / 16) * (C / 16) <= OUTF * NWA;
+}
+
+// Let a kernel use `bytes` of dynamic shared memory, the SM's memory split
+// in favour of shared memory (so that two such blocks fit where they can).
 template <class K>
 int opt_in(K kernel, size_t bytes) {
   if (bytes > (size_t)SMEM_LIMIT) return ERR_SMEM;
-  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)bytes);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)bytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+  return (int)err;
+}
+
+// Thread blocks of `kernel` (threads each, `bytes` of dynamic shared memory)
+// that the device keeps resident on one SM; 0 where it cannot launch.
+template <class K>
+int resident_blocks(K kernel, int threads, size_t bytes) {
+  int n = 0;
+  if (opt_in(kernel, bytes) != 0) return 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads, bytes) != cudaSuccess)
+    return 0;
+  return n;
 }
 
 inline const char* tile_error_string(int code) {
   if (code == ERR_SMEM) return "tile needs more than 227 KB of shared memory";
   if (code == ERR_SHAPE)
-    return "needs C (and C/heads) a multiple of 16, C <= 384, th*tw a multiple of 16, "
-           "Fp a multiple of the chunk (32 or 64)";
+    return "needs C (and C/heads) a multiple of 16, C <= 384, th*tw a multiple of 16 (with "
+           "th*tw*C <= 6144 where the kernel ends in the GDFN), Fp a multiple of the chunk "
+           "(32 or 64)";
   return cudaGetErrorString((cudaError_t)code);
 }
 

@@ -6,8 +6,13 @@ named by the content hash of the source and of every header (``csrc/*.cuh``:
 an edited header must not load a stale library), and is bound with
 ``ctypes``. A build
 happens on first use, never at import; ``build_all`` starts one ``nvcc``
-for each source at once. ptxas' register and spill report is kept beside
-each library as ``<lib>.log``.
+for each library at once. ptxas' register and spill report is kept beside
+each library as ``<lib>.log`` (``build_log``, ``kernel_resources``).
+
+``VARIANTS`` names second libraries of a source built with extra flags:
+``stage_clocks`` is ``csrc/stage.cu`` with ``-DRAIE_PHASE_CLOCKS``, whose
+kernels count cycles per phase (``ops/phase_clocks.py``). No serving path
+loads it.
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -24,7 +30,14 @@ BUILD = Path(__file__).resolve().parent.parent.parent / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
+# library name -> (source stem, extra nvcc flags)
+VARIANTS = {"stage_clocks": ("stage", ("-DRAIE_PHASE_CLOCKS",))}
+
 _loaded: dict[str, ctypes.CDLL] = {}
+
+
+def _source(name: str) -> tuple[str, tuple[str, ...]]:
+    return VARIANTS.get(name, (name, ()))
 
 
 def _nvcc() -> str:
@@ -36,21 +49,24 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    stem, flags = _source(name)
+    digest = hashlib.sha1((CSRC / f"{stem}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         digest.update(header.read_bytes())
+    digest.update(" ".join(flags).encode())
     return BUILD / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def _start(name: str):
-    """Start nvcc for csrc/<name>.cu unless its library exists; returns
-    (process or None, temporary output, final path)."""
+    """Start nvcc for library <name> unless it exists; returns (process or
+    None, temporary output, final path)."""
     out = _lib_path(name)
     if out.exists():
         return None, None, out
     BUILD.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    stem, flags = _source(name)
+    cmd = [_nvcc(), *NVCC_FLAGS, *flags, "-o", str(tmp), str(CSRC / f"{stem}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True)
     return proc, tmp, out
@@ -63,16 +79,17 @@ def _finish(name: str, proc, tmp: Path, out: Path) -> None:
     out.with_suffix(".log").write_text(log)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
+        raise RuntimeError(f"nvcc failed for library {name}:\n{log}")
     os.replace(tmp, out)
 
 
 def sources() -> list[str]:
-    return sorted(p.stem for p in CSRC.glob("*.cu"))
+    """Every library: one for each csrc/*.cu, and the variants."""
+    return sorted([p.stem for p in CSRC.glob("*.cu")] + list(VARIANTS))
 
 
 def build_all() -> dict[str, Path]:
-    """Compile every csrc/*.cu at once (one nvcc each); returns the paths."""
+    """Compile every library at once (one nvcc each); returns the paths."""
     started = {n: _start(n) for n in sources()}
     for n, (proc, tmp, out) in started.items():
         _finish(n, proc, tmp, out)
@@ -80,7 +97,7 @@ def build_all() -> dict[str, Path]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The ctypes handle of csrc/<name>.cu, building it on first use."""
+    """The ctypes handle of library <name>, building it on first use."""
     if name not in _loaded:
         proc, tmp, out = _start(name)
         _finish(name, proc, tmp, out)
@@ -91,14 +108,14 @@ def load(name: str) -> ctypes.CDLL:
 def bind(name: str, signatures: dict[str, list]) -> ctypes.CDLL:
     """``load(name)`` with the argument types of its int-returning entry
     points set (a pointer passed untyped would be cut to 32 bits) and its
-    ``raie_<name>_error_string`` typed."""
+    ``raie_<source>_error_string`` typed."""
     lib = load(name)
     if not getattr(lib, "_raie_typed", False):
         for fn_name, args in signatures.items():
             fn = getattr(lib, fn_name)
             fn.argtypes = args
             fn.restype = ctypes.c_int
-        err = getattr(lib, f"raie_{name}_error_string")
+        err = getattr(lib, f"raie_{_source(name)[0]}_error_string")
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
         lib._raie_typed = True
@@ -115,3 +132,25 @@ def check(lib: ctypes.CDLL, name: str, code: int, what: str) -> None:
 def build_log(name: str) -> str:
     log = _lib_path(name).with_suffix(".log")
     return log.read_text() if log.exists() else ""
+
+
+def kernel_resources(name: str) -> dict[str, dict[str, int]]:
+    """{kernel: {"registers": the most a thread of any instantiation uses,
+    "spill_bytes": the most any spills (stores or loads)}} of library
+    <name>, read off ptxas' report. Kernels are named ``k_<lowercase>``,
+    which is how they are found in the mangled entry names."""
+    out: dict[str, dict[str, int]] = {}
+    row = None
+    for line in build_log(name).splitlines():
+        m = re.search(r"Compiling entry function '\w*?(k_[a-z_]+)", line)
+        if m:
+            row = out.setdefault(m.group(1), {"registers": 0, "spill_bytes": 0})
+        elif row is not None:
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                row["registers"] = max(row["registers"], int(m.group(1)))
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                row["spill_bytes"] = max(row["spill_bytes"], int(m.group(1)),
+                                         int(m.group(2)))
+    return out

@@ -24,12 +24,13 @@ launches.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from . import _build
-from .gdfn import (FFN_CHUNKS, FFN_TILES, SMEM_LIMIT, bf16_round,
-                   check_input, dw3x3, ffn_f32, pack_ffn)
+from .gdfn import (bf16_round, check_input, dw3x3, ffn_candidates,
+                   ffn_f32, pack_ffn, pick_layout)
 from .norm import channel_layernorm
 
 _L2_EPS = 1e-12
@@ -129,6 +130,7 @@ def pack_blocks(device, ln1_w, w_qkv, dw_qkv, temperature, w_proj, ln2_w,
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "raie_stage_smem_bytes": [_I] * 6,
+    "raie_stage_blocks_per_sm": [_I] * 6,
     "raie_stage_gram": [_P, _I] + [_P] * 6 + [_I] * 8 + [ctypes.c_float, _P],
     "raie_stage_softmax": [_P, _P, _P] + [_I] * 5 + [_P],
     "raie_stage_apply": [_P, _I, _P, _I] + [_P] * 8 + [_I] * 9
@@ -136,24 +138,45 @@ _SIGNATURES = {
 }
 
 
-def lib() -> ctypes.CDLL:
-    return _build.bind("stage", _SIGNATURES)
+def lib(name: str = "stage") -> ctypes.CDLL:
+    """The library of ``csrc/stage.cu``, or a variant of it built with
+    other flags (``_build.VARIANTS``)."""
+    return _build.bind(name, _SIGNATURES)
 
 
-def plan_tiles(library, c: int, gram_heads: int):
-    """((gth, gtw), fc, (ath, atw)): the largest tile of the Gram kernel,
-    and the largest chunk of hidden channels and then tile of the apply
-    kernel, whose shared memory fits in its smaller layout (each kernel
-    takes its larger one where that fits)."""
-    def fits(kind, th, tw, fc):
-        return library.raie_stage_smem_bytes(kind, th, tw, c, gram_heads, fc) <= SMEM_LIMIT
+class TilePlan(NamedTuple):
+    """Tiles of the Gram kernel (A) and of the apply kernel (C), (C)'s chunk
+    of hidden channels, and the thread blocks of each that the device keeps
+    resident on one SM."""
+    gram_tile: tuple[int, int]
+    gram_blocks: int
+    fc: int
+    apply_tile: tuple[int, int]
+    apply_blocks: int
 
-    gram = next((t for t in _GRAM_TILES if fits(0, *t, 0)), None)
-    apply = next(((fc, t) for fc in FFN_CHUNKS for t in FFN_TILES
-                  if fits(1, *t, fc)), None)
+
+def plan_tiles(library, c: int, gram_heads: int) -> TilePlan:
+    """The layouts of the Gram kernel (its tile) and of the apply kernel
+    (tile and chunk) by ``ops/gdfn.py::pick_layout``: two blocks resident per
+    SM where a layout allows it, else one."""
+    gram = pick_layout(
+        [(th, tw) for th, tw in _GRAM_TILES],
+        lambda th, tw: library.raie_stage_smem_bytes(0, th, tw, c, gram_heads, 0),
+        lambda th, tw: library.raie_stage_blocks_per_sm(0, th, tw, c, gram_heads, 0))
+    apply = pick_layout(
+        ffn_candidates(),
+        lambda th, tw, fc: library.raie_stage_smem_bytes(1, th, tw, c, gram_heads, fc),
+        lambda th, tw, fc: library.raie_stage_blocks_per_sm(1, th, tw, c, gram_heads, fc))
     if gram is None or apply is None:
         raise ValueError(f"no block-kernel tile fits {c} channels")
-    return gram, apply[0], apply[1]
+    (ath, atw, fc), apply_blocks = apply
+    return TilePlan(gram[0], gram[1], fc, (ath, atw), apply_blocks)
+
+
+def gram_groups(n_tiles: int, n_sm: int, batch: int, blocks_per_sm: int = 1) -> int:
+    """Tile groups per sample of kernel (A): groups * batch thread blocks
+    must be resident at once (one wave), with at most one group per tile."""
+    return max(1, min(n_tiles, blocks_per_sm * n_sm // batch))
 
 
 class BlockRunner:
@@ -161,20 +184,20 @@ class BlockRunner:
     input (``check_input``); ``run`` is one TransformerBlock (three
     launches) from ``src`` to ``dst``, either float32 or bfloat16."""
 
-    def __init__(self, x: torch.Tensor, heads: int, fp: int):
+    def __init__(self, x: torch.Tensor, heads: int, fp: int, library=None):
         b, h, w, c = x.shape
-        self.lib = lib()
+        self.lib = lib() if library is None else library
         self.shape = (b, h, w, c)
         self.heads, self.fp = heads, fp
         # the Gram per head where fragments of 16 channels stay inside a
         # head; else the full C x C Gram with the softmax masked per head
         self.gram_heads = heads if (c // heads) % 16 == 0 else 1
-        (self.gth, self.gtw), self.fc, (self.ath, self.atw) = plan_tiles(
-            self.lib, c, self.gram_heads)
+        self.plan = plan_tiles(self.lib, c, self.gram_heads)
+        (self.gth, self.gtw), self.fc = self.plan.gram_tile, self.plan.fc
+        self.ath, self.atw = self.plan.apply_tile
         n_tiles = -(-h // self.gth) * -(-w // self.gtw)
         n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
-        # (A) in one wave: groups * b thread blocks, at most one per SM
-        self.groups = max(1, min(n_tiles, n_sm // b))
+        self.groups = gram_groups(n_tiles, n_sm, b, self.plan.gram_blocks)
         ghc = c // self.gram_heads
         dev = x.device
         self.part = torch.empty(b, self.groups, self.gram_heads * ghc * ghc + 2 * c,

@@ -30,7 +30,7 @@ from .norm import channel_layernorm
 HIDDEN_PAD = 64  # the kernels' hidden width is padded to a multiple of this
 SMEM_LIMIT = 232448
 FFN_TILES = ((8, 8), (4, 8), (4, 4))
-FFN_CHUNKS = (64, 32)  # hidden channels per chunk, the larger where it fits
+FFN_CHUNKS = (64, 32)  # hidden channels per chunk
 
 
 # ------------------------------------------------------------- plain ----
@@ -108,20 +108,48 @@ def pack_ffn(w_in, w_dw, w_out, c: int, device) -> dict:
     return dict(win=win, wdw=wdw, wout=wout, fp=fp)
 
 
-def plan_ffn(smem_bytes, c: int) -> tuple[int, tuple[int, int]]:
-    """(chunk, (th, tw)): the largest chunk of hidden channels, then the
-    largest tile, whose shared memory fits; ``smem_bytes(th, tw, fc)`` asks
-    the library for a layout's size."""
-    for fc in FFN_CHUNKS:
-        for th, tw in FFN_TILES:
-            if smem_bytes(th, tw, fc) <= SMEM_LIMIT:
-                return fc, (th, tw)
-    raise ValueError(f"no GDFN-kernel tile fits {c} channels")
+def pick_layout(candidates, smem_bytes, blocks_per_sm):
+    """(candidate, resident blocks): of ``candidates``, in their order of
+    preference, the first that fits in shared memory with at least two
+    thread blocks resident on an SM (one block's barrier, load and
+    LayerNorm waits are another's products); else the first that fits at
+    all, one block per SM; None where none fits. ``smem_bytes(*candidate)``
+    and ``blocks_per_sm(*candidate)`` ask the library."""
+    fitting = [cand for cand in candidates if smem_bytes(*cand) <= SMEM_LIMIT]
+    for cand in fitting:
+        blocks = blocks_per_sm(*cand)
+        if blocks >= 2:
+            return cand, blocks
+    for cand in fitting:
+        blocks = blocks_per_sm(*cand)
+        if blocks >= 1:
+            return cand, blocks
+    return None
+
+
+def ffn_candidates():
+    """(th, tw, fc) of a kernel that ends in the GDFN, best first: the
+    largest tile (least halo), then the largest chunk of hidden channels."""
+    return [(th, tw, fc) for th, tw in FFN_TILES for fc in FFN_CHUNKS]
+
+
+def plan_ffn(library, c: int) -> tuple[int, tuple[int, int], int]:
+    """(chunk, (th, tw), blocks resident per SM) of the GDFN kernel at C
+    channels; ``library`` is its handle."""
+    found = pick_layout(
+        ffn_candidates(),
+        lambda th, tw, fc: library.raie_gdfn_smem_bytes(th, tw, c, fc),
+        lambda th, tw, fc: library.raie_gdfn_blocks_per_sm(th, tw, c, fc))
+    if found is None:
+        raise ValueError(f"no GDFN-kernel tile fits {c} channels")
+    (th, tw, fc), blocks = found
+    return fc, (th, tw), blocks
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "raie_gdfn_smem_bytes": [_I] * 4,
+    "raie_gdfn_blocks_per_sm": [_I] * 4,
     "raie_gdfn": [_P, _P, _I, _P, _P, _I, _P, _P, _P] + [_I] * 8
     + [ctypes.c_float, _P],
 }
@@ -154,8 +182,7 @@ def _gdfn_cuda(x, ln_weight, ln_bias, w_in, w_dw, w_out, bias_free,
     lnb = _ln_bias(ln_weight, ln_bias, bias_free)
     lnb = None if lnb is None or not apply_ln else f32(lnb)
     lib = _build.bind("gdfn", _SIGNATURES)
-    fc, (th, tw) = plan_ffn(
-        lambda th, tw, fc: lib.raie_gdfn_smem_bytes(th, tw, c, fc), c)
+    fc, (th, tw), _ = plan_ffn(lib, c)
     y = torch.empty_like(x)
     _build.check(lib, "gdfn", lib.raie_gdfn(
         x.data_ptr(), y.data_ptr(), int(x.dtype == torch.bfloat16),

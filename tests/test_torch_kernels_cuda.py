@@ -113,6 +113,43 @@ def test_gdfn_kernel_matches_plain(cuda, shape, bias_free, apply_ln, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("bias_free", [True, False])
+@pytest.mark.parametrize("shape", [(1, 52, 44, 96), (1, 504, 384, 96), (8, 64, 72, 96)])
+def test_gdfn_kernel_on_ragged_edges_and_batches(cuda, shape, bias_free):
+    """Heights and widths that are no multiple of the 8x8 tile, where the
+    accumulator fragments' rows fall outside the image, and a batch."""
+    c, f = 96, 255
+    rng = np.random.default_rng(shape[1])
+    x = _t(rng, cuda, *shape).bfloat16()
+    args = (_t(rng, cuda, c, scale=0.1, shift=1.0),
+            None if bias_free else _t(rng, cuda, c, scale=0.5),
+            _t(rng, cuda, 1, 1, c, 2 * f, scale=c ** -0.5),
+            _t(rng, cuda, 3, 3, 1, 2 * f, scale=1 / 3),
+            _t(rng, cuda, 1, 1, f, c, scale=f ** -0.5))
+    got = pgdfn.fused_ln_gdfn(x, *args, bias_free=bias_free)
+    again = pgdfn.fused_ln_gdfn(x, *args, bias_free=bias_free)
+    assert torch.equal(got, again)  # deterministic
+    ref = pgdfn.gdfn_plain(x, *args, bias_free=bias_free)
+    assert _rel(got, ref) <= 1e-2
+    ring = torch.ones(shape[1:3], dtype=torch.bool, device=cuda)
+    ring[1:-1, 1:-1] = False
+    assert _rel(got[:, ring], ref[:, ring]) <= 1e-2
+
+
+@pytest.mark.cuda
+def test_two_blocks_are_resident_per_sm_at_96_channels(cuda):
+    """What the device itself answers for the layouts the planners pick."""
+    plan = pblock.plan_tiles(pblock.lib(), 96, 1)
+    assert plan.apply_tile == (8, 8) and plan.apply_blocks >= 2
+    assert plan.gram_blocks >= 1
+    from rethink_acoustic_image_enhancement_tpu_torch.ops import _build
+    fc, tile, blocks = pgdfn.plan_ffn(_build.bind("gdfn", pgdfn._SIGNATURES), 96)
+    assert tile == (8, 8) and blocks >= 2
+    # wider than the two-block layout reaches: one block per SM, still taken
+    assert pblock.plan_tiles(pblock.lib(), 192, 4).apply_blocks >= 1
+
+
+@pytest.mark.cuda
 def test_gdfn_kernel_refuses_odd_channels(cuda):
     rng = np.random.default_rng(0)
     with pytest.raises(ValueError, match="multiple of 16"):
@@ -126,10 +163,14 @@ def test_gdfn_kernel_refuses_odd_channels(cuda):
 @pytest.mark.parametrize("bias_free", [True, False])
 @pytest.mark.parametrize("shape,heads", [
     ((1, 32, 48, 96), 1), ((1, 20, 28, 96), 2), ((1, 24, 40, 48), 2),
-    ((1, 24, 40, 48), 4), ((1, 13, 9, 48), 8), ((1, 16, 16, 192), 4)])
+    ((1, 24, 40, 48), 4), ((1, 13, 9, 48), 8), ((1, 16, 16, 192), 4),
+    ((1, 16, 24, 128), 1), ((1, 12, 20, 160), 5)])
 def test_block_kernel_matches_plain(cuda, shape, heads, bias_free, dtype):
     """24, 12 and 6 channels a head go through the full Gram with the
-    softmax masked per head; partial tiles and non-zero biases included."""
+    softmax masked per head; partial tiles and non-zero biases included.
+    Above 96 channels several warps share a row of the residual; at 128
+    channels in one head the Gram is too wide for the registers and
+    accumulates in shared memory."""
     rng = np.random.default_rng(shape[1] * 10 + heads)
     wts = _block_weights(rng, shape[-1], heads, bias_free, cuda)
     x = _t(rng, cuda, *shape).to(dtype)
@@ -147,11 +188,35 @@ def test_block_kernel_matches_plain(cuda, shape, heads, bias_free, dtype):
 
 
 @pytest.mark.cuda
-def test_block_kernel_equals_one_block_stage(cuda):
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("bias_free", [True, False])
+@pytest.mark.parametrize("shape", [(1, 52, 44, 96), (1, 504, 384, 96)])
+def test_block_kernel_on_ragged_edges(cuda, shape, bias_free, dtype):
+    """Heights and widths that are no multiple of the 8x8 tile: rows of the
+    accumulator fragments that hold r fall outside the image, where the
+    WithBias LayerNorms (non-zero biases here) must still give the
+    depthwise steps zeros; the border ring is held separately. Twice the
+    same call gives the same bits."""
+    rng = np.random.default_rng(shape[2])
+    wts = _block_weights(rng, 96, 1, bias_free, cuda)
+    x = _t(rng, cuda, *shape).to(dtype)
+    got = pblock.fused_transformer_block(x, *wts, bias_free=bias_free)
+    again = pblock.fused_transformer_block(x, *wts, bias_free=bias_free)
+    assert torch.equal(got, again)
+    ref = pblock.block_plain(x, *wts, bias_free=bias_free)
+    assert _rel(got, ref) <= 1e-2
+    ring = torch.ones(shape[1:3], dtype=torch.bool, device=cuda)
+    ring[1:-1, 1:-1] = False
+    assert _rel(got[:, ring], ref[:, ring]) <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,heads", [((1, 40, 24, 96), 2), ((1, 52, 44, 96), 1)])
+def test_block_kernel_equals_one_block_stage(cuda, shape, heads):
     rng = np.random.default_rng(7)
-    wts = _block_weights(rng, 96, 2, True, cuda)
-    x = _t(rng, cuda, 1, 40, 24, 96)
-    one = pblock.fused_transformer_block(x, *wts, num_heads=2)
+    wts = _block_weights(rng, 96, heads, True, cuda)
+    x = _t(rng, cuda, *shape)
+    one = pblock.fused_transformer_block(x, *wts, num_heads=heads)
     names = ("ln1_w", None, "w_qkv", "dw_qkv", "temperature", "w_proj", "ln2_w",
              None, "w_in", "w_dw", "w_out")
     stacked = {n: w[None] for n, w in zip(names, wts) if n}

@@ -61,10 +61,32 @@ def test_kernel_matches_plain(cuda, dtype, shape, heads):
 
 
 @pytest.mark.cuda
-def test_kernel_is_deterministic(cuda):
+@pytest.mark.parametrize("shape,heads", [
+    ((1, 52, 44, 96), 1), ((1, 504, 384, 96), 1), ((8, 256, 256, 96), 1),
+    ((2, 52, 44, 96), 2)])
+def test_kernel_on_ragged_edges_and_tile_batches(cuda, shape, heads):
+    """Two blocks in bf16 at the model's width: heights and widths that are no
+    multiple of the 8x8 tile (the padded 500x380 request is 504x384), and the
+    batch of 8 tiles that tiled serving sends."""
+    rng = np.random.default_rng(shape[0] * 1000 + shape[1])
+    wts = _weights(rng, 2, 96, heads, cuda)
+    x = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(cuda).bfloat16()
+    got = pstage.fused_transformer_stage(x, **wts)
+    ref = pstage.stage_plain(x, **wts)
+    rel = ((got.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
+    assert rel <= 1e-2, rel
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype", [
+    ((1, 64, 64, 96), torch.float32), ((1, 52, 44, 96), torch.bfloat16),
+    ((8, 40, 24, 96), torch.bfloat16)])
+def test_kernel_is_deterministic(cuda, shape, dtype):
+    """Three launches a block and no atomics: the same call twice gives the
+    same bits."""
     rng = np.random.default_rng(5)
     wts = _weights(rng, 2, 96, 2, cuda)
-    x = torch.from_numpy(rng.normal(size=(1, 64, 64, 96)).astype(np.float32)).to(cuda)
+    x = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(cuda, dtype)
     a = pstage.fused_transformer_stage(x, **wts)
     b = pstage.fused_transformer_stage(x, **wts)
     assert torch.equal(a, b)

@@ -74,10 +74,30 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def queued_ms(fn, reps):
+    """Mean device time of fn() over reps runs, by CUDA events around
+    launches that queue up behind a device-side delay: the host has issued
+    them all before the first may start, so its gaps do not count."""
+    import torch
+
+    fn()  # warm-up
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(40_000_000)  # some 20 ms of device time
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def device_ms(fn, reps):
-    """Mean device time of all that fn() launches over reps runs, by
-    torch.profiler: free of the host's gaps, which outlast a kernel of a few
-    tens of microseconds."""
+    """(ms, how): mean device time of all that fn() launches over reps runs,
+    free of the host's gaps, which outlast a kernel of a few tens of
+    microseconds. By torch.profiler ("profiler"); where the profiler hands
+    back only a part of a window's launches three times running, by
+    queued_ms ("queued_events"), which adds each launch's start-up."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -89,11 +109,12 @@ def device_ms(fn, reps):
                 fn()
             torch.cuda.synchronize()
         events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
-        # every kernel of fn() must show up reps times over: the profiler
-        # has been seen to hand back a part of a window's launches
+        # every kernel of fn() must show up reps times over
         if events and all(e.count % reps == 0 for e in events):
-            return sum(e.self_device_time_total for e in events) / reps / 1e3
-    raise RuntimeError("torch.profiler dropped kernel events three times running")
+            return sum(e.self_device_time_total for e in events) / reps / 1e3, "profiler"
+        log(f"  profiler window incomplete for {reps} runs: "
+            f"{[(e.key[:40], e.count) for e in events]}")
+    return queued_ms(fn, reps), "queued_events"
 
 
 # ------------------------------------------------------------ phase 2 ----
@@ -283,9 +304,10 @@ def held_to_plain(name, kernel, plain, x, flops, nbytes, peak_flops, card, resul
     ring[1:-1, 1:-1] = False
     ring_rel = d[:, ring].max().item() / scale
     t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / PEAK_BYTES * 1e3
+    kern_ms, timed_by = device_ms(kernel, 5)
     row = dict(results_row, shape=list(x.shape), dtype=str(x.dtype).replace("torch.", ""),
                max_abs_err=diff, max_abs_ref=scale, rel_err=rel, ring_rel_err=ring_rel,
-               ms=device_ms(kernel, 5), ms_with_host_gaps=cuda_ms(kernel, 5),
+               ms=kern_ms, ms_by=timed_by, ms_with_host_gaps=cuda_ms(kernel, 5),
                plain_ms=cuda_ms(plain, plain_reps),
                library_ms=cuda_ms(library, 5) if library else None,
                bound_ms=max(t_ops, t_bytes),
@@ -293,7 +315,7 @@ def held_to_plain(name, kernel, plain, x, flops, nbytes, peak_flops, card, resul
                flops=flops, bytes=nbytes)
     lib_txt = f", library {row['library_ms']:.4f} ms" if library else ""
     log(f"{name} {row['dtype']} {tuple(x.shape)} "
-        f"{results_row}: kernel {row['ms']:.4f} ms, plain "
+        f"{results_row}: kernel {row['ms']:.4f} ms ({timed_by}), plain "
         f"{row['plain_ms']:.4f} ms{lib_txt}, bound {row['bound_ms']:.4f} ms "
         f"({row['bound_by']}), max|d| {diff:.3e} rel {rel:.3e} ring {ring_rel:.3e} [{card}]")
     if elementwise_ulp is not None:

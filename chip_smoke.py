@@ -30,9 +30,29 @@ Phases (any failure exits non-zero; nothing is caught):
   5. tiled serving: the same predictor's denoise_tiled in 256x256 tiles and
      in full-width strips, 8 tiles per call, with the stage-kernel call
      count checked against the gate and the outputs against the plain stage.
+Phases 1-5 run with TF32 off process-wide (the plain versions' products must
+be float32); phases 6-8 put PyTorch's TF32 defaults back first, so that the
+fp32 predictors' own pinning is what runs:
+  6. student: a seeded full-width KDLAE-S (hidden 16/32/64, residual) through
+     StudentPredictor.denoise_batch on (18, 7, 512, 512) uint8 synthetic sonar
+     stacks (denoise_all_frames' batch of 126 frames, no files), fp32 and
+     bf16 input: frames/s and peak memory; held to the same predictor on the
+     CPU on a 7x128x128 crop (uint8 within 1 level on >= 99.9% of pixels).
+  7. ASDQE: a seeded DenoiseRatePredictor (models/asdqe.py::init_weights_,
+     non-trivial running statistics) scores 16 uint8 512x512 pairs batch-1 through the
+     upload/dispatch pipeline of eval/asdqe_eval.py (arrays, no files) and as
+     two (8, 512, 512, 3) batches: pairs/s; held to the CPU scorer on a
+     128x128 pair within 1e-4.
+  8. grouped teacher: the phase-3 predictor's denoise_group(group_size=8) on
+     16 synthetic 512x512 frames against 16 per-image calls (bit-identical;
+     images/s both ways; the stage-kernel count checked, 5 per image), the
+     device idle share of one group from a profile, and one request with
+     fused_resample=True within 1 level of the unfused one on >= 99% of
+     pixels.
 Each path runs with every launch count set to 0 just before it and read just
-after. Prints a "kernels" JSON line, the card line, and as its last line
-{"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
+after. Prints one JSON line per phase 6-8, a "kernels" JSON line, the card
+line, and as its last line {"ok": true, "device": {...}}. Details go to
+chiprun_out/chip_smoke.json.
 """
 
 from __future__ import annotations
@@ -761,6 +781,190 @@ def phase_tiled(results, card, pred):
     return total
 
 
+
+# ------------------------------------------------------------ phase 6 ----
+
+def sonar_stacks(b, f, h, w, seed):
+    """(b, f, h, w) uint8 grayscale speckle frames, each stack a fan over a
+    slowly moving speckle field, exact zeros outside the fan."""
+    rng = np.random.default_rng(seed)
+    base = rng.gamma(2.0, 40.0, size=(b, 1, h, w)).astype(np.float32)
+    frames = 0.7 * base + 0.3 * rng.gamma(2.0, 40.0, size=(b, f, h, w)).astype(np.float32)
+    yy, xx = np.mgrid[0:h, 0:w]
+    fan = (np.abs(np.arctan2(xx - w / 2, yy + 1.0)) <= 0.75) & (np.hypot(xx - w / 2, yy) <= 0.95 * h)
+    return (frames.clip(0, 255) * fan).astype(np.uint8)
+
+
+def within_levels(got, ref):
+    d = np.abs(got.astype(np.int16) - ref.astype(np.int16))
+    return float((d <= 1).mean()), int(d.max())
+
+
+def phase_student(results, card):
+    import copy
+
+    import torch
+
+    from rethink_acoustic_image_enhancement_tpu_torch.eval.infer import StudentPredictor
+    from rethink_acoustic_image_enhancement_tpu_torch.models import KDLAEStudent
+
+    torch.manual_seed(0)
+    model = KDLAEStudent(residual=True, hidden_channels=(16, 32, 64))
+    stacks = sonar_stacks(18, 7, 512, 512, seed=30)
+    crop = stacks[0, :, 192:320, 192:320]
+    row = dict(card=card, stacks=list(stacks.shape), params=sum(p.numel() for p in model.parameters()))
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).replace("torch.", "")
+        pred = StudentPredictor(copy.deepcopy(model), dtype=dtype)
+        pred.denoise_batch(stacks)  # warm-up: cuDNN plans at this shape
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        walls = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            out = pred.denoise_batch(stacks)
+            walls.append(time.perf_counter() - t0)
+        assert out.shape == stacks.shape and out.dtype == np.uint8, (out.shape, out.dtype)
+        assert out.any(), "student output is all zero"
+        frames = stacks.shape[0] * stacks.shape[1]
+        cpu = StudentPredictor(copy.deepcopy(model), dtype=dtype, device="cpu")(crop)
+        share, worst = within_levels(pred(crop), cpu)
+        row[name] = dict(wall_s=walls, frames_per_s=frames / min(walls),
+                         peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
+                         cpu_crop_within_1_level=share, cpu_crop_max_levels=worst)
+        log(f"student {name}: {frames} frames of 512x512 in {min(walls) * 1e3:.1f} ms "
+            f"({row[name]['frames_per_s']:.1f} frames/s), peak {row[name]['peak_mem_gb']:.2f} "
+            f"GiB; 7x128x128 crop vs the CPU: {share:.5f} within 1 level, max {worst} [{card}]")
+        assert share >= 0.999, f"student {name}: {share} of pixels within 1 level of the CPU"
+        del pred
+        torch.cuda.empty_cache()
+    results["student"] = row
+    print(json.dumps({"student": row}), flush=True)
+
+
+# ------------------------------------------------------------ phase 7 ----
+
+def seeded_scorer_model(seed):
+    import torch
+
+    from rethink_acoustic_image_enhancement_tpu_torch.models.asdqe import (
+        DenoiseRatePredictor,
+        init_weights_,
+    )
+
+    return init_weights_(DenoiseRatePredictor(), torch.Generator().manual_seed(seed))
+
+
+def phase_asdqe(results, card):
+    import torch
+
+    from rethink_acoustic_image_enhancement_tpu_torch.eval.asdqe_eval import score_pairs
+    from rethink_acoustic_image_enhancement_tpu_torch.eval.infer import ASDQEScorer
+
+    scorer = ASDQEScorer(seeded_scorer_model(7))
+    rng = np.random.default_rng(40)
+    pairs = []
+    for i in range(16):
+        lq = sonar_frame(512, 512, 40 + i)
+        noise = rng.integers(-30, 31, size=lq.shape)
+        pairs.append((lq, np.clip(lq.astype(np.int16) // 2 + noise, 0, 255).astype(np.uint8)))
+    score_pairs(scorer, pairs[:2])  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one = score_pairs(scorer, pairs)
+    batch1_s = time.perf_counter() - t0
+    lq8 = [np.stack([p[0] for p in pairs[k:k + 8]]) for k in (0, 8)]
+    gt8 = [np.stack([p[1] for p in pairs[k:k + 8]]) for k in (0, 8)]
+    scorer(lq8[0], gt8[0])  # warm-up at batch 8
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batched = np.concatenate([scorer(a, b) for a, b in zip(lq8, gt8)])
+    batch8_s = time.perf_counter() - t0
+    assert one.shape == batched.shape == (16,) and np.isfinite(batched).all()
+    lq, gt = (a[192:320, 192:320] for a in pairs[3])
+    cpu = ASDQEScorer(seeded_scorer_model(7), device="cpu")(lq, gt)
+    card_score = scorer(lq, gt)
+    row = dict(card=card, pairs=16, size=[512, 512],
+               batch1_pairs_per_s=16 / batch1_s, batch8_pairs_per_s=16 / batch8_s,
+               score_range=[float(one.min()), float(one.max())],
+               batch1_vs_batch8_max_abs=float(np.abs(one - batched).max()),
+               cpu_128_abs_err=float(np.abs(card_score - cpu).max()))
+    log(f"asdqe: 16 pairs of 512x512 batch-1 {row['batch1_pairs_per_s']:.1f} pairs/s, "
+        f"batch 8 {row['batch8_pairs_per_s']:.1f} pairs/s, scores {row['score_range']}, "
+        f"batch-1 vs batch-8 {row['batch1_vs_batch8_max_abs']:.2e}, 128x128 vs the CPU "
+        f"{row['cpu_128_abs_err']:.2e} [{card}]")
+    assert row["cpu_128_abs_err"] <= 1e-4, row
+    results["asdqe"] = row
+    print(json.dumps({"asdqe": row}), flush=True)
+
+
+# ------------------------------------------------------------ phase 8 ----
+
+def phase_group(results, card, pred):
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from rethink_acoustic_image_enhancement_tpu_torch.eval.infer import TeacherPredictor
+
+    frames = [sonar_frame(512, 512, 60 + i) for i in range(16)]
+    pred.denoise_group(frames[:8], 0.8, group_size=8)  # warm-up
+    torch.cuda.synchronize()
+    counts = reset_counts()
+    t0 = time.perf_counter()
+    grouped = pred.denoise_group(frames, 0.8, group_size=8)
+    torch.cuda.synchronize()
+    group_s = time.perf_counter() - t0
+    launches = read_counts(counts)["stage"]
+    t0 = time.perf_counter()
+    single = [pred(f, 0.8) for f in frames]
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t0
+    assert launches == 5 * len(frames), f"{launches} stage calls for {len(frames)} images"
+    for g, s_ in zip(grouped, single):
+        for key in ("hq", "sr"):
+            assert np.array_equal(g[key], s_[key]), f"group and per-image {key} differ"
+
+    # one group: wall time unprofiled, device time by the profiler
+    t0 = time.perf_counter()
+    pred.denoise_group(frames[:8], 0.8, group_size=8)
+    torch.cuda.synchronize()
+    one_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        pred.denoise_group(frames[:8], 0.8, group_size=8)
+        torch.cuda.synchronize()
+    events = [(e.key, e.self_device_time_total / 1e3) for e in prof.key_averages()
+              if e.self_device_time_total > 0]
+    copy_ms = sum(ms for k, ms in events if "memcpy" in k.lower())
+    busy_ms = sum(ms for k, ms in events if "memcpy" not in k.lower())
+
+    folded = TeacherPredictor(pred.model, fused=True, dtype=pred.dtype, fused_resample=True)
+    try:
+        resampled = folded(frames[0], 0.8)
+    finally:
+        pred.model.set_fused_resample(False)
+    agree = {key: within_levels(resampled[key], single[0][key]) for key in ("hq", "sr")}
+    row = dict(card=card, images=len(frames), group_size=8, stage_calls=launches,
+               group_images_per_s=len(frames) / group_s,
+               per_image_images_per_s=len(frames) / single_s,
+               bit_identical=True, one_group_wall_ms=one_ms,
+               one_group_kernels_ms=busy_ms, one_group_memcpy_ms=copy_ms,
+               one_group_idle_share=1 - busy_ms / one_ms,
+               one_group_top=[dict(kernel=k[:120], ms=ms) for k, ms in
+                              sorted(events, key=lambda kv: -kv[1])[:8]],
+               fused_resample_within_1_level={k: v[0] for k, v in agree.items()},
+               fused_resample_max_levels={k: v[1] for k, v in agree.items()})
+    log(f"group: 16 x 512x512 bf16 in groups of 8 {row['group_images_per_s']:.2f} images/s, "
+        f"per image {row['per_image_images_per_s']:.2f} images/s, bit-identical, "
+        f"{launches} stage calls; one group: wall {one_ms:.1f} ms, kernels {busy_ms:.1f} ms, "
+        f"copies {copy_ms:.1f} ms (idle share {row['one_group_idle_share']:.3f}); "
+        f"fused_resample within 1 level {row['fused_resample_within_1_level']} [{card}]")
+    for top in row["one_group_top"][:5]:
+        log(f"  {top['ms']:8.3f} ms  {top['kernel'][:100]}")
+    assert all(v[0] >= 0.99 for v in agree.values()), agree
+    results["group"] = row
+    print(json.dumps({"group": row}), flush=True)
+    return launches
+
 # ------------------------------------------------------------ main -------
 
 def main() -> int:
@@ -773,6 +977,7 @@ def main() -> int:
         print(f"chip_smoke: {PORT}/ not found beside this script", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
+    tf32_defaults = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -786,7 +991,7 @@ def main() -> int:
         f"cuda {torch.version.cuda}")
     log(f"card: {card}")
 
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     libs = _build.build_all()
     build_s = time.perf_counter() - t0
     log(f"built {sorted(libs)} in {build_s:.1f} s")
@@ -804,8 +1009,13 @@ def main() -> int:
     whole_launches, lat_ms, pred = phase_slice(results, card)
     path_launches = phase_block_paths(results, card)
     tiled_launches = phase_tiled(results, card, pred)
+    # the serving phases: PyTorch's TF32 defaults, the predictors pin their own
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32_defaults
+    phase_student(results, card)
+    phase_asdqe(results, card)
+    group_launches = phase_group(results, card, pred)
     results["path_launches"] = dict(whole_image=whole_launches, tiled=tiled_launches,
-                                    **path_launches)
+                                    group=group_launches, **path_launches)
 
     def entry(name, source, replaces, launches, rows, main_row):
         assert launches > 0, f"{name}: no launch on a driven path"
@@ -821,7 +1031,7 @@ def main() -> int:
     # library call)
     kernels = {"kernels": [
         entry("fused_transformer_stage", "stage.cu", "stage.py:324",
-              whole_launches + tiled_launches, stage_rows, stage_rows[0]),
+              whole_launches + tiled_launches + group_launches, stage_rows, stage_rows[0]),
         entry("fused_channel_layernorm", "layernorm.cu", "layernorm.py:58",
               path_launches["layernorm"], ln_rows, ln_rows[1]),
         entry("fused_ln_gdfn", "gdfn.cu", "gdfn.py:277",
@@ -830,6 +1040,8 @@ def main() -> int:
               path_launches["block"], block_rows, block_rows[0]),
     ]}
     results["kernels"] = kernels["kernels"]
+    results["total_s"] = time.perf_counter() - t_start
+    log(f"all phases, build included: {results['total_s']:.1f} s")
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as fh:
         json.dump(results, fh, indent=1)

@@ -1,17 +1,26 @@
-"""Weight bridge into the port's teacher.
+"""Weight bridge into the port's models.
 
-``teacher_state_dict`` maps a flax teacher parameter tree (nested dicts of
-numpy arrays) onto the port's ``state_dict`` names and NCHW layouts:
+``teacher_state_dict`` maps a flax teacher (or ``Restormer``) parameter tree
+(nested dicts of numpy arrays) onto the port's ``state_dict`` names and NCHW
+layouts:
   HWIO (kh, kw, I, O) conv kernels -> Conv2d (O, I, kh, kw)
   ``normN/weight``     -> ``normN.body.weight`` (LayerNorm wraps a body)
   ``down*/up*`` conv   -> ``body.0.weight`` (conv inside nn.Sequential)
+``student_state_dict`` and ``asdqe_state_dict`` do the same for KDLAE-S and
+the ASDQE scorer (the port's own copy of ``convert/torch_export.py``'s
+mapping):
+  DHWIO (kd, kh, kw, I, O)  -> Conv3d (O, I, kd, kh, kw)
+  learned shuffle (2, 2, I, O) -> ConvTranspose3d (I, O, 1, 2, 2)
+  Dense (I, O)              -> Linear (O, I)
+  BatchNorm scale / bias + batch_stats mean / var -> weight / bias /
+  running_mean / running_var (and num_batches_tracked = 0)
 bf16 arrays are upcast to float32. The same mapping serves one flax
 ``TransformerBlock`` or ``GDFN`` tree (``block_state_dict``), and
 ``block_kernel_args`` / ``gdfn_kernel_args`` turn such a tree into the
 arguments of ``ops/block.py::fused_transformer_block`` and
 ``ops/gdfn.py::fused_ln_gdfn`` (flax layouts, LayerNorm biases included).
 ``load_pth`` reads a reference-layout checkpoint ``{'params': state_dict[,
-'params_ema']}`` ('params').
+'params_ema']}`` ('params') of any of the three families.
 """
 
 from __future__ import annotations
@@ -95,6 +104,108 @@ def gdfn_kernel_args(params: Mapping[str, Any]) -> tuple:
 def load_teacher_params(model: nn.Module, params: Mapping[str, Any]) -> nn.Module:
     """Load flax teacher parameters into ``model`` (strict)."""
     model.load_state_dict(teacher_state_dict(params), strict=True)
+    return model
+
+
+# ---------------------------------------------------------------- student --
+
+_SEQ = {"conv1": "0", "conv2": "2"}  # ConvBlock3d's convs in its Sequential
+
+
+def student_state_dict(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """Flax KDLAEStudent parameters -> the port's KDLAEStudent state dict."""
+    sd: dict[str, torch.Tensor] = {}
+    for key, val in flatten(params).items():
+        parts = key.split(".")
+        mod, leaf = parts[0], parts[-1]
+        if mod.startswith(("encoders_", "decoders_")):
+            base, idx = mod.rsplit("_", 1)
+            path = [base, idx, _SEQ[parts[1]], leaf]
+        elif mod == "st_fusion":
+            path = ["st_fusion", _SEQ[parts[1]], leaf]
+        elif mod.startswith("upconv_"):
+            path = ["upconv_layers", mod.rsplit("_", 1)[1], leaf]
+        elif mod == "out_conv":
+            path = ["out_conv", leaf]
+        else:
+            raise KeyError(f"unrecognized student param: {key}")
+        val = _float32(val)
+        if leaf == "kernel":
+            path[-1] = "weight"
+            if mod.startswith("upconv_"):
+                val = val.transpose(2, 3, 0, 1)[:, :, None]
+            else:
+                val = val.transpose(4, 3, 0, 1, 2)
+        sd[".".join(path)] = torch.from_numpy(np.ascontiguousarray(val))
+    return sd
+
+
+# ------------------------------------------------------------------ asdqe --
+
+_DOUBLE_CONV = {"conv1": "0", "bn1": "1", "conv2": "3", "bn2": "4"}
+
+
+def _double_conv(sd: dict, prefix: str, p: Mapping[str, Any],
+                 stats: Mapping[str, Any] | None) -> None:
+    for name, idx in _DOUBLE_CONV.items():
+        node = p[name]
+        if name.startswith("conv"):
+            sd[f"{prefix}.{idx}.weight"] = _tensor(node["kernel"]).permute(3, 2, 0, 1)
+            sd[f"{prefix}.{idx}.bias"] = _tensor(node["bias"])
+        else:
+            st = (stats or {})[name]
+            sd[f"{prefix}.{idx}.weight"] = _tensor(node["scale"])
+            sd[f"{prefix}.{idx}.bias"] = _tensor(node["bias"])
+            sd[f"{prefix}.{idx}.running_mean"] = _tensor(st["mean"])
+            sd[f"{prefix}.{idx}.running_var"] = _tensor(st["var"])
+            sd[f"{prefix}.{idx}.num_batches_tracked"] = torch.tensor(0)
+
+
+def asdqe_state_dict(params: Mapping[str, Any],
+                     batch_stats: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """Flax DenoiseRatePredictor parameters and batch statistics -> the
+    port's DenoiseRatePredictor state dict."""
+    sd: dict[str, torch.Tensor] = {}
+    fc = {"fc1": "2", "fc2": "5", "fc3": "8"}
+    for mod, node in params.items():
+        if mod in ("lq_extractor", "gt_extractor", "diff_extractor"):
+            _double_conv(sd, f"{mod}.double_conv", node, batch_stats[mod])
+        elif mod == "unet":
+            ubs = batch_stats["unet"]
+            for sub, snode in node.items():
+                if sub == "inc":
+                    _double_conv(sd, "unet.inc.double_conv", snode, ubs["inc"])
+                elif sub.startswith("down"):
+                    _double_conv(sd, f"unet.{sub}.maxpool_conv.1.double_conv",
+                                 snode["conv"], ubs[sub]["conv"])
+                elif sub.startswith("up"):
+                    _double_conv(sd, f"unet.{sub}.conv.double_conv",
+                                 snode["conv"], ubs[sub]["conv"])
+                elif sub == "outc":
+                    sd["unet.outc.conv.weight"] = _tensor(
+                        snode["kernel"]).permute(3, 2, 0, 1)
+                    sd["unet.outc.conv.bias"] = _tensor(snode["bias"])
+                else:
+                    raise KeyError(f"unrecognized ASDQE unet module: {sub}")
+        elif mod in fc:
+            sd[f"regressor.{fc[mod]}.weight"] = _tensor(node["kernel"]).T
+            sd[f"regressor.{fc[mod]}.bias"] = _tensor(node["bias"])
+        else:
+            raise KeyError(f"unrecognized ASDQE module: {mod}")
+    return {k: v.contiguous() for k, v in sd.items()}
+
+
+def load_student_params(model: nn.Module, params: Mapping[str, Any]) -> nn.Module:
+    """Load flax KDLAEStudent parameters into ``model`` (strict)."""
+    model.load_state_dict(student_state_dict(params), strict=True)
+    return model
+
+
+def load_asdqe_params(model: nn.Module, params: Mapping[str, Any],
+                      batch_stats: Mapping[str, Any]) -> nn.Module:
+    """Load flax DenoiseRatePredictor parameters and batch statistics into
+    ``model`` (strict)."""
+    model.load_state_dict(asdqe_state_dict(params, batch_stats), strict=True)
     return model
 
 

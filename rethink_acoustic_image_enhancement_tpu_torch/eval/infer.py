@@ -1,13 +1,23 @@
-"""KDLAE-T serving (KDLAE_T.ipynb cell 5 as an API): whole images, and
-large frames as batches of tiles.
+"""Serving predictors (the reference notebooks' serving paths as an API).
 
-Whole image: reflect-pad on the host to a multiple of 8 (or
-``shape_bucket``), uint8 in (divided by 255 in float32, then cast to the
-serving dtype), a scalar denoise rate broadcast to a (B, 1, H, W) plane,
-forward, clamp and round-half-to-even to uint8 on the device, crop, and the
-fan-beam zero mask on ``hq`` and the 2x ``sr``. ``denoise_tiled`` cuts each
-image into tiles, forwards ``tile_batch`` of them per call across images
-and puts the interiors back together.
+TeacherPredictor  KDLAE_T.ipynb cell 5: reflect-pad on the host to a
+                  multiple of 8 (or ``shape_bucket``), uint8 in (divided by
+                  255 in float32, then cast to the serving dtype), a scalar
+                  denoise rate broadcast to a (B, 1, H, W) plane, forward,
+                  clamp and round-half-to-even to uint8 on the device, crop,
+                  and the fan-beam zero mask on ``hq`` and the 2x ``sr``.
+                  ``denoise_group`` serves same-shape images in groups with
+                  the next group's upload under the current one's compute;
+                  ``denoise_tiled`` cuts large frames into batches of tiles.
+StudentPredictor  KDLAE-S.ipynb cell 3: 7-frame grayscale stacks
+                  (resized to the first frame), reflect-pad to a multiple
+                  of 32, forward, clamp, crop; many stacks per call.
+ASDQEScorer       ASDQE_test.py:87-104: pairwise quality scores.
+
+Every forward in float32 runs with TF32 off (``highest_precision``), as the
+JAX package pins ``jax.default_matmul_precision("highest")``. The student
+and the scorer compute in float32 in every serving dtype: like their flax
+modules, a bfloat16 dtype only rounds the inputs.
 
 Runs on ``cuda`` unless the caller asks for another device; with no GPU
 and no device named it raises rather than fall back to the CPU.
@@ -15,23 +25,30 @@ and no device named it raises rather than fall back to the CPU.
 
 from __future__ import annotations
 
+import contextlib
+from concurrent.futures import ThreadPoolExecutor
+
 import numpy as np
 import torch
 from torch import nn
 
-from ..models import KDLAETeacher
+from ..models import DenoiseRatePredictor, KDLAEStudent, KDLAETeacher
 from ..ops.mask import apply_zero_mask, zero_mask_from_input
-from ..utils.image_io import imread_rgb_ubyte, to_ubyte
+from ..utils.image_io import (imread_gray, imread_rgb_ubyte, list_images,
+                              resize_area, to_ubyte)
 
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
-def _pad_reflect_np(x: np.ndarray, ph: int, pw: int) -> np.ndarray:
+def _pad_reflect_np(x: np.ndarray, ph: int, pw: int, axes=(1, 2)) -> np.ndarray:
     if ph == 0 and pw == 0:
         return x
-    return np.pad(x, ((0, 0), (0, ph), (0, pw), (0, 0)), mode="reflect")
+    pad = [(0, 0)] * x.ndim
+    pad[axes[0]] = (0, ph)
+    pad[axes[1]] = (0, pw)
+    return np.pad(x, pad, mode="reflect")
 
 
 def resolve_device(device: str | torch.device | None) -> torch.device:
@@ -39,15 +56,80 @@ def resolve_device(device: str | torch.device | None) -> torch.device:
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
-                "no CUDA device: TeacherPredictor runs on the GPU by "
-                "default; pass device='cpu' to run on the CPU")
+                "no CUDA device: the predictors run on the GPU by default; "
+                "pass device='cpu' to run on the CPU")
         return torch.device("cuda")
     return torch.device(device)
+
+
+@contextlib.contextmanager
+def highest_precision():
+    """Full float32 products inside: TF32 off for cuDNN convolutions and
+    cuBLAS matmuls, both flags restored on exit, exceptions included (the
+    counterpart of ``jax.default_matmul_precision("highest")``; PyTorch
+    allows TF32 in cuDNN by default)."""
+    conv = torch.backends.cudnn.allow_tf32
+    matmul = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = conv
+        torch.backends.cuda.matmul.allow_tf32 = matmul
 
 
 def _to_ubyte_device(x: torch.Tensor) -> torch.Tensor:
     """Clamp, float32, *255, round half to even, uint8 (on the device)."""
     return torch.round(x.clamp(0.0, 1.0).float() * 255.0).to(torch.uint8)
+
+
+class _Transfers:
+    """Host <-> device copies beside the compute: uploads on one side
+    stream (from any thread), fetches on another, each ordered against the
+    current stream by events. On the CPU they are plain tensors."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.cuda = device.type == "cuda"
+        if self.cuda:
+            self.up = torch.cuda.Stream(device)
+            self.down = torch.cuda.Stream(device)
+
+    def upload(self, *tensors: torch.Tensor):
+        """Host tensors -> (device tensors, event after the copies)."""
+        if not self.cuda:
+            return tensors, None
+        with torch.cuda.stream(self.up):
+            dev = tuple(t.pin_memory().to(self.device, non_blocking=True)
+                        for t in tensors)
+            return dev, self.up.record_event()
+
+    def on_current(self, tensors, event):
+        """Make uploaded tensors safe to use on the current stream."""
+        if event is not None:
+            main = torch.cuda.current_stream(self.device)
+            main.wait_event(event)
+            for t in tensors:
+                t.record_stream(main)
+        return tensors
+
+    def fetch(self, *tensors):
+        """Device tensors (or None) -> (host tensors, event to wait for)."""
+        if not self.cuda:
+            return tensors, None
+        self.down.wait_event(torch.cuda.current_stream(self.device).record_event())
+        with torch.cuda.stream(self.down):
+            host = []
+            for t in tensors:
+                if t is None:
+                    host.append(None)
+                    continue
+                buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                buf.copy_(t, non_blocking=True)
+                t.record_stream(self.down)
+                host.append(buf)
+            return tuple(host), self.down.record_event()
 
 
 _MAX_IN_FLIGHT = 16  # tile chunks dispatched before the oldest is fetched
@@ -57,13 +139,16 @@ class TeacherPredictor:
     """KDLAE-T denoiser with the notebook's pre/postprocessing.
 
     ``model`` carries its weights; ``fused`` routes gate-admitted stages
-    through the stage kernel. ``shape_bucket`` rounds padded sizes up to a
-    coarser grid (MDTA statistics are global over the padded pixels, so
-    bucketed outputs deviate slightly from multiple-of-8 padding)."""
+    through the stage kernel; ``fused_resample`` folds the resamplers'
+    pixel-(un)shuffle into their convs. ``shape_bucket`` rounds padded
+    sizes up to a coarser grid (MDTA statistics are global over the padded
+    pixels, so bucketed outputs deviate slightly from multiple-of-8
+    padding)."""
 
     def __init__(self, model: KDLAETeacher | None = None, multiple_of: int = 8,
                  shape_bucket: int | None = None,
                  dtype: torch.dtype = torch.float32, fused: bool = False,
+                 fused_resample: bool = False,
                  device: str | torch.device | None = None):
         if shape_bucket and shape_bucket % multiple_of:
             raise ValueError(
@@ -75,18 +160,22 @@ class TeacherPredictor:
                                  params="cat")
         self.model: nn.Module = model.to(device=self.device, dtype=dtype).eval()
         self.model.set_fused(fused)
+        if fused_resample:
+            self.model.set_fused_resample(True)
         self.multiple_of = multiple_of
         self.shape_bucket = shape_bucket
         self.dtype = dtype
+        self._transfers = _Transfers(self.device)
 
     def _forward(self, x: np.ndarray, denoise_rate: float):
         img = torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
         return self._forward_device(img, denoise_rate)
 
     @torch.inference_mode()
-    def _forward_device(self, img: torch.Tensor, denoise_rate: float):
-        """(B, H, W, 3) uint8 or float on the device -> uint8 NHWC 'hq' and
-        'sr' (or None) on the device."""
+    def _forward_device(self, img: torch.Tensor, rate: float | torch.Tensor):
+        """(B, H, W, 3) uint8 or float on the device, and the denoise rate
+        (a float, or a 0-d tensor of the serving dtype on the device) ->
+        uint8 NHWC 'hq' and 'sr' (or None) on the device."""
         if img.dtype == torch.uint8:
             # divide in float32 first, then cast: the model input equals
             # the host reader's float values in every serving dtype
@@ -94,9 +183,13 @@ class TeacherPredictor:
         else:
             img = img.to(self.dtype)
         img = img.permute(0, 3, 1, 2)
-        rate = torch.full((img.shape[0], 1, img.shape[2], img.shape[3]),
-                          denoise_rate, dtype=self.dtype, device=self.device)
-        out = self.model({"img": img, "denoise_rate": rate})
+        if not isinstance(rate, torch.Tensor):
+            rate = torch.full((), rate, dtype=self.dtype, device=self.device)
+        plane = rate.reshape(1, 1, 1, 1).expand(img.shape[0], 1, img.shape[2],
+                                               img.shape[3])
+        with (highest_precision() if self.dtype == torch.float32
+              else contextlib.nullcontext()):
+            out = self.model({"img": img, "denoise_rate": plane})
         hq = _to_ubyte_device(out["hq"]).permute(0, 2, 3, 1)
         sr = (None if out["sr"] is None
               else _to_ubyte_device(out["sr"]).permute(0, 2, 3, 1))
@@ -113,22 +206,125 @@ class TeacherPredictor:
         if x.dtype != np.uint8:
             x = x.astype(np.float32)
         hq, sr = self._forward(x, denoise_rate)
-        hq = hq[0, :h, :w].cpu().numpy()
-        out = {}
-        if zero_mask:
-            mask = zero_mask_from_input(
-                img_rgb if img_rgb.dtype == np.uint8 else to_ubyte(img_rgb))
-            hq = apply_zero_mask(hq, mask)
-        out["hq"] = hq
-        if sr is not None:
-            sr_img = sr[0, :2 * h, :2 * w].cpu().numpy()
-            if zero_mask:
-                sr_img = apply_zero_mask(sr_img, mask, scale=2)
-            out["sr"] = sr_img
-        return out
+        return _postprocess(img_rgb, hq[0].cpu().numpy(),
+                            None if sr is None else sr[0].cpu().numpy(),
+                            zero_mask)
 
     def denoise_file(self, path: str, denoise_rate: float = 1.0, **kw) -> dict:
         return self(imread_rgb_ubyte(path), denoise_rate, **kw)
+
+    # ------------------------------------------------------------ group --
+    def denoise_group(self, imgs_rgb: list[np.ndarray],
+                      denoise_rate: float = 1.0, zero_mask: bool = True,
+                      group_size: int = 8) -> list[dict]:
+        """Throughput serving: same-shape images in groups of
+        ``group_size``, each image of a group through the same forward as
+        ``__call__`` (as ``lax.scan`` runs the JAX package's group), so the
+        outputs are bit-identical to per-image calls. A one-slot worker
+        thread pads, stacks and uploads group k+1 while group k computes
+        and group k-1 is fetched and post-processed. With ``shape_bucket``
+        images whose bucketed padded size matches group together (each
+        cropped back to its own size); other mixed shapes are served per
+        image, and so is a tail shorter than a group."""
+        if not imgs_rgb:
+            return []
+        shape0 = imgs_rgb[0].shape
+        if any(im.shape != shape0 for im in imgs_rgb):
+            m_b = self.shape_bucket
+            targets = {(_round_up(im.shape[0], m_b), _round_up(im.shape[1], m_b))
+                       for im in imgs_rgb} if m_b else None
+            if not (m_b and len(targets) == 1):
+                return [self(im, denoise_rate, zero_mask=zero_mask)
+                        for im in imgs_rgb]
+
+        full_end = (len(imgs_rgb) // group_size) * group_size
+        groups = [imgs_rgb[b:b + group_size]
+                  for b in range(0, full_end, group_size)]
+        tail = imgs_rgb[full_end:]
+
+        results: list[dict] = []
+        pending = None
+        with ThreadPoolExecutor(max_workers=1) as ex:
+            fut = (ex.submit(self._prep_and_upload, groups[0], denoise_rate)
+                   if groups else None)
+            for i in range(len(groups)):
+                uploaded = fut.result()
+                fut = (ex.submit(self._prep_and_upload, groups[i + 1],
+                                 denoise_rate)
+                       if i + 1 < len(groups) else None)
+                handle = self._dispatch_uploaded(uploaded)
+                # group i-1's fetch and post-processing overlap group i
+                if pending is not None:
+                    results.extend(self.fetch_group(pending, zero_mask=zero_mask))
+                pending = handle
+        if pending is not None:
+            results.extend(self.fetch_group(pending, zero_mask=zero_mask))
+        results.extend(self(im, denoise_rate, zero_mask=zero_mask)
+                       for im in tail)
+        return results
+
+    def scan_eligible(self, imgs: list[np.ndarray], group_size: int) -> bool:
+        """True when ``imgs`` can run as one group (a full group of one raw
+        shape, or of one bucketed shape)."""
+        if len(imgs) != group_size:
+            return False
+        shape0 = imgs[0].shape
+        if all(im.shape == shape0 for im in imgs):
+            return True
+        m_b = self.shape_bucket
+        if not m_b:
+            return False
+        targets = {(_round_up(im.shape[0], m_b), _round_up(im.shape[1], m_b))
+                   for im in imgs}
+        return len(targets) == 1
+
+    def _prep_and_upload(self, chunk: list[np.ndarray], denoise_rate: float):
+        """Pad and stack one group on the host and upload it with its
+        per-image rates (thread-safe: the group pipeline's worker runs it).
+        Returns the (dtype-normalized) chunk, the device inputs and the
+        event that ends their upload."""
+        m = self.shape_bucket or self.multiple_of
+        target_h = max(_round_up(im.shape[0], m) for im in chunk)
+        target_w = max(_round_up(im.shape[1], m) for im in chunk)
+        if any(im.dtype != np.uint8 for im in chunk):
+            # mixed dtypes must not stack raw: uint8 goes to the float boundary
+            chunk = [im.astype(np.float32) / 255.0 if im.dtype == np.uint8
+                     else im for im in chunk]
+        x = np.concatenate([
+            _pad_reflect_np(im[None], target_h - im.shape[0],
+                            target_w - im.shape[1])
+            for im in chunk])
+        if x.dtype != np.uint8:  # uint8 groups ship 1 byte/px
+            x = x.astype(np.float32)
+        rates = torch.full((len(chunk),), denoise_rate, dtype=self.dtype)
+        dev, event = self._transfers.upload(torch.from_numpy(x), rates)
+        return (chunk, *dev, event)
+
+    def _dispatch_uploaded(self, uploaded):
+        """Run one uploaded group image by image and queue its fetch."""
+        chunk, x, rates, event = uploaded
+        x, rates = self._transfers.on_current((x, rates), event)
+        outs = [self._forward_device(x[k:k + 1], rates[k])
+                for k in range(x.shape[0])]
+        hq = torch.cat([o[0] for o in outs])
+        sr = None if outs[0][1] is None else torch.cat([o[1] for o in outs])
+        (hq, sr), fetched = self._transfers.fetch(hq, sr)
+        return chunk, hq, sr, fetched
+
+    def dispatch_group(self, chunk: list[np.ndarray],
+                       denoise_rate: float = 1.0):
+        """Dispatch one group (the caller checks ``scan_eligible``); returns
+        a handle for ``fetch_group``."""
+        return self._dispatch_uploaded(self._prep_and_upload(chunk, denoise_rate))
+
+    def fetch_group(self, handle, zero_mask: bool = True) -> list[dict]:
+        """Wait for a dispatched group's fetch and post-process it."""
+        chunk, hqs, srs, fetched = handle
+        if fetched is not None:
+            fetched.synchronize()
+        return [_postprocess(im, hqs[j].numpy(),
+                             None if srs is None else srs[j].numpy(), zero_mask)
+                for j, im in enumerate(chunk)]
 
     # ------------------------------------------------------------ tiled --
     def denoise_tiled(self, imgs_rgb: list[np.ndarray],
@@ -151,7 +347,7 @@ class TeacherPredictor:
         along an axis goes through the whole-image path.
 
         On the GPU the chunks' uploads and fetches go through pinned host
-        buffers on a side stream, so chunk k+1's upload and chunk k-1's
+        buffers on side streams, so chunk k+1's upload and chunk k-1's
         fetch overlap chunk k's forward; at most 16 chunks are in flight.
         """
         if not imgs_rgb:
@@ -207,35 +403,16 @@ class TeacherPredictor:
                             sr_tiles[k][2 * h_h:2 * (h_h + t_h),
                                         2 * h_w:2 * (h_w + t_w)]
                     k += 1
-            hq = out_hq[:h, :w]
-            out = {}
-            if zero_mask:
-                mask = zero_mask_from_input(
-                    im if im.dtype == np.uint8 else to_ubyte(im))
-                hq = apply_zero_mask(hq, mask)
-            out["hq"] = hq
-            if out_sr is not None:
-                sr_img = out_sr[:2 * h, :2 * w]
-                if zero_mask:
-                    sr_img = apply_zero_mask(sr_img, mask, scale=2)
-                out["sr"] = sr_img
-            results[idx] = out
+            results[idx] = _postprocess(im, out_hq, out_sr, zero_mask)
         return [results[i] for i in range(len(imgs_rgb))]
 
     def _forward_tiles(self, tiles: list[np.ndarray], tile_batch: int,
                        denoise_rate: float):
         """Forward same-shape tiles ``tile_batch`` at a time; returns the
         lists of uint8 'hq' tiles and 'sr' tiles (empty without the SR
-        head) in order.
-
-        On the GPU each chunk has a slot of pinned host buffers, reused once
-        its chunk has been fetched. Uploads and fetches are non-blocking
-        copies on a side stream, ordered against the forward passes on the
-        current stream by events; a chunk is read on the host only after
-        its fetch event."""
-        cuda = self.device.type == "cuda"
-        side = torch.cuda.Stream(self.device) if cuda else None
-        slots: list[dict] = []     # pinned buffers, one set per chunk in flight
+        head) in order. On the GPU uploads and fetches are non-blocking
+        copies through pinned buffers on side streams; a chunk is read on
+        the host only after its fetch event."""
         pending: list = []         # (n, hq_host, sr_host, fetched event)
         hq_tiles: list[np.ndarray] = []
         sr_tiles: list[np.ndarray] = []
@@ -248,43 +425,203 @@ class TeacherPredictor:
             if sr is not None:
                 sr_tiles.extend(sr[:n].numpy().copy())
 
-        for k, b in enumerate(range(0, len(tiles), tile_batch)):
+        for b in range(0, len(tiles), tile_batch):
             chunk = tiles[b:b + tile_batch]
             n = len(chunk)
             if n < tile_batch:  # keep one batch shape
                 chunk = chunk + [chunk[-1]] * (tile_batch - n)
-            x = torch.from_numpy(np.stack(chunk))
-            if not cuda:
-                hq, sr = self._forward_device(x, denoise_rate)
-                pending.append((n, hq, sr, None))
-            else:
-                if k < _MAX_IN_FLIGHT:
-                    slots.append({"x": torch.empty_like(x).pin_memory()})
-                slot = slots[k % _MAX_IN_FLIGHT]
-                slot["x"].copy_(x)
-                main = torch.cuda.current_stream(self.device)
-                with torch.cuda.stream(side):
-                    dev = slot["x"].to(self.device, non_blocking=True)
-                    main.wait_event(side.record_event())
-                dev.record_stream(main)
-                hq, sr = self._forward_device(dev, denoise_rate)
-                side.wait_event(main.record_event())
-                with torch.cuda.stream(side):
-                    outs = []
-                    for key, val in (("hq", hq), ("sr", sr)):
-                        if val is None:
-                            outs.append(None)
-                            continue
-                        if key not in slot:
-                            slot[key] = torch.empty(
-                                val.shape, dtype=val.dtype).pin_memory()
-                        slot[key].copy_(val, non_blocking=True)
-                        val.record_stream(side)
-                        outs.append(slot[key])
-                    fetched = side.record_event()
-                pending.append((n, outs[0], outs[1], fetched))
+            x, event = self._transfers.upload(torch.from_numpy(np.stack(chunk)))
+            x, = self._transfers.on_current(x, event)
+            (hq, sr), fetched = self._transfers.fetch(
+                *self._forward_device(x, denoise_rate))
+            pending.append((n, hq, sr, fetched))
             if len(pending) >= _MAX_IN_FLIGHT:
                 drain_one()
         while pending:
             drain_one()
         return hq_tiles, sr_tiles
+
+
+def _postprocess(im: np.ndarray, hq: np.ndarray, sr: np.ndarray | None,
+                 zero_mask: bool) -> dict:
+    """Crop the padded uint8 outputs of one image to its size and apply the
+    fan-beam zero mask."""
+    h, w = im.shape[:2]
+    hq = hq[:h, :w]
+    out = {}
+    if zero_mask:
+        mask = zero_mask_from_input(im if im.dtype == np.uint8 else to_ubyte(im))
+        hq = apply_zero_mask(hq, mask)
+    out["hq"] = hq
+    if sr is not None:
+        sr = sr[:2 * h, :2 * w]
+        if zero_mask:
+            sr = apply_zero_mask(sr, mask, scale=2)
+        out["sr"] = sr
+    return out
+
+
+class StudentPredictor:
+    """Multi-frame KDLAE-S denoiser (the temporal stack serving path).
+
+    The model computes in float32 whatever ``dtype`` is: bfloat16 serving
+    rounds the input stack (uint8 / 255 in float32, then bfloat16), as the
+    JAX predictor's flax module does."""
+
+    def __init__(self, model: KDLAEStudent | None = None, multiple_of: int = 32,
+                 num_frames: int = 7, dtype: torch.dtype = torch.float32,
+                 device: str | torch.device | None = None):
+        self.device = resolve_device(device)
+        if model is None:
+            model = KDLAEStudent(residual=True, hidden_channels=(16, 32, 64))
+        self.model: nn.Module = model.to(device=self.device,
+                                         dtype=torch.float32).eval()
+        self.multiple_of = multiple_of
+        self.num_frames = num_frames
+        self.dtype = dtype
+
+    @torch.inference_mode()
+    def _forward(self, x: np.ndarray) -> torch.Tensor:
+        """(B, F, H, W) uint8 or float32 on the host -> uint8 on the device."""
+        stack = torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+        if stack.dtype == torch.uint8:
+            stack = stack.float() / 255.0
+        with highest_precision():
+            return _to_ubyte_device(self.model(stack.to(self.dtype)))
+
+    def _padded(self, stacks: np.ndarray) -> np.ndarray:
+        h, w = stacks.shape[2:]
+        m = self.multiple_of
+        x = _pad_reflect_np(stacks, _round_up(h, m) - h, _round_up(w, m) - w,
+                            axes=(2, 3))
+        return x if x.dtype == np.uint8 else x.astype(np.float32)
+
+    def __call__(self, stack: np.ndarray) -> np.ndarray:
+        """stack: (F, H, W) float32 [0,1] or uint8. Returns (F, H, W) uint8."""
+        _, h, w = stack.shape
+        return self._forward(self._padded(stack[None]))[0, :, :h, :w].cpu().numpy()
+
+    def denoise_batch(self, stacks: np.ndarray) -> np.ndarray:
+        """(B, F, H, W) stacks in one forward: the 3-D conv student has no
+        coupling across stacks, so batching is exact."""
+        h, w = stacks.shape[2:]
+        return self._forward(self._padded(stacks))[:, :, :h, :w].cpu().numpy()
+
+    def load_stack(self, folder: str, start: int = 0) -> np.ndarray:
+        """``num_frames`` consecutive grayscale frames, resized to the first
+        frame's size (KDLAE-S.ipynb cell 3 loader); uint8 when no frame was
+        resized (the decoded floats are then exact uint8 / 255)."""
+        files = list_images(folder)
+        if len(files) < self.num_frames:
+            raise ValueError(
+                f"need {self.num_frames} frames, found {len(files)} in {folder}")
+        frames, target, resized = [], None, False
+        for p in files[start:start + self.num_frames]:
+            img = imread_gray(p)
+            if target is None:
+                target = (img.shape[1], img.shape[0])
+            elif (img.shape[1], img.shape[0]) != target:
+                img = resize_area(img, *target)
+                resized = True
+            frames.append(img)
+        stack = np.stack(frames, axis=0)
+        if not resized:
+            stack = np.rint(stack * 255.0).astype(np.uint8)
+        return stack
+
+    def denoise_folder(self, folder: str, start: int = 0) -> np.ndarray:
+        return self(self.load_stack(folder, start))
+
+    def denoise_all_frames(self, folder: str,
+                           stack_batch: int = 18) -> np.ndarray:
+        """Denoise every frame of a folder: consecutive ``num_frames``
+        stacks, the last one overlapping backwards so the tail is covered;
+        each frame's output comes from the first stack that holds it.
+        Returns (N, H, W) uint8 in ``list_images`` order. Uniform-size
+        folders decode once and run ``stack_batch`` stacks per forward;
+        mixed-size ones go stack by stack (each resized to its first
+        frame) and come out resized to frame 0's size."""
+        files = list_images(folder)
+        n = len(files)
+        if n < self.num_frames:
+            raise ValueError(
+                f"need {self.num_frames} frames, found {n} in {folder}")
+        starts, start = [], 0
+        while start < n:
+            s = min(start, n - self.num_frames)
+            starts.append(s)
+            start = s + self.num_frames
+        imgs = [imread_gray(p) for p in files]
+        frames: dict[int, np.ndarray] = {}
+        if len({im.shape for im in imgs}) == 1 and stack_batch > 1:
+            u8 = np.stack([np.rint(im * 255.0).astype(np.uint8) for im in imgs])
+            stacks = np.stack([u8[s:s + self.num_frames] for s in starts])
+            outs = np.concatenate(
+                [self.denoise_batch(stacks[b:b + stack_batch])
+                 for b in range(0, len(stacks), stack_batch)])
+            for k, s in enumerate(starts):
+                for j in range(self.num_frames):
+                    frames.setdefault(s + j, outs[k, j])
+            return np.stack([frames[i] for i in range(n)])
+        for s in starts:
+            out = self.denoise_folder(folder, start=s)
+            for j in range(out.shape[0]):
+                frames.setdefault(s + j, out[j])
+        shape0 = frames[0].shape
+        if any(f.shape != shape0 for f in frames.values()):
+            frames = {i: resize_area(f, shape0[1], shape0[0])
+                      if f.shape != shape0 else f for i, f in frames.items()}
+        return np.stack([frames[i] for i in range(n)])
+
+
+class ASDQEScorer:
+    """Pairwise quality scorer (ASDQE_test.py infer loop). The model
+    computes in float32 with TF32 off whatever ``dtype`` is; bfloat16
+    rounds the images (and their difference, taken before the convs)."""
+
+    def __init__(self, model: DenoiseRatePredictor | None = None,
+                 dtype: torch.dtype = torch.float32,
+                 device: str | torch.device | None = None):
+        self.device = resolve_device(device)
+        if model is None:
+            model = DenoiseRatePredictor()
+        self.model: nn.Module = model.to(device=self.device,
+                                         dtype=torch.float32).eval()
+        self.dtype = dtype
+        self._transfers = _Transfers(self.device)
+
+    @torch.inference_mode()
+    def _forward(self, lq: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
+        def prep(x):
+            if x.dtype == torch.uint8:  # f32 / 255 first, as the teacher
+                x = x.float() / 255.0
+            return x.to(self.dtype).permute(0, 3, 1, 2)
+
+        with highest_precision():
+            return self.model(prep(lq), prep(gt)).reshape(-1)
+
+    def upload(self, lq: np.ndarray, gt: np.ndarray):
+        """Upload one pair, (H, W, 3) or (B, H, W, 3), uint8 as it is and
+        floats in the serving dtype. Thread-safe: the score pipeline
+        uploads pair k+1 from a worker while pair k computes."""
+        if lq.ndim == 3:
+            lq, gt = lq[None], gt[None]
+
+        def ship(x):
+            t = torch.from_numpy(np.ascontiguousarray(x))
+            return t if t.dtype == torch.uint8 else t.to(self.dtype)
+
+        dev, event = self._transfers.upload(ship(lq), ship(gt))
+        return (*dev, event)
+
+    def dispatch(self, uploaded) -> torch.Tensor:
+        """Score an ``upload``-ed pair: a (B,) float32 tensor on the device
+        (``.cpu()`` is the fetch)."""
+        lq, gt, event = uploaded
+        lq, gt = self._transfers.on_current((lq, gt), event)
+        return self._forward(lq, gt)
+
+    def __call__(self, lq: np.ndarray, gt: np.ndarray) -> np.ndarray:
+        """lq / gt: (H, W, 3) or (B, H, W, 3), float [0,1] or uint8;
+        returns (B,) float32 scores."""
+        return self.dispatch(self.upload(lq, gt)).cpu().numpy()

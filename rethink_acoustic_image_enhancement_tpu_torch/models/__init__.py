@@ -1,11 +1,14 @@
-"""Teacher model registry (the reference's ``define_network`` string
-registry, Train/basicsr/models/archs/__init__.py:43-46, for the teacher
-entries)."""
+"""Model registry (the reference's ``define_network`` string registry,
+Train/basicsr/models/archs/__init__.py:43-46): the teacher, the vanilla
+Restormer, the KDLAE-S student and the ASDQE scorer."""
 
 from __future__ import annotations
 
+from .asdqe import DenoiseRatePredictor
+from .kdlae_student import KDLAEStudent
 from .kdlae_teacher import (
     KDLAETeacher,
+    Restormer,
     RestormerSuperResolutionParam2,
     TransformerStage,
     init_weights_,
@@ -25,17 +28,33 @@ _KEYMAP_TEACHER = {
     "dual_pixel_task": "dual_pixel_task",
     "static": "static",
     "params": "params",
+    # no reference analog: fold the conv + pixel-(un)shuffle resamplers
+    # into single strided / transposed convs (models/blocks.py)
+    "fused_resample": "fused_resample",
 }
 
 REGISTRY = {
     "KDLAE_teacher": (KDLAETeacher, _KEYMAP_TEACHER),
     "RestormerSuperResolutionParam2": (RestormerSuperResolutionParam2,
                                        _KEYMAP_TEACHER),
+    "Restormer": (Restormer, {k: v for k, v in _KEYMAP_TEACHER.items()
+                              if k not in ("static", "params")}),
+    "KDLAE_student": (KDLAEStudent, {
+        "inp_channels": "inp_channels",
+        "out_channels": "out_channels",
+        "residual": "residual",
+        "hidden_channels": "hidden_channels",
+        "kernel_size": "kernel_size",
+    }),
+    "DenoiseRatePredictor": (DenoiseRatePredictor, {
+        "in_channels": "in_channels",
+        "dim": "dim",
+    }),
 }
 
 
-def build_network(cfg: dict) -> KDLAETeacher:
-    """Instantiate a teacher from a reference-style ``network_g`` dict."""
+def build_network(cfg: dict):
+    """Instantiate a model from a reference-style ``network_g`` dict."""
     cfg = dict(cfg)
     type_name = cfg.pop("type")
     if type_name not in REGISTRY:
@@ -60,6 +79,6 @@ def flagship_teacher(static: str = "test") -> KDLAETeacher:
         layernorm_type="BiasFree", static=static, params="cat")
 
 
-__all__ = ["KDLAETeacher", "RestormerSuperResolutionParam2",
-           "TransformerStage", "REGISTRY", "build_network",
-           "flagship_teacher", "init_weights_"]
+__all__ = ["KDLAETeacher", "KDLAEStudent", "DenoiseRatePredictor", "Restormer",
+           "RestormerSuperResolutionParam2", "TransformerStage", "REGISTRY",
+           "build_network", "flagship_teacher", "init_weights_"]

@@ -159,26 +159,50 @@ class OverlapPatchEmbed(nn.Module):
 
 
 class Downsample(nn.Module):
-    """3x3 conv C->C/2 then PixelUnshuffle(2) (KDLAE_model.py:182-190)."""
+    """3x3 conv C->C/2 then PixelUnshuffle(2) (KDLAE_model.py:182-190).
 
-    def __init__(self, n_feat: int):
+    ``fused`` folds the unshuffle into the conv: one stride-2 4x4 conv whose
+    kernel holds the 3x3 weights at the four phases (out channel f*4 + i*2
+    + j takes the taps shifted by (i, j)). Same parameter, same taps."""
+
+    def __init__(self, n_feat: int, fused: bool = False):
         super().__init__()
         self.body = nn.Sequential(
             nn.Conv2d(n_feat, n_feat // 2, 3, padding=1, bias=False),
             nn.PixelUnshuffle(2))
+        self.fused = fused
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.body(x)
+        if not self.fused:
+            return self.body(x)
+        w3 = self.body[0].weight  # (F, C, 3, 3)
+        f, c = w3.shape[:2]
+        w4 = torch.stack([F.pad(w3, (j, 1 - j, i, 1 - i))
+                          for i in (0, 1) for j in (0, 1)], dim=1)
+        return F.conv2d(x, w4.reshape(f * 4, c, 4, 4), stride=2, padding=1)
 
 
 class Upsample(nn.Module):
-    """3x3 conv C->2C then PixelShuffle(2) (KDLAE_model.py:192-200)."""
+    """3x3 conv C->2C then PixelShuffle(2) (KDLAE_model.py:192-200).
 
-    def __init__(self, n_feat: int):
+    ``fused`` folds the shuffle into the conv: the sub-pixel conv is one
+    stride-2 transposed 6x6 conv (padding 2) whose tap (4 - 2*dy + i,
+    4 - 2*dx + j) holds the 3x3 weight (dy, dx) of output phase (i, j).
+    Same parameter, same taps."""
+
+    def __init__(self, n_feat: int, fused: bool = False):
         super().__init__()
         self.body = nn.Sequential(
             nn.Conv2d(n_feat, n_feat * 2, 3, padding=1, bias=False),
             nn.PixelShuffle(2))
+        self.fused = fused
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.body(x)
+        if not self.fused:
+            return self.body(x)
+        w3 = self.body[0].weight  # (4F, C, 3, 3), out channel f*4 + i*2 + j
+        c = w3.shape[1]
+        f = w3.shape[0] // 4
+        # [f, i, j, c, 2 - dy, 2 - dx] -> [c, f, (2 - dy, i), (2 - dx, j)]
+        w6 = w3.reshape(f, 2, 2, c, 3, 3).flip(4, 5).permute(3, 0, 4, 1, 5, 2)
+        return F.conv_transpose2d(x, w6.reshape(c, f, 6, 6), stride=2, padding=2)

@@ -1,9 +1,12 @@
 """KDLAE-T teacher (reference KDLAE/KDLAE_model.py:204-336): a 4-level
 conv-attention U-Net with denoise-rate conditioning and a 2x
-super-resolution head, NCHW, with the reference torch attribute names.
+super-resolution head, NCHW, with the reference torch attribute names; and
+the vanilla ``Restormer`` baseline (restormer_arch.py:471-562) it grew from.
 
 ``params`` is 'cat' (denoise-rate conditioning) or 'none'; the reference
 ctor advertises 'plus'/'mul' but its forward implements only 'cat'.
+``fused_resample`` folds each conv + pixel-(un)shuffle resampler into one
+strided or transposed conv (``models/blocks.py``), with the same weights.
 """
 
 from __future__ import annotations
@@ -66,7 +69,8 @@ class KDLAETeacher(nn.Module):
                  ffn_expansion_factor: float = 2.66, use_bias: bool = False,
                  layernorm_type: str = "WithBias",
                  dual_pixel_task: bool = False, static: str = "train",
-                 params: str = "cat", fused: bool = False):
+                 params: str = "cat", fused: bool = False,
+                 fused_resample: bool = False):
         super().__init__()
         if params not in ("cat", "none"):
             raise ValueError(
@@ -81,29 +85,9 @@ class KDLAETeacher(nn.Module):
         def stage(ch, nh, nb):
             return TransformerStage(ch, nh, nb, ff, b, bf, fused)
 
-        self.patch_embed = OverlapPatchEmbed(inp_channels, d, b)
-        self.encoder_level1 = stage(d, heads[0], num_blocks[0])
-        self.down1_2 = Downsample(d)
-        self.encoder_level2 = stage(d * 2, heads[1], num_blocks[1])
-        self.down2_3 = Downsample(d * 2)
-        self.encoder_level3 = stage(d * 4, heads[2], num_blocks[2])
-        self.down3_4 = Downsample(d * 4)
-        self.latent = stage(d * 8, heads[3], num_blocks[3])
-
-        self.up4_3 = Upsample(d * 8)
-        self.reduce_chan_level3 = nn.Conv2d(d * 8, d * 4, 1, bias=b)
-        self.decoder_level3 = stage(d * 4, heads[2], num_blocks[2])
-        self.up3_2 = Upsample(d * 4)
-        self.reduce_chan_level2 = nn.Conv2d(d * 4, d * 2, 1, bias=b)
-        self.decoder_level2 = stage(d * 2, heads[1], num_blocks[1])
-        self.up2_1 = Upsample(d * 2)
-        # level-1 decoder runs at 2*dim: skip concat, no channel reduce
-        self.decoder_level1 = stage(d * 2, heads[0], num_blocks[0])
-        self.refinement = stage(d * 2, heads[0], num_refinement_blocks)
-
-        if dual_pixel_task:
-            self.skip_conv = nn.Conv2d(d, d * 2, 1, bias=b)
-        self.output = nn.Conv2d(d * 2, out_channels, 3, padding=1, bias=b)
+        _build_unet(self, inp_channels, out_channels, d, num_blocks,
+                    num_refinement_blocks, heads, b, dual_pixel_task, stage,
+                    fused_resample)
         if params == "cat":
             # dilated 3x3 conv over (out + denoise_rate) channels
             self.output_param = nn.Conv2d(out_channels + 1, d * 2, 3,
@@ -113,7 +97,7 @@ class KDLAETeacher(nn.Module):
         if static == "train":
             hc = d * 2
             self.cen = nn.Conv2d(out_channels, hc, 3, padding=1, bias=b)
-            self.upen = Upsample(hc)
+            self.upen = Upsample(hc, fused_resample)
             self.enhance = stage(hc // 2, heads[0], num_refinement_blocks)
             self.outputen = nn.Conv2d(hc // 2, out_channels, 3, padding=1,
                                       bias=b)
@@ -125,20 +109,16 @@ class KDLAETeacher(nn.Module):
                 m.fused = fused
         return self
 
+    def set_fused_resample(self, fused: bool) -> "KDLAETeacher":
+        """Fold the resamplers' pixel-(un)shuffle into their convs (or not)."""
+        for m in self.modules():
+            if isinstance(m, (Downsample, Upsample)):
+                m.fused = fused
+        return self
+
     def forward(self, inputs: dict) -> dict:
         inp_img = inputs["img"]
-        x1 = self.patch_embed(inp_img)
-        e1 = self.encoder_level1(x1)
-        e2 = self.encoder_level2(self.down1_2(e1))
-        e3 = self.encoder_level3(self.down2_3(e2))
-        latent = self.latent(self.down3_4(e3))
-
-        d3 = self.reduce_chan_level3(torch.cat([self.up4_3(latent), e3], 1))
-        d3 = self.decoder_level3(d3)
-        d2 = self.reduce_chan_level2(torch.cat([self.up3_2(d3), e2], 1))
-        d2 = self.decoder_level2(d2)
-        d1 = self.decoder_level1(torch.cat([self.up2_1(d2), e1], 1))
-        d1 = self.refinement(d1)
+        x1, d1 = _unet(self, inp_img)
 
         if self.dual_pixel_task:
             out_hq = self.output(d1 + self.skip_conv(x1))
@@ -159,6 +139,82 @@ class KDLAETeacher(nn.Module):
 # The pre-rename reference class (restormer_arch.py:566-698) is the same
 # network; expose it as an alias.
 RestormerSuperResolutionParam2 = KDLAETeacher
+
+
+def _build_unet(m: nn.Module, inp_channels, out_channels, d, num_blocks,
+                num_refinement_blocks, heads, b, dual_pixel_task, stage,
+                fused_resample) -> None:
+    """The encoder / decoder / refinement / output modules that KDLAE-T and
+    Restormer share, under the reference's attribute names."""
+    fr = fused_resample
+    m.patch_embed = OverlapPatchEmbed(inp_channels, d, b)
+    m.encoder_level1 = stage(d, heads[0], num_blocks[0])
+    m.down1_2 = Downsample(d, fr)
+    m.encoder_level2 = stage(d * 2, heads[1], num_blocks[1])
+    m.down2_3 = Downsample(d * 2, fr)
+    m.encoder_level3 = stage(d * 4, heads[2], num_blocks[2])
+    m.down3_4 = Downsample(d * 4, fr)
+    m.latent = stage(d * 8, heads[3], num_blocks[3])
+
+    m.up4_3 = Upsample(d * 8, fr)
+    m.reduce_chan_level3 = nn.Conv2d(d * 8, d * 4, 1, bias=b)
+    m.decoder_level3 = stage(d * 4, heads[2], num_blocks[2])
+    m.up3_2 = Upsample(d * 4, fr)
+    m.reduce_chan_level2 = nn.Conv2d(d * 4, d * 2, 1, bias=b)
+    m.decoder_level2 = stage(d * 2, heads[1], num_blocks[1])
+    m.up2_1 = Upsample(d * 2, fr)
+    # level-1 decoder runs at 2*dim: skip concat, no channel reduce
+    m.decoder_level1 = stage(d * 2, heads[0], num_blocks[0])
+    m.refinement = stage(d * 2, heads[0], num_refinement_blocks)
+
+    if dual_pixel_task:
+        m.skip_conv = nn.Conv2d(d, d * 2, 1, bias=b)
+    m.output = nn.Conv2d(d * 2, out_channels, 3, padding=1, bias=b)
+
+
+def _unet(m: nn.Module, inp_img: torch.Tensor):
+    """(patch embedding, refined level-1 features) of the shared U-Net."""
+    x1 = m.patch_embed(inp_img)
+    e1 = m.encoder_level1(x1)
+    e2 = m.encoder_level2(m.down1_2(e1))
+    e3 = m.encoder_level3(m.down2_3(e2))
+    latent = m.latent(m.down3_4(e3))
+
+    d3 = m.reduce_chan_level3(torch.cat([m.up4_3(latent), e3], 1))
+    d3 = m.decoder_level3(d3)
+    d2 = m.reduce_chan_level2(torch.cat([m.up3_2(d3), e2], 1))
+    d2 = m.decoder_level2(d2)
+    d1 = m.decoder_level1(torch.cat([m.up2_1(d2), e1], 1))
+    return x1, m.refinement(d1)
+
+
+class Restormer(nn.Module):
+    """Vanilla Restormer (Train/.../restormer_arch.py:471-562): (B, C, H, W)
+    in, (B, C, H, W) out, global residual, no conditioning and no SR head."""
+
+    def __init__(self, inp_channels: int = 3, out_channels: int = 3,
+                 dim: int = 48, num_blocks: Sequence[int] = (4, 6, 6, 8),
+                 num_refinement_blocks: int = 4,
+                 heads: Sequence[int] = (1, 2, 4, 8),
+                 ffn_expansion_factor: float = 2.66, use_bias: bool = False,
+                 layernorm_type: str = "WithBias",
+                 dual_pixel_task: bool = False, fused_resample: bool = False):
+        super().__init__()
+        self.dual_pixel_task = dual_pixel_task
+        bf = layernorm_type == "BiasFree"
+
+        def stage(ch, nh, nb):
+            return TransformerStage(ch, nh, nb, ffn_expansion_factor, use_bias, bf)
+
+        _build_unet(self, inp_channels, out_channels, dim, num_blocks,
+                    num_refinement_blocks, heads, use_bias, dual_pixel_task,
+                    stage, fused_resample)
+
+    def forward(self, inp_img: torch.Tensor) -> torch.Tensor:
+        x1, d1 = _unet(self, inp_img)
+        if self.dual_pixel_task:
+            return self.output(d1 + self.skip_conv(x1))
+        return self.output(d1) + inp_img
 
 
 _BRANCH_SCALE = 0.1

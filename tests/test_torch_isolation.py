@@ -25,7 +25,8 @@ def _port_modules():
 def test_every_port_module_imports_without_jax():
     modules = _port_modules()
     for name in ("ops.stage", "ops.layernorm", "ops.gdfn", "ops.block",
-                 "eval.infer"):
+                 "ops.resize", "models.kdlae_student", "models.asdqe",
+                 "eval.infer", "eval.asdqe_eval"):
         assert f"{PORT}.{name}" in modules, name
     code = "\n".join([
         "import importlib, sys",

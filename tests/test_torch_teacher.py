@@ -13,6 +13,7 @@ from rethink_acoustic_image_enhancement_tpu.convert.torch_export import (
     export_teacher,
     save_pth,
 )
+from rethink_acoustic_image_enhancement_tpu.models import REGISTRY as JAX_REGISTRY
 from rethink_acoustic_image_enhancement_tpu.models.kdlae_teacher import (
     KDLAETeacher as JaxTeacher,
 )
@@ -157,8 +158,11 @@ def test_registry_and_flagship():
     net = build_network(cfg)
     flag = flagship_teacher(static="train")
     assert list(net.state_dict()) == list(flag.state_dict())
-    assert set(REGISTRY) == {"KDLAE_teacher", "RestormerSuperResolutionParam2"}
+    assert set(REGISTRY) == set(JAX_REGISTRY)
+    for name, (_, keymap) in REGISTRY.items():
+        assert set(keymap) == set(JAX_REGISTRY[name][1]), name
+    assert build_network({**cfg, "fused_resample": True}).down1_2.fused
     with pytest.raises(KeyError):
-        build_network({**cfg, "fused_resample": True})
+        build_network({**cfg, "no_such_option": True})
     with pytest.raises(ValueError):
         KDLAETeacher(params="plus")

@@ -49,8 +49,19 @@ fp32 predictors' own pinning is what runs:
      device idle share of one group from a profile, and one request with
      fused_resample=True within 1 level of the unfused one on >= 99% of
      pixels.
+  9. zoo and CLI: the trained zoo (artifacts/torch_zoo/*.pth) through the
+     port's CLI on the card, on 16 synthetic 512x512 sonar PNGs and 14 gray
+     frames written with the port's imwrite into a temporary directory:
+     infer-teacher per image, --group-size 8 and --tile 256, --sr on one
+     image, serve --once twice, infer-student --all, score over 16 pairs
+     (images, frames and pairs per second of each call, model load
+     included); grouped and served outputs bit-identical to per-image ones,
+     the second serve writing nothing, a 96x96 crop within 1 level of the
+     same CLI with --device cpu; and the trained teacher in bf16 through
+     TeacherPredictor(fused=True) within 1 level of fused=False on >= 99% of
+     pixels of two 512x512 frames (5 stage calls per request).
 Each path runs with every launch count set to 0 just before it and read just
-after. Prints one JSON line per phase 6-8, a "kernels" JSON line, the card
+after. Prints one JSON line per phase 6-9, a "kernels" JSON line, the card
 line, and as its last line {"ok": true, "device": {...}}. Details go to
 chiprun_out/chip_smoke.json.
 """
@@ -61,6 +72,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -497,7 +509,10 @@ def sonar_frame(h, w, seed):
 def phase_slice(results, card):
     import torch
 
-    from rethink_acoustic_image_enhancement_tpu_torch.eval.infer import TeacherPredictor
+    from rethink_acoustic_image_enhancement_tpu_torch.eval.infer import (
+        TeacherPredictor,
+        highest_precision,
+    )
     from rethink_acoustic_image_enhancement_tpu_torch.models import (
         TransformerStage,
         flagship_teacher,
@@ -509,7 +524,8 @@ def phase_slice(results, card):
 
     model = init_weights_(flagship_teacher(static="train"),
                           torch.Generator().manual_seed(0))
-    pred = TeacherPredictor(model, fused=True, dtype=torch.bfloat16)
+    # the weights' dtype is the compute dtype: cast the model for bf16 serving
+    pred = TeacherPredictor(model.to(torch.bfloat16), fused=True, dtype=torch.bfloat16)
     frames = [(sonar_frame(512, 512, 0), 1.0), (sonar_frame(512, 512, 1), 0.6),
               (sonar_frame(500, 380, 4), 1.0)]
 
@@ -938,10 +954,7 @@ def phase_group(results, card, pred):
     busy_ms = sum(ms for k, ms in events if "memcpy" not in k.lower())
 
     folded = TeacherPredictor(pred.model, fused=True, dtype=pred.dtype, fused_resample=True)
-    try:
-        resampled = folded(frames[0], 0.8)
-    finally:
-        pred.model.set_fused_resample(False)
+    resampled = folded(frames[0], 0.8)
     agree = {key: within_levels(resampled[key], single[0][key]) for key in ("hq", "sr")}
     row = dict(card=card, images=len(frames), group_size=8, stage_calls=launches,
                group_images_per_s=len(frames) / group_s,
@@ -964,6 +977,233 @@ def phase_group(results, card, pred):
     results["group"] = row
     print(json.dumps({"group": row}), flush=True)
     return launches
+
+# ------------------------------------------------------------ phase 9 ----
+
+def run_cli(argv):
+    """cli.main(argv) on the card: (its stdout, wall seconds); fails on a
+    non-zero exit."""
+    import contextlib
+    import io
+
+    import torch
+
+    from rethink_acoustic_image_enhancement_tpu_torch import cli
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    assert rc == 0, (argv, rc, buf.getvalue()[-2000:])
+    log(f"  cli {' '.join(a for a in argv if '/' not in a)}: {wall:.2f} s")
+    return buf.getvalue(), wall
+
+
+def decoded(folder, gray=False):
+    from rethink_acoustic_image_enhancement_tpu_torch.utils.image_io import (
+        imread_gray,
+        imread_rgb_ubyte,
+        list_images,
+    )
+
+    read = imread_gray if gray else imread_rgb_ubyte
+    return {os.path.basename(p): read(p) for p in list_images(folder)}
+
+
+def phase_zoo_cli(results, card, work):
+    """The trained zoo (artifacts/torch_zoo/) through the port's CLI on the
+    card, files in and out under ``work``; the trained bf16 teacher through
+    the stage kernel."""
+    import torch
+
+    from rethink_acoustic_image_enhancement_tpu_torch.convert.weights import load_pth
+    from rethink_acoustic_image_enhancement_tpu_torch.eval.infer import (
+        TeacherPredictor,
+        highest_precision,
+    )
+    from rethink_acoustic_image_enhancement_tpu_torch.models import (
+        TransformerStage,
+        flagship_teacher,
+        kdlae_teacher,
+    )
+    from rethink_acoustic_image_enhancement_tpu_torch.models.blocks import flax_block_tree
+    from rethink_acoustic_image_enhancement_tpu_torch.ops import stage as pstage
+    from rethink_acoustic_image_enhancement_tpu_torch.ops import stage_gate
+    from rethink_acoustic_image_enhancement_tpu_torch.ops.stage import stack_block_params
+    from rethink_acoustic_image_enhancement_tpu_torch.utils.image_io import imwrite
+
+    zoo = os.path.join(HERE, "artifacts", "torch_zoo")
+    teacher = flagship_teacher(static="train")
+    t0 = time.perf_counter()
+    load_pth(teacher, os.path.join(zoo, "teacher.pth"))
+    load_ms = (time.perf_counter() - t0) * 1e3
+
+    src, gray, crop = (os.path.join(work, d) for d in ("in", "gray", "crop"))
+    frames = [sonar_frame(512, 512, 80 + i) for i in range(16)]
+    for i, f in enumerate(frames):
+        imwrite(os.path.join(src, f"f{i:02d}.png"), f)
+    for i, f in enumerate(sonar_stacks(1, 14, 512, 512, seed=90)[0]):
+        imwrite(os.path.join(gray, f"g{i:02d}.png"), f, rgb=False)
+    h, w = frames[0].shape[:2]
+    imwrite(os.path.join(crop, "crop.png"),
+            frames[0][h // 2 - 48:h // 2 + 48, w // 2 - 48:w // 2 + 48])
+
+    def out(name):
+        return os.path.join(work, name)
+
+    row = dict(card=card, zoo_load_ms=load_ms, images=16, size=[h, w])
+    modes = {"per_image": [], "group8": ["--group-size", "8"], "tile256": ["--tile", "256"]}
+    got = {}
+    for mode, extra in modes.items():
+        _, wall = run_cli(["infer-teacher", "--weights", "teacher", "--input", src,
+                           "--output", out(mode), *extra])
+        got[mode] = decoded(out(mode))
+        assert len(got[mode]) == 16, (mode, len(got[mode]))
+        row[f"infer_teacher_{mode}"] = dict(wall_s=wall, images_per_s=16 / wall)
+    _, wall = run_cli(["infer-teacher", "--weights", "teacher", "--sr", "--output", out("sr"),
+                       "--input", os.path.join(src, "f00.png")])
+    sr = decoded(out("sr"))
+    assert sr["sr_f00.png"].shape == (2 * h, 2 * w, 3) and sr["f00.png"].shape == (h, w, 3)
+    row["infer_teacher_sr_one_image_s"] = wall
+
+    stdout, wall = run_cli(["serve", "--weights", "teacher", "--watch", src,
+                            "--output", out("serve"), "--once"])
+    preflight = json.loads(stdout.split("[serve] preflight: ", 1)[1].splitlines()[0])
+    assert preflight["status"] == "ok" and preflight["platform"] == "gpu", preflight
+    served = decoded(out("serve"))
+    mtimes = {f: os.path.getmtime(os.path.join(out("serve"), f)) for f in served}
+    stdout2, wall2 = run_cli(["serve", "--weights", "teacher", "--watch", src,
+                              "--output", out("serve"), "--once", "--preflight-timeout", "0"])
+    assert "served 0 image(s)" in stdout2, stdout2[-500:]
+    assert {f: os.path.getmtime(os.path.join(out("serve"), f))
+            for f in os.listdir(out("serve"))} == mtimes, "the second serve wrote files"
+    row["serve"] = dict(wall_s=wall, images_per_s=16 / wall, second_wall_s=wall2,
+                        second_served=0)
+    row["preflight"] = preflight
+    for name, outs in (("group8", got["group8"]), ("serve", served)):
+        for f, img in got["per_image"].items():
+            assert np.array_equal(outs[f], img), f"{name} {f} differs from per-image"
+    mask = np.all(frames[0] == 0, axis=-1)
+    assert not got["per_image"]["f00.png"][mask].any(), "zero-mask pixels not 0"
+
+    # a 96x96 crop through the CLI on the card and on the CPU
+    run_cli(["infer-teacher", "--weights", "teacher", "--input", crop, "--output", out("crop_gpu")])
+    run_cli(["infer-teacher", "--weights", "teacher", "--input", crop, "--output", out("crop_cpu"),
+             "--device", "cpu"])
+    share, crop_worst = within_levels(decoded(out("crop_gpu"))["crop.png"],
+                                      decoded(out("crop_cpu"))["crop.png"])
+    row["crop96_vs_cpu"] = dict(within_1_level=share, max_levels=crop_worst)
+    assert crop_worst <= 1, f"96x96 crop: {crop_worst} levels from the CPU"
+
+    _, wall = run_cli(["infer-student", "--weights", "student-us", "--input", gray,
+                       "--output", out("student"), "--all"])
+    stu = decoded(out("student"), gray=True)
+    assert len(stu) == 14 and all(np.isfinite(v).all() for v in stu.values())
+    row["infer_student"] = dict(frames=14, wall_s=wall, frames_per_s=14 / wall)
+    csv_path = out("scores.csv")
+    _, wall = run_cli(["score", "--lq-dir", src, "--methods", f"teacher={out('per_image')}",
+                       "--csv", csv_path])
+    with open(csv_path) as fh:
+        assert len(fh.read().splitlines()) >= 2, "empty score CSV"
+    row["score"] = dict(pairs=16, wall_s=wall, pairs_per_s=16 / wall)
+
+    # the trained teacher in bf16 through the stage kernel: the kernel held to
+    # its plain version block by block on the stage inputs of a trained
+    # request, and the fused path no further from the fp32 teacher than the
+    # eager bf16 blocks (fused=False) are. Recorded, not held: whole stages
+    # against their plain version (a stage can amplify a block's rounding,
+    # encoder_level2 by tens of times on trained weights, in fp32 as well),
+    # and the outputs' agreement with the plain-stage predictor and with
+    # fused=False, two other roundings of a network that amplifies them
+    fp32 = TeacherPredictor(teacher)
+    model = teacher.to(torch.bfloat16)
+    fused = TeacherPredictor(model, fused=True, dtype=torch.bfloat16)
+    eager = TeacherPredictor(model, dtype=torch.bfloat16)
+    reqs = [(frames[1], 1.0), (frames[2], 0.6)]
+    stage_inputs = []
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, args, name=name: stage_inputs.append((name, mod, args[0])) or None)
+        for name, m in fused.model.named_modules() if isinstance(m, TransformerStage)]
+    fused(*reqs[0])  # warm-up, and the stage inputs of a trained request
+    for hk in hooks:
+        hk.remove()
+    torch.cuda.synchronize()
+    counts = reset_counts()
+    outs = [fused(img, rate) for img, rate in reqs]
+    torch.cuda.synchronize()
+    launches = read_counts(counts)
+    assert launches == dict(stage=5 * len(reqs), layernorm=0, gdfn=0, block=0), launches
+    def rel(got, ref):
+        return ((got.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
+
+    fp32_stages = dict(fp32.model.named_modules())
+    kernel_rel, stage_rel, plain_vs_fp32 = [], [], []
+    for name, mod, x in stage_inputs:
+        b, _, hh, ww = x.shape
+        if not stage_gate.stage_worthwhile(b, hh, ww, mod.dim, mod.num_heads, mod.bias_free_ln,
+                                           mod.use_bias, mod.ffn_expansion_factor):
+            continue
+        xin = x.permute(0, 2, 3, 1).contiguous()
+        stacked = stack_block_params([flax_block_tree(blk) for blk in mod])
+        plain = pstage.stage_plain(xin, **stacked)
+        stage_rel.append(rel(pstage.fused_transformer_stage(xin, **stacked), plain))
+        with torch.inference_mode(), highest_precision():  # the eager fp32 stage
+            ref32 = fp32_stages[name](x.float()).permute(0, 2, 3, 1)
+        plain_vs_fp32.append(rel(plain, ref32))
+        y, worst = xin, 0.0
+        for i in range(len(mod)):  # each block on the plain chain's input
+            one = {k: v[i:i + 1] for k, v in stacked.items()}
+            ref = pstage.stage_plain(y, **one)
+            worst = max(worst, rel(pstage.fused_transformer_stage(y, **one), ref))
+            y = ref.float()
+        kernel_rel.append(worst)
+    plain_model_stage = kdlae_teacher.fused_transformer_stage
+    kdlae_teacher.fused_transformer_stage = pstage.stage_plain
+    try:
+        plain_outs = [fused(img, rate) for img, rate in reqs]
+    finally:
+        kdlae_teacher.fused_transformer_stage = plain_model_stage
+    agree = []
+    for (img, rate), o, plain in zip(reqs, outs, plain_outs):
+        ref32, ref_eager = fp32(img, rate), eager(img, rate)
+        mask = np.all(img == 0, axis=-1)
+        for key, s_ in (("hq", 1), ("sr", 2)):
+            assert o[key].shape == (h * s_, w * s_, 3), (key, o[key].shape)
+            assert not o[key][np.repeat(np.repeat(mask, s_, 0), s_, 1)].any(), key
+            share, worst = within_levels(o[key], plain[key])
+            agree.append(dict(
+                rate=rate, key=key, vs_plain_stage_within_1_level=share,
+                vs_plain_stage_max_levels=worst,
+                vs_unfused_within_1_level=within_levels(o[key], ref_eager[key])[0],
+                fused_vs_fp32_over_1_level=1 - within_levels(o[key], ref32[key])[0],
+                plain_stage_vs_fp32_over_1_level=1 - within_levels(plain[key], ref32[key])[0],
+                unfused_vs_fp32_over_1_level=1 - within_levels(ref_eager[key], ref32[key])[0]))
+    log(f"trained bf16 teacher, stage kernel vs plain on its {len(kernel_rel)} stage inputs: "
+        f"worst block rel {['%.2e' % r for r in kernel_rel]}, whole stage rel "
+        f"{['%.2e' % r for r in stage_rel]} (plain vs the fp32 stage "
+        f"{['%.2e' % r for r in plain_vs_fp32]}); {agree} [{card}]")
+    assert len(kernel_rel) == 5 and max(kernel_rel) <= TOL_REL, kernel_rel
+    for a in agree:
+        assert a["fused_vs_fp32_over_1_level"] <= 1.5 * a["unfused_vs_fp32_over_1_level"], a
+    row["trained_fused_bf16"] = dict(stage_calls=launches["stage"],
+                                     block_kernel_vs_plain_rel=kernel_rel,
+                                     stage_kernel_vs_plain_rel=stage_rel,
+                                     stage_plain_vs_fp32_rel=plain_vs_fp32, agreement=agree)
+    log(f"zoo + CLI: teacher.pth load {load_ms:.1f} ms; infer-teacher images/s "
+        + ", ".join(f"{m} {row[f'infer_teacher_{m}']['images_per_s']:.2f}" for m in modes)
+        + f"; serve {row['serve']['images_per_s']:.2f} (second run served 0); student "
+        f"{row['infer_student']['frames_per_s']:.2f} frames/s; score "
+        f"{row['score']['pairs_per_s']:.2f} pairs/s; crop vs CPU max {crop_worst} levels; "
+        f"trained bf16 teacher: {launches['stage']} stage calls, block kernel vs plain rel <= "
+        f"{max(kernel_rel):.2e}, more than 1 level from fp32: fused "
+        f"{max(a['fused_vs_fp32_over_1_level'] for a in agree):.4f}, unfused "
+        f"{max(a['unfused_vs_fp32_over_1_level'] for a in agree):.4f} [{card}]")
+    results["zoo_cli"] = row
+    print(json.dumps({"zoo_cli": row}), flush=True)
+    return launches["stage"]
+
 
 # ------------------------------------------------------------ main -------
 
@@ -1014,8 +1254,13 @@ def main() -> int:
     phase_student(results, card)
     phase_asdqe(results, card)
     group_launches = phase_group(results, card, pred)
+    del pred
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="raie_zoo_cli_") as work:
+        zoo_launches = phase_zoo_cli(results, card, work)
     results["path_launches"] = dict(whole_image=whole_launches, tiled=tiled_launches,
-                                    group=group_launches, **path_launches)
+                                    group=group_launches, zoo_cli=zoo_launches,
+                                    **path_launches)
 
     def entry(name, source, replaces, launches, rows, main_row):
         assert launches > 0, f"{name}: no launch on a driven path"
@@ -1031,7 +1276,8 @@ def main() -> int:
     # library call)
     kernels = {"kernels": [
         entry("fused_transformer_stage", "stage.cu", "stage.py:324",
-              whole_launches + tiled_launches + group_launches, stage_rows, stage_rows[0]),
+              whole_launches + tiled_launches + group_launches + zoo_launches,
+              stage_rows, stage_rows[0]),
         entry("fused_channel_layernorm", "layernorm.cu", "layernorm.py:58",
               path_launches["layernorm"], ln_rows, ln_rows[1]),
         entry("fused_ln_gdfn", "gdfn.cu", "gdfn.py:277",

@@ -20,7 +20,8 @@ bf16 arrays are upcast to float32. The same mapping serves one flax
 arguments of ``ops/block.py::fused_transformer_block`` and
 ``ops/gdfn.py::fused_ln_gdfn`` (flax layouts, LayerNorm biases included).
 ``load_pth`` reads a reference-layout checkpoint ``{'params': state_dict[,
-'params_ema']}`` ('params') of any of the three families.
+'params_ema']}`` (or a bare state dict) of any of the three families, the
+ASDQE scorer's running statistics included.
 """
 
 from __future__ import annotations
@@ -209,11 +210,22 @@ def load_asdqe_params(model: nn.Module, params: Mapping[str, Any],
     return model
 
 
-def load_pth(model: nn.Module, path: str) -> nn.Module:
-    """Load the 'params' of a reference-layout ``.pth`` (as
-    ``torch_export.save_pth`` writes it) into ``model`` with
-    ``strict=True``; values upcast to float32."""
-    sd = torch.load(path, map_location="cpu", weights_only=True)["params"]
-    model.load_state_dict({k: v.float() if v.is_floating_point() else v
-                           for k, v in sd.items()}, strict=True)
+def read_pth(path: str, param_key: str | None = "params") -> dict[str, torch.Tensor]:
+    """The state dict of a reference-layout ``.pth``: ``obj[param_key]``
+    ('params' or 'params_ema') where the file holds that key, the whole
+    object for ``param_key=None`` (a bare state dict); a DDP ``module.``
+    prefix is stripped (the JAX package's ``torch_import.py:30-47``)."""
+    obj = torch.load(path, map_location="cpu", weights_only=True)
+    if param_key is not None and isinstance(obj, dict) and param_key in obj:
+        obj = obj[param_key]
+    return {k[len("module."):] if k.startswith("module.") else k: v
+            for k, v in obj.items()}
+
+
+def load_pth(model: nn.Module, path: str,
+             param_key: str | None = "params") -> nn.Module:
+    """Load a reference-layout ``.pth`` (as ``read_pth`` reads it) into
+    ``model`` with ``strict=True``; values take the model's dtype (float32
+    for a fresh model, so a bfloat16 checkpoint is upcast)."""
+    model.load_state_dict(read_pth(path, param_key), strict=True)
     return model

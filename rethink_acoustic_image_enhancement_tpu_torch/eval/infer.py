@@ -14,10 +14,15 @@ StudentPredictor  KDLAE-S.ipynb cell 3: 7-frame grayscale stacks
                   of 32, forward, clamp, crop; many stacks per call.
 ASDQEScorer       ASDQE_test.py:87-104: pairwise quality scores.
 
-Every forward in float32 runs with TF32 off (``highest_precision``), as the
-JAX package pins ``jax.default_matmul_precision("highest")``. The student
-and the scorer compute in float32 in every serving dtype: like their flax
-modules, a bfloat16 dtype only rounds the inputs.
+Each predictor serves its own copy of the model it is given (on its device,
+with its own flags), so the caller's module and other predictors built on it
+are never changed. The weights' dtype sets the compute dtype and ``dtype``
+only the input boundary, as in the JAX package, whose flax modules have
+``dtype=None``: float32 weights with a bfloat16 ``dtype`` round the input to
+bfloat16 and compute in float32; cast the model to bfloat16 to compute in
+bfloat16. Every forward that computes in float32 runs with TF32 off
+(``highest_precision``), as the JAX package pins
+``jax.default_matmul_precision("highest")``.
 
 Runs on ``cuda`` unless the caller asks for another device; with no GPU
 and no device named it raises rather than fall back to the CPU.
@@ -26,6 +31,7 @@ and no device named it raises rather than fall back to the CPU.
 from __future__ import annotations
 
 import contextlib
+import copy
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -138,8 +144,9 @@ _MAX_IN_FLIGHT = 16  # tile chunks dispatched before the oldest is fetched
 class TeacherPredictor:
     """KDLAE-T denoiser with the notebook's pre/postprocessing.
 
-    ``model`` carries its weights; ``fused`` routes gate-admitted stages
-    through the stage kernel; ``fused_resample`` folds the resamplers'
+    ``model`` carries its weights (the predictor serves a copy), whose dtype
+    is the compute dtype; ``dtype`` is the input's; ``fused`` routes
+    gate-admitted stages through the stage kernel; ``fused_resample`` folds the resamplers'
     pixel-(un)shuffle into their convs. ``shape_bucket`` rounds padded
     sizes up to a coarser grid (MDTA statistics are global over the padded
     pixels, so bucketed outputs deviate slightly from multiple-of-8
@@ -158,10 +165,12 @@ class TeacherPredictor:
         if model is None:
             model = KDLAETeacher(layernorm_type="BiasFree", static="train",
                                  params="cat")
-        self.model: nn.Module = model.to(device=self.device, dtype=dtype).eval()
+        self.model: nn.Module = _own_copy(model, self.device)
+        # float32 compute (float32 weights, or a float32 input) pins TF32 off
+        self._fp32 = torch.promote_types(
+            dtype, next(self.model.parameters()).dtype) == torch.float32
         self.model.set_fused(fused)
-        if fused_resample:
-            self.model.set_fused_resample(True)
+        self.model.set_fused_resample(fused_resample)
         self.multiple_of = multiple_of
         self.shape_bucket = shape_bucket
         self.dtype = dtype
@@ -187,8 +196,7 @@ class TeacherPredictor:
             rate = torch.full((), rate, dtype=self.dtype, device=self.device)
         plane = rate.reshape(1, 1, 1, 1).expand(img.shape[0], 1, img.shape[2],
                                                img.shape[3])
-        with (highest_precision() if self.dtype == torch.float32
-              else contextlib.nullcontext()):
+        with highest_precision() if self._fp32 else contextlib.nullcontext():
             out = self.model({"img": img, "denoise_rate": plane})
         hq = _to_ubyte_device(out["hq"]).permute(0, 2, 3, 1)
         sr = (None if out["sr"] is None
@@ -442,6 +450,12 @@ class TeacherPredictor:
         return hq_tiles, sr_tiles
 
 
+def _own_copy(model: nn.Module, device: torch.device) -> nn.Module:
+    """A copy of ``model`` on ``device`` in eval mode; ``model`` is left as
+    it was (the JAX predictors clone their flax module, never the params)."""
+    return copy.deepcopy(model).to(device).eval()
+
+
 def _postprocess(im: np.ndarray, hq: np.ndarray, sr: np.ndarray | None,
                  zero_mask: bool) -> dict:
     """Crop the padded uint8 outputs of one image to its size and apply the
@@ -464,9 +478,9 @@ def _postprocess(im: np.ndarray, hq: np.ndarray, sr: np.ndarray | None,
 class StudentPredictor:
     """Multi-frame KDLAE-S denoiser (the temporal stack serving path).
 
-    The model computes in float32 whatever ``dtype`` is: bfloat16 serving
-    rounds the input stack (uint8 / 255 in float32, then bfloat16), as the
-    JAX predictor's flax module does."""
+    With float32 weights (the zoo's) the model computes in float32 whatever
+    ``dtype`` is: bfloat16 serving rounds the input stack (uint8 / 255 in
+    float32, then bfloat16), as the JAX predictor's flax module does."""
 
     def __init__(self, model: KDLAEStudent | None = None, multiple_of: int = 32,
                  num_frames: int = 7, dtype: torch.dtype = torch.float32,
@@ -474,8 +488,7 @@ class StudentPredictor:
         self.device = resolve_device(device)
         if model is None:
             model = KDLAEStudent(residual=True, hidden_channels=(16, 32, 64))
-        self.model: nn.Module = model.to(device=self.device,
-                                         dtype=torch.float32).eval()
+        self.model: nn.Module = _own_copy(model, self.device)
         self.multiple_of = multiple_of
         self.num_frames = num_frames
         self.dtype = dtype
@@ -575,9 +588,10 @@ class StudentPredictor:
 
 
 class ASDQEScorer:
-    """Pairwise quality scorer (ASDQE_test.py infer loop). The model
-    computes in float32 with TF32 off whatever ``dtype`` is; bfloat16
-    rounds the images (and their difference, taken before the convs)."""
+    """Pairwise quality scorer (ASDQE_test.py infer loop). With float32
+    weights the model computes in float32 with TF32 off whatever ``dtype``
+    is; bfloat16 rounds the images (and their difference, taken before the
+    convs)."""
 
     def __init__(self, model: DenoiseRatePredictor | None = None,
                  dtype: torch.dtype = torch.float32,
@@ -585,8 +599,7 @@ class ASDQEScorer:
         self.device = resolve_device(device)
         if model is None:
             model = DenoiseRatePredictor()
-        self.model: nn.Module = model.to(device=self.device,
-                                         dtype=torch.float32).eval()
+        self.model: nn.Module = _own_copy(model, self.device)
         self.dtype = dtype
         self._transfers = _Transfers(self.device)
 
@@ -598,7 +611,7 @@ class ASDQEScorer:
             return x.to(self.dtype).permute(0, 3, 1, 2)
 
         with highest_precision():
-            return self.model(prep(lq), prep(gt)).reshape(-1)
+            return self.model(prep(lq), prep(gt)).reshape(-1).float()
 
     def upload(self, lq: np.ndarray, gt: np.ndarray):
         """Upload one pair, (H, W, 3) or (B, H, W, 3), uint8 as it is and

@@ -2,6 +2,11 @@
 
 Attribute names are the reference torch names (KDLAE/KDLAE_model.py:32-200),
 so a reference-layout state dict loads with ``strict=True``.
+
+Every layer computes in ``torch.promote_types(input, weight)``, as the flax
+modules do with ``dtype=None``: float32 weights take a bfloat16 input to
+float32, and bfloat16 weights compute in bfloat16 only with a bfloat16
+input. The weights' dtype is thus the model's compute dtype.
 """
 
 from __future__ import annotations
@@ -14,6 +19,15 @@ from ..ops import stage_gate
 from ..ops.attention import mdta_core
 from ..ops.block import fused_transformer_block
 from ..ops.norm import channel_layernorm
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` in the promoted dtype of its input and its weight."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dtype = torch.promote_types(x.dtype, self.weight.dtype)
+        bias = None if self.bias is None else self.bias.to(dtype)
+        return self._conv_forward(x.to(dtype), self.weight.to(dtype), bias)
 
 
 class _LayerNormBody(nn.Module):
@@ -43,10 +57,10 @@ class MDTA(nn.Module):
         super().__init__()
         self.num_heads = num_heads
         self.temperature = nn.Parameter(torch.ones(num_heads, 1, 1))
-        self.qkv = nn.Conv2d(dim, dim * 3, 1, bias=bias)
-        self.qkv_dwconv = nn.Conv2d(dim * 3, dim * 3, 3, padding=1,
-                                    groups=dim * 3, bias=bias)
-        self.project_out = nn.Conv2d(dim, dim, 1, bias=bias)
+        self.qkv = Conv2d(dim, dim * 3, 1, bias=bias)
+        self.qkv_dwconv = Conv2d(dim * 3, dim * 3, 3, padding=1,
+                                 groups=dim * 3, bias=bias)
+        self.project_out = Conv2d(dim, dim, 1, bias=bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, c, h, w = x.shape
@@ -67,10 +81,10 @@ class GDFN(nn.Module):
                  bias: bool = False):
         super().__init__()
         hidden = int(dim * ffn_expansion_factor)
-        self.project_in = nn.Conv2d(dim, hidden * 2, 1, bias=bias)
-        self.dwconv = nn.Conv2d(hidden * 2, hidden * 2, 3, padding=1,
-                                groups=hidden * 2, bias=bias)
-        self.project_out = nn.Conv2d(hidden, dim, 1, bias=bias)
+        self.project_in = Conv2d(dim, hidden * 2, 1, bias=bias)
+        self.dwconv = Conv2d(hidden * 2, hidden * 2, 3, padding=1,
+                             groups=hidden * 2, bias=bias)
+        self.project_out = Conv2d(hidden, dim, 1, bias=bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x1, x2 = self.dwconv(self.project_in(x)).chunk(2, dim=1)
@@ -152,7 +166,7 @@ class OverlapPatchEmbed(nn.Module):
 
     def __init__(self, in_c: int = 3, embed_dim: int = 48, bias: bool = False):
         super().__init__()
-        self.proj = nn.Conv2d(in_c, embed_dim, 3, padding=1, bias=bias)
+        self.proj = Conv2d(in_c, embed_dim, 3, padding=1, bias=bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.proj(x)
@@ -168,7 +182,7 @@ class Downsample(nn.Module):
     def __init__(self, n_feat: int, fused: bool = False):
         super().__init__()
         self.body = nn.Sequential(
-            nn.Conv2d(n_feat, n_feat // 2, 3, padding=1, bias=False),
+            Conv2d(n_feat, n_feat // 2, 3, padding=1, bias=False),
             nn.PixelUnshuffle(2))
         self.fused = fused
 
@@ -177,9 +191,11 @@ class Downsample(nn.Module):
             return self.body(x)
         w3 = self.body[0].weight  # (F, C, 3, 3)
         f, c = w3.shape[:2]
+        dtype = torch.promote_types(x.dtype, w3.dtype)
         w4 = torch.stack([F.pad(w3, (j, 1 - j, i, 1 - i))
                           for i in (0, 1) for j in (0, 1)], dim=1)
-        return F.conv2d(x, w4.reshape(f * 4, c, 4, 4), stride=2, padding=1)
+        return F.conv2d(x.to(dtype), w4.reshape(f * 4, c, 4, 4).to(dtype),
+                        stride=2, padding=1)
 
 
 class Upsample(nn.Module):
@@ -193,7 +209,7 @@ class Upsample(nn.Module):
     def __init__(self, n_feat: int, fused: bool = False):
         super().__init__()
         self.body = nn.Sequential(
-            nn.Conv2d(n_feat, n_feat * 2, 3, padding=1, bias=False),
+            Conv2d(n_feat, n_feat * 2, 3, padding=1, bias=False),
             nn.PixelShuffle(2))
         self.fused = fused
 
@@ -205,4 +221,6 @@ class Upsample(nn.Module):
         f = w3.shape[0] // 4
         # [f, i, j, c, 2 - dy, 2 - dx] -> [c, f, (2 - dy, i), (2 - dx, j)]
         w6 = w3.reshape(f, 2, 2, c, 3, 3).flip(4, 5).permute(3, 0, 4, 1, 5, 2)
-        return F.conv_transpose2d(x, w6.reshape(c, f, 6, 6), stride=2, padding=2)
+        dtype = torch.promote_types(x.dtype, w3.dtype)
+        return F.conv_transpose2d(x.to(dtype), w6.reshape(c, f, 6, 6).to(dtype),
+                                  stride=2, padding=2)

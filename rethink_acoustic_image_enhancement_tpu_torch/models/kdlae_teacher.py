@@ -7,6 +7,8 @@ the vanilla ``Restormer`` baseline (restormer_arch.py:471-562) it grew from.
 ctor advertises 'plus'/'mul' but its forward implements only 'cat'.
 ``fused_resample`` folds each conv + pixel-(un)shuffle resampler into one
 strided or transposed conv (``models/blocks.py``), with the same weights.
+The weights' dtype sets the compute dtype (``models/blocks.py``): cast the
+model to bfloat16 to compute in bfloat16.
 """
 
 from __future__ import annotations
@@ -18,8 +20,8 @@ from torch import nn
 
 from ..ops import stage_gate
 from ..ops.stage import fused_transformer_stage, stack_block_params
-from .blocks import (Downsample, OverlapPatchEmbed, TransformerBlock, Upsample,
-                     flax_block_tree)
+from .blocks import (Conv2d, Downsample, OverlapPatchEmbed, TransformerBlock,
+                     Upsample, flax_block_tree)
 
 
 class TransformerStage(nn.Sequential):
@@ -90,17 +92,17 @@ class KDLAETeacher(nn.Module):
                     fused_resample)
         if params == "cat":
             # dilated 3x3 conv over (out + denoise_rate) channels
-            self.output_param = nn.Conv2d(out_channels + 1, d * 2, 3,
-                                          padding=2, dilation=2, bias=b)
+            self.output_param = Conv2d(out_channels + 1, d * 2, 3,
+                                       padding=2, dilation=2, bias=b)
             self.refinement_out = stage(d * 2, heads[0], num_refinement_blocks)
-            self.output2 = nn.Conv2d(d * 2, out_channels, 3, padding=1, bias=b)
+            self.output2 = Conv2d(d * 2, out_channels, 3, padding=1, bias=b)
         if static == "train":
             hc = d * 2
-            self.cen = nn.Conv2d(out_channels, hc, 3, padding=1, bias=b)
+            self.cen = Conv2d(out_channels, hc, 3, padding=1, bias=b)
             self.upen = Upsample(hc, fused_resample)
             self.enhance = stage(hc // 2, heads[0], num_refinement_blocks)
-            self.outputen = nn.Conv2d(hc // 2, out_channels, 3, padding=1,
-                                      bias=b)
+            self.outputen = Conv2d(hc // 2, out_channels, 3, padding=1,
+                                   bias=b)
 
     def set_fused(self, fused: bool) -> "KDLAETeacher":
         """Route gate-admitted stages through the stage kernel (or not)."""
@@ -157,10 +159,10 @@ def _build_unet(m: nn.Module, inp_channels, out_channels, d, num_blocks,
     m.latent = stage(d * 8, heads[3], num_blocks[3])
 
     m.up4_3 = Upsample(d * 8, fr)
-    m.reduce_chan_level3 = nn.Conv2d(d * 8, d * 4, 1, bias=b)
+    m.reduce_chan_level3 = Conv2d(d * 8, d * 4, 1, bias=b)
     m.decoder_level3 = stage(d * 4, heads[2], num_blocks[2])
     m.up3_2 = Upsample(d * 4, fr)
-    m.reduce_chan_level2 = nn.Conv2d(d * 4, d * 2, 1, bias=b)
+    m.reduce_chan_level2 = Conv2d(d * 4, d * 2, 1, bias=b)
     m.decoder_level2 = stage(d * 2, heads[1], num_blocks[1])
     m.up2_1 = Upsample(d * 2, fr)
     # level-1 decoder runs at 2*dim: skip concat, no channel reduce
@@ -168,8 +170,8 @@ def _build_unet(m: nn.Module, inp_channels, out_channels, d, num_blocks,
     m.refinement = stage(d * 2, heads[0], num_refinement_blocks)
 
     if dual_pixel_task:
-        m.skip_conv = nn.Conv2d(d, d * 2, 1, bias=b)
-    m.output = nn.Conv2d(d * 2, out_channels, 3, padding=1, bias=b)
+        m.skip_conv = Conv2d(d, d * 2, 1, bias=b)
+    m.output = Conv2d(d * 2, out_channels, 3, padding=1, bias=b)
 
 
 def _unet(m: nn.Module, inp_img: torch.Tensor):

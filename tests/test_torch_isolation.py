@@ -26,7 +26,8 @@ def test_every_port_module_imports_without_jax():
     modules = _port_modules()
     for name in ("ops.stage", "ops.layernorm", "ops.gdfn", "ops.block",
                  "ops.resize", "models.kdlae_student", "models.asdqe",
-                 "eval.infer", "eval.asdqe_eval"):
+                 "eval.infer", "eval.asdqe_eval", "cli", "utils.doctor",
+                 "utils.png", "utils.image_io"):
         assert f"{PORT}.{name}" in modules, name
     code = "\n".join([
         "import importlib, sys",

@@ -44,8 +44,9 @@ def tf32_on():
 def _serve(kind, dtype):
     """(predictor, its model, a call that serves one small input)."""
     rng = np.random.default_rng(0)
-    if kind == "teacher":
-        pred = TeacherPredictor(KDLAETeacher(**NARROW), dtype=dtype, device="cpu")
+    if kind == "teacher":  # the weights' dtype is the compute dtype
+        pred = TeacherPredictor(KDLAETeacher(**NARROW).to(dtype), dtype=dtype,
+                                device="cpu")
         img = rng.integers(0, 256, (16, 24, 3), dtype=np.uint8)
         return pred.model, lambda: pred(img, 0.7)
     if kind == "teacher_group":

@@ -116,7 +116,8 @@ def test_group_is_bit_identical_to_per_image_calls_on_the_card(cuda, dtype):
     """The flagship teacher with the stage kernel (three stages admitted at
     256^2): two groups of two and a tail of one."""
     model = init_weights_(flagship_teacher(static="train"), torch.Generator().manual_seed(0))
-    pred = TeacherPredictor(model, fused=True, dtype=dtype, device=cuda)
+    # the weights' dtype is the compute dtype: bf16 serving casts the model
+    pred = TeacherPredictor(model.to(dtype), fused=True, dtype=dtype, device=cuda)
     imgs = [_frame(256, 256, 10 + i) for i in range(5)]
     pstage.fused_transformer_stage.launches = 0
     got = pred.denoise_group(imgs, 0.8, group_size=2)

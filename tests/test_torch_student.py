@@ -210,7 +210,8 @@ def test_reading_frames_without_cv2_or_pil_raises(tmp_path, monkeypatch):
 
     monkeypatch.setitem(sys.modules, "cv2", None)
     monkeypatch.setitem(sys.modules, "PIL", None)
+    # PNG has a numpy/zlib route (utils/png.py); other formats need a library
     with pytest.raises(ImportError, match="cv2 or PIL"):
-        image_io.imread_gray(str(tmp_path / "f.png"))
+        image_io.imread_gray(str(tmp_path / "f.jpg"))
     with pytest.raises(ImportError, match="cv2 or PIL"):
         image_io.resize_area(np.zeros((4, 4), np.float32), 2, 2)

@@ -143,13 +143,18 @@ def _cmd_infer_teacher(args) -> int:
     return 0
 
 
+# groups in flight, and fetch-and-write threads, of _stream_groups: the JAX
+# CLI's values; one upload thread dispatches the groups in order
+_DEPTH = 4
+_FETCH_WORKERS = 2
+
+
 def _stream_groups(pred, paths, group_size, shape_bucket, denoise_rate,
-                   write, read=None, depth: int = 4,
-                   fetch_workers: int = 2, upload_workers: int = 1) -> None:
+                   write, read=None) -> None:
     """Serving-group streaming: images of one padded shape run as groups
     through ``dispatch_group`` / ``fetch_group`` (bit-identical to
     per-image calls). Buffers hold at most ``group_size`` decoded images
-    per shape, plus ``depth`` groups in flight, so memory stays flat on
+    per shape, plus ``_DEPTH`` groups in flight, so memory stays flat on
     large folders. ``read(path) -> image | None`` is injectable; a None
     skips the file (``serve`` uses this to survive mid-copy or corrupt
     inputs).
@@ -161,8 +166,8 @@ def _stream_groups(pred, paths, group_size, shape_bucket, denoise_rate,
       device: compute group k
       fw-worker: D2H fetch + PNG encode/write group k-1
 
-    ``depth`` bounds the groups in flight (back-pressure and error
-    propagation); ``fetch_workers`` > 1 lets group k-1's encode and write
+    ``_DEPTH`` bounds the groups in flight (back-pressure and error
+    propagation); two fetch workers let group k-1's encode and write
     proceed while group k's fetch waits for its compute. A group that is
     not full, or of mixed shapes, goes through ``denoise_group`` after the
     groups in flight have drained."""
@@ -178,8 +183,8 @@ def _stream_groups(pred, paths, group_size, shape_bucket, denoise_rate,
             return (-(-shape[0] // b) * b, -(-shape[1] // b) * b)
         return shape[:2]
 
-    up_ex = ThreadPoolExecutor(max_workers=max(1, upload_workers))
-    fw_ex = ThreadPoolExecutor(max_workers=max(1, fetch_workers))
+    up_ex = ThreadPoolExecutor(max_workers=1)
+    fw_ex = ThreadPoolExecutor(max_workers=_FETCH_WORKERS)
     pending: list = []  # fetch+write futures, oldest first
 
     def _fetch_write(grp_paths, fut):
@@ -197,7 +202,7 @@ def _stream_groups(pred, paths, group_size, shape_bucket, denoise_rate,
                                denoise_rate=denoise_rate)
             pending.append(fw_ex.submit(_fetch_write, [p for p, _ in items],
                                         fut))
-            while len(pending) > max(depth, 0):
+            while len(pending) > _DEPTH:
                 pending.pop(0).result()
             return
         _drain()

@@ -33,21 +33,28 @@ def _chunks(data: bytes, name: str):
     raise ValueError(f"{name}: PNG ends without IEND")
 
 
-def _paeth_row(cur: bytearray, prev: bytes, bpp: int) -> None:
-    for i in range(len(cur)):
-        a = cur[i - bpp] if i >= bpp else 0
-        b = prev[i]
-        c = prev[i - bpp] if i >= bpp else 0
-        p = a + b - c
-        pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
-        pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
-        cur[i] = (cur[i] + pred) & 0xFF
-
-
-def _average_row(cur: bytearray, prev: bytes, bpp: int) -> None:
-    for i in range(len(cur)):
-        a = cur[i - bpp] if i >= bpp else 0
-        cur[i] = (cur[i] + ((a + prev[i]) >> 1)) & 0xFF
+def _unfilter_diagonals(rows: np.ndarray, h: int, w: int, bpp: int) -> np.ndarray:
+    """Undo every row filter at once. A byte depends on the bytes to its
+    left, above and above-left, so the pixels of one anti-diagonal
+    (y + x = d) are independent: one numpy step per anti-diagonal, the
+    arrays held diagonal-major so that a step's operands are contiguous."""
+    n = h + w - 1
+    yy, xx = np.arange(h)[:, None], np.arange(w)[None, :]
+    filt = np.zeros((n, h, bpp), np.int16)  # filt[y + x, y] = bytes of (y, x)
+    filt[yy + xx, yy] = rows[:, 1:].reshape(h, w, bpp)
+    rec = np.zeros((n + 2, h + 1, bpp), np.int16)  # rec[y + x + 2, y + 1], zeros around
+    kinds = [np.broadcast_to((rows[:, :1] == k), (h, bpp)) for k in range(4)]
+    for d in range(n):
+        lo, hi = max(0, d - w + 1), min(h, d + 1)  # the rows with a pixel on d
+        a, b, c = rec[d + 1, lo + 1:hi + 1], rec[d + 1, lo:hi], rec[d, lo:hi]
+        pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - c - c)
+        pred = np.where(pb <= pc, b, c)  # Paeth
+        np.copyto(pred, a, where=(pa <= pb) & (pa <= pc))
+        for kind, value in zip(kinds, (0, a, b, (a + b) >> 1)):  # None, Sub, Up, Average
+            np.copyto(pred, value, where=kind[lo:hi])
+        pred += filt[d, lo:hi]
+        np.bitwise_and(pred, 0xFF, out=rec[d + 2, lo + 1:hi + 1])
+    return rec[yy + xx + 2, yy + 1].astype(np.uint8).reshape(h, w * bpp)
 
 
 def _unfilter(raw: bytes, h: int, w: int, bpp: int, name: str) -> np.ndarray:
@@ -55,6 +62,10 @@ def _unfilter(raw: bytes, h: int, w: int, bpp: int, name: str) -> np.ndarray:
     if len(raw) < h * (stride + 1):
         raise ValueError(f"{name}: PNG image data too short")
     rows = np.frombuffer(raw, np.uint8, h * (stride + 1)).reshape(h, stride + 1)
+    if rows[:, 0].max(initial=0) > 4:
+        raise ValueError(f"{name}: unknown PNG row filter {rows[:, 0].max()}")
+    if rows[:, 0].max(initial=0) > 2:  # Average or Paeth: sequential along a row
+        return _unfilter_diagonals(rows, h, w, bpp)
     out = np.empty((h, stride), np.uint8)
     prev = np.zeros(stride, np.uint8)
     for y in range(h):
@@ -63,14 +74,8 @@ def _unfilter(raw: bytes, h: int, w: int, bpp: int, name: str) -> np.ndarray:
             cur = line
         elif kind == 1:  # Sub: a running sum per channel, modulo 256
             cur = np.cumsum(line.reshape(w, bpp), axis=0, dtype=np.uint8).reshape(-1)
-        elif kind == 2:  # Up
+        else:  # Up
             cur = line + prev
-        elif kind in (3, 4):
-            buf = bytearray(line.tobytes())
-            (_average_row if kind == 3 else _paeth_row)(buf, prev.tobytes(), bpp)
-            cur = np.frombuffer(bytes(buf), np.uint8)
-        else:
-            raise ValueError(f"{name}: unknown PNG row filter {kind}")
         out[y] = cur
         prev = out[y]
     return out

@@ -12,16 +12,19 @@ the JAX predictor (flax modules with ``dtype=None``):
     spread, JAX bf16 params with dtype=bf16 against JAX fp32, measured here
     on the CPU (share of hq / sr values more than 1 level off; max gap):
 
-      frame         JAX bf16 vs JAX fp32        port bf16 vs JAX fp32
-      (10, 1.0)  hq 10.63% max 4, sr 4.89% max 4   hq 10.07% max 6, sr 4.38% max 4
-      (6, 0.6)   hq 19.64% max 8, sr 9.22% max 5   hq 19.18% max 7, sr 8.82% max 5
+      frame (seed, rate)  JAX bf16 vs JAX fp32             port bf16 vs JAX fp32
+      (10, 1.0)           hq 10.63% max 4, sr 4.89% max 4   hq 9.93% max 6, sr 4.46% max 4
+      (6, 0.6)            hq 19.64% max 8, sr 9.22% max 5   hq 18.81% max 10, sr 8.67% max 5
 
     The port's share of values more than 1 level off is below JAX's on both
-    frames, so its bf16 output is no further from fp32 than JAX's is. The bar: at most 1.5x JAX's share more than 1
-    level off, and a max gap of at most JAX's + 2.
-    The max is one value: on (10, 1.0) a single hq value is 6 levels off
-    against JAX's 4 (the next largest 4), so JAX's + 1 would fail there on one
-    pixel of one channel while the share is lower than JAX's."""
+    frames, so its bf16 output is no further from fp32 than JAX's is. The
+    two bf16 paths round differently (the port and JAX bf16 differ from each
+    other by more than 1 level on 13.7% / 23.3% of hq values), so the
+    largest gap is the extreme of ~12k values. The bar: at most 1.5x JAX's
+    share more than 1 level off; every value but the largest within JAX's
+    max + 1; the largest within JAX's max + 2. The largest is one hq value
+    on each frame: (10, 1.0) at (19, 37, 0), 6 levels; (6, 0.6) at (33, 55,
+    0), 10 levels; the next largest are 5 and 9."""
 
 import os
 
@@ -128,7 +131,9 @@ def test_bf16_teacher_is_no_further_from_fp32_than_jax_bf16(outputs, seed):
         port_gap = _gaps(out["port_bf16"][key], ref)
         jax_share, port_share = float((jax_gap > 1).mean()), float((port_gap > 1).mean())
         assert port_share <= 1.5 * jax_share, (key, port_share, jax_share)
-        assert port_gap.max() <= jax_gap.max() + 2, (key, port_gap.max(), jax_gap.max())
+        worst, second = np.sort(port_gap, axis=None)[-2:][::-1]
+        assert second <= jax_gap.max() + 1, (key, second, jax_gap.max())
+        assert worst <= jax_gap.max() + 2, (key, worst, jax_gap.max())
         m = np.repeat(np.repeat(mask, scale, 0), scale, 1)
         assert not out["port_bf16"][key][m].any(), key
 

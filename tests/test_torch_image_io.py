@@ -101,6 +101,16 @@ def test_every_row_filter_is_read(kind, filters):
         np.testing.assert_array_equal(got, _cv2_order(img))
 
 
+@pytest.mark.parametrize("shape", [(1, 41, 3), (29, 1, 4), (2, 2), (6, 37)])
+@pytest.mark.parametrize("filters", [(3,), (4,), (2, 4, 1, 3)],
+                         ids=["average", "paeth", "mixed"])
+def test_average_and_paeth_rows_at_edge_shapes(shape, filters):
+    """Rows of one pixel, columns of one pixel and more rows than columns:
+    the decoder undoes these filters one anti-diagonal at a time."""
+    img = np.random.default_rng(3).integers(0, 256, shape, dtype=np.uint8)
+    np.testing.assert_array_equal(png.decode(_encode_filtered(img, filters)), img)
+
+
 @pytest.mark.parametrize("header,what", [
     ((16, 0, 0), "bit depth 16"), ((8, 3, 0), "colour type 3"), ((8, 2, 1), "interlace 1")])
 def test_unsupported_png_raises_naming_the_file(tmp_path, header, what):

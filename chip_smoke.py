@@ -60,8 +60,26 @@ fp32 predictors' own pinning is what runs:
      same CLI with --device cpu; and the trained teacher in bf16 through
      TeacherPredictor(fused=True) within 1 level of fused=False on >= 99% of
      pixels of two 512x512 frames (5 stage calls per request).
+ 10. training: the full-width KDLAE-T of configs/KDLAET.yml as it stands
+     (seeded initialisation, its AdamW, clip, schedule, mixup, curriculum
+     and L1-Shadow loss), with iters [3, 3, 2, 2, 2, 2] so that all six
+     curriculum stages run in total_iter 14, a checkpoint and a validation
+     every 7 and every step logged, through `cli.main(["train", ...])` on a
+     seeded synthetic corpus (24 training triples: a 256x256 input, its
+     clear target, a 512x512 SR target and a JSON rate; 2 validation
+     triples); gates: every logged loss finite, every parameter moved,
+     checkpoints at 7 and 14, a second call with total_iter 16 resumes at
+     14 and runs 2 steps, net_g_14.pth loads strictly and serves one
+     512x512 frame through infer-teacher, `test` prints a finite PSNR, and
+     one seeded step on the card equals the same step on the CPU (fp32, TF32
+     off; loss and grad_norm within 1e-4 relative, each weight within 0.05
+     lr, or 2 lr where its gradient is under 1e-6 of the largest); then one
+     steady step at 6@64 and at 1@128 timed (synchronised wall, host
+     enqueue) and profiled (device busy ms, idle share, kernel count).
+     Training reaches no kernel of csrc/ (fused=False, the JAX trainer's
+     default).
 Each path runs with every launch count set to 0 just before it and read just
-after. Prints one JSON line per phase 6-9, a "kernels" JSON line, the card
+after. Prints one JSON line per phase 6-10, a "kernels" JSON line, the card
 line, and as its last line {"ok": true, "device": {...}}. Details go to
 chiprun_out/chip_smoke.json.
 """
@@ -1262,6 +1280,264 @@ def phase_zoo_cli(results, card, work):
     return launches["stage"]
 
 
+# ------------------------------------------------------------ phase 10 ---
+
+TRAIN_ITERS = [3, 3, 2, 2, 2, 2]  # all six curriculum stages in 14 steps
+
+
+def write_train_corpus(root, n, seed):
+    """n seeded sonar triples under ``root``: a speckled 256x256 input, its
+    clear target (a 5x5 box mean inside the fan), the 512x512 SR target and
+    a JSON denoise rate. Returns the four dataroots."""
+    import json as _json
+
+    from rethink_acoustic_image_enhancement_tpu_torch.utils.image_io import imwrite
+
+    rng = np.random.default_rng(seed)
+    dirs = {k: os.path.join(root, k) for k in ("lq", "gt", "sr", "param")}
+    for d in dirs.values():
+        os.makedirs(d, exist_ok=True)
+    for i in range(n):
+        noisy = sonar_frame(256, 256, seed * 1000 + i)
+        fan = noisy[..., :1] > 0
+        pad = np.pad(noisy.astype(np.float32), ((2, 2), (2, 2), (0, 0)), mode="edge")
+        box = sum(pad[dy:dy + 256, dx:dx + 256] for dy in range(5) for dx in range(5)) / 25
+        clear = np.where(fan, box, 0).round().astype(np.uint8)
+        name = f"s{i:03d}"
+        imwrite(os.path.join(dirs["lq"], name + ".png"), noisy)
+        imwrite(os.path.join(dirs["gt"], name + ".png"), clear)
+        imwrite(os.path.join(dirs["sr"], name + ".png"),
+                np.repeat(np.repeat(clear, 2, 0), 2, 1))
+        with open(os.path.join(dirs["param"], name + ".json"), "w") as fh:
+            _json.dump({"denoise_rate": round(float(rng.uniform(0.3, 1.0)), 3)}, fh)
+    return {f"dataroot_{k}": d for k, d in dirs.items()}
+
+
+def jsonl_events(path):
+    with open(path) as fh:
+        return [json.loads(line) for line in fh]
+
+
+def train_step_on(device, opt, seed):
+    """One seeded step of the full-width teacher at KDLAET.yml's settings
+    on ``device``: a (2, 3, 128, 128) batch cut to 64, extra mask 0.1,
+    mixup; every draw on the host, so the same on both devices."""
+    import torch
+
+    from rethink_acoustic_image_enhancement_tpu_torch.train import loop as tloop
+
+    _, trainer = tloop.build_everything(opt, device=device)
+    state = trainer.init_state()
+    rng = np.random.default_rng(seed)
+    img = rng.random((2, 3, 128, 128), dtype=np.float32)
+    hq = np.clip(img + rng.normal(0, 0.05, img.shape), 0, 1).astype(np.float32)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    lq = {"img": t(img), "denoise_rate": t(np.full((2, 1, 128, 128), 0.7, np.float32))}
+    gt = {"hq": t(hq), "sr": t(hq.repeat(2, 2).repeat(2, 3))}
+    state, m = trainer.step(state, lq, gt, np.random.default_rng(seed + 1),
+                            extra_prob=0.1, mini_gt_size=64)
+    return ({k: float(v) for k, v in m.items()},
+            {n: p.detach().cpu() for n, p in state.model.named_parameters()},
+            {n: p.grad.detach().cpu() for n, p in state.model.named_parameters()})
+
+
+def profile_train_step(opt, batch, patch, card):
+    """One steady-state training step of the full-width teacher at
+    (batch, patch) on the card: wall ms (synchronised) and the host's
+    enqueue ms of three unprofiled steps, then one profiled step's device
+    busy ms by kernel, its idle share and its kernel count."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from rethink_acoustic_image_enhancement_tpu_torch.train import loop as tloop
+
+    _, trainer = tloop.build_everything(opt, device="cuda")
+    state = trainer.init_state()
+    rng = np.random.default_rng(11)
+    img = torch.from_numpy(rng.random((batch, 3, patch, patch), dtype=np.float32)).cuda()
+    lq = {"img": img, "denoise_rate": torch.full((batch, 1, patch, patch), 0.7).cuda()}
+    gt = {"hq": img.clamp(0.05, 0.95), "sr": img.repeat_interleave(2, 2).repeat_interleave(2, 3)}
+
+    def step(k):
+        return trainer.step(state, lq, gt, np.random.default_rng(k), extra_prob=0.1)
+
+    for k in range(3):  # shapes, plans and the allocator settle
+        step(k)
+    torch.cuda.synchronize()
+    walls, enqueues = [], []
+    for k in range(3):
+        t0 = time.perf_counter()
+        step(10 + k)
+        enqueues.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step(20)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    kernels = sorted(((e.key, e.self_device_time_total / 1e3, e.count) for e in events),
+                     key=lambda kv: -kv[1])
+    busy = sum(ms for _, ms, _ in kernels)
+    wall = float(np.median(walls))
+    out = dict(batch=batch, patch=patch, wall_ms=walls, enqueue_ms=enqueues,
+               device_busy_ms=busy, idle_share=1 - busy / wall,
+               kernel_launches=sum(n for _, _, n in kernels),
+               top=[dict(kernel=k[:120], ms=ms, count=n) for k, ms, n in kernels[:8]])
+    log(f"train step {batch}@{patch}: wall {wall:.1f} ms, host enqueue "
+        f"{np.median(enqueues):.1f} ms, device busy {busy:.1f} ms (idle share "
+        f"{out['idle_share']:.3f}), {out['kernel_launches']} kernels [{card}]")
+    for row in out["top"][:5]:
+        log(f"  {row['ms']:8.3f} ms x{row['count']:5d}  {row['kernel'][:90]}")
+    del state, trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train(results, card, work):
+    """Phase 10: train the full-width KDLAE-T of configs/KDLAET.yml through
+    the port's CLI on a synthetic corpus, resume it, serve and test what it
+    wrote, and hold one step on the card to the same step on the CPU."""
+    import torch
+    import yaml
+
+    from rethink_acoustic_image_enhancement_tpu_torch.convert.weights import load_pth, read_pth
+    from rethink_acoustic_image_enhancement_tpu_torch.models import flagship_teacher
+    from rethink_acoustic_image_enhancement_tpu_torch.train import config as tcfg
+    from rethink_acoustic_image_enhancement_tpu_torch.train import loop as tloop
+    from rethink_acoustic_image_enhancement_tpu_torch.train.progressive import ProgressiveSchedule
+    from rethink_acoustic_image_enhancement_tpu_torch.utils.image_io import imwrite
+
+    t_phase = time.perf_counter()
+    train_roots = write_train_corpus(os.path.join(work, "train"), 24, seed=200)
+    val_roots = write_train_corpus(os.path.join(work, "val"), 2, seed=300)
+    corpus_s = time.perf_counter() - t_phase
+    with open(os.path.join(HERE, "configs", "KDLAET.yml")) as fh:
+        cfg = yaml.safe_load(fh)
+    cfg["datasets"]["train"].update(train_roots, iters=TRAIN_ITERS)
+    cfg["datasets"]["val"].update(val_roots)
+    cfg["train"]["total_iter"] = sum(TRAIN_ITERS)
+    cfg["logger"].update(save_checkpoint_freq=7, print_freq=1)
+    cfg["val"]["val_freq"] = 7
+    yml = os.path.join(work, "KDLAET.yml")
+    with open(yml, "w") as fh:
+        yaml.safe_dump(cfg, fh)
+    opt = tcfg.parse(yml, is_train=True, root_path=work)
+    exp = opt["path"]["experiments_root"]
+
+    fns = reset_counts()
+    base_mem = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cwd = os.getcwd()
+    os.chdir(work)  # the CLI roots experiments/ and results/ in its cwd
+    try:
+        _, train_wall = run_cli(["train", "-opt", yml])
+        peak = torch.cuda.max_memory_allocated()
+        launches = read_counts(fns)
+        events = jsonl_events(os.path.join(exp, "metrics.jsonl"))
+        steps = [e for e in events if e["kind"] == "train"]
+        assert [e["iter"] for e in steps] == list(range(1, 15)), [e["iter"] for e in steps]
+        assert all(np.isfinite(e["l_pix"]) and np.isfinite(e["grad_norm"]) for e in steps)
+        for it in (7, 14):
+            assert os.path.isfile(os.path.join(opt["path"]["training_states"], f"ckpt_{it}.pth"))
+            assert os.path.isfile(os.path.join(opt["path"]["models"], f"net_g_{it}.pth"))
+        vals = [e for e in events if e["kind"] == "val"]
+        assert [e["iter"] for e in vals] == [7, 14], vals
+        assert all(np.isfinite(e["psnr"]) and np.isfinite(e["psnr_sr"]) for e in vals), vals
+        saves = [e for e in events if e["kind"] == "ckpt"]
+        assert [e["iter"] for e in saves] == [7, 14], saves
+
+        net14 = os.path.join(opt["path"]["models"], "net_g_14.pth")
+        init, _ = tloop.build_everything(opt, device="cpu")
+        trained = read_pth(net14)
+        still = [n for n, v in init.state_dict().items() if torch.equal(v, trained[n])]
+        assert not still, f"parameters that did not move: {still[:5]}"
+
+        # resume: total_iter 16 continues from ckpt_14 and runs 2 steps
+        cfg["train"]["total_iter"] = 16
+        with open(yml, "w") as fh:
+            yaml.safe_dump(cfg, fh)
+        _, resume_wall = run_cli(["train", "-opt", yml])
+        events = jsonl_events(os.path.join(exp, "metrics.jsonl"))
+        resumed = [e for e in events if e["kind"] == "resume"]
+        assert [e["iter"] for e in resumed] == [14], resumed
+        more = [e["iter"] for e in events if e["kind"] == "train"][14:]
+        assert more == [15, 16], more
+        assert os.path.isfile(os.path.join(opt["path"]["training_states"], "ckpt_16.pth"))
+
+        # what training wrote loads strictly and serves through the CLI
+        load_pth(flagship_teacher(static="train"), net14)
+        frame = os.path.join(work, "serve_in", "frame.png")
+        imwrite(frame, sonar_frame(512, 512, 400))
+        _, serve_wall = run_cli(["infer-teacher", "--weights", net14, "--input", frame,
+                                 "--output", os.path.join(work, "serve_out")])
+        served = decoded(os.path.join(work, "serve_out"))
+        assert served["frame.png"].shape == (512, 512, 3), {k: v.shape for k, v in served.items()}
+        stdout, test_wall = run_cli(["test", "-opt", yml, "--weights", net14])
+        psnr = {ln.split("]")[0][1:]: float(ln.split("psnr=")[1].split(",")[0])
+                for ln in stdout.splitlines() if ln.startswith("[") and "psnr=" in ln}
+        assert psnr and all(np.isfinite(v) for v in psnr.values()), stdout[-1000:]
+    finally:
+        os.chdir(cwd)
+
+    # one seeded step on the card against the same step on the CPU
+    t0 = time.perf_counter()
+    m_gpu, p_gpu, _ = train_step_on(torch.device("cuda"), opt, seed=7)
+    m_cpu, p_cpu, g_cpu = train_step_on(torch.device("cpu"), opt, seed=7)
+    step_check_s = time.perf_counter() - t0
+    lr = m_cpu["lr"]
+    gmax = max(float(g.abs().max()) for g in g_cpu.values())
+    over = 0
+    for n, p in p_cpu.items():
+        tol = torch.where(g_cpu[n].abs() > 1e-6 * gmax, 0.05 * lr, 2 * lr)
+        over += int(((p_gpu[n] - p).abs() > tol).sum())
+    rel = {k: abs(m_gpu[k] - m_cpu[k]) / abs(m_cpu[k]) for k in ("l_pix", "grad_norm")}
+    assert max(rel.values()) <= 1e-4 and m_gpu["lr"] == lr and over == 0, (rel, over)
+
+    profiles = [profile_train_step(opt, b, p, card) for b, p in ((6, 64), (1, 128))]
+
+    prog = ProgressiveSchedule.from_dataset_opt(opt["datasets"]["train"])
+    stages = []
+    for s_idx in range(len(TRAIN_ITERS)):
+        rows = [e for e in steps if prog.stage(e["iter"]) == s_idx]
+        mb, patch, _ = prog.at(rows[0]["iter"])
+        iter_ms = [1e3 * e["iter_time"] for e in rows]
+        stages.append(dict(stage=s_idx + 1, batch=mb, patch=patch, steps=len(rows),
+                           iters=[e["iter"] for e in rows], ms_per_step=iter_ms,
+                           data_ms=[1e3 * e["data_time"] for e in rows],
+                           median_ms=float(np.median(iter_ms)),
+                           images_per_s=mb * len(rows) / (sum(iter_ms) / 1e3)))
+    total_images = sum(r["batch"] * r["steps"] for r in stages)
+    row = dict(
+        card=card, model="KDLAE-T full width (dim 48, [4,6,6,8], refinement 4, SR head)",
+        config="configs/KDLAET.yml: iters [3,3,2,2,2,2], total_iter 14 then 16, "
+               "checkpoint and validation every 7, print_freq 1",
+        corpus="24 training and 2 validation triples, 256x256 input, 512x512 SR",
+        corpus_write_s=corpus_s, stages=stages,
+        images_per_s=total_images / sum(sum(r["ms_per_step"]) / 1e3 for r in stages),
+        train_call_s=train_wall, resume_call_s=resume_wall,
+        peak_memory_gib=peak / 2 ** 30, peak_above_start_gib=(peak - base_mem) / 2 ** 30,
+        checkpoint_save_s=[e["seconds"] for e in saves],
+        checkpoint_restore_s=resumed[0]["seconds"],
+        validation_s=[e["seconds"] for e in vals],
+        val_psnr=[e["psnr"] for e in vals], val_psnr_sr=[e["psnr_sr"] for e in vals],
+        losses=[e["l_pix"] for e in steps], kernel_launches=launches,
+        serve_one_512_frame_s=serve_wall, test_call_s=test_wall, test_psnr=psnr,
+        card_vs_cpu_step=dict(rel=rel, lr=lr, weights_over_rule=over,
+                              loss_gpu=m_gpu["l_pix"], loss_cpu=m_cpu["l_pix"]),
+        step_check_s=step_check_s, step_profiles=profiles,
+        phase_s=time.perf_counter() - t_phase)
+    log("training: " + ", ".join(f"{r['batch']}@{r['patch']} {r['median_ms']:.1f} ms"
+                                 for r in stages)
+        + f"; {row['images_per_s']:.1f} images/s; peak {row['peak_memory_gib']:.2f} GiB; "
+        f"save {row['checkpoint_save_s']} s, restore {row['checkpoint_restore_s']:.3f} s, "
+        f"validation {row['validation_s']} s; card vs CPU step {rel} [{card}]")
+    results["train"] = row
+    print(json.dumps({"train": row}), flush=True)
+
+
 # ------------------------------------------------------------ main -------
 
 def main() -> int:
@@ -1315,6 +1591,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="raie_zoo_cli_") as work:
         zoo_launches = phase_zoo_cli(results, card, work)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="raie_train_") as work:
+        phase_train(results, card, work)
     results["path_launches"] = dict(whole_image=whole_launches, tiled=tiled_launches,
                                     group=group_launches, zoo_cli=zoo_launches,
                                     **path_launches)

@@ -1,5 +1,7 @@
 """Command-line entry points of the PyTorch/CUDA port.
 
+  raie-torch train -opt cfg.yml  config-driven training (auto-resume)
+  raie-torch test -opt cfg.yml   config-driven offline evaluation
   raie-torch infer-teacher ...   KDLAE-T denoise (whole image, groups, tiles)
   raie-torch serve ...           watch-folder serving daemon
   raie-torch infer-student ...   KDLAE-S multi-frame denoise
@@ -45,6 +47,52 @@ def _device(name: str):
         return resolve_device(None if name == "cuda" else name)
     except RuntimeError as exc:
         raise SystemExit(f"error: {exc}") from None
+
+
+def _cmd_train(args) -> int:
+    from .train.config import parse
+    from .train.loop import train_from_config
+
+    device = _device(args.device)
+    opt = parse(args.opt, is_train=True)
+    if args.stall_timeout:
+        opt["train"]["stall_timeout_s"] = args.stall_timeout
+    train_from_config(opt, device=device, max_iters=args.max_iters)
+    return 0
+
+
+def _cmd_test(args) -> int:
+    from .data.datasets import create_dataset
+    from .data.loader import BatchLoader, EnlargedShuffleSampler
+    from .models import build_network
+    from .train.checkpoints import load_pretrained
+    from .train.config import make_exp_dirs, parse, validate
+    from .train.loop import validate_model
+
+    device = _device(args.device)
+    opt = parse(args.opt, is_train=False)
+    validate(opt)
+    make_exp_dirs(opt)
+    path = args.weights or opt["path"].get("pretrain_network_g")
+    if not path:
+        raise SystemExit("error: test needs --weights or "
+                         "path.pretrain_network_g")
+    model = load_pretrained(build_network(opt["network_g"]),
+                            _resolve_weights(path)[0],
+                            opt["path"].get("param_key", "params"))
+    model.to(device)
+    save_dir = None
+    if opt.get("val", {}).get("save_img"):
+        save_dir = opt["path"]["visualization"]
+        os.makedirs(save_dir, exist_ok=True)
+    for phase, ds_opt in opt["datasets"].items():
+        ds = create_dataset(ds_opt)
+        loader = BatchLoader(ds, 1, EnlargedShuffleSampler(len(ds), shuffle=False),
+                             num_workers=1, drop_last=False)
+        scores = validate_model(model, loader, opt, save_dir=save_dir)
+        print(f"[{ds_opt.get('name', phase)}] " + ", ".join(
+            f"{k}={v:.4f}" for k, v in scores.items()))
+    return 0
 
 
 def _tile_spec(s: str):
@@ -433,6 +481,24 @@ def _add_device(p) -> None:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="raie-torch", description=__doc__)
     sub = parser.add_subparsers(dest="cmd", required=True)
+
+    p = sub.add_parser("train", help="config-driven training")
+    p.add_argument("-opt", required=True)
+    p.add_argument("--max-iters", type=int, default=None)
+    p.add_argument("--stall-timeout", type=float, default=0,
+                   help="hard-exit (code 17) when no training iteration "
+                        "completes for N seconds, for a supervisor to "
+                        "relaunch into auto-resume; size it above the "
+                        "longest validation or checkpoint gap")
+    _add_device(p)
+    p.set_defaults(fn=_cmd_train)
+
+    p = sub.add_parser("test", help="config-driven offline eval")
+    p.add_argument("-opt", required=True)
+    p.add_argument("--weights", default=None,
+                   help="net_g_*.pth (default: path.pretrain_network_g)")
+    _add_device(p)
+    p.set_defaults(fn=_cmd_test)
 
     p = sub.add_parser("infer-teacher", help="KDLAE-T whole-image denoise")
     p.add_argument("--weights", required=True,

@@ -1,0 +1,309 @@
+"""Map-style datasets returning HWC float32 numpy items.
+
+The port's copy of the JAX package's teacher-path datasets (the reference's
+Train/basicsr/data/paired_image_dataset.py), item for item the same:
+
+  * HWC float32 numpy out; the teacher's items are
+    ``{'lq': {'img', 'denoise_rate'}, 'gt': {'hq', 'sr'}}`` as in the
+    reference, channels last. The loader's upload turns batches to NCHW.
+  * every random draw comes from a generator seeded by
+    ``SeedSequence([seed, epoch, index])``: deterministic, safe across
+    worker threads and re-rolled per epoch (``set_epoch``).
+
+Every read goes through a ``FileClient`` (the disk backend) and decodes
+with ``utils/image_io.py`` (cv2, else PIL, else the numpy PNG decoder).
+Dataset types that are not ported yet raise, naming their ROADMAP.md item.
+"""
+
+from __future__ import annotations
+
+import json
+from typing import Any
+
+import numpy as np
+
+from ..utils.image_io import imfrombytes_bgr
+from .pairing import (
+    paired_paths_from_folder,
+    paired_paths_from_folder_param,
+    paired_paths_from_meta_info_file,
+)
+from .transforms import (
+    add_gaussian_noise,
+    add_random_noise,
+    pad_to_min_size,
+    paired_random_crop,
+    random_augmentation,
+    sync_augment_multi_scale,
+)
+
+
+def _reflect101_pad_to(img: np.ndarray, target: int) -> np.ndarray:
+    """cv2.BORDER_REFLECT_101 bottom/right pad to a minimum size
+    (paired_image_dataset.py:1019-1029)."""
+    h, w = img.shape[:2]
+    hp, wp = max(0, target - h), max(0, target - w)
+    if hp == 0 and wp == 0:
+        return img
+    spec = [(0, hp), (0, wp)] + [(0, 0)] * (img.ndim - 2)
+    return np.pad(img, spec, mode="reflect")
+
+
+class _SeededDataset:
+    """Per-(epoch, index) generator and an optional decode cache.
+
+    ``cache_decoded: true`` in the dataset options keeps decoded images in
+    RAM by path (the reference decodes the whole source image for every
+    crop); opt-in, because it holds the decoded corpus in host memory."""
+
+    def __init__(self, seed: int = 0, cache_decoded: bool = False,
+                 io_opt: dict | None = None):
+        self._seed = seed
+        self._epoch = 0
+        self._decode_cache: dict[tuple, np.ndarray] | None = (
+            {} if cache_decoded else None)
+        self._io_opt = dict(io_opt or {"type": "disk"})
+        self._file_client = None  # built lazily, like the reference's
+
+    def set_epoch(self, epoch: int) -> None:
+        self._epoch = epoch
+
+    def _client(self):
+        if self._file_client is None:
+            from .file_client import FileClient
+
+            kwargs = {k: v for k, v in self._io_opt.items() if k != "type"}
+            self._file_client = FileClient(self._io_opt.get("type", "disk"),
+                                           **kwargs)
+        return self._file_client
+
+    def _read(self, path: str, key: str = "default") -> np.ndarray:
+        """BGR float32 [0, 1] HWC of ``path``, through the cache; a private
+        copy (corruption and augmentation must not write cached memory)."""
+        if self._decode_cache is None:
+            return imfrombytes_bgr(self._client().get(path, key))
+        img = self._decode_cache.get((key, path))
+        if img is None:
+            img = imfrombytes_bgr(self._client().get(path, key))
+            self._decode_cache[(key, path)] = img
+        return img.copy()
+
+    def _rng(self, index: int) -> np.random.Generator:
+        return np.random.default_rng(
+            np.random.SeedSequence([self._seed, self._epoch, index]))
+
+
+class PairedImageDataset(_SeededDataset):
+    """Generic LQ/GT pairs (Dataset_PairedImage,
+    paired_image_dataset.py:299-421): pad, random crop, degenerate-input
+    noise, 8-way geometric augmentation; BGR files flipped to RGB."""
+
+    def __init__(self, opt: dict):
+        super().__init__(opt.get("seed", 0), opt.get("cache_decoded", False),
+                         opt.get("io_backend"))
+        self.opt = opt
+        self.phase = opt.get("phase", "train")
+        self.scale = opt.get("scale", 1)
+        folders = [opt["dataroot_lq"], opt["dataroot_gt"]]
+        tmpl = opt.get("filename_tmpl", "{}")
+        if opt.get("meta_info_file"):
+            self.paths = paired_paths_from_meta_info_file(
+                folders, ["lq", "gt"], opt["meta_info_file"], tmpl)
+        else:
+            self.paths = paired_paths_from_folder(folders, ["lq", "gt"], tmpl)
+        self.geometric_augs = opt.get("geometric_augs", False)
+
+    def __len__(self) -> int:
+        return len(self.paths)
+
+    def __getitem__(self, index: int) -> dict[str, Any]:
+        rng = self._rng(index)
+        p = self.paths[index % len(self.paths)]
+        img_gt = self._read(p["gt_path"], "gt")
+        img_lq = self._read(p["lq_path"], "lq")
+
+        if self.phase == "train":
+            gt_size = self.opt["gt_size"]
+            img_lq, img_gt = pad_to_min_size(img_lq, img_gt, gt_size)
+            img_gt, img_lq = paired_random_crop(img_gt, img_lq, gt_size,
+                                                self.scale, rng)
+            # anti-degenerate noise (paired_image_dataset.py:394-398)
+            zero_ratio = max(np.mean(img_lq == 0), np.mean(img_lq == 1))
+            if zero_ratio > 0.20:
+                img_lq = add_random_noise(img_lq, rng)
+            if self.geometric_augs:
+                img_gt, img_lq = random_augmentation(img_gt, img_lq, rng=rng)
+
+        return {"lq": np.ascontiguousarray(img_lq[..., ::-1]),
+                "gt": np.ascontiguousarray(img_gt[..., ::-1]),
+                "lq_path": p["lq_path"], "gt_path": p["gt_path"]}
+
+
+class SuperRestorationParamDataset(_SeededDataset):
+    """The teacher's dataset (Dataset_SuperRestoration_param,
+    paired_image_dataset.py:857-1105): lq/gt/sr/param paired by basename,
+    a per-image JSON 'denoise_rate', joint pad and crop with the SR image at
+    2x coordinates, 10% gaussian noise on LQ, synchronised flip/rotation,
+    the zero-input epsilon guard, the rate tiled to an (H, W, 1) plane."""
+
+    SR_SCALE = 2
+    _KEYS = ("lq", "gt", "sr", "param")
+
+    def __init__(self, opt: dict):
+        super().__init__(opt.get("seed", 0), opt.get("cache_decoded", False),
+                         opt.get("io_backend"))
+        self.opt = opt
+        self.phase = opt.get("phase", "train")
+        self.scale = opt.get("scale", 1)
+        self.gt_size = opt.get("gt_size", 256)
+        self.sr_size = self.gt_size * self.SR_SCALE
+        self.geometric_augs = opt.get("geometric_augs", False)
+        self.use_denoise_rate = opt.get("denoise_rate", True)
+        self.paths = paired_paths_from_folder_param(
+            [opt[f"dataroot_{k}"] for k in self._KEYS], list(self._KEYS))
+
+    def __len__(self) -> int:
+        return len(self.paths)
+
+    def _denoise_rate(self, p: dict) -> float:
+        with open(p["param_path"]) as f:
+            dr = json.load(f).get("denoise_rate")
+        if not self.use_denoise_rate:
+            return 1.0
+        return 1.0 if dr is None else float(dr)
+
+    def __getitem__(self, index: int) -> dict[str, Any]:
+        rng = self._rng(index)
+        p = self.paths[index % len(self.paths)]
+        img_gt = self._read(p["gt_path"], "gt")
+        img_lq = self._read(p["lq_path"], "lq")
+        img_sr = self._read(p["sr_path"], "sr")
+        denoise_rate = self._denoise_rate(p)
+
+        if self.phase == "train":
+            h_gt, w_gt = img_gt.shape[:2]
+            h_sr, w_sr = img_sr.shape[:2]
+            if h_sr != h_gt * self.SR_SCALE or w_sr != w_gt * self.SR_SCALE:
+                raise ValueError(
+                    f"SR size mismatch: GT={h_gt}x{w_gt} SR={h_sr}x{w_sr} "
+                    f"({p['gt_path']})")
+            # reflect101 pad (:1019-1029) to size+2, so that the reference's
+            # randint(1, h-1-gt_size) crop window exists
+            img_gt = _reflect101_pad_to(img_gt, self.gt_size + 2)
+            img_lq = _reflect101_pad_to(img_lq, self.gt_size + 2)
+            img_sr = _reflect101_pad_to(img_sr, self.sr_size + 4)
+            # joint crop (:1035-1054): offsets in [1, h-1-size]
+            h, w = img_gt.shape[:2]
+            top = int(rng.integers(1, max(h - 1 - self.gt_size, 1) + 1))
+            left = int(rng.integers(1, max(w - 1 - self.gt_size, 1) + 1))
+            img_gt = img_gt[top:top + self.gt_size, left:left + self.gt_size]
+            img_lq = img_lq[top:top + self.gt_size, left:left + self.gt_size]
+            st, sl = top * self.SR_SCALE, left * self.SR_SCALE
+            img_sr = img_sr[st:st + self.sr_size, sl:sl + self.sr_size]
+
+            if rng.uniform() < 0.1:  # 10% gaussian noise on LQ (:933-935)
+                img_lq = add_gaussian_noise(img_lq, rng)
+            if self.geometric_augs:
+                img_gt, img_lq, img_sr = sync_augment_multi_scale(
+                    [img_gt, img_lq, img_sr], rng)
+            # zero-input epsilon guard (:941-944)
+            zero_ratio = max(np.mean(img_lq == 0), np.mean(img_lq == 1))
+            if zero_ratio > 0.10:
+                img_lq = img_lq + 1e-14
+
+        rate_plane = np.full((*img_lq.shape[:2], 1), denoise_rate, np.float32)
+        to_rgb = lambda x: np.ascontiguousarray(x[..., ::-1].astype(np.float32))
+        return {
+            "lq": {"img": to_rgb(img_lq), "denoise_rate": rate_plane},
+            "gt": {"hq": to_rgb(img_gt), "sr": to_rgb(img_sr)},
+            "lq_path": p["lq_path"], "gt_path": p["gt_path"],
+        }
+
+
+class SuperRestorationDataset(SuperRestorationParamDataset):
+    """The lq/gt/sr variant with no JSON folder (Dataset_SuperRestoration,
+    paired_image_dataset.py:423-640): the same pad, crop and augmentation,
+    denoise_rate fixed at 1."""
+
+    _KEYS = ("lq", "gt", "sr")
+
+    def __init__(self, opt: dict):
+        super().__init__({**opt, "denoise_rate": False})
+
+    def _denoise_rate(self, p: dict) -> float:
+        return 1.0
+
+
+DATASETS = {
+    "Dataset_PairedImage": PairedImageDataset,
+    "Dataset_SuperRestoration_param": SuperRestorationParamDataset,
+    "Dataset_SuperRestoration": SuperRestorationDataset,
+}
+
+# dataset types of the JAX package still to be ported -> their ROADMAP.md item
+_STUDENT = "Queue A: the student and scorer training"
+_REMAINING = "Queue A: NIQE, FID and the remaining datasets"
+NOT_PORTED = {
+    "Dataset_PairedMutiImage": _STUDENT,
+    "Dataset_S_IQA": _STUDENT,
+    "Dataset_GaussianDenoising": _REMAINING,
+    "Dataset_SingleImage": _REMAINING,
+    "Dataset_DefocusDeblur_DualPixel_16bit": _REMAINING,
+    "REDSDataset": _REMAINING,
+    "Vimeo90KDataset": _REMAINING,
+    "VideoTestDataset": _REMAINING,
+    "FFHQDataset": _REMAINING,
+}
+
+# Every dataset option key any dataset or the loader layer consumes (the
+# JAX package's set). Config validation rejects keys outside it, so a
+# misspelled or dead key fails fast instead of being silently ignored.
+KNOWN_DATASET_KEYS = frozenset({
+    # identity / injected by config parsing
+    "type", "name", "phase", "scale",
+    # storage + decode
+    "io_backend", "cache_decoded", "filename_tmpl", "meta_info_file",
+    "dataroot_lq", "dataroot_gt", "dataroot_sr", "dataroot_param",
+    "dataroot_lqL", "dataroot_lqR", "dataroot_flow",
+    # sampling / loader (data/__init__.py:56-119 analog)
+    "use_shuffle", "num_worker_per_gpu", "batch_size_per_gpu",
+    "dataset_enlarge_ratio", "drop_last", "pin_memory", "prefetch_mode",
+    "seed", "device_resident",
+    # crops / aug
+    "gt_size", "geometric_augs", "mean", "std", "use_hflip", "use_rot",
+    # progressive curriculum (train.py:246-252)
+    "mini_batch_sizes", "iters", "gt_sizes", "prob", "probs",
+    # teacher / student specifics
+    "denoise_rate", "num_pairs", "stride_range",
+    # gaussian-denoising specifics
+    "in_ch", "sigma_type", "sigma_range", "sigma_test",
+    # video datasets
+    "num_frame", "interval_list", "random_reverse", "center_frame_idx",
+    "frames_per_clip", "padding", "cache_data", "val_partition",
+})
+
+
+def check_dataset_type(t: str | None) -> None:
+    """Raise for an unknown dataset type, or one not ported yet."""
+    if t in NOT_PORTED:
+        raise NotImplementedError(
+            f"dataset type {t!r} is not ported yet (ROADMAP.md, "
+            f"{NOT_PORTED[t]})")
+    if t not in DATASETS:
+        raise KeyError(f"unknown dataset type {t!r}; known: {sorted(DATASETS)}")
+
+
+def validate_dataset_opt(opt: dict, where: str = "datasets") -> None:
+    """Fail fast on unknown or ignored dataset keys."""
+    unknown = set(opt) - KNOWN_DATASET_KEYS
+    if unknown:
+        raise KeyError(
+            f"{where}: unknown dataset option key(s) {sorted(unknown)} — "
+            "these would be silently ignored; remove or fix them "
+            f"(known keys: {sorted(KNOWN_DATASET_KEYS)})")
+
+
+def create_dataset(opt: dict):
+    """Reference-style registry (data/__init__.py:29-54)."""
+    check_dataset_type(opt["type"])
+    return DATASETS[opt["type"]](opt)

@@ -62,7 +62,7 @@ def resolve_device(device: str | torch.device | None) -> torch.device:
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
-                "no CUDA device: the predictors run on the GPU by default; "
+                "no CUDA device: the port runs on the GPU by default; "
                 "pass device='cpu' to run on the CPU")
         return torch.device("cuda")
     return torch.device(device)
@@ -90,7 +90,7 @@ def _to_ubyte_device(x: torch.Tensor) -> torch.Tensor:
     return torch.round(x.clamp(0.0, 1.0).float() * 255.0).to(torch.uint8)
 
 
-class _Transfers:
+class Transfers:
     """Host <-> device copies beside the compute: uploads on one side
     stream (from any thread), fetches on another, each ordered against the
     current stream by events. On the CPU they are plain tensors."""
@@ -174,7 +174,7 @@ class TeacherPredictor:
         self.multiple_of = multiple_of
         self.shape_bucket = shape_bucket
         self.dtype = dtype
-        self._transfers = _Transfers(self.device)
+        self._transfers = Transfers(self.device)
 
     def _forward(self, x: np.ndarray, denoise_rate: float):
         img = torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
@@ -601,7 +601,7 @@ class ASDQEScorer:
             model = DenoiseRatePredictor()
         self.model: nn.Module = _own_copy(model, self.device)
         self.dtype = dtype
-        self._transfers = _Transfers(self.device)
+        self._transfers = Transfers(self.device)
 
     @torch.inference_mode()
     def _forward(self, lq: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:

@@ -1,0 +1,170 @@
+"""Checkpoints and auto-resume, torch-native (the reference's two-file
+scheme, base_model.py:213-351).
+
+  * ``training_states/ckpt_{iter}.pth``: the whole training state (params,
+    optimizer state, EMA, step, epoch and the loop's position), which
+    ``restore_checkpoint`` loads back into a live ``TrainState``;
+  * ``models/net_g_{iter}.pth``: weights only, in the reference layout
+    ``{'params': state_dict[, 'params_ema': state_dict]}``, which
+    ``convert/weights.py::load_pth`` and the CLI's ``--weights`` read.
+
+Files are written to a temporary name and renamed, so a run cut during a
+save leaves the previous checkpoint whole. ``find_latest_checkpoint``
+scans for the highest iteration (train.py:171-192). ``load_pretrained``
+reads a reference-layout ``.pth`` (a port ``net_g_*.pth`` or a reference
+one) strictly, or merges it non-strictly (``strict_load_g: false``,
+base_model.py:246-279).
+"""
+
+from __future__ import annotations
+
+import os
+import os.path as osp
+import re
+from typing import Any
+
+import torch
+from torch import nn
+
+from ..convert.weights import read_pth
+
+
+def _atomic_save(obj: Any, path: str) -> str:
+    os.makedirs(osp.dirname(osp.abspath(path)), exist_ok=True)
+    tmp = f"{path}.tmp"
+    torch.save(obj, tmp)
+    os.replace(tmp, path)
+    return path
+
+
+def _host(sd: dict) -> dict:
+    return {k: v.detach().cpu() for k, v in sd.items()}
+
+
+def ckpt_path(root: str, step: int) -> str:
+    return osp.join(root, f"ckpt_{step}.pth")
+
+
+def save_checkpoint(root: str, step: int, state, epoch: int = 0,
+                    loop: dict | None = None) -> str:
+    """The full training state; ``loop`` holds the loop's position (epoch
+    batch, host generator states) for an exact resume."""
+    payload = {
+        "params": _host(state.model.state_dict()),
+        "opt_state": state.optimizer.state_dict(),
+        "step": int(state.step),
+        "epoch": int(epoch),
+        "loop": loop or {},
+    }
+    if state.ema is not None:
+        payload["params_ema"] = _host(state.ema.state_dict())
+    return _atomic_save(payload, ckpt_path(root, step))
+
+
+def restore_checkpoint(root: str, step: int, state):
+    """Load ``ckpt_{step}.pth`` into the live ``state`` (in place);
+    returns (state, epoch, loop)."""
+    payload = torch.load(ckpt_path(root, step), map_location="cpu",
+                         weights_only=True)
+    state.model.load_state_dict(payload["params"], strict=True)
+    state.optimizer.load_state_dict(payload["opt_state"])
+    if state.ema is not None:
+        state.ema.load_state_dict(payload["params_ema"], strict=True)
+    state.step = int(payload["step"])
+    return state, int(payload.get("epoch", 0)), payload.get("loop", {})
+
+
+def save_weights(root: str, step: int | str, model: nn.Module,
+                 ema: nn.Module | None = None) -> str:
+    """``net_g_{step}.pth`` in the reference layout; ``step`` may be a
+    label such as 'best'."""
+    payload = {"params": _host(model.state_dict())}
+    if ema is not None:
+        payload["params_ema"] = _host(ema.state_dict())
+    return _atomic_save(payload, osp.join(root, f"net_g_{step}.pth"))
+
+
+def find_latest_checkpoint(root: str) -> int | None:
+    """The highest iteration with a ``ckpt_{iter}.pth`` under ``root``."""
+    if not osp.isdir(root):
+        return None
+    steps = [int(m.group(1)) for name in os.listdir(root)
+             if (m := re.fullmatch(r"ckpt_(\d+)\.pth", name))]
+    return max(steps) if steps else None
+
+
+def prune_checkpoints(states_dir: str | None, models_dir: str | None,
+                      keep: int) -> list[str]:
+    """Keep the ``keep`` highest-numbered ``ckpt_{iter}.pth`` and
+    ``net_g_{iter}.pth``, delete the rest; named weights (net_g_best) are
+    never touched. Opt-in through ``logger.keep_checkpoints`` (the
+    reference keeps every checkpoint)."""
+    removed: list[str] = []
+    if keep <= 0:
+        return removed
+    for root, pat in ((states_dir, r"ckpt_(\d+)\.pth"),
+                      (models_dir, r"net_g_(\d+)\.pth")):
+        if not root or not osp.isdir(root):
+            continue
+        steps = sorted((int(m.group(1)), name) for name in os.listdir(root)
+                       if (m := re.fullmatch(pat, name)))
+        for _, name in steps[:-keep]:
+            path = osp.join(root, name)
+            os.remove(path)
+            removed.append(path)
+    return removed
+
+
+def merge_params_nonstrict(target: dict, source: dict, verbose: bool = True,
+                           min_matched: int = 0) -> dict:
+    """Copy the entries of ``source`` whose name and shape match
+    ``target``; keep (and report) the rest of ``target``. Fewer than
+    ``min_matched`` matches raises: a wrong param_key or layout would
+    otherwise "fine-tune" from random weights."""
+    merged, skipped = {}, []
+    for key, dval in target.items():
+        sval = source.get(key)
+        if sval is not None and tuple(sval.shape) == tuple(dval.shape):
+            merged[key] = sval.to(dval.dtype)
+        else:
+            skipped.append(key)
+            merged[key] = dval
+    n_matched = len(target) - len(skipped)
+    if n_matched < min_matched:
+        raise ValueError(
+            f"pretrain merge matched only {n_matched} of {len(target)} "
+            f"entries (need >= {min_matched}): wrong param_key or "
+            "checkpoint layout (strict_load_g: false skips mismatches, "
+            "not everything)")
+    if verbose and skipped:
+        print(f"[load] kept {len(skipped)} target entries not found/matched "
+              f"in source (first few: {skipped[:5]})")
+    return merged
+
+
+def load_pretrained(model: nn.Module, path: str, param_key: str = "params",
+                    strict: bool = True) -> nn.Module:
+    """Load a reference-layout ``.pth`` into ``model``: strictly, or
+    merged non-strictly (matching at least a tenth of the entries). A
+    payload holding only the other of 'params' / 'params_ema' is used
+    with a note. An orbax directory raises, naming the converter."""
+    if osp.isdir(path):
+        raise ValueError(
+            f"{path} is a directory (an orbax checkpoint?): the port reads "
+            "reference-layout .pth files; convert it with "
+            "scripts/export_torch_zoo.py")
+    obj = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(obj, dict) and param_key not in obj and len(obj) == 1 \
+            and next(iter(obj)) in ("params", "params_ema"):
+        only = next(iter(obj))
+        print(f"[load] pretrain payload has only {only!r} (asked for "
+              f"{param_key!r}); using it")
+        param_key = only
+    sd = read_pth(path, param_key)
+    if strict:
+        model.load_state_dict(sd, strict=True)
+        return model
+    target = model.state_dict()
+    model.load_state_dict(merge_params_nonstrict(
+        target, sd, min_matched=max(1, len(target) // 10)), strict=True)
+    return model

@@ -1,0 +1,385 @@
+"""The training loop: config in, checkpoints out (the reference's
+Train/basicsr/train.py main(); the JAX package's ``train/loop.py``).
+
+Data loading on worker threads, the stage subsample and the upload on a
+prefetch thread, the progressive curriculum, logging, checkpoints and
+validation on their cadence, and auto-resume from ``training_states``.
+Resuming is exact: the checkpoint holds the loop's position in its epoch
+and the states of its two host generators, so a run cut and resumed
+reads, draws and computes what an uninterrupted run would.
+
+Validation is dict-aware (``pred['hq']`` and, with an SR target,
+``pred['sr']``): the reference's teacher validation crashed on dict outputs
+and was in effect switched off with val_freq >> total_iter.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import time
+from typing import Callable
+
+import numpy as np
+import torch
+
+from ..data.datasets import create_dataset
+from ..data.loader import (BatchLoader, BatchUploader, DevicePrefetcher,
+                           EnlargedShuffleSampler, leaves)
+from ..eval.infer import highest_precision
+from ..losses import build_loss
+from ..metrics import get_metric
+from ..models import build_network
+from ..ops.layout import crop_to, pad_to_multiple
+from ..utils.image_io import imwrite, to_ubyte
+from ..utils.logging import MessageLogger, get_logger
+from ..utils.tracking import make_tracker
+from .checkpoints import (find_latest_checkpoint, load_pretrained,
+                          prune_checkpoints, restore_checkpoint,
+                          save_checkpoint, save_weights)
+from .config import make_exp_dirs, validate
+from .progressive import ProgressiveSchedule, subsample_batch
+from .trainer import TrainState, build_trainer_from_config
+
+PREFETCH_SEED_OFFSET = 7919  # the prefetch thread's generator: seed + this
+
+
+def build_everything(opt: dict, device=None):
+    """(model, trainer) from a parsed config. The model is built under
+    ``manual_seed`` with the reference's (PyTorch's) default initialisation,
+    then takes ``path.pretrain_network_g`` where one is given."""
+    validate(opt)
+    train_opt = opt["train"]
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(opt.get("manual_seed", 0))
+        model = build_network(opt["network_g"])
+    load_path = opt.get("path", {}).get("pretrain_network_g")
+    if load_path:
+        load_pretrained(model, load_path, opt["path"].get("param_key", "params"),
+                        strict=opt["path"].get("strict_load_g", True))
+    trainer = build_trainer_from_config(opt, model,
+                                        build_loss(train_opt["pixel_opt"]),
+                                        device=device)
+    return model, trainer
+
+
+def _forward_clamped(model, x):
+    out = model(x)
+    if isinstance(out, dict):
+        return {k: None if v is None else v.clamp(0.0, 1.0)
+                for k, v in out.items()}
+    return out.clamp(0.0, 1.0)
+
+
+def _host_nhwc(x: torch.Tensor) -> np.ndarray:
+    return x.permute(0, 2, 3, 1).float().cpu().numpy()
+
+
+def validate_model(model: torch.nn.Module, val_loader, opt: dict,
+                   max_items: int | None = None,
+                   save_dir: str | None = None) -> dict[str, float]:
+    """Pad to ``val.window_size``, forward, clamp, crop, score on the host.
+
+    Honours the reference's val options (image_restoration_model.py:
+    264-348): ``use_image`` scores uint8-quantised images, ``save_dir``
+    writes the predictions, ``max_minibatch`` caps the items. Runs on the
+    model's device, in float32 with TF32 off."""
+    val_opt = opt.get("val", {})
+    window = val_opt.get("window_size", 8)
+    use_image = val_opt.get("use_image", False)
+    if max_items is None and val_opt.get("max_minibatch"):
+        max_items = int(val_opt["max_minibatch"])
+    metric_cfgs = val_opt.get("metrics", {"psnr": {
+        "type": "calculate_psnr", "crop_border": 0, "test_y_channel": False}})
+    device = next(model.parameters()).device
+    upload = BatchUploader(device)
+    quantise = (lambda a: to_ubyte(a).astype(np.float32)) if use_image \
+        else (lambda a: a)
+
+    was_training = model.training
+    model.eval()
+    sums = {name: 0.0 for name in metric_cfgs}
+    # the *_sr metrics count only the items that carry an SR target
+    sr_count = count = 0
+    try:
+        for batch in val_loader:
+            dev = upload({"lq": batch["lq"], "gt": batch["gt"]})
+            lq, gt = dev["lq"], dev["gt"]
+            pred_sr = target_sr = None
+            with torch.no_grad(), highest_precision():
+                if isinstance(lq, dict):
+                    h, w = lq["img"].shape[2:]
+                    img, _ = pad_to_multiple(lq["img"], window, axes=(2, 3))
+                    rate, _ = pad_to_multiple(lq["denoise_rate"], window,
+                                              axes=(2, 3))
+                    out = _forward_clamped(model, {"img": img,
+                                                   "denoise_rate": rate})
+                    if not isinstance(out, dict):
+                        out = {"hq": out, "sr": None}
+                    pred = crop_to(out["hq"], h, w, axes=(2, 3))
+                    # the SR branch (train.py:420-426 scores sr at scale 2)
+                    if out.get("sr") is not None and isinstance(gt, dict) \
+                            and gt.get("sr") is not None:
+                        pred_sr = _host_nhwc(crop_to(out["sr"], 2 * h, 2 * w,
+                                                     axes=(2, 3)))
+                        target_sr = _host_nhwc(gt["sr"])
+                    target = gt["hq"] if isinstance(gt, dict) else gt
+                else:
+                    h, w = lq.shape[2:]
+                    x, _ = pad_to_multiple(lq, window, axes=(2, 3))
+                    pred = crop_to(_forward_clamped(model, x), h, w, axes=(2, 3))
+                    target = gt
+            pred, target = _host_nhwc(pred), _host_nhwc(target)
+            for b in range(pred.shape[0]):
+                p_img, t_img = quantise(pred[b]), quantise(target[b])
+                if save_dir is not None:
+                    name0 = os.path.basename(str(batch.get(
+                        "lq_path", [f"item{count}"])[b]))
+                    imwrite(os.path.join(save_dir, name0),
+                            p_img / 255.0 if use_image else p_img)
+                ps_img = ts_img = None
+                if pred_sr is not None:
+                    sr_count += 1
+                    ps_img, ts_img = quantise(pred_sr[b]), quantise(target_sr[b])
+                for name, cfg in metric_cfgs.items():
+                    cfg = dict(cfg)
+                    fn = get_metric(cfg.pop("type"))
+                    sums[name] += float(fn(p_img, t_img, **cfg))
+                    if ps_img is not None:
+                        sums[f"{name}_sr"] = sums.get(f"{name}_sr", 0.0) + float(
+                            fn(ps_img, ts_img, **cfg))
+                count += 1
+            if max_items is not None and count >= max_items:
+                break
+    finally:
+        model.train(was_training)
+    if count == 0:
+        import warnings
+
+        warnings.warn("validation loader yielded 0 items — no metrics "
+                      "computed (check the val dataset's pairing options)")
+        return {}
+    return {k: v / max(sr_count if k.endswith("_sr") else count, 1)
+            for k, v in sums.items()}
+
+
+def _val_loader_factory(opt: dict, log) -> Callable | None:
+    if "val" not in opt.get("datasets", {}):
+        return None
+    val_ds = create_dataset(opt["datasets"]["val"])
+    if len(val_ds) == 0:
+        log("WARNING: validation dataset is EMPTY — every validation will "
+            "be skipped")
+    return lambda: BatchLoader(val_ds, 1, EnlargedShuffleSampler(
+        len(val_ds), shuffle=False), num_workers=1, drop_last=False)
+
+
+def train_from_config(opt: dict, device=None,
+                      max_iters: int | None = None) -> TrainState:
+    """A whole training run; ``max_iters`` overrides total_iter. ``device``
+    None is the GPU, and raises where there is none."""
+    make_exp_dirs(opt)
+    logger = get_logger("raie-torch")
+    log_dir = opt["path"].get("log")
+    handler = None
+    if log_dir:
+        handler = logging.FileHandler(
+            os.path.join(log_dir, f"train_{int(time.time())}.log"))
+        handler.setFormatter(logging.Formatter(
+            "%(asctime)s %(levelname)s: %(message)s"))
+        logger.addHandler(handler)
+    try:
+        return _train(opt, device, max_iters, logger.info)
+    finally:
+        if handler is not None:
+            logger.removeHandler(handler)
+            handler.close()
+
+
+def _train(opt: dict, device, max_iters: int | None, log) -> TrainState:
+    _, trainer = build_everything(opt, device)
+    state = trainer.init_state()
+    device = trainer.device
+    seed = opt.get("manual_seed", 0)
+    ds_opt = opt["datasets"]["train"]
+    dataset = create_dataset(ds_opt)
+    loader = BatchLoader(
+        dataset, ds_opt["batch_size_per_gpu"],
+        EnlargedShuffleSampler(len(dataset),
+                               ratio=ds_opt.get("dataset_enlarge_ratio", 1),
+                               shuffle=ds_opt.get("use_shuffle", True),
+                               seed=seed),
+        num_workers=ds_opt.get("num_worker_per_gpu", 4),
+        drop_last=ds_opt.get("drop_last", True))
+    n_batches = len(loader)
+    if n_batches == 0:
+        raise ValueError(f"the training set ({len(dataset)} items) makes no "
+                         f"batch of {ds_opt['batch_size_per_gpu']}")
+    prog = ProgressiveSchedule.from_dataset_opt(ds_opt)
+
+    total_iters = int(max_iters or opt["train"]["total_iter"])
+    logger_cfg = opt.get("logger", {})
+    print_freq = int(logger_cfg.get("print_freq", 200))
+    ckpt_freq = int(logger_cfg.get("save_checkpoint_freq", 2000))
+    val_freq = int(opt.get("val", {}).get("val_freq", 0) or 0)
+    states_dir = opt["path"].get("training_states")
+    models_dir = opt["path"].get("models")
+    log_dir = opt["path"].get("log")
+
+    # host generators: the main thread's subsample at stage changes, and
+    # the prefetch thread's stage subsample (the JAX loop's two)
+    host_rng = np.random.default_rng(seed)
+    prefetch_rng = np.random.default_rng(seed + PREFETCH_SEED_OFFSET)
+    epoch, epoch_iter = 0, 0
+    restore_s = None
+    if states_dir and opt["path"].get("resume_state", "auto") is not None:
+        latest = find_latest_checkpoint(states_dir)
+        if latest is not None:
+            t0 = time.perf_counter()
+            state, epoch, pos = restore_checkpoint(states_dir, latest, state)
+            restore_s = time.perf_counter() - t0
+            epoch_iter = int(pos.get("epoch_iter", 0))
+            if "host_rng" in pos:
+                host_rng.bit_generator.state = pos["host_rng"]
+                prefetch_rng.bit_generator.state = pos["prefetch_rng"]
+            log(f"auto-resumed from iteration {latest} ({restore_s:.3f} s)")
+    prefetch_state = prefetch_rng.bit_generator.state
+
+    remote = make_tracker(logger_cfg, opt.get("name", "raie"), config=opt)
+    msg_logger = MessageLogger(
+        total_iters, start_iter=state.step, log=log,
+        tb_log_dir=(os.path.join(log_dir, "tb") if log_dir
+                    and logger_cfg.get("use_tb_logger") else None),
+        jsonl_path=os.path.join(log_dir, "metrics.jsonl") if log_dir else None,
+        remote=remote)
+    if restore_s is not None and msg_logger.jsonl is not None:
+        msg_logger.jsonl.write("resume", state.step, {"seconds": restore_s})
+    val_loader = (_val_loader_factory(opt, log) if val_freq else None)
+    uploader = BatchUploader(device)
+    prefetch_iter = [0]
+
+    def put(b):
+        """In the prefetch thread: the stage's subsample of the host batch
+        (only its rows cross to the device), then the upload."""
+        prefetch_iter[0] += 1
+        if prog is not None:
+            mb, _, _ = prog.at(prefetch_iter[0])
+            bsz = leaves(b["lq"])[0].shape[0]
+            if mb < bsz:
+                idx = prefetch_rng.choice(bsz, size=mb, replace=False)
+                b = {**b, "lq": subsample_batch(b["lq"], idx),
+                     "gt": subsample_batch(b["gt"], idx)}
+        arrays = {k: v for k, v in b.items() if isinstance(v, (np.ndarray, dict))}
+        rest = {k: v for k, v in b.items() if k not in arrays}
+        return uploader.upload(arrays), rest, prefetch_rng.bit_generator.state
+
+    watchdog = None
+    stall_s = opt["train"].get("stall_timeout_s")
+    if stall_s:
+        from ..utils.watchdog import StallWatchdog
+
+        watchdog = StallWatchdog(float(stall_s)).start()
+
+    current_iter = state.step
+    last_saved = None
+
+    def save():
+        t0 = time.perf_counter()
+        save_checkpoint(states_dir, current_iter, state, epoch, loop={
+            "epoch_iter": epoch_iter, "host_rng": host_rng.bit_generator.state,
+            "prefetch_rng": prefetch_state})
+        save_weights(models_dir, current_iter, state.model, state.ema)
+        if msg_logger.jsonl is not None:
+            msg_logger.jsonl.write("ckpt", current_iter,
+                                   {"seconds": time.perf_counter() - t0})
+
+    t_data = time.time()
+    try:
+        while current_iter < total_iters:
+            loader.set_epoch(epoch, skip=epoch_iter)
+            prefetch_iter[0] = current_iter  # re-sync the stage counter
+            prefetcher = DevicePrefetcher(iter(loader), put=put)
+            try:
+                for pending, rest, prefetch_state in prefetcher:
+                    current_iter += 1
+                    epoch_iter += 1
+                    batch = {**uploader.ready(pending), **rest}
+                    data_time = time.time() - t_data
+
+                    lq, gt = batch["lq"], batch.get("gt")
+                    extra_prob, mini_gt = 0.0, 0
+                    if prog is not None:
+                        mb, mini_gt, mini_prob = prog.at(current_iter)
+                        bsz = leaves(lq)[0].shape[0]
+                        if mb < bsz:
+                            idx = host_rng.choice(bsz, size=mb, replace=False)
+                            lq = subsample_batch(lq, idx)
+                            gt = subsample_batch(gt, idx)
+                        extra_prob = max(mini_prob - prog.base_prob, 0.0)
+                    state, metrics = trainer.step(
+                        state, lq, gt, np.random.default_rng([seed, current_iter]),
+                        extra_prob=extra_prob, mini_gt_size=mini_gt)
+
+                    scalars = None
+                    if current_iter % print_freq == 0:
+                        # reading the loss waits for the step: iter_time
+                        # then holds its device time
+                        scalars = {k: float(v) for k, v in metrics.items()}
+                    iter_time = time.time() - t_data
+                    if watchdog is not None:
+                        watchdog.beat()
+                    if scalars is not None:
+                        msg_logger(epoch, current_iter, scalars, iter_time,
+                                   data_time)
+                    if ckpt_freq and current_iter % ckpt_freq == 0 and states_dir:
+                        save()
+                        last_saved = current_iter
+                        log(f"saved checkpoint @ {current_iter}")
+                        keep = int(logger_cfg.get("keep_checkpoints", 0) or 0)
+                        gone = keep and prune_checkpoints(states_dir, models_dir,
+                                                          keep)
+                        if gone:
+                            log(f"rotated {len(gone)} old checkpoints")
+                    if val_loader is not None and current_iter % val_freq == 0:
+                        # the reference validates the EMA net when there is
+                        # one (image_restoration_model.py:242-245)
+                        t0 = time.perf_counter()
+                        scores = validate_model(state.ema or state.model,
+                                                val_loader(), opt)
+                        val_s = time.perf_counter() - t0
+                        if not scores:
+                            log(f"validation @ {current_iter}: SKIPPED "
+                                "(val loader yielded 0 items)")
+                        else:
+                            if msg_logger.jsonl is not None:
+                                msg_logger.jsonl.write("val", current_iter, scores,
+                                                       seconds=val_s)
+                            if remote is not None:
+                                remote.log({f"metrics/{k}": v
+                                            for k, v in scores.items()},
+                                           step=current_iter)
+                            log(f"validation @ {current_iter}: " + ", ".join(
+                                f"{k}={v:.4f}" for k, v in scores.items()))
+                        if watchdog is not None:  # validation is a legitimate gap
+                            watchdog.beat()
+                    if current_iter >= total_iters:
+                        break
+                    # data_time counts the wait for the next batch only,
+                    # not this iteration's checkpoint or validation
+                    t_data = time.time()
+            finally:
+                prefetcher.close()
+            if epoch_iter >= n_batches:  # the epoch ran to its end
+                epoch += 1
+                epoch_iter = 0
+    finally:
+        if watchdog is not None:
+            watchdog.stop()
+        msg_logger.close()
+
+    if states_dir and last_saved != current_iter:
+        save()
+    log(f"training done @ {current_iter}")
+    if remote is not None:
+        remote.finish()
+    return state

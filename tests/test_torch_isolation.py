@@ -27,7 +27,13 @@ def test_every_port_module_imports_without_jax():
     for name in ("ops.stage", "ops.layernorm", "ops.gdfn", "ops.block",
                  "ops.resize", "models.kdlae_student", "models.asdqe",
                  "eval.infer", "eval.asdqe_eval", "cli", "utils.doctor",
-                 "utils.png", "utils.image_io"):
+                 "utils.png", "utils.image_io", "losses", "losses.pixel",
+                 "metrics", "metrics.psnr_ssim", "data.pairing",
+                 "data.transforms", "data.file_client", "data.datasets",
+                 "data.loader", "train.schedules", "train.mixup",
+                 "train.progressive", "train.config", "train.trainer",
+                 "train.checkpoints", "train.loop", "utils.logging",
+                 "utils.tracking", "utils.watchdog"):
         assert f"{PORT}.{name}" in modules, name
     code = "\n".join([
         "import importlib, sys",

@@ -78,8 +78,29 @@ fp32 predictors' own pinning is what runs:
      enqueue) and profiled (device busy ms, idle share, kernel count).
      Training reaches no kernel of csrc/ (fused=False, the JAX trainer's
      default).
+ 11. the student and the scorer trained: (a) offline distillation, the
+     trained teacher (artifacts/torch_zoo/teacher.pth) in bf16 through
+     TeacherPredictor(fused=True) writing the student's targets for 24
+     synthetic 512x512 gray sonar frames (3 sequences of 8; 5 stage calls a
+     frame), held on two frames to the plain-stage predictor's distance from
+     fp32 (share more than 1 level off at most 1.1x + 0.002 of it);
+     (b) configs/KDLAES.yml at full width (hidden 16/32/64, num_pairs 7,
+     batch 4, gt_sizes 128-384, its AdamW, clip, cosine restarts, mixup and
+     L1-video loss) through `cli.main(["train", ...])`, iters [2]*6 in
+     total_iter 12, a checkpoint and a frame-stack validation every 6, a
+     resume to 14, net_g_12.pth served by infer-student, the frame masker's
+     route native, one float32 card step against the same step on the CPU
+     in float64 (loss and grad_norm within 1e-4, weights by the step rule),
+     and steps at 4x7@128 and @384 profiled; (c) three steps of the same
+     config with train.distill.online (the flagship teacher, teacher.pth),
+     the teacher's share of each step, targets finite in [0, 1]; (d)
+     train-asdqe at its defaults (batch 1, accum 32, gt 256, bf16) for 2
+     epochs on 40 seeded lq/candidate/score triples of 512x512, `score` on
+     net_g_best.pth (strict), and the reference's shape (batch 32 @ 512,
+     remat) for 3 updates: pairs/s, peak memory, finite losses, moved
+     running statistics; micro-steps at 1@256 and 32@512 profiled.
 Each path runs with every launch count set to 0 just before it and read just
-after. Prints one JSON line per phase 6-10, a "kernels" JSON line, the card
+after. Prints one JSON line per phase 6-11, a "kernels" JSON line, the card
 line, and as its last line {"ok": true, "device": {...}}. Details go to
 chiprun_out/chip_smoke.json.
 """
@@ -1344,25 +1365,12 @@ def train_step_on(device, opt, seed):
             {n: p.grad.detach().cpu() for n, p in state.model.named_parameters()})
 
 
-def profile_train_step(opt, batch, patch, card):
-    """One steady-state training step of the full-width teacher at
-    (batch, patch) on the card: wall ms (synchronised) and the host's
-    enqueue ms of three unprofiled steps, then one profiled step's device
-    busy ms by kernel, its idle share and its kernel count."""
+def profile_step(step, label, card):
+    """``step(k)`` in its steady state on the card: wall ms (synchronised)
+    and the host's enqueue ms of three unprofiled calls, then one profiled
+    call's device busy ms by kernel, its idle share and its kernel count."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-
-    from rethink_acoustic_image_enhancement_tpu_torch.train import loop as tloop
-
-    _, trainer = tloop.build_everything(opt, device="cuda")
-    state = trainer.init_state()
-    rng = np.random.default_rng(11)
-    img = torch.from_numpy(rng.random((batch, 3, patch, patch), dtype=np.float32)).cuda()
-    lq = {"img": img, "denoise_rate": torch.full((batch, 1, patch, patch), 0.7).cuda()}
-    gt = {"hq": img.clamp(0.05, 0.95), "sr": img.repeat_interleave(2, 2).repeat_interleave(2, 3)}
-
-    def step(k):
-        return trainer.step(state, lq, gt, np.random.default_rng(k), extra_prob=0.1)
 
     for k in range(3):  # shapes, plans and the allocator settle
         step(k)
@@ -1382,15 +1390,36 @@ def profile_train_step(opt, batch, patch, card):
                      key=lambda kv: -kv[1])
     busy = sum(ms for _, ms, _ in kernels)
     wall = float(np.median(walls))
-    out = dict(batch=batch, patch=patch, wall_ms=walls, enqueue_ms=enqueues,
-               device_busy_ms=busy, idle_share=1 - busy / wall,
-               kernel_launches=sum(n for _, _, n in kernels),
+    out = dict(wall_ms=walls, enqueue_ms=enqueues, device_busy_ms=busy,
+               idle_share=1 - busy / wall, kernel_launches=sum(n for _, _, n in kernels),
                top=[dict(kernel=k[:120], ms=ms, count=n) for k, ms, n in kernels[:8]])
-    log(f"train step {batch}@{patch}: wall {wall:.1f} ms, host enqueue "
-        f"{np.median(enqueues):.1f} ms, device busy {busy:.1f} ms (idle share "
-        f"{out['idle_share']:.3f}), {out['kernel_launches']} kernels [{card}]")
+    log(f"{label}: wall {wall:.1f} ms, host enqueue {np.median(enqueues):.1f} ms, device busy "
+        f"{busy:.1f} ms (idle share {out['idle_share']:.3f}), {out['kernel_launches']} kernels "
+        f"[{card}]")
     for row in out["top"][:5]:
         log(f"  {row['ms']:8.3f} ms x{row['count']:5d}  {row['kernel'][:90]}")
+    return out
+
+
+def profile_train_step(opt, batch, patch, card):
+    """One steady-state training step of the full-width teacher at
+    (batch, patch) on the card (``profile_step``)."""
+    import torch
+
+    from rethink_acoustic_image_enhancement_tpu_torch.train import loop as tloop
+
+    _, trainer = tloop.build_everything(opt, device="cuda")
+    state = trainer.init_state()
+    rng = np.random.default_rng(11)
+    img = torch.from_numpy(rng.random((batch, 3, patch, patch), dtype=np.float32)).cuda()
+    lq = {"img": img, "denoise_rate": torch.full((batch, 1, patch, patch), 0.7).cuda()}
+    gt = {"hq": img.clamp(0.05, 0.95), "sr": img.repeat_interleave(2, 2).repeat_interleave(2, 3)}
+
+    def step(k):
+        return trainer.step(state, lq, gt, np.random.default_rng(k), extra_prob=0.1)
+
+    out = dict(batch=batch, patch=patch,
+               **profile_step(step, f"train step {batch}@{patch}", card))
     del state, trainer
     torch.cuda.empty_cache()
     return out
@@ -1538,6 +1567,503 @@ def phase_train(results, card, work):
     print(json.dumps({"train": row}), flush=True)
 
 
+# ------------------------------------------------------------ phase 11 ---
+
+STUDENT_ITERS = [2, 2, 2, 2, 2, 2]  # all six curriculum stages in 12 steps
+TEACHER_PTH = os.path.join("artifacts", "torch_zoo", "teacher.pth")
+
+
+def write_frames(folder, stacks):
+    """(S, F, H, W) uint8 stacks as gray PNGs numbered in order (the
+    student dataset groups frames by their leading number)."""
+    from rethink_acoustic_image_enhancement_tpu_torch.utils.image_io import imwrite
+
+    os.makedirs(folder, exist_ok=True)
+    s, f = stacks.shape[:2]
+    for k in range(s * f):
+        imwrite(os.path.join(folder, f"{k}_s{k // f}.png"), stacks[k // f, k % f], rgb=False)
+    return folder
+
+
+def phase_distill_offline(row, card, work, n_seq=3, seq_len=8, size=512):
+    """(a) The trained bf16 teacher through the stage kernel writes the
+    student's targets for n_seq x seq_len frames; held on two frames to
+    the plain-stage predictor's distance from fp32. Returns its launches."""
+    import torch
+
+    from rethink_acoustic_image_enhancement_tpu_torch.convert.weights import load_pth
+    from rethink_acoustic_image_enhancement_tpu_torch.eval.infer import TeacherPredictor
+    from rethink_acoustic_image_enhancement_tpu_torch.models import flagship_teacher, kdlae_teacher
+    from rethink_acoustic_image_enhancement_tpu_torch.ops import stage as pstage
+    from rethink_acoustic_image_enhancement_tpu_torch.train import distill
+    from rethink_acoustic_image_enhancement_tpu_torch.utils.image_io import imread_rgb, list_images
+
+    lq_dir = write_frames(os.path.join(work, "frames"), sonar_stacks(n_seq, seq_len, size, size, 50))
+    gt_dir = os.path.join(work, "teacher")
+    teacher = load_pth(flagship_teacher(static="train"), os.path.join(HERE, TEACHER_PTH))
+    teacher.static = "test"  # the targets are hq only
+    fp32 = TeacherPredictor(teacher)
+    fused = TeacherPredictor(teacher.to(torch.bfloat16), fused=True, dtype=torch.bfloat16)
+    frames = [imread_rgb(p) for p in list_images(lq_dir)[:2]]
+    fused(frames[0])  # warm-up: plans at this shape
+    plain_stage = kdlae_teacher.fused_transformer_stage
+    kdlae_teacher.fused_transformer_stage = pstage.stage_plain
+    try:
+        plain = [fused(f)["hq"] for f in frames]
+    finally:
+        kdlae_teacher.fused_transformer_stage = plain_stage
+    gate = []
+    for f, p in zip(frames, plain):
+        ref = fp32(f)["hq"]
+        gate.append(dict(fused_vs_fp32_over_1_level=1 - within_levels(fused(f)["hq"], ref)[0],
+                         plain_stage_vs_fp32_over_1_level=1 - within_levels(p, ref)[0]))
+    for g in gate:
+        assert (g["fused_vs_fp32_over_1_level"]
+                <= 1.1 * g["plain_stage_vs_fp32_over_1_level"] + 0.002), gate
+    torch.cuda.synchronize()
+    counts = reset_counts()
+    t0 = time.perf_counter()
+    n = distill.generate_teacher_targets(fused, lq_dir, gt_dir, log=lambda m: None)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(counts)
+    assert n == n_seq * seq_len and launches == dict(stage=5 * n, layernorm=0, gdfn=0, block=0), \
+        (n, launches)
+    targets = decoded(gt_dir, gray=True)
+    assert len(targets) == n and all(t.shape == (size, size) for t in targets.values())
+    row["offline_distillation"] = dict(frames=n, size=size, wall_s=wall, frames_per_s=n / wall,
+                                       stage_calls=launches["stage"], gate=gate)
+    log(f"offline distillation: {n} frames of {size}^2 through the trained bf16 teacher "
+        f"(fused) in {wall:.2f} s ({n / wall:.2f} frames/s), {launches['stage']} stage calls; "
+        f"more than 1 level from fp32 on 2 frames: {gate} [{card}]")
+    del fp32, fused, teacher
+    torch.cuda.empty_cache()
+    return lq_dir, gt_dir, launches["stage"]
+
+
+def student_step_on(device, opt, seed, dtype):
+    """One seeded step of the full-width student at KDLAES.yml's settings on
+    ``device`` in ``dtype``, past the warm-up (step 2000): (2, 7, 128, 128)
+    stacks, extra mask 0.1, mixup; every draw on the host."""
+    import torch
+
+    from rethink_acoustic_image_enhancement_tpu_torch.train import loop as tloop
+
+    _, trainer = tloop.build_everything(opt, device=device)
+    state = trainer.init_state()
+    state.model.to(dtype)  # the same Parameter objects: the optimizer keeps them
+    state.step = 2000
+    rng = np.random.default_rng(seed)
+    lq = rng.random((2, 7, 128, 128), dtype=np.float32)
+    gt = np.clip(lq + rng.normal(0, 0.05, lq.shape), 0, 1).astype(np.float32)
+    state, m = trainer.step(state, torch.from_numpy(lq).to(device, dtype),
+                            torch.from_numpy(gt).to(device, dtype),
+                            np.random.default_rng(seed + 1), extra_prob=0.1)
+    return ({k: float(v) for k, v in m.items()},
+            {n: p.detach().cpu().double() for n, p in state.model.named_parameters()},
+            {n: p.grad.detach().cpu().double() for n, p in state.model.named_parameters()})
+
+
+def card_equals_cpu(step_on, opt, seed):
+    """A float32 step on the card against the same step on the CPU in
+    float64: loss and grad_norm within 1e-4 relative, each weight within
+    0.05 lr (2 lr where its gradient is under 1e-6 of the largest). The
+    CPU's own float32 step is reported beside it: PyTorch's CPU conv3d sums
+    the student's output-bias gradient (229,376 same-sign terms at this
+    shape) with ~1e-3 relative error, so float32 on the CPU is no
+    reference here."""
+    import torch
+
+    cpu = torch.device("cpu")
+    m_gpu, p_gpu, _ = step_on(torch.device("cuda"), opt, seed, torch.float32)
+    m_ref, p_ref, g_ref = step_on(cpu, opt, seed, torch.float64)
+    m_cpu, _, _ = step_on(cpu, opt, seed, torch.float32)
+    lr = m_ref["lr"]
+    gmax = max(float(g.abs().max()) for g in g_ref.values())
+    over = 0
+    for n, p in p_ref.items():
+        tol = torch.where(g_ref[n].abs() > 1e-6 * gmax, 0.05 * lr, 2 * lr)
+        over += int(((p_gpu[n] - p).abs() > tol).sum())
+    rel = {k: abs(m_gpu[k] - m_ref[k]) / abs(m_ref[k]) for k in ("l_pix", "grad_norm")}
+    cpu_rel = {k: abs(m_cpu[k] - m_ref[k]) / abs(m_ref[k]) for k in ("l_pix", "grad_norm")}
+    assert max(rel.values()) <= 1e-4 and m_gpu["lr"] == lr and lr > 0 and over == 0, (rel, over)
+    return dict(rel=rel, cpu_fp32_rel=cpu_rel, lr=lr, weights_over_rule=over,
+                loss_gpu=m_gpu["l_pix"], loss_cpu_fp64=m_ref["l_pix"])
+
+
+def profile_student_step(opt, patch, card):
+    """One steady-state step of the full-width student at 4 x 7 @ patch,
+    extra mask 0.1, mixup (``profile_step``)."""
+    import torch
+
+    from rethink_acoustic_image_enhancement_tpu_torch.train import loop as tloop
+
+    _, trainer = tloop.build_everything(opt, device="cuda")
+    state = trainer.init_state()
+    state.step = 2000
+    g = torch.Generator(device="cuda").manual_seed(3)
+    lq = torch.rand((4, 7, patch, patch), generator=g, device="cuda")
+    gt = lq.clamp(0.05, 0.95)
+
+    def step(k):
+        return trainer.step(state, lq, gt, np.random.default_rng(k), extra_prob=0.1)
+
+    out = dict(batch=4, frames=7, patch=patch,
+               **profile_step(step, f"student step 4x7@{patch}", card))
+    del state, trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def profile_scorer_step(batch, size, card):
+    """One steady-state micro-step of the scorer (bf16, remat, uint8 in,
+    k = 32) at batch @ size (``profile_step``)."""
+    import torch
+
+    from rethink_acoustic_image_enhancement_tpu_torch.models import DenoiseRatePredictor
+    from rethink_acoustic_image_enhancement_tpu_torch.train import asdqe_trainer as atr
+
+    torch.manual_seed(0)
+    model = DenoiseRatePredictor().cuda().set_remat(True).set_compute_dtype(torch.bfloat16)
+    model.set_dropout_generator(torch.Generator(device="cuda").manual_seed(0))
+    opt = atr.MultiStepsAdam(model.parameters(), 1e-3, 32)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    lq = torch.randint(0, 256, (batch, 3, size, size), generator=g, device="cuda",
+                       dtype=torch.uint8)
+    gt = (lq.float() * 0.7).to(torch.uint8)
+    score = torch.rand(batch, generator=g, device="cuda")
+
+    def step(k):
+        return atr.asdqe_micro_step(model, opt, lq, gt, score, 1.0, torch.bfloat16)
+
+    out = dict(batch=batch, size=size,
+               **profile_step(step, f"scorer micro-step {batch}@{size}", card))
+    del model, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def stage_rows(events, prog, frames, batch):
+    """Per curriculum stage: its steps' ms, frames/s and data ms (the
+    stage's mini-batch capped by the loader's ``batch``)."""
+    rows = []
+    for s_idx in sorted({prog.stage(e["iter"]) for e in events}):
+        steps = [e for e in events if prog.stage(e["iter"]) == s_idx]
+        mb, patch, _ = prog.at(steps[0]["iter"])
+        mb = min(mb, batch)
+        ms = [1e3 * e["iter_time"] for e in steps]
+        rows.append(dict(stage=s_idx + 1, batch=mb, patch=patch, iters=[e["iter"] for e in steps],
+                         ms_per_step=ms, data_ms=[1e3 * e["data_time"] for e in steps],
+                         frames_per_s=mb * frames * len(steps) / (sum(ms) / 1e3)))
+    return rows
+
+
+def phase_student_train(row, card, work, lq_dir, gt_dir):
+    """(b) configs/KDLAES.yml at full width through the CLI on the teacher's
+    targets: six stages in 12 steps, checkpoints and frame-stack validation
+    at 6 and 12, a resume to 14, net_g_12.pth served by infer-student, and
+    one card step against the CPU's."""
+    import torch
+    import yaml
+
+    from rethink_acoustic_image_enhancement_tpu_torch.convert.weights import load_pth, read_pth
+    from rethink_acoustic_image_enhancement_tpu_torch.models import KDLAEStudent
+    from rethink_acoustic_image_enhancement_tpu_torch.train import config as tcfg
+    from rethink_acoustic_image_enhancement_tpu_torch.train import loop as tloop
+    from rethink_acoustic_image_enhancement_tpu_torch.train.progressive import ProgressiveSchedule
+    from rethink_acoustic_image_enhancement_tpu_torch.utils import native
+
+    with open(os.path.join(HERE, "configs", "KDLAES.yml")) as fh:
+        cfg = yaml.safe_load(fh)
+    roots = dict(dataroot_lq=lq_dir, dataroot_gt=gt_dir)
+    cfg["datasets"]["train"].update(roots, iters=STUDENT_ITERS)
+    cfg["datasets"]["val"].update(roots, stride_range=[1, 1])
+    cfg["train"]["total_iter"] = sum(STUDENT_ITERS)
+    cfg["logger"].update(save_checkpoint_freq=6, print_freq=1)
+    cfg["val"]["val_freq"] = 6
+    yml = os.path.join(work, "KDLAES.yml")
+    with open(yml, "w") as fh:
+        yaml.safe_dump(cfg, fh)
+    opt = tcfg.parse(yml, is_train=True, root_path=work)
+    exp, models = opt["path"]["experiments_root"], opt["path"]["models"]
+
+    counts = reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        _, train_wall = run_cli(["train", "-opt", yml])
+        peak = torch.cuda.max_memory_allocated()
+        assert native.available(), "the frame masker fell back to numpy"
+        events = jsonl_events(os.path.join(exp, "metrics.jsonl"))
+        steps = [e for e in events if e["kind"] == "train"]
+        assert [e["iter"] for e in steps] == list(range(1, 13)), [e["iter"] for e in steps]
+        assert all(np.isfinite(e["l_pix"]) and np.isfinite(e["grad_norm"]) for e in steps)
+        vals = [e for e in events if e["kind"] == "val"]
+        assert [e["iter"] for e in vals] == [6, 12] and all(
+            np.isfinite(e["psnr"]) for e in vals), vals
+        saves = [e for e in events if e["kind"] == "ckpt"]
+        assert [e["iter"] for e in saves] == [6, 12], saves
+        net12 = os.path.join(models, "net_g_12.pth")
+        init, _ = tloop.build_everything(opt, device="cpu")
+        trained = read_pth(net12)
+        # the warm-up keeps lr near 0 (3e-4 * step / 1000): a weight whose
+        # gradient is exactly 0 (a dead channel) may not move
+        moved = [n for n, v in init.state_dict().items() if not torch.equal(v, trained[n])]
+        assert len(moved) >= 0.9 * len(trained), "parameters that did not move: " + str(
+            sorted(set(trained) - set(moved)))
+
+        cfg["train"]["total_iter"] = 14
+        with open(yml, "w") as fh:
+            yaml.safe_dump(cfg, fh)
+        _, resume_wall = run_cli(["train", "-opt", yml])
+        events = jsonl_events(os.path.join(exp, "metrics.jsonl"))
+        resumed = [e for e in events if e["kind"] == "resume"]
+        assert [e["iter"] for e in resumed] == [12], resumed
+        assert [e["iter"] for e in events if e["kind"] == "train"][12:] == [13, 14]
+
+        load_pth(KDLAEStudent(residual=True, hidden_channels=(16, 32, 64)), net12)
+        _, serve_wall = run_cli(["infer-student", "--weights", net12, "--input", lq_dir,
+                                 "--output", os.path.join(work, "student_out")])
+        served = decoded(os.path.join(work, "student_out"), gray=True)
+        size = next(iter(decoded(gt_dir, gray=True).values())).shape
+        assert len(served) == 7 and all(v.shape == size for v in served.values()), size
+    finally:
+        os.chdir(cwd)
+    launches = read_counts(counts)
+    assert not any(launches.values()), launches  # training reaches no kernel
+
+    t0 = time.perf_counter()
+    step_check = card_equals_cpu(student_step_on, opt, seed=7)
+    step_check_s = time.perf_counter() - t0
+    profiles = [profile_student_step(opt, p, card) for p in (128, 384)]
+    prog = ProgressiveSchedule.from_dataset_opt(opt["datasets"]["train"])
+    stages = stage_rows(steps, prog, 7, opt["datasets"]["train"]["batch_size_per_gpu"])
+    row["student_train"] = dict(
+        config="configs/KDLAES.yml at full width: iters [2]*6, total_iter 12 then 14, "
+               "checkpoint and validation every 6, print_freq 1",
+        masker_route="native" if native.available() else "numpy", stages=stages, train_call_s=train_wall,
+        resume_call_s=resume_wall, peak_memory_gib=peak / 2 ** 30,
+        checkpoint_save_s=[e["seconds"] for e in saves],
+        checkpoint_restore_s=resumed[0]["seconds"],
+        validation_s=[e["seconds"] for e in vals], val_psnr=[e["psnr"] for e in vals],
+        losses=[e["l_pix"] for e in steps], serve_s=serve_wall,
+        moved_tensors=f"{len(moved)}/{len(trained)}",
+        card_vs_cpu_step=step_check, step_check_s=step_check_s, step_profiles=profiles)
+    log("student training: " + ", ".join(
+        f"{r['batch']}x7@{r['patch']} {np.median(r['ms_per_step']):.1f} ms "
+        f"({r['frames_per_s']:.0f} frames/s, data {np.median(r['data_ms']):.1f} ms)"
+        for r in stages)
+        + f"; peak {peak / 2 ** 30:.2f} GiB; save {row['student_train']['checkpoint_save_s']} s, "
+        f"restore {resumed[0]['seconds']:.3f} s, validation "
+        f"{row['student_train']['validation_s']} s, PSNR {row['student_train']['val_psnr']}; "
+        f"card step vs the CPU's in float64 {step_check['rel']} (the CPU's float32 step "
+        f"{step_check['cpu_fp32_rel']}); masker {row['student_train']['masker_route']} [{card}]")
+    return yml, cfg
+
+
+def phase_distill_online(row, card, work, yml, cfg, steps=3):
+    """(c) The same config with train.distill.online: the trained teacher
+    makes the targets in the loop, for ``steps`` steps of the first stage."""
+    import torch
+    import yaml
+
+    from rethink_acoustic_image_enhancement_tpu_torch.train import config as tcfg
+    from rethink_acoustic_image_enhancement_tpu_torch.train import loop as tloop
+
+    with open(os.path.join(HERE, "configs", "KDLAET.yml")) as fh:
+        teacher_net = yaml.safe_load(fh)["network_g"]
+    cfg = dict(cfg, name="KDLAES_online")
+    cfg["train"] = dict(cfg["train"], total_iter=steps, distill=dict(
+        online=True, teacher=teacher_net,
+        teacher_weights=os.path.join(HERE, TEACHER_PTH)))
+    cfg["val"] = dict(cfg["val"], val_freq=0)
+    online_yml = os.path.join(work, "KDLAES_online.yml")
+    with open(online_yml, "w") as fh:
+        yaml.safe_dump(cfg, fh)
+    opt = tcfg.parse(online_yml, is_train=True, root_path=work)
+
+    timed = []
+    targets = tloop.online_targets
+
+    def timed_targets(fn, lq):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = targets(fn, lq)
+        torch.cuda.synchronize()
+        timed.append(dict(ms=(time.perf_counter() - t0) * 1e3, shape=list(out.shape),
+                          finite=bool(torch.isfinite(out).all()), min=float(out.min()),
+                          max=float(out.max())))
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    tloop.online_targets = timed_targets
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        _, wall = run_cli(["train", "-opt", online_yml])
+    finally:
+        os.chdir(cwd)
+        tloop.online_targets = targets
+    events = [e for e in jsonl_events(os.path.join(opt["path"]["log"], "metrics.jsonl"))
+              if e["kind"] == "train"]
+    assert [e["iter"] for e in events] == list(range(1, steps + 1)), events
+    assert len(timed) == steps and all(t["finite"] and 0.0 <= t["min"] and t["max"] <= 1.0
+                                       for t in timed), timed
+    step_ms = [1e3 * e["iter_time"] for e in events]
+    share = [t["ms"] / s for t, s in zip(timed, step_ms)]
+    row["online_distillation"] = dict(
+        steps=steps, ms_per_step=step_ms, teacher_ms=[t["ms"] for t in timed],
+        teacher_share=share, target_shape=timed[0]["shape"], targets=timed,
+        losses=[e["l_pix"] for e in events], call_s=wall,
+        peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    log(f"online distillation: {steps} steps at {timed[0]['shape']} targets, ms per step "
+        f"{['%.1f' % s for s in step_ms]}, the teacher's share {['%.2f' % s for s in share]}; "
+        f"targets in [{min(t['min'] for t in timed):.3f}, {max(t['max'] for t in timed):.3f}] [{card}]")
+
+
+def write_siqa_corpus(root, n, size, seed):
+    """n lq / candidate / JSON-score triples: a speckled sonar frame, the
+    candidate mixing it with its 5x5 box mean inside the fan at a known rate
+    that is the score."""
+    from rethink_acoustic_image_enhancement_tpu_torch.utils.image_io import imwrite
+
+    rng = np.random.default_rng(seed)
+    dirs = {k: os.path.join(root, k) for k in ("lq", "gt", "param")}
+    for d in dirs.values():
+        os.makedirs(d, exist_ok=True)
+    for i in range(n):
+        noisy = sonar_frame(size, size, seed * 1000 + i).astype(np.float32)
+        pad = np.pad(noisy, ((2, 2), (2, 2), (0, 0)), mode="edge")
+        box = sum(pad[dy:dy + size, dx:dx + size] for dy in range(5) for dx in range(5)) / 25
+        rate = round(float(rng.uniform(0, 1)), 3)
+        cand = np.where(noisy[..., :1] > 0, (1 - rate) * noisy + rate * box, 0)
+        imwrite(os.path.join(dirs["lq"], f"{i:04d}.png"), noisy.astype(np.uint8))
+        imwrite(os.path.join(dirs["gt"], f"{i:04d}.png"), cand.round().astype(np.uint8))
+        with open(os.path.join(dirs["param"], f"{i:04d}.json"), "w") as fh:
+            json.dump({"score": rate}, fh)
+    return dirs
+
+
+def scorer_big_steps(batch=32, size=512, updates=3, device="cuda"):
+    """The reference's training shape: batch 32 at 512^2, bf16 compute,
+    remat on, one Adam update a micro-step; a warm-up step, then
+    ``updates`` timed ones. Returns pairs/s, peak memory, the losses and
+    whether the running statistics moved."""
+    import torch
+
+    from rethink_acoustic_image_enhancement_tpu_torch.models import DenoiseRatePredictor
+    from rethink_acoustic_image_enhancement_tpu_torch.train import asdqe_trainer as atr
+
+    torch.manual_seed(0)
+    model = DenoiseRatePredictor().to(device).set_remat(True).set_compute_dtype(torch.bfloat16)
+    model.set_dropout_generator(torch.Generator(device=device).manual_seed(0))
+    opt = atr.MultiStepsAdam(model.parameters(), 1e-3, 1)
+    g = torch.Generator(device=device).manual_seed(1)
+    lq = torch.randint(0, 256, (batch, 3, size, size), generator=g, device=device,
+                       dtype=torch.uint8)
+    gt = (lq.float() * 0.7).to(torch.uint8)
+    score = torch.rand(batch, generator=g, device=device)
+    bn = model.unet.inc.double_conv[1]
+    before = bn.running_mean.clone()
+    atr.asdqe_micro_step(model, opt, lq, gt, score, 1.0, torch.bfloat16)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    losses = [atr.asdqe_micro_step(model, opt, lq, gt, score, 1.0, torch.bfloat16)
+              for _ in range(updates)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    losses = [float(x) for x in losses]
+    moved = not torch.equal(before, bn.running_mean)
+    assert all(np.isfinite(losses)) and moved, (losses, moved)
+    out = dict(batch=batch, size=size, updates=updates, wall_s=wall,
+               pairs_per_s=batch * updates / wall, ms_per_step=wall / updates * 1e3,
+               peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               peak_above_start_gib=(torch.cuda.max_memory_allocated() - base) / 2 ** 30,
+               losses=losses, running_stats_moved=moved)
+    del model, opt, lq, gt
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_scorer_train(row, card, work, n=40, size=512):
+    """(d) train-asdqe at the CLI defaults for 2 epochs on a seeded SIQA
+    corpus, score with what it wrote (strict), and the reference's shape."""
+    import torch
+
+    from rethink_acoustic_image_enhancement_tpu_torch.convert.weights import load_pth
+    from rethink_acoustic_image_enhancement_tpu_torch.models import DenoiseRatePredictor
+    from rethink_acoustic_image_enhancement_tpu_torch.train import asdqe_trainer as atr
+
+    dirs = write_siqa_corpus(os.path.join(work, "siqa"), n, size, seed=60)
+    out = os.path.join(work, "asdqe")
+    step_ms = []
+    micro_step = atr.asdqe_micro_step
+
+    def timed_step(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = micro_step(*a, **kw)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        return loss
+
+    torch.cuda.reset_peak_memory_stats()
+    atr.asdqe_micro_step = timed_step
+    try:
+        stdout, train_wall = run_cli(["train-asdqe", "--lq", dirs["lq"], "--gt", dirs["gt"],
+                                      "--param", dirs["param"], "--out", out, "--epochs", "2"])
+    finally:
+        atr.asdqe_micro_step = micro_step
+    peak = torch.cuda.max_memory_allocated()
+    assert len(step_ms) == 2 * int(0.8 * n), len(step_ms)
+    best = float(stdout.split("best val MSE:")[1].split()[0])
+    assert np.isfinite(best) and sorted(os.listdir(out)) == [
+        "net_g_0.pth", "net_g_1.pth", "net_g_best.pth"], (stdout[-500:], os.listdir(out))
+    load_pth(DenoiseRatePredictor(), os.path.join(out, "net_g_best.pth"))
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        score_out, score_wall = run_cli(["score", "--weights", os.path.join(out, "net_g_best.pth"),
+                                         "--lq-dir", dirs["lq"], "--methods",
+                                         f"mixed={dirs['gt']}", "--csv", "scores.csv"])
+    finally:
+        os.chdir(cwd)
+    assert os.path.isfile(os.path.join(work, "scores.csv")), score_out[-500:]
+    steady = float(np.median(step_ms[2:]))
+    big = scorer_big_steps()
+    profiles = [profile_scorer_step(b, sz, card) for b, sz in ((1, 256), (32, 512))]
+    row["scorer_train"] = dict(
+        triples=n, size=size, cli="train-asdqe defaults (batch 1, accum 32, gt 256, bf16), 2 epochs",
+        train_call_s=train_wall, micro_steps=len(step_ms), micro_step_ms=step_ms,
+        pairs_per_s_batch1=1e3 / steady, pairs_per_s_call=len(step_ms) / train_wall,
+        peak_memory_gib=peak / 2 ** 30, best_val_mse=best, score_call_s=score_wall,
+        batch32_512=big, step_profiles=profiles)
+    log(f"scorer training: 2 epochs of {len(step_ms) // 2} pairs at batch 1 @ 256, a micro-step "
+        f"{steady:.1f} ms ({1e3 / steady:.1f} pairs/s; the call {train_wall:.2f} s with "
+        f"loading, validation and saves), peak "
+        f"{peak / 2 ** 30:.2f} GiB, best val MSE {best:.5f}; score {score_wall:.2f} s; "
+        f"batch 32 @ 512: {big['ms_per_step']:.1f} ms an update ({big['pairs_per_s']:.1f} pairs/s), "
+        f"peak {big['peak_memory_gib']:.2f} GiB [{card}]")
+
+
+def phase_student_and_scorer(results, card, work):
+    """Phase 11: offline distillation through the stage kernel, the
+    student's training, online distillation, the scorer's training."""
+    t0 = time.perf_counter()
+    row = dict(card=card)
+    lq_dir, gt_dir, launches = phase_distill_offline(row, card, work)
+    yml, cfg = phase_student_train(row, card, work, lq_dir, gt_dir)
+    phase_distill_online(row, card, work, yml, cfg)
+    phase_scorer_train(row, card, work)
+    row["phase_s"] = time.perf_counter() - t0
+    results["student_scorer_train"] = row
+    print(json.dumps({"student_scorer_train": row}), flush=True)
+    return launches
+
+
 # ------------------------------------------------------------ main -------
 
 def main() -> int:
@@ -1594,9 +2120,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="raie_train_") as work:
         phase_train(results, card, work)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="raie_student_") as work:
+        distill_launches = phase_student_and_scorer(results, card, work)
     results["path_launches"] = dict(whole_image=whole_launches, tiled=tiled_launches,
                                     group=group_launches, zoo_cli=zoo_launches,
-                                    **path_launches)
+                                    distill=distill_launches, **path_launches)
 
     def entry(name, source, replaces, launches, rows, main_row):
         assert launches > 0, f"{name}: no launch on a driven path"
@@ -1612,7 +2141,8 @@ def main() -> int:
     # library call)
     kernels = {"kernels": [
         entry("fused_transformer_stage", "stage.cu", "stage.py:324",
-              whole_launches + tiled_launches + group_launches + zoo_launches,
+              whole_launches + tiled_launches + group_launches + zoo_launches
+              + distill_launches,
               stage_rows, stage_rows[0]),
         entry("fused_channel_layernorm", "layernorm.cu", "layernorm.py:58",
               path_launches["layernorm"], ln_rows, ln_rows[1]),

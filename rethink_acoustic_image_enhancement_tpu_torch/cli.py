@@ -1,6 +1,7 @@
 """Command-line entry points of the PyTorch/CUDA port.
 
   raie-torch train -opt cfg.yml  config-driven training (auto-resume)
+  raie-torch train-asdqe ...     ASDQE quality-scorer training
   raie-torch test -opt cfg.yml   config-driven offline evaluation
   raie-torch infer-teacher ...   KDLAE-T denoise (whole image, groups, tiles)
   raie-torch serve ...           watch-folder serving daemon
@@ -58,6 +59,45 @@ def _cmd_train(args) -> int:
     if args.stall_timeout:
         opt["train"]["stall_timeout_s"] = args.stall_timeout
     train_from_config(opt, device=device, max_iters=args.max_iters)
+    return 0
+
+
+def _cmd_train_asdqe(args) -> int:
+    """The scorer's trainer (the reference's standalone Train/ASDQE.py)."""
+    import math
+
+    from .train.asdqe_trainer import DEVICE_RESIDENT, train_asdqe
+
+    if args.device_resident:
+        raise SystemExit(f"error: {DEVICE_RESIDENT}")
+    if not args.param:
+        print("error: --param is required", file=sys.stderr)
+        return 2
+    device = _device(args.device)
+    tracker = None
+    if args.swanlab_project:
+        # the reference's swanlab logging (Train/ASDQE.py:71-84); a warning
+        # and no tracking where the package is missing
+        from .utils.tracking import RemoteTracker
+
+        tracker = RemoteTracker(
+            "swanlab", args.swanlab_project, run_name="train-asdqe",
+            config={"learning_rate": args.lr, "batch_size": args.batch_size,
+                    "epochs": args.epochs, "optimizer": "Adam",
+                    "loss_function": "MSE",
+                    "model_architecture": "DenoiseRatePredictor"})
+    result = train_asdqe(
+        {"dataroot_lq": args.lq, "dataroot_gt": args.gt,
+         "dataroot_param": args.param, "geometric_augs": True,
+         "io_backend": {"type": "disk"}},
+        lr=args.lr, epochs=args.epochs, batch_size=args.batch_size,
+        accumulation_steps=args.accum, gt_size=args.gt_size, seed=args.seed,
+        out_dir=args.out, max_steps_per_epoch=args.max_steps_per_epoch,
+        h2d_uint8=(args.h2d == "uint8"), tracker=tracker, device=device)
+    finite = [h["val_mse"] for h in result["history"]
+              if not math.isnan(h["val_mse"])]
+    if finite:  # an epoch with no validation batch reports NaN
+        print(f"best val MSE: {min(finite):.6f}")
     return 0
 
 
@@ -492,6 +532,31 @@ def main(argv=None) -> int:
                         "longest validation or checkpoint gap")
     _add_device(p)
     p.set_defaults(fn=_cmd_train)
+
+    p = sub.add_parser("train-asdqe", help="ASDQE quality-scorer training")
+    p.add_argument("--lq", required=True, help="noisy-image dir")
+    p.add_argument("--gt", required=True, help="result-image dir")
+    p.add_argument("--param", default=None, help="per-image JSON score dir")
+    p.add_argument("--out", required=True, help="weights output dir "
+                   "(net_g_<epoch>.pth, net_g_best.pth)")
+    p.add_argument("--epochs", type=int, default=10)
+    p.add_argument("--lr", type=float, default=1e-3)
+    p.add_argument("--batch-size", type=int, default=1)
+    p.add_argument("--accum", type=int, default=32)
+    p.add_argument("--gt-size", type=int, default=256)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--max-steps-per-epoch", type=int, default=None)
+    p.add_argument("--h2d", choices=("uint8", "f32"), default="uint8",
+                   help="device input boundary (uint8: 4x less transfer)")
+    p.add_argument("--device-resident", action="store_true",
+                   help="not ported: exits naming its ROADMAP.md item")
+    p.add_argument("--swanlab-project", default=None,
+                   help="log per-epoch metrics to this swanlab project")
+    p.add_argument("--steps-per-epoch", type=int, default=None,
+                   help="the device-resident corpus's epoch size (with "
+                        "--device-resident only)")
+    _add_device(p)
+    p.set_defaults(fn=_cmd_train_asdqe)
 
     p = sub.add_parser("test", help="config-driven offline eval")
     p.add_argument("-opt", required=True)

@@ -1,11 +1,13 @@
 """Map-style datasets returning HWC float32 numpy items.
 
-The port's copy of the JAX package's teacher-path datasets (the reference's
+The port's copy of the JAX package's training datasets for the teacher,
+the student and the scorer (the reference's
 Train/basicsr/data/paired_image_dataset.py), item for item the same:
 
   * HWC float32 numpy out; the teacher's items are
     ``{'lq': {'img', 'denoise_rate'}, 'gt': {'hq', 'sr'}}`` as in the
     reference, channels last. The loader's upload turns batches to NCHW.
+    The student's items are (F, H, W) frame stacks, which stay as they are.
   * every random draw comes from a generator seeded by
     ``SeedSequence([seed, epoch, index])``: deterministic, safe across
     worker threads and re-rolled per epoch (``set_epoch``).
@@ -22,8 +24,11 @@ from typing import Any
 
 import numpy as np
 
-from ..utils.image_io import imfrombytes_bgr
+from ..ops.mask import input_mask_np
+from ..utils import native
+from ..utils.image_io import imfrombytes_bgr, imfrombytes_gray
 from .pairing import (
+    paired_multipaths_from_folder,
     paired_paths_from_folder,
     paired_paths_from_folder_param,
     paired_paths_from_meta_info_file,
@@ -31,6 +36,7 @@ from .pairing import (
 from .transforms import (
     add_gaussian_noise,
     add_random_noise,
+    pad_image_center,
     pad_to_min_size,
     paired_random_crop,
     random_augmentation,
@@ -77,15 +83,18 @@ class _SeededDataset:
                                            **kwargs)
         return self._file_client
 
-    def _read(self, path: str, key: str = "default") -> np.ndarray:
-        """BGR float32 [0, 1] HWC of ``path``, through the cache; a private
-        copy (corruption and augmentation must not write cached memory)."""
+    def _read(self, path: str, key: str = "default",
+              gray: bool = False) -> np.ndarray:
+        """BGR float32 [0, 1] HWC of ``path`` (HW grayscale with ``gray``),
+        through the cache; a private copy (corruption and augmentation must
+        not write cached memory)."""
+        decode = imfrombytes_gray if gray else imfrombytes_bgr
         if self._decode_cache is None:
-            return imfrombytes_bgr(self._client().get(path, key))
-        img = self._decode_cache.get((key, path))
+            return decode(self._client().get(path, key))
+        img = self._decode_cache.get((key, gray, path))
         if img is None:
-            img = imfrombytes_bgr(self._client().get(path, key))
-            self._decode_cache[(key, path)] = img
+            img = decode(self._client().get(path, key))
+            self._decode_cache[(key, gray, path)] = img
         return img.copy()
 
     def _rng(self, index: int) -> np.random.Generator:
@@ -234,18 +243,157 @@ class SuperRestorationDataset(SuperRestorationParamDataset):
         return 1.0
 
 
+class PairedMultiImageDataset(_SeededDataset):
+    """The student's dataset (Dataset_PairedMutiImage,
+    paired_image_dataset.py:109-297): temporal groups of ``num_pairs``
+    grayscale frames with a random stride, centre-padded to the group's
+    largest frame and stacked; in training, masked-denoising corruption
+    (64%: per-frame Bernoulli masks, 36% of frames at prob + 0.5; else a
+    simulated frame interpolation), the degenerate-input guard and 8-way
+    augmentation. The 'test1' and 'interpolation' phases apply fixed
+    corruptions at evaluation. Items are (F, H, W) float32 stacks."""
+
+    def __init__(self, opt: dict):
+        super().__init__(opt.get("seed", 0), opt.get("cache_decoded", False),
+                         opt.get("io_backend"))
+        self.opt = opt
+        self.phase = opt.get("phase", "train")
+        self.scale = opt.get("scale", 1)
+        self.num_pairs = opt.get("num_pairs", 3)
+        self.stride_range = tuple(opt.get("stride_range", (1, 5)))
+        self.prob = opt.get("prob", 0.0)
+        self.geometric_augs = opt.get("geometric_augs", False)
+        self._folders = [opt["dataroot_lq"], opt["dataroot_gt"]]
+        self.regroup(opt.get("seed", 0))
+
+    def regroup(self, seed: int) -> None:
+        """Re-draw the groups' random strides (the reference groups once,
+        at construction; here once per epoch)."""
+        self.paths = paired_multipaths_from_folder(
+            self._folders, ["lq", "gt"], self.num_pairs, self.stride_range,
+            seed=seed)
+
+    def set_epoch(self, epoch: int) -> None:
+        super().set_epoch(epoch)
+        if self.stride_range[0] != self.stride_range[1]:
+            self.regroup(self._seed + epoch)
+
+    def __len__(self) -> int:
+        return len(self.paths)
+
+    def _corrupt_train(self, lq: np.ndarray, rng: np.random.Generator) -> np.ndarray:
+        """lq: (H, W, F) (paired_image_dataset.py:219-241); the per-frame
+        masks through the host frame masker (``utils/native.py``)."""
+        f = lq.shape[2]
+        if rng.random() < 0.64:
+            probs = np.where(rng.random(f) > 0.64, self.prob + 0.5,
+                             self.prob).astype(np.float32)
+        else:  # simulated frame interpolation
+            if f % 2 != 1:
+                raise ValueError(f"frame interpolation needs an odd frame "
+                                 f"count, got {f}")
+            for i in range(1, f, 2):
+                lq[:, :, i] = 0.5 * (lq[:, :, i - 1] + lq[:, :, i + 1])
+            probs = np.where(np.arange(f) % 2 == 1, self.prob + 0.5,
+                             self.prob).astype(np.float32)
+        stack = np.ascontiguousarray(lq.transpose(2, 0, 1))
+        masked = native.mask_frames(stack, probs, seed=int(rng.integers(2**62)))
+        return np.ascontiguousarray(masked.transpose(1, 2, 0))
+
+    def __getitem__(self, index: int) -> dict[str, Any]:
+        rng = self._rng(index)
+        group = self.paths[index % len(self.paths)]
+        gt_frames = [self._read(g["gt_path"], "gt", gray=True) for g in group]
+        lq_frames = [self._read(g["lq_path"], "lq", gray=True) for g in group]
+        th = max(img.shape[0] for img in gt_frames)
+        tw = max(img.shape[1] for img in gt_frames)
+        gt = np.stack([pad_image_center(x, th, tw) for x in gt_frames], axis=-1)
+        lq = np.stack([pad_image_center(x, th, tw) for x in lq_frames], axis=-1)
+
+        if self.phase == "train":
+            gt_size = self.opt["gt_size"]
+            lq, gt = pad_to_min_size(lq, gt, gt_size)
+            gt, lq = paired_random_crop(gt, lq, gt_size, self.scale, rng)
+            lq = self._corrupt_train(np.ascontiguousarray(lq), rng)
+            zero_ratio = max(np.mean(lq == 0), np.mean(lq == 1))
+            if zero_ratio > 0.64:
+                lq = add_random_noise(lq, rng)
+            if self.geometric_augs:
+                gt, lq = random_augmentation(gt, lq, rng=rng)
+        elif self.phase == "test1":  # fixed corruption (:253-258)
+            for i in range(lq.shape[2]):
+                boost = 0.6 if rng.random() < 0.2 else 0.0
+                lq[:, :, i] = input_mask_np(lq[:, :, i], rng, self.prob + boost)
+        elif self.phase == "interpolation":  # (:260-272)
+            for i in range(lq.shape[2]):
+                if i % 2 == 1:
+                    mean_img = 0.5 * (lq[:, :, i - 1] + lq[:, :, i + 1])
+                    lq[:, :, i] = input_mask_np(mean_img, rng, self.prob + 0.5)
+                else:
+                    lq[:, :, i] = input_mask_np(lq[:, :, i], rng, self.prob)
+
+        return {"lq": np.ascontiguousarray(lq.transpose(2, 0, 1)).astype(np.float32),
+                "gt": np.ascontiguousarray(gt.transpose(2, 0, 1)).astype(np.float32),
+                "lq_path": group[-1]["lq_path"], "gt_path": group[-1]["gt_path"]}
+
+
+class SIQADataset(_SeededDataset):
+    """The scorer's dataset (Dataset_S_IQA, paired_image_dataset.py:643-855):
+    lq/gt/param triples, the score read from the JSON file; in training a
+    reflect101 pad to ``gt_size + 2``, a joint crop at offsets in
+    [1, h-1-size] and synchronised flip/flip/rotation. Items are
+    ``{'lq': {'img', 'score'}, 'gt': {'hq'}}``, RGB HWC."""
+
+    def __init__(self, opt: dict):
+        super().__init__(opt.get("seed", 0), opt.get("cache_decoded", False),
+                         opt.get("io_backend"))
+        self.opt = opt
+        self.phase = opt.get("phase", "train")
+        self.gt_size = opt.get("gt_size", None)
+        self.geometric_augs = opt.get("geometric_augs", False)
+        self.paths = paired_paths_from_folder_param(
+            [opt["dataroot_lq"], opt["dataroot_gt"], opt["dataroot_param"]],
+            ["lq", "gt", "param"])
+
+    def __len__(self) -> int:
+        return len(self.paths)
+
+    def __getitem__(self, index: int) -> dict[str, Any]:
+        rng = self._rng(index)
+        p = self.paths[index % len(self.paths)]
+        img_gt = self._read(p["gt_path"], "gt")
+        img_lq = self._read(p["lq_path"], "lq")
+        with open(p["param_path"]) as f:
+            score = float(json.load(f)["score"])
+
+        if self.phase == "train" and self.gt_size:
+            img_gt = _reflect101_pad_to(img_gt, self.gt_size + 2)
+            img_lq = _reflect101_pad_to(img_lq, self.gt_size + 2)
+            h, w = img_gt.shape[:2]
+            top = int(rng.integers(1, max(h - 1 - self.gt_size, 1) + 1))
+            left = int(rng.integers(1, max(w - 1 - self.gt_size, 1) + 1))
+            img_gt = img_gt[top:top + self.gt_size, left:left + self.gt_size]
+            img_lq = img_lq[top:top + self.gt_size, left:left + self.gt_size]
+            if self.geometric_augs:
+                img_gt, img_lq = sync_augment_multi_scale([img_gt, img_lq], rng)
+
+        to_rgb = lambda x: np.ascontiguousarray(x[..., ::-1].astype(np.float32))
+        return {"lq": {"img": to_rgb(img_lq), "score": np.float32(score)},
+                "gt": {"hq": to_rgb(img_gt)},
+                "lq_path": p["lq_path"], "gt_path": p["gt_path"]}
+
+
 DATASETS = {
     "Dataset_PairedImage": PairedImageDataset,
     "Dataset_SuperRestoration_param": SuperRestorationParamDataset,
     "Dataset_SuperRestoration": SuperRestorationDataset,
+    "Dataset_PairedMutiImage": PairedMultiImageDataset,
+    "Dataset_S_IQA": SIQADataset,
 }
 
 # dataset types of the JAX package still to be ported -> their ROADMAP.md item
-_STUDENT = "Queue A: the student and scorer training"
 _REMAINING = "Queue A: NIQE, FID and the remaining datasets"
 NOT_PORTED = {
-    "Dataset_PairedMutiImage": _STUDENT,
-    "Dataset_S_IQA": _STUDENT,
     "Dataset_GaussianDenoising": _REMAINING,
     "Dataset_SingleImage": _REMAINING,
     "Dataset_DefocusDeblur_DualPixel_16bit": _REMAINING,

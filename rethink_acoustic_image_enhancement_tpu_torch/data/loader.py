@@ -9,7 +9,7 @@ data_sampler.py, prefetch_dataloader.py:79-126).
     item); ``set_epoch(epoch, skip)`` starts an epoch at a later batch, so
     a resumed run reads what an uninterrupted one would.
   * ``BatchUploader``: host batches to the device as NCHW tensors, the one
-    place where the layout changes. Uploads go from pinned memory on a side
+    place where the layout changes (frame stacks keep theirs). Uploads go from pinned memory on a side
     stream, from any thread, ordered against the compute stream by an event
     (``eval/infer.py::Transfers``); ``ready`` makes a batch safe to use.
   * ``DevicePrefetcher``: a background thread that pulls host batches and
@@ -122,8 +122,16 @@ def leaves(tree) -> list:
     return [tree] if isinstance(tree, (np.ndarray, torch.Tensor)) else []
 
 
+def is_frame_stack(x) -> bool:
+    """A (B, F, H, W) frame stack: 4-D, its last axis no channel axis (1 or
+    3; the JAX package's rule, ``loop.py:241``). Other 4-D arrays are NHWC."""
+    return not isinstance(x, dict) and x.ndim == 4 and x.shape[-1] not in (1, 3)
+
+
 def _nchw(t: torch.Tensor) -> torch.Tensor:
-    return t.permute(0, 3, 1, 2).contiguous() if t.ndim == 4 else t
+    if t.ndim != 4 or is_frame_stack(t):
+        return t
+    return t.permute(0, 3, 1, 2).contiguous()
 
 
 class BatchUploader:

@@ -81,13 +81,12 @@ def validate(opt: dict[str, Any]) -> None:
         if ds.get("device_resident"):
             raise NotImplementedError(
                 f"datasets.{phase}.device_resident is not ported yet "
-                "(ROADMAP.md, Queue A: device-resident corpora)")
+                "(ROADMAP.md, Queue A: device-resident corpora, item 4)")
     train = opt.get("train")
     if train:
-        if (train.get("distill") or {}).get("online"):
-            raise NotImplementedError("train.distill.online is not ported "
-                                      "yet (ROADMAP.md, Queue A: online "
-                                      "distillation)")
+        distill = train.get("distill") or {}
+        if distill.get("online"):
+            validate_distill(distill)
         for key in ("spatial_shard", "model_shard"):
             if int(train.get(key) or 1) > 1:
                 raise NotImplementedError(
@@ -101,6 +100,24 @@ def validate(opt: dict[str, Any]) -> None:
         if sched not in SCHEDULERS:
             raise KeyError(f"train.scheduler.type {sched!r} not in "
                            f"{sorted(SCHEDULERS)}")
+
+
+def validate_distill(distill: dict[str, Any]) -> None:
+    """``train.distill`` with ``online: true``: a registered teacher and
+    ``.pth`` weights (an orbax directory needs the JAX package)."""
+    from ..models import REGISTRY as MODELS
+
+    teacher = distill.get("teacher") or {}
+    if teacher.get("type") not in MODELS:
+        raise KeyError(f"train.distill.teacher.type {teacher.get('type')!r} "
+                       f"not in {sorted(MODELS)}")
+    weights = str(distill.get("teacher_weights") or "")
+    if not weights.endswith(".pth"):
+        raise NotImplementedError(
+            f"train.distill.teacher_weights {weights!r} is not a .pth: the "
+            "port reads reference-layout .pth teachers; an orbax directory "
+            "needs JAX (ROADMAP.md, Queue A: online distillation, orbax "
+            "teacher weights); write a .pth with scripts/export_torch_zoo.py")
 
 
 def make_exp_dirs(opt: dict[str, Any]) -> None:

@@ -10,7 +10,13 @@ reads, draws and computes what an uninterrupted run would.
 
 Validation is dict-aware (``pred['hq']`` and, with an SR target,
 ``pred['sr']``): the reference's teacher validation crashed on dict outputs
-and was in effect switched off with val_freq >> total_iter.
+and was in effect switched off with val_freq >> total_iter. A (B, F, H, W)
+frame stack (the student's) is scored frame by frame, the mean over its
+frames being the item's score.
+
+``train.distill: {online: true, teacher: <network_g>, teacher_weights:
+<.pth>, denoise_rate: 1.0}`` makes the student's targets in the loop with a
+frozen teacher (``train/distill.py``), after the stage's subsample.
 """
 
 from __future__ import annotations
@@ -25,7 +31,7 @@ import torch
 
 from ..data.datasets import create_dataset
 from ..data.loader import (BatchLoader, BatchUploader, DevicePrefetcher,
-                           EnlargedShuffleSampler, leaves)
+                           EnlargedShuffleSampler, is_frame_stack, leaves)
 from ..eval.infer import highest_precision
 from ..losses import build_loss
 from ..metrics import get_metric
@@ -38,6 +44,7 @@ from .checkpoints import (find_latest_checkpoint, load_pretrained,
                           prune_checkpoints, restore_checkpoint,
                           save_checkpoint, save_weights)
 from .config import make_exp_dirs, validate
+from .distill import make_online_target_fn
 from .progressive import ProgressiveSchedule, subsample_batch
 from .trainer import TrainState, build_trainer_from_config
 
@@ -75,6 +82,14 @@ def _host_nhwc(x: torch.Tensor) -> np.ndarray:
     return x.permute(0, 2, 3, 1).float().cpu().numpy()
 
 
+def _score(fn, p_img: np.ndarray, t_img: np.ndarray, cfg: dict) -> float:
+    """A metric of one item; an (F, H, W) stack's is the mean over frames."""
+    if p_img.ndim == 3 and p_img.shape[-1] not in (1, 3):
+        return float(np.mean([fn(p[..., None], t[..., None], **cfg)
+                              for p, t in zip(p_img, t_img)]))
+    return float(fn(p_img, t_img, **cfg))
+
+
 def validate_model(model: torch.nn.Module, val_loader, opt: dict,
                    max_items: int | None = None,
                    save_dir: str | None = None) -> dict[str, float]:
@@ -103,6 +118,7 @@ def validate_model(model: torch.nn.Module, val_loader, opt: dict,
     sr_count = count = 0
     try:
         for batch in val_loader:
+            frames = is_frame_stack(batch["lq"])
             dev = upload({"lq": batch["lq"], "gt": batch["gt"]})
             lq, gt = dev["lq"], dev["gt"]
             pred_sr = target_sr = None
@@ -129,14 +145,19 @@ def validate_model(model: torch.nn.Module, val_loader, opt: dict,
                     x, _ = pad_to_multiple(lq, window, axes=(2, 3))
                     pred = crop_to(_forward_clamped(model, x), h, w, axes=(2, 3))
                     target = gt
-            pred, target = _host_nhwc(pred), _host_nhwc(target)
+            if frames:  # (B, F, H, W) stays as it is
+                pred, target = pred.float().cpu().numpy(), target.float().cpu().numpy()
+            else:
+                pred, target = _host_nhwc(pred), _host_nhwc(target)
             for b in range(pred.shape[0]):
                 p_img, t_img = quantise(pred[b]), quantise(target[b])
                 if save_dir is not None:
                     name0 = os.path.basename(str(batch.get(
                         "lq_path", [f"item{count}"])[b]))
+                    # a stack writes its middle frame
+                    out_img = p_img[p_img.shape[0] // 2][..., None] if frames else p_img
                     imwrite(os.path.join(save_dir, name0),
-                            p_img / 255.0 if use_image else p_img)
+                            out_img / 255.0 if use_image else out_img)
                 ps_img = ts_img = None
                 if pred_sr is not None:
                     sr_count += 1
@@ -144,7 +165,7 @@ def validate_model(model: torch.nn.Module, val_loader, opt: dict,
                 for name, cfg in metric_cfgs.items():
                     cfg = dict(cfg)
                     fn = get_metric(cfg.pop("type"))
-                    sums[name] += float(fn(p_img, t_img, **cfg))
+                    sums[name] += _score(fn, p_img, t_img, cfg)
                     if ps_img is not None:
                         sums[f"{name}_sr"] = sums.get(f"{name}_sr", 0.0) + float(
                             fn(ps_img, ts_img, **cfg))
@@ -196,11 +217,38 @@ def train_from_config(opt: dict, device=None,
             handler.close()
 
 
+def build_online_targets(opt: dict, device) -> Callable | None:
+    """The frozen teacher's target function of ``train.distill`` on
+    ``device``, or None where online distillation is off."""
+    cfg = opt["train"].get("distill") or {}
+    if not cfg.get("online"):
+        return None
+    with torch.random.fork_rng(devices=[]):  # its weights come from the file
+        teacher = build_network(cfg["teacher"])
+    load_pretrained(teacher, cfg["teacher_weights"], cfg.get("param_key", "params"))
+    return make_online_target_fn(teacher.to(device),
+                                 denoise_rate=cfg.get("denoise_rate", 1.0))
+
+
+def online_targets(target_fn: Callable, lq) -> torch.Tensor:
+    """The teacher's targets of a (B, F, H, W) stack batch; other batches
+    raise."""
+    if isinstance(lq, dict) or lq.ndim != 4:
+        raise ValueError(
+            "train.distill.online expects a (B, F, H, W) frame-stack dataset "
+            "(Dataset_PairedMutiImage); got " + (
+                "a dict batch" if isinstance(lq, dict) else f"ndim={lq.ndim}"))
+    return target_fn(lq)
+
+
 def _train(opt: dict, device, max_iters: int | None, log) -> TrainState:
     _, trainer = build_everything(opt, device)
     state = trainer.init_state()
     device = trainer.device
     seed = opt.get("manual_seed", 0)
+    target_fn = build_online_targets(opt, device)
+    if target_fn is not None:
+        log("online distillation: frozen teacher targets in the loop")
     ds_opt = opt["datasets"]["train"]
     dataset = create_dataset(ds_opt)
     loader = BatchLoader(
@@ -260,15 +308,18 @@ def _train(opt: dict, device, max_iters: int | None, log) -> TrainState:
 
     def put(b):
         """In the prefetch thread: the stage's subsample of the host batch
-        (only its rows cross to the device), then the upload."""
+        (only its rows cross to the device), then the upload. With online
+        distillation the dataset's targets stay on the host."""
         prefetch_iter[0] += 1
+        if target_fn is not None:
+            b = {k: v for k, v in b.items() if k != "gt"}
         if prog is not None:
             mb, _, _ = prog.at(prefetch_iter[0])
             bsz = leaves(b["lq"])[0].shape[0]
             if mb < bsz:
                 idx = prefetch_rng.choice(bsz, size=mb, replace=False)
                 b = {**b, "lq": subsample_batch(b["lq"], idx),
-                     "gt": subsample_batch(b["gt"], idx)}
+                     "gt": subsample_batch(b.get("gt"), idx)}
         arrays = {k: v for k, v in b.items() if isinstance(v, (np.ndarray, dict))}
         rest = {k: v for k, v in b.items() if k not in arrays}
         return uploader.upload(arrays), rest, prefetch_rng.bit_generator.state
@@ -316,6 +367,8 @@ def _train(opt: dict, device, max_iters: int | None, log) -> TrainState:
                             lq = subsample_batch(lq, idx)
                             gt = subsample_batch(gt, idx)
                         extra_prob = max(mini_prob - prog.base_prob, 0.0)
+                    if target_fn is not None:  # after the subsample
+                        gt = online_targets(target_fn, lq)
                     state, metrics = trainer.step(
                         state, lq, gt, np.random.default_rng([seed, current_iter]),
                         extra_prob=extra_prob, mini_gt_size=mini_gt)

@@ -33,7 +33,8 @@ def test_every_port_module_imports_without_jax():
                  "data.loader", "train.schedules", "train.mixup",
                  "train.progressive", "train.config", "train.trainer",
                  "train.checkpoints", "train.loop", "utils.logging",
-                 "utils.tracking", "utils.watchdog"):
+                 "utils.tracking", "utils.watchdog", "utils.native",
+                 "train.distill", "train.asdqe_trainer"):
         assert f"{PORT}.{name}" in modules, name
     code = "\n".join([
         "import importlib, sys",

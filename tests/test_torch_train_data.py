@@ -171,7 +171,7 @@ def test_prefetcher_order_and_errors():
 
 
 def test_unported_types_and_backends_name_the_roadmap(tmp_path):
-    for t in ("Dataset_PairedMutiImage", "Dataset_S_IQA", "REDSDataset"):
+    for t in ("Dataset_GaussianDenoising", "Dataset_SingleImage", "REDSDataset"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             tds.create_dataset({"type": t})
     with pytest.raises(KeyError, match="unknown dataset type"):

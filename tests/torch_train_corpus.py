@@ -82,3 +82,52 @@ def write_yml(cfg, path):
     with open(path, "w") as f:
         yaml.safe_dump(cfg, f)
     return str(path)
+
+
+def _gray_frame(rng, h, w, blank=False):
+    """A grayscale fan of speckle in [0, 1]; all zeros when ``blank``."""
+    if blank:
+        return np.zeros((h, w), np.float32)
+    yy, xx = np.mgrid[0:h, 0:w]
+    fan = (np.abs(xx - w / 2) < (yy + 1) * 0.7).astype(np.float32)
+    return (fan * (0.2 + 0.6 * rng.random((h, w)))).astype(np.float32)
+
+
+def write_student_corpus(root, n, h, w, seed, blank=()):
+    """n numbered gray frames (noisy lq, teacher-like gt) for
+    Dataset_PairedMutiImage; every fourth frame 2 x 4 pixels smaller, so
+    that groups are centre-padded; the frames in ``blank`` all zeros.
+    Returns the two dataroots."""
+    rng = np.random.default_rng(seed)
+    roots = {k: os.path.join(root, k) for k in ("lq", "gt")}
+    for d in roots.values():
+        os.makedirs(d, exist_ok=True)
+    for i in range(n):
+        hh, ww = (h - 2, w - 4) if i % 4 == 3 else (h, w)
+        clear = _gray_frame(rng, hh, ww, blank=i in blank)
+        noisy = np.clip(clear + rng.normal(0, 0.08, clear.shape), 0, 1)
+        if i in blank:
+            noisy[:] = 0
+        imwrite(os.path.join(roots["lq"], f"{i}_frame.png"), noisy)
+        imwrite(os.path.join(roots["gt"], f"{i}_frame.png"), clear)
+    return {f"dataroot_{k}": v for k, v in roots.items()}
+
+
+def write_siqa_corpus(root, n, h, w, seed):
+    """n lq / candidate / JSON-score triples for Dataset_S_IQA: the
+    candidate mixes the noisy image with its clear version at a known rate,
+    and the score is that rate. Returns the three dataroots."""
+    rng = np.random.default_rng(seed)
+    roots = {k: os.path.join(root, k) for k in ("lq", "gt", "param")}
+    for d in roots.values():
+        os.makedirs(d, exist_ok=True)
+    for i in range(n):
+        clear = _frame(rng, h, w)
+        noisy = np.clip(clear + rng.normal(0, 0.15, clear.shape), 0, 1)
+        rate = round(float(rng.uniform(0, 1)), 3)
+        imwrite(os.path.join(roots["lq"], f"{i:04d}.png"), noisy)
+        imwrite(os.path.join(roots["gt"], f"{i:04d}.png"),
+                (1 - rate) * noisy + rate * clear)
+        with open(os.path.join(roots["param"], f"{i:04d}.json"), "w") as f:
+            json.dump({"score": rate}, f)
+    return {f"dataroot_{k}": v for k, v in roots.items()}

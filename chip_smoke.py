@@ -99,8 +99,25 @@ fp32 predictors' own pinning is what runs:
      net_g_best.pth (strict), and the reference's shape (batch 32 @ 512,
      remat) for 3 updates: pairs/s, peak memory, finite losses, moved
      running statistics; micro-steps at 1@256 and 32@512 profiled.
+ 12. device-resident corpora and the training profiler: (a)
+     configs/KDLAES_FLS_ft.yml (full width, device_resident: true) through
+     `cli.main(["train", ...])` on 64 synthetic numbered gray 512x512 frames,
+     its pretrained weights the zoo student (artifacts/torch_zoo/
+     student-us.pth; the config's own are an orbax directory), iters [4, 4]
+     in 8 steps (4x7@192, 4x7@256), a checkpoint every 4, resumed to 10;
+     the same 8 steps from the host loader (device_resident: false): ms per
+     step, data ms, the corpus's upload s and MiB, peak memory; (b)
+     configs/KDLAET.yml at full width, device-resident, on 24 of phase 10's
+     synthetic triples, one step per curriculum stage; (c) `train-asdqe
+     --device-resident` at its defaults for 2 epochs on 40 source pairs of
+     512x512, and 3 updates at 32@512 from the device corpus, pairs/s beside
+     phase 11 (d)'s host route; (d) `train --profile-steps 3` on (a)'s
+     config (3 steps at 192): its log line and metrics record, its
+     host-to-device copies (none larger than 4 KiB), its top kernel the
+     same as `profile_step`'s on one device-resident step; the corpus's
+     crop and flip as gathers against a per-item loop of slices.
 Each path runs with every launch count set to 0 just before it and read just
-after. Prints one JSON line per phase 6-11, a "kernels" JSON line, the card
+after. Prints one JSON line per phase 6-12, a "kernels" JSON line, the card
 line, and as its last line {"ok": true, "device": {...}}. Details go to
 chiprun_out/chip_smoke.json.
 """
@@ -1367,10 +1384,17 @@ def train_step_on(device, opt, seed):
 
 def profile_step(step, label, card):
     """``step(k)`` in its steady state on the card: wall ms (synchronised)
-    and the host's enqueue ms of three unprofiled calls, then one profiled
-    call's device busy ms by kernel, its idle share and its kernel count."""
+    and the host's enqueue ms of three unprofiled calls, then one traced
+    call (``utils/profiling.py``: the trace's device ms by kernel, the same
+    reader as ``train --profile-steps``): its device busy ms, idle share,
+    kernel events and host-to-device copies; and one more call's
+    host-to-device copies as the dispatcher sees them (``uploads``: a trace
+    can lose copies)."""
+    import shutil
+
     import torch
-    from torch.profiler import ProfilerActivity, profile
+
+    from rethink_acoustic_image_enhancement_tpu_torch.utils import profiling
 
     for k in range(3):  # shapes, plans and the allocator settle
         step(k)
@@ -1382,22 +1406,30 @@ def profile_step(step, label, card):
         enqueues.append((time.perf_counter() - t0) * 1e3)
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        step(20)
+    trace_dir = tempfile.mkdtemp(prefix="raie_profile_")
+    try:
+        with profiling.trace(trace_dir):
+            step(20)
+            torch.cuda.synchronize()
+        ms_by_kernel, events = profiling.aggregate_trace(trace_dir)
+        traced_h2d = profiling.h2d_copies(trace_dir)
+    finally:
+        shutil.rmtree(trace_dir)
+    with profiling.uploads() as h2d:
+        step(21)
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
-    kernels = sorted(((e.key, e.self_device_time_total / 1e3, e.count) for e in events),
-                     key=lambda kv: -kv[1])
-    busy = sum(ms for _, ms, _ in kernels)
+    busy = sum(ms_by_kernel.values())
     wall = float(np.median(walls))
     out = dict(wall_ms=walls, enqueue_ms=enqueues, device_busy_ms=busy,
-               idle_share=1 - busy / wall, kernel_launches=sum(n for _, _, n in kernels),
-               top=[dict(kernel=k[:120], ms=ms, count=n) for k, ms, n in kernels[:8]])
+               idle_share=1 - busy / wall, kernel_launches=events, h2d_copy_bytes=h2d,
+               traced_h2d_copy_bytes=traced_h2d,
+               top=[dict(kernel=k[:120], ms=ms) for k, ms in list(ms_by_kernel.items())[:8]])
     log(f"{label}: wall {wall:.1f} ms, host enqueue {np.median(enqueues):.1f} ms, device busy "
-        f"{busy:.1f} ms (idle share {out['idle_share']:.3f}), {out['kernel_launches']} kernels "
-        f"[{card}]")
+        f"{busy:.1f} ms (idle share {out['idle_share']:.3f}), {events} kernel events, "
+        f"{len(h2d)} host-to-device copies of {sum(h2d)} bytes ({len(traced_h2d)} in the "
+        f"trace) [{card}]")
     for row in out["top"][:5]:
-        log(f"  {row['ms']:8.3f} ms x{row['count']:5d}  {row['kernel'][:90]}")
+        log(f"  {row['ms']:8.3f} ms  {row['kernel'][:90]}")
     return out
 
 
@@ -1945,11 +1977,12 @@ def write_siqa_corpus(root, n, size, seed):
     return dirs
 
 
-def scorer_big_steps(batch=32, size=512, updates=3, device="cuda"):
+def scorer_big_steps(batch=32, size=512, updates=3, device="cuda", sample=None):
     """The reference's training shape: batch 32 at 512^2, bf16 compute,
     remat on, one Adam update a micro-step; a warm-up step, then
-    ``updates`` timed ones. Returns pairs/s, peak memory, the losses and
-    whether the running statistics moved."""
+    ``updates`` timed ones, on one seeded random batch or on
+    ``sample(k)``'s (lq, gt, score) batches. Returns pairs/s, peak memory,
+    the losses and whether the running statistics moved."""
     import torch
 
     from rethink_acoustic_image_enhancement_tpu_torch.models import DenoiseRatePredictor
@@ -1964,15 +1997,16 @@ def scorer_big_steps(batch=32, size=512, updates=3, device="cuda"):
                        dtype=torch.uint8)
     gt = (lq.float() * 0.7).to(torch.uint8)
     score = torch.rand(batch, generator=g, device=device)
+    sample = sample or (lambda k: (lq, gt, score))
     bn = model.unet.inc.double_conv[1]
     before = bn.running_mean.clone()
-    atr.asdqe_micro_step(model, opt, lq, gt, score, 1.0, torch.bfloat16)
+    atr.asdqe_micro_step(model, opt, *sample(0), 1.0, torch.bfloat16)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
-    losses = [atr.asdqe_micro_step(model, opt, lq, gt, score, 1.0, torch.bfloat16)
-              for _ in range(updates)]
+    losses = [atr.asdqe_micro_step(model, opt, *sample(1 + k), 1.0, torch.bfloat16)
+              for k in range(updates)]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     losses = [float(x) for x in losses]
@@ -2064,6 +2098,334 @@ def phase_student_and_scorer(results, card, work):
     return launches
 
 
+# ------------------------------------------------------------ phase 12 ---
+
+FLS_ITERS = [4, 4]  # both stages of KDLAES_FLS_ft.yml (4x7@192, 4x7@256) in 8 steps
+ZOO_STUDENT = os.path.join("artifacts", "torch_zoo", "student-us.pth")
+MAX_STEP_UPLOAD = 4096  # bytes: the largest host-to-device copy a device-resident step may make
+
+
+def write_fls_frames(root, n=64, size=512, seed=90):
+    """n numbered gray sonar frames: the noisy input, and as target its 5x5
+    box mean inside the fan. Returns the two folders."""
+    from rethink_acoustic_image_enhancement_tpu_torch.utils.image_io import imwrite
+
+    dirs = [os.path.join(root, k) for k in ("origin", "teacher")]
+    for d in dirs:
+        os.makedirs(d, exist_ok=True)
+    for i in range(n):
+        noisy = sonar_frame(size, size, seed * 1000 + i)[..., 0].astype(np.float32)
+        pad = np.pad(noisy, 2, mode="edge")
+        box = sum(pad[dy:dy + size, dx:dx + size] for dy in range(5) for dx in range(5)) / 25
+        imwrite(os.path.join(dirs[0], f"{i}_f.png"), noisy.astype(np.uint8), rgb=False)
+        imwrite(os.path.join(dirs[1], f"{i}_f.png"),
+                np.where(noisy > 0, box, 0).round().astype(np.uint8), rgb=False)
+    return dirs
+
+
+def fls_config(work, lq_dir, gt_dir, name, total, iters=FLS_ITERS, device_resident=True):
+    """configs/KDLAES_FLS_ft.yml as it stands but for its dataroots, its
+    depth (``iters``, ``total``, a checkpoint every 4, every step logged)
+    and its pretrained weights: the zoo student, a .pth (the config's own
+    is an orbax directory, which the port refuses)."""
+    import yaml
+
+    with open(os.path.join(HERE, "configs", "KDLAES_FLS_ft.yml")) as fh:
+        cfg = yaml.safe_load(fh)
+    cfg["name"] = name
+    roots = dict(dataroot_lq=lq_dir, dataroot_gt=gt_dir)
+    cfg["datasets"]["train"].update(roots, iters=list(iters), device_resident=device_resident)
+    cfg["datasets"]["val"].update(roots)
+    cfg["train"]["total_iter"] = total
+    cfg["logger"].update(save_checkpoint_freq=4, print_freq=1)
+    cfg["path"]["pretrain_network_g"] = os.path.join(HERE, ZOO_STUDENT)
+    yml = os.path.join(work, f"{name}.yml")
+    with open(yml, "w") as fh:
+        yaml.safe_dump(cfg, fh)
+    return yml, cfg
+
+
+def train_events(work, name):
+    exp = os.path.join(work, "experiments", name)
+    events = jsonl_events(os.path.join(exp, "metrics.jsonl"))
+    steps = [e for e in events if e["kind"] == "train"]
+    assert all(np.isfinite(e["l_pix"]) and np.isfinite(e["grad_norm"]) for e in steps), steps
+    return exp, events, steps
+
+
+def phase_fls_routes(row, card, work, lq_dir, gt_dir):
+    """(a) the FLS fine-tune through the CLI: device-resident for 8 steps, a
+    checkpoint at 4 and 8, resumed to 10; then the same 8 steps from the
+    host loader."""
+    import torch
+
+    from rethink_acoustic_image_enhancement_tpu_torch.train.progressive import ProgressiveSchedule
+
+    out = {}
+    for route, resident in (("device", True), ("host", False)):
+        name = f"fls_{route}"
+        yml, cfg = fls_config(work, lq_dir, gt_dir, name, total=8, device_resident=resident)
+        torch.cuda.reset_peak_memory_stats()
+        _, wall = run_cli(["train", "-opt", yml])
+        peak = torch.cuda.max_memory_allocated()
+        exp, events, steps = train_events(work, name)
+        assert [e["iter"] for e in steps] == list(range(1, 9)), [e["iter"] for e in steps]
+        assert [e["iter"] for e in events if e["kind"] == "ckpt"] == [4, 8]
+        prog = ProgressiveSchedule.from_dataset_opt(cfg["datasets"]["train"])
+        out[route] = dict(call_s=wall, peak_memory_gib=peak / 2 ** 30,
+                          stages=stage_rows(steps, prog, 7, 4), losses=[e["l_pix"] for e in steps])
+        if resident:
+            (corpus,) = [e for e in events if e["kind"] == "corpus"]
+            out[route].update(corpus_upload_s=corpus["upload_s"], corpus_mib=corpus["mib"])
+            fls_config(work, lq_dir, gt_dir, name, total=10)
+            _, out[route]["resume_call_s"] = run_cli(["train", "-opt", yml])
+            _, events, steps = train_events(work, name)
+            assert [e["iter"] for e in events if e["kind"] == "resume"] == [8]
+            assert [e["iter"] for e in steps][8:] == [9, 10], [e["iter"] for e in steps]
+    row["fls"] = out
+    for route, r in out.items():
+        log(f"FLS fine-tune, {route} route: " + ", ".join(
+            f"4x7@{s['patch']} {np.median(s['ms_per_step']):.1f} ms a step (data "
+            f"{np.median(s['data_ms']):.2f} ms; {s['ms_per_step']})" for s in r["stages"])
+            + f", peak {r['peak_memory_gib']:.2f} GiB" + (
+                f", corpus {r['corpus_mib']:.1f} MiB uploaded in {r['corpus_upload_s']:.3f} s"
+                if route == "device" else "") + f" [{card}]")
+
+
+def device_student_step(opt, patch, ids=(3, 17, 29, 41)):
+    """``step(k)``: one device-resident step of the config's student at
+    ``patch`` (the corpus's sampler, then ``Trainer.step`` with the extra
+    mask drawn on the card), seeded by k."""
+    from rethink_acoustic_image_enhancement_tpu_torch.train import loop as tloop
+    from rethink_acoustic_image_enhancement_tpu_torch.train.device_corpus import (
+        build_device_corpus,
+        seeded_generator,
+    )
+
+    _, trainer = tloop.build_everything(opt, device="cuda")
+    state = trainer.init_state()
+    state.step = 300  # past the warm-up
+    corpus = build_device_corpus(opt["datasets"]["train"], "cuda")
+
+    def step(k):
+        gen = seeded_generator("cuda", 0, k)
+        lq, gt = corpus.sample_batch(gen, np.asarray(ids), gt_size=patch)
+        return trainer.step(state, lq, gt, np.random.default_rng(k), extra_prob=0.05, gen=gen)
+
+    return step, corpus
+
+
+def crop_routes(corpus, ids, patch, reps=20):
+    """The student corpus's crop and flip as gathers over index grids (the
+    port's route) against a per-item loop of slices, whose offsets and modes
+    must first come to the host: the same batch, ms of each (synchronised
+    host clock, ``reps`` runs)."""
+    import torch
+
+    from rethink_acoustic_image_enhancement_tpu_torch.train import device_corpus as tdc
+    from rethink_acoustic_image_enhancement_tpu_torch.train.device_corpus import seeded_generator
+
+    ids_t = corpus.ids(ids)
+    d = corpus.draw(seeded_generator("cuda", 0, 1), ids_t, patch)
+    fids = corpus.groups[ids_t]
+    table = tdc._aug8_table(patch, corpus.device)
+
+    def gather():
+        return tdc._permute(tdc._crop(corpus.lq, fids, d["top"], d["left"], patch),
+                            table, d["aug"])
+
+    def per_item():
+        rows = zip(fids.tolist(), d["top"].tolist(), d["left"].tolist(), d["aug"].tolist())
+        return torch.stack([tdc.augment8(corpus.lq[f, t:t + patch, l:l + patch], m)
+                            for f, t, l, m in rows])
+
+    assert torch.equal(gather(), per_item())
+    out = {}
+    for name, fn in (("gather", gather), ("per_item", per_item), ("gather2", gather),
+                     ("per_item2", per_item)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        out[name] = (time.perf_counter() - t0) / reps * 1e3
+    return dict(batch=len(ids), frames=int(fids.shape[1]), patch=patch,
+                gather_ms=[out["gather"], out["gather2"]],
+                per_item_ms=[out["per_item"], out["per_item2"]])
+
+
+def phase_profile_steps(row, card, work, lq_dir, gt_dir):
+    """(d) ``train --profile-steps 3`` on the FLS fine-tune (3 steps at
+    192): its log line and record, its host-to-device copies (none over 4
+    KiB), its top kernel against ``profile_step``'s on the same step; and
+    the crop routes."""
+    import glob
+
+    import torch
+
+    from rethink_acoustic_image_enhancement_tpu_torch.train import config as tcfg
+    from rethink_acoustic_image_enhancement_tpu_torch.utils import profiling
+
+    name = "fls_profile"
+    yml, _ = fls_config(work, lq_dir, gt_dir, name, total=6, iters=[8, 4])
+    _, wall = run_cli(["train", "-opt", yml, "--profile-steps", "3"])
+    exp, events, _ = train_events(work, name)
+    (rec,) = [e for e in events if e["kind"] == "profile"]
+    lines = []
+    for path in glob.glob(os.path.join(exp, "train_*.log")):
+        with open(path) as fh:
+            lines += [ln.strip() for ln in fh if "profile (ms by kernel over 3 steps): " in ln]
+    assert len(lines) == 1 and rec["steps"] == 3 and rec["ms_by_kernel"], (lines, rec)
+    copies = profiling.h2d_copies(os.path.join(exp, "profile"))  # a trace may lose some
+    assert all(b is not None and b <= MAX_STEP_UPLOAD for b in copies), copies
+    cli_top = next(iter(rec["ms_by_kernel"]))
+
+    opt = tcfg.parse(yml, is_train=True, root_path=work)
+    step, corpus = device_student_step(opt, 192)
+    ref = profile_step(step, "device-resident student step 4x7@192", card)
+    assert ref["top"][0]["kernel"] == cli_top[:120], (ref["top"][0], cli_top)
+    # the dispatcher's count of one step: its ids, nothing larger
+    assert ref["h2d_copy_bytes"] and max(ref["h2d_copy_bytes"]) <= MAX_STEP_UPLOAD, ref
+    routes = [crop_routes(corpus, [3, 17, 29, 41], p) for p in (192, 256)]
+    del step, corpus
+    torch.cuda.empty_cache()
+    row["profile_steps"] = dict(
+        call_s=wall, log_line=lines[0][-400:], record=rec, cli_top_kernel=cli_top,
+        traced_h2d_copies=len(copies), traced_h2d_bytes=copies,
+        step_h2d_bytes=ref["h2d_copy_bytes"], profile_step_192=ref, crop_routes=routes)
+    log(f"--profile-steps 3: {lines[0][-300:]}")
+    log(f"  the trace of 3 steps: {len(copies)} host-to-device copies, {copies} bytes; one "
+        f"step, as the dispatcher sees it: {len(ref['h2d_copy_bytes'])} copies, "
+        f"{ref['h2d_copy_bytes']} bytes; top kernel {cli_top[:80]} (profile_step's the same) "
+        f"[{card}]")
+    for r in routes:
+        log(f"  crop + flip of {r['batch']}x{r['frames']}@{r['patch']}: gathers "
+            f"{r['gather_ms']} ms, per-item slices {r['per_item_ms']} ms [{card}]")
+
+
+def phase_teacher_device(row, card, work):
+    """(b) configs/KDLAET.yml at full width, device-resident, on phase 10's
+    synthetic triples: one step per curriculum stage."""
+    import torch
+    import yaml
+
+    from rethink_acoustic_image_enhancement_tpu_torch.train.progressive import ProgressiveSchedule
+
+    roots = write_train_corpus(os.path.join(work, "triples"), 24, seed=12)
+    with open(os.path.join(HERE, "configs", "KDLAET.yml")) as fh:
+        cfg = yaml.safe_load(fh)
+    cfg["name"] = "kdlaet_device"
+    cfg["datasets"]["train"].update(roots, iters=[1] * 6, device_resident=True)
+    del cfg["datasets"]["val"]
+    cfg["val"]["val_freq"] = 0
+    cfg["train"]["total_iter"] = 6
+    cfg["logger"].update(save_checkpoint_freq=6, print_freq=1, use_tb_logger=False)
+    yml = os.path.join(work, "kdlaet_device.yml")
+    with open(yml, "w") as fh:
+        yaml.safe_dump(cfg, fh)
+    torch.cuda.reset_peak_memory_stats()
+    _, wall = run_cli(["train", "-opt", yml])
+    _, events, steps = train_events(work, "kdlaet_device")
+    assert [e["iter"] for e in steps] == list(range(1, 7))
+    (corpus,) = [e for e in events if e["kind"] == "corpus"]
+    prog = ProgressiveSchedule.from_dataset_opt(cfg["datasets"]["train"])
+    stages = stage_rows(steps, prog, 1, cfg["datasets"]["train"]["batch_size_per_gpu"])
+    row["teacher"] = dict(call_s=wall, stages=stages, corpus_mib=corpus["mib"],
+                          corpus_upload_s=corpus["upload_s"],
+                          peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    log("teacher, device-resident: " + ", ".join(
+        f"{s['batch']}@{s['patch']} {s['ms_per_step'][0]:.1f} ms (data {s['data_ms'][0]:.2f} ms)"
+        for s in stages) + f"; corpus {corpus['mib']:.1f} MiB in {corpus['upload_s']:.3f} s [{card}]")
+
+
+def phase_scorer_device(row, card, work, results, n=40, size=512, big_batch=32):
+    """(c) train-asdqe --device-resident at the CLI defaults for 2 epochs
+    on n source pairs, then 3 updates at 32@512 from the device corpus."""
+    import torch
+
+    from rethink_acoustic_image_enhancement_tpu_torch.train import asdqe_trainer as atr
+    from rethink_acoustic_image_enhancement_tpu_torch.train.device_corpus import (
+        SIQADeviceCorpus,
+        seeded_generator,
+    )
+
+    dirs = write_siqa_corpus(os.path.join(work, "siqa_src"), n, size, seed=61)
+    out = os.path.join(work, "asdqe_device")
+    step_ms = []
+    micro_step = atr.asdqe_micro_step
+
+    def timed_step(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = micro_step(*a, **kw)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        return loss
+
+    torch.cuda.reset_peak_memory_stats()
+    atr.asdqe_micro_step = timed_step
+    try:
+        stdout, wall = run_cli(["train-asdqe", "--lq", dirs["lq"], "--gt", dirs["gt"],
+                                "--out", out, "--epochs", "2", "--device-resident"])
+    finally:
+        atr.asdqe_micro_step = micro_step
+    peak = torch.cuda.max_memory_allocated()
+    assert len(step_ms) == 2 * 32, len(step_ms)  # steps_per_epoch = accum
+    best = float(stdout.split("best val MSE:")[1].split()[0])
+    assert np.isfinite(best) and sorted(os.listdir(out)) == [
+        "net_g_0.pth", "net_g_1.pth", "net_g_best.pth"], os.listdir(out)
+    corpus = SIQADeviceCorpus({"dataroot_lq": dirs["lq"], "dataroot_gt": dirs["gt"],
+                               "gt_size": size, "geometric_augs": True}, "cuda")
+    rng = np.random.default_rng(3)
+
+    def sample(k):
+        return corpus.sample_batch(seeded_generator("cuda", 3, k), rng.choice(n, big_batch),
+                                   size)
+
+    big = scorer_big_steps(batch=big_batch, size=size, sample=sample)
+    del corpus
+    torch.cuda.empty_cache()
+    steady = float(np.median(step_ms[2:]))
+    host = results.get("student_scorer_train", {}).get("scorer_train", {})
+    row["scorer"] = dict(call_s=wall, micro_steps=len(step_ms), micro_step_ms=step_ms,
+                         pairs_per_s_batch1=1e3 / steady, pairs_per_s_call=len(step_ms) / wall,
+                         peak_memory_gib=peak / 2 ** 30, best_val_mse=best, batch32_512=big,
+                         host_route_pairs_per_s_batch1=host.get("pairs_per_s_batch1"),
+                         host_route_pairs_per_s_32_512=host.get("batch32_512", {}).get(
+                             "pairs_per_s"))
+    log(f"scorer, device-resident: a micro-step at 1@256 {steady:.1f} ms ({1e3 / steady:.1f} "
+        f"pairs/s; host route {row['scorer']['host_route_pairs_per_s_batch1']}), the call "
+        f"{wall:.2f} s; 32@512 {big['ms_per_step']:.1f} ms an update ({big['pairs_per_s']:.1f} "
+        f"pairs/s; host route {row['scorer']['host_route_pairs_per_s_32_512']}), peak "
+        f"{big['peak_memory_gib']:.2f} GiB [{card}]")
+
+
+def phase_device_resident(results, card, work):
+    """Phase 12: the device-resident corpora and the training profiler."""
+    t0 = time.perf_counter()
+    row = dict(card=card)
+    counts = reset_counts()
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        t_frames = time.perf_counter()
+        lq_dir, gt_dir = write_fls_frames(os.path.join(work, "fls_frames"))
+        row["frames_write_s"] = time.perf_counter() - t_frames
+        phase_fls_routes(row, card, work, lq_dir, gt_dir)
+        phase_teacher_device(row, card, work)
+        phase_scorer_device(row, card, work, results)
+        phase_profile_steps(row, card, work, lq_dir, gt_dir)
+    finally:
+        os.chdir(cwd)
+    launches = read_counts(counts)
+    assert not any(launches.values()), launches  # training reaches no kernel
+    row["kernel_launches"] = launches
+    row["phase_s"] = time.perf_counter() - t0
+    results["device_resident"] = row
+    print(json.dumps({"device_resident": row}), flush=True)
+    log(f"phase 12: {row['phase_s']:.1f} s")
+
+
 # ------------------------------------------------------------ main -------
 
 def main() -> int:
@@ -2123,6 +2485,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="raie_student_") as work:
         distill_launches = phase_student_and_scorer(results, card, work)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="raie_device_") as work:
+        phase_device_resident(results, card, work)
     results["path_launches"] = dict(whole_image=whole_launches, tiled=tiled_launches,
                                     group=group_launches, zoo_cli=zoo_launches,
                                     distill=distill_launches, **path_launches)

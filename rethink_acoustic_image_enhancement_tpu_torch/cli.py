@@ -47,7 +47,7 @@ def _device(name: str):
     try:
         return resolve_device(None if name == "cuda" else name)
     except RuntimeError as exc:
-        raise SystemExit(f"error: {exc}") from None
+        raise SystemExit(f"error: {exc} (--device cpu on the command line)") from None
 
 
 def _cmd_train(args) -> int:
@@ -58,7 +58,8 @@ def _cmd_train(args) -> int:
     opt = parse(args.opt, is_train=True)
     if args.stall_timeout:
         opt["train"]["stall_timeout_s"] = args.stall_timeout
-    train_from_config(opt, device=device, max_iters=args.max_iters)
+    train_from_config(opt, device=device, max_iters=args.max_iters,
+                      profile_steps=args.profile_steps)
     return 0
 
 
@@ -66,12 +67,10 @@ def _cmd_train_asdqe(args) -> int:
     """The scorer's trainer (the reference's standalone Train/ASDQE.py)."""
     import math
 
-    from .train.asdqe_trainer import DEVICE_RESIDENT, train_asdqe
+    from .train.asdqe_trainer import train_asdqe
 
-    if args.device_resident:
-        raise SystemExit(f"error: {DEVICE_RESIDENT}")
-    if not args.param:
-        print("error: --param is required", file=sys.stderr)
+    if not args.param and not args.device_resident:
+        print("error: --param is required unless --device-resident", file=sys.stderr)
         return 2
     device = _device(args.device)
     tracker = None
@@ -93,7 +92,8 @@ def _cmd_train_asdqe(args) -> int:
         lr=args.lr, epochs=args.epochs, batch_size=args.batch_size,
         accumulation_steps=args.accum, gt_size=args.gt_size, seed=args.seed,
         out_dir=args.out, max_steps_per_epoch=args.max_steps_per_epoch,
-        h2d_uint8=(args.h2d == "uint8"), tracker=tracker, device=device)
+        h2d_uint8=(args.h2d == "uint8"), device_resident=args.device_resident,
+        steps_per_epoch=args.steps_per_epoch, tracker=tracker, device=device)
     finite = [h["val_mse"] for h in result["history"]
               if not math.isnan(h["val_mse"])]
     if finite:  # an epoch with no validation batch reports NaN
@@ -525,6 +525,9 @@ def main(argv=None) -> int:
     p = sub.add_parser("train", help="config-driven training")
     p.add_argument("-opt", required=True)
     p.add_argument("--max-iters", type=int, default=None)
+    p.add_argument("--profile-steps", type=int, default=0,
+                   help="trace N steady steps (3 iterations after the first) "
+                        "into <log>/profile and log the device ms by kernel")
     p.add_argument("--stall-timeout", type=float, default=0,
                    help="hard-exit (code 17) when no training iteration "
                         "completes for N seconds, for a supervisor to "
@@ -549,7 +552,8 @@ def main(argv=None) -> int:
     p.add_argument("--h2d", choices=("uint8", "f32"), default="uint8",
                    help="device input boundary (uint8: 4x less transfer)")
     p.add_argument("--device-resident", action="store_true",
-                   help="not ported: exits naming its ROADMAP.md item")
+                   help="hold the (origin, denoised) sources in device memory "
+                        "and mix the graded candidates there; --param not needed")
     p.add_argument("--swanlab-project", default=None,
                    help="log per-epoch metrics to this swanlab project")
     p.add_argument("--steps-per-epoch", type=int, default=None,

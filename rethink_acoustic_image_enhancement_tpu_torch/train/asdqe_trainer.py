@@ -16,6 +16,13 @@ micro-steps, best and per-epoch weights. As in the JAX package:
   * images cross to the device as uint8 and are divided in float32 before
     any cast to the compute dtype;
   * dropout draws from a ``torch.Generator`` seeded by ``seed``.
+
+``device_resident=True`` trains from ``SIQADeviceCorpus`` (graded
+candidates mixed on the device from (origin, denoised) source pairs; a
+micro-step uploads its source ids only), with the JAX package's 80/20 split
+of the sources, ``steps_per_epoch`` micro-steps an epoch (by default
+``accumulation_steps``: one update), and a held-out set whose ids and draws
+are fixed, so that every epoch scores the same candidates.
 """
 
 from __future__ import annotations
@@ -31,9 +38,10 @@ from ..data.loader import BatchLoader, BatchUploader, EnlargedShuffleSampler
 from ..eval.infer import highest_precision, resolve_device
 from ..models import DenoiseRatePredictor
 from .checkpoints import save_weights
+from .device_corpus import SIQADeviceCorpus, seeded_generator
 
-DEVICE_RESIDENT = ("device_resident ASDQE corpora are not ported yet "
-                   "(ROADMAP.md, Queue A: device-resident corpora, item 4)")
+EPOCH_SEED_STRIDE = 7919  # an epoch's train ids: default_rng(seed + this * (epoch + 1))
+VAL_CANDIDATES_PER_SOURCE = 13  # the held-out batches: this many per source
 
 
 class ReduceLROnPlateau:
@@ -188,6 +196,7 @@ def train_asdqe(
     max_steps_per_epoch: int | None = None,
     h2d_uint8: bool = True,
     device_resident: bool = False,
+    steps_per_epoch: int | None = None,
     tracker=None,
     device=None,
     model: DenoiseRatePredictor | None = None,
@@ -195,11 +204,9 @@ def train_asdqe(
     """Train the scorer; returns {'model', 'history'}. ``model`` gives the
     starting weights (a scorer with PyTorch's default initialisation under
     ``seed`` where None); ``device`` None is the GPU, and raises where there
-    is none. ``device_resident`` (the JAX package's device corpus) is not
-    ported and raises; ``tracker`` receives per-epoch metrics (the
-    reference's swanlab logging)."""
-    if device_resident:
-        raise NotImplementedError(DEVICE_RESIDENT)
+    is none. ``device_resident`` trains from the device corpus (module
+    docstring), ``steps_per_epoch`` sizing its epoch; ``tracker`` receives
+    per-epoch metrics (the reference's swanlab logging)."""
     device = resolve_device(device)
     if model is None:
         with torch.random.fork_rng(devices=[]):
@@ -207,6 +214,12 @@ def train_asdqe(
             model = DenoiseRatePredictor()
     model = model.to(device).float().set_remat(True).set_compute_dtype(compute_dtype)
     model.set_dropout_generator(torch.Generator(device=device).manual_seed(seed))
+    if device_resident:
+        return _train_asdqe_device_resident(
+            model, dataset_opt, lr=lr, epochs=epochs, batch_size=batch_size,
+            accumulation_steps=accumulation_steps, gt_size=gt_size, seed=seed,
+            out_dir=out_dir, compute_dtype=compute_dtype, log=log,
+            steps_per_epoch=steps_per_epoch, tracker=tracker)
 
     dataset = SIQADataset(dict(dataset_opt, phase="train", gt_size=gt_size, seed=seed))
     n = len(dataset)
@@ -243,20 +256,96 @@ def train_asdqe(
                 break
             pred = asdqe_predict(model, lq, gt)
             val_losses.append(torch.mean(torch.square(pred.float() - score)))
-        train_l, val_l = _host_mean(losses), _host_mean(val_losses)
-        plateau.step(val_l)
-        history.append({"epoch": epoch, "train_mse": train_l,
-                        "val_mse": val_l, "lr_scale": plateau.scale})
-        log(f"[asdqe] epoch {epoch}: train_mse={train_l:.5f} "
-            f"val_mse={val_l:.5f} lr_scale={plateau.scale:.3f}")
-        if tracker is not None:
-            tracker.log({"train_epoch_mse": train_l, "val_epoch_mse": val_l,
-                         "lr_scale": plateau.scale, "epoch": epoch}, step=epoch)
-        if out_dir:
-            save_weights(out_dir, epoch, model)
-            if val_l < best_val:
-                best_val = val_l
-                save_weights(out_dir, "best", model)
+        best_val = _end_epoch(epoch, losses, val_losses, plateau, history, best_val,
+                              model, out_dir, log, tracker)
+
+    if tracker is not None:
+        tracker.finish()
+    return {"model": model, "history": history}
+
+
+def _end_epoch(epoch: int, losses, val_losses, plateau: ReduceLROnPlateau,
+               history: list, best_val: float, model, out_dir, log, tracker) -> float:
+    """The epoch's means, the plateau step, the log and tracker lines and
+    the weights (per epoch, and the best); returns the best val MSE."""
+    train_l, val_l = _host_mean(losses), _host_mean(val_losses)
+    plateau.step(val_l)
+    history.append({"epoch": epoch, "train_mse": train_l,
+                    "val_mse": val_l, "lr_scale": plateau.scale})
+    log(f"[asdqe] epoch {epoch}: train_mse={train_l:.5f} "
+        f"val_mse={val_l:.5f} lr_scale={plateau.scale:.3f}")
+    if tracker is not None:
+        tracker.log({"train_epoch_mse": train_l, "val_epoch_mse": val_l,
+                     "lr_scale": plateau.scale, "epoch": epoch}, step=epoch)
+    if out_dir:
+        save_weights(out_dir, epoch, model)
+        if val_l < best_val:
+            best_val = val_l
+            save_weights(out_dir, "best", model)
+    return best_val
+
+
+def device_resident_split(n_src: int, seed: int, batch_size: int,
+                          log: Callable[[str], None] = print):
+    """(train sources, held-out sources, the held-out batches' ids): the
+    JAX package's source-level 80/20 split, at least one source on each
+    side (with one source the two overlap, and a warning says so), and
+    ``max(1, 13 * held-out // batch_size)`` batches of ids from
+    ``default_rng(seed + 1 + b)``."""
+    split = np.random.default_rng(seed).permutation(n_src)
+    n_train = max(1, int(0.8 * n_src))
+    train_src = split[:n_train]
+    val_src = split[n_train:] if n_train < n_src else split[-1:]
+    if n_train >= n_src:
+        log(f"[asdqe] WARNING: corpus has only {n_src} source pair(s); the val "
+            "source OVERLAPS train: val_mse measures training fit, not "
+            "generalization")
+    n_val = max(1, (len(val_src) * VAL_CANDIDATES_PER_SOURCE) // batch_size)
+    val_ids = [np.random.default_rng(seed + 1 + b).choice(val_src, size=batch_size)
+               for b in range(n_val)]
+    return train_src, val_src, val_ids
+
+
+def _train_asdqe_device_resident(model: DenoiseRatePredictor, dataset_opt: dict, lr: float,
+                                 epochs: int, batch_size: int, accumulation_steps: int,
+                                 gt_size: int | None, seed: int, out_dir: str | None,
+                                 compute_dtype, log, steps_per_epoch: int | None,
+                                 tracker) -> dict[str, Any]:
+    """The JAX package's ``_train_asdqe_device_resident`` on the scorer's
+    device: an epoch's ids from ``default_rng(seed + 7919 (epoch + 1))``,
+    its candidates' draws from a generator seeded by (seed, 1, epoch), the
+    held-out draws once from one seeded by (seed, 2)."""
+    device = next(model.parameters()).device
+    corpus = SIQADeviceCorpus(dict(dataset_opt, gt_size=gt_size, phase="train"), device)
+    log(f"[asdqe] device-resident corpus: {corpus.describe()}")
+    train_src, _, val_ids = device_resident_split(len(corpus), seed, batch_size, log)
+    spe = int(steps_per_epoch or accumulation_steps)
+    opt = MultiStepsAdam(model.parameters(), lr, accumulation_steps)
+    plateau = ReduceLROnPlateau()
+    val_gen = seeded_generator(device, seed, 2)
+    held_out = []
+    for ids in val_ids:
+        ids = corpus.ids(ids)
+        held_out.append((ids, corpus.draw(val_gen, ids, gt_size)))
+
+    history = []
+    best_val = float("inf")
+    for epoch in range(epochs):
+        host_rng = np.random.default_rng(seed + EPOCH_SEED_STRIDE * (epoch + 1))
+        gen = seeded_generator(device, seed, 1, epoch)
+        losses = []
+        for _ in range(spe):
+            lq, cand, score = corpus.sample_batch(
+                gen, host_rng.choice(train_src, size=batch_size), gt_size)
+            losses.append(asdqe_micro_step(model, opt, lq, cand, score,
+                                           plateau.scale, compute_dtype))
+        val_losses = []
+        for ids, draws in held_out:
+            lq, cand, score = corpus.apply(ids, draws)
+            pred = asdqe_predict(model, lq, cand)
+            val_losses.append(torch.mean(torch.square(pred.float() - score)))
+        best_val = _end_epoch(epoch, losses, val_losses, plateau, history, best_val,
+                              model, out_dir, log, tracker)
 
     if tracker is not None:
         tracker.finish()

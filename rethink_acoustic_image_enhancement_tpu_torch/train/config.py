@@ -77,11 +77,9 @@ def validate(opt: dict[str, Any]) -> None:
         except KeyError:
             raise KeyError(f"datasets.{phase}.type {ds.get('type')!r} is "
                            "unknown") from None
+        # device_resident is read from datasets.train only (the loop);
+        # elsewhere it is a known key that does nothing, as in JAX
         validate_dataset_opt(ds, where=f"datasets.{phase}")
-        if ds.get("device_resident"):
-            raise NotImplementedError(
-                f"datasets.{phase}.device_resident is not ported yet "
-                "(ROADMAP.md, Queue A: device-resident corpora, item 4)")
     train = opt.get("train")
     if train:
         distill = train.get("distill") or {}

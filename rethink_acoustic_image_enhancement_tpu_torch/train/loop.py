@@ -17,10 +17,24 @@ frames being the item's score.
 ``train.distill: {online: true, teacher: <network_g>, teacher_weights:
 <.pth>, denoise_rate: 1.0}`` makes the student's targets in the loop with a
 frozen teacher (``train/distill.py``), after the stage's subsample.
+
+``datasets.train.device_resident: true`` holds the corpus in device memory
+(``train/device_corpus.py``): each epoch's permutation of its groups or
+images comes from the host generator in chunks of ``batch_size_per_gpu``,
+cut to the stage's batch; the batch is cut at the stage's patch on the
+device, and the step's extra mask drawn there, from a ``torch.Generator``
+seeded by (manual_seed, iteration). A step uploads its ids only. The
+checkpoint keeps the host generator's state at the start of the epoch, so
+that a resumed run draws the same permutation.
+
+``profile_steps`` N > 0 traces N steps, 3 iterations after the first, into
+``<log>/profile`` (``utils/profiling.py``) and logs and records the device
+time by kernel.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 import time
@@ -39,16 +53,20 @@ from ..models import build_network
 from ..ops.layout import crop_to, pad_to_multiple
 from ..utils.image_io import imwrite, to_ubyte
 from ..utils.logging import MessageLogger, get_logger
+from ..utils.profiling import aggregate_trace, trace
 from ..utils.tracking import make_tracker
 from .checkpoints import (find_latest_checkpoint, load_pretrained,
                           prune_checkpoints, restore_checkpoint,
                           save_checkpoint, save_weights)
 from .config import make_exp_dirs, validate
+from .device_corpus import build_device_corpus, seeded_generator
 from .distill import make_online_target_fn
 from .progressive import ProgressiveSchedule, subsample_batch
 from .trainer import TrainState, build_trainer_from_config
 
 PREFETCH_SEED_OFFSET = 7919  # the prefetch thread's generator: seed + this
+PROFILE_AFTER = 3  # profiled steps start this many iterations after the first
+PROFILE_TOP = 8  # kernels in the profile's log line
 
 
 def build_everything(opt: dict, device=None):
@@ -195,10 +213,11 @@ def _val_loader_factory(opt: dict, log) -> Callable | None:
         len(val_ds), shuffle=False), num_workers=1, drop_last=False)
 
 
-def train_from_config(opt: dict, device=None,
-                      max_iters: int | None = None) -> TrainState:
+def train_from_config(opt: dict, device=None, max_iters: int | None = None,
+                      profile_steps: int = 0) -> TrainState:
     """A whole training run; ``max_iters`` overrides total_iter. ``device``
-    None is the GPU, and raises where there is none."""
+    None is the GPU, and raises where there is none. ``profile_steps`` > 0
+    traces that many steps (module docstring)."""
     make_exp_dirs(opt)
     logger = get_logger("raie-torch")
     log_dir = opt["path"].get("log")
@@ -210,7 +229,7 @@ def train_from_config(opt: dict, device=None,
             "%(asctime)s %(levelname)s: %(message)s"))
         logger.addHandler(handler)
     try:
-        return _train(opt, device, max_iters, logger.info)
+        return _train(opt, device, max_iters, logger.info, profile_steps)
     finally:
         if handler is not None:
             logger.removeHandler(handler)
@@ -241,7 +260,18 @@ def online_targets(target_fn: Callable, lq) -> torch.Tensor:
     return target_fn(lq)
 
 
-def _train(opt: dict, device, max_iters: int | None, log) -> TrainState:
+def _log_profile(log_dir: str, steps: int, at_iter: int, msg_logger, log) -> None:
+    ms, events = aggregate_trace(os.path.join(log_dir, "profile"))
+    top = list(ms.items())[:PROFILE_TOP]
+    log(f"profile (ms by kernel over {steps} steps): " + ", ".join(
+        f"{k}={v:.1f}" for k, v in top) + f" [{events} events]")
+    if msg_logger.jsonl is not None:
+        msg_logger.jsonl.write("profile", at_iter, {}, steps=steps, events=events,
+                               ms_by_kernel=dict(top))
+
+
+def _train(opt: dict, device, max_iters: int | None, log,
+           profile_steps: int = 0) -> TrainState:
     _, trainer = build_everything(opt, device)
     state = trainer.init_state()
     device = trainer.device
@@ -250,19 +280,27 @@ def _train(opt: dict, device, max_iters: int | None, log) -> TrainState:
     if target_fn is not None:
         log("online distillation: frozen teacher targets in the loop")
     ds_opt = opt["datasets"]["train"]
-    dataset = create_dataset(ds_opt)
-    loader = BatchLoader(
-        dataset, ds_opt["batch_size_per_gpu"],
-        EnlargedShuffleSampler(len(dataset),
-                               ratio=ds_opt.get("dataset_enlarge_ratio", 1),
-                               shuffle=ds_opt.get("use_shuffle", True),
-                               seed=seed),
-        num_workers=ds_opt.get("num_worker_per_gpu", 4),
-        drop_last=ds_opt.get("drop_last", True))
-    n_batches = len(loader)
+    bspg = int(ds_opt["batch_size_per_gpu"])
+    corpus = loader = None
+    if ds_opt.get("device_resident"):
+        corpus = build_device_corpus(ds_opt, device)
+        log(f"device-resident corpus: {corpus.describe()}, uploaded in "
+            f"{corpus.upload_s:.3f} s")
+        n_items, n_batches = len(corpus), len(corpus) // bspg
+    else:
+        dataset = create_dataset(ds_opt)
+        loader = BatchLoader(
+            dataset, bspg,
+            EnlargedShuffleSampler(len(dataset),
+                                   ratio=ds_opt.get("dataset_enlarge_ratio", 1),
+                                   shuffle=ds_opt.get("use_shuffle", True),
+                                   seed=seed),
+            num_workers=ds_opt.get("num_worker_per_gpu", 4),
+            drop_last=ds_opt.get("drop_last", True))
+        n_items, n_batches = len(dataset), len(loader)
     if n_batches == 0:
-        raise ValueError(f"the training set ({len(dataset)} items) makes no "
-                         f"batch of {ds_opt['batch_size_per_gpu']}")
+        raise ValueError(f"the training set ({n_items} items) makes no "
+                         f"batch of {bspg}")
     prog = ProgressiveSchedule.from_dataset_opt(ds_opt)
 
     total_iters = int(max_iters or opt["train"]["total_iter"])
@@ -274,8 +312,9 @@ def _train(opt: dict, device, max_iters: int | None, log) -> TrainState:
     models_dir = opt["path"].get("models")
     log_dir = opt["path"].get("log")
 
-    # host generators: the main thread's subsample at stage changes, and
-    # the prefetch thread's stage subsample (the JAX loop's two)
+    # host generators: the main thread's subsample at stage changes (with a
+    # device-resident corpus: the epoch's permutation), and the prefetch
+    # thread's stage subsample (the JAX loop's two)
     host_rng = np.random.default_rng(seed)
     prefetch_rng = np.random.default_rng(seed + PREFETCH_SEED_OFFSET)
     epoch, epoch_iter = 0, 0
@@ -292,6 +331,7 @@ def _train(opt: dict, device, max_iters: int | None, log) -> TrainState:
                 prefetch_rng.bit_generator.state = pos["prefetch_rng"]
             log(f"auto-resumed from iteration {latest} ({restore_s:.3f} s)")
     prefetch_state = prefetch_rng.bit_generator.state
+    epoch_state = host_rng.bit_generator.state  # the device route's epoch start
 
     remote = make_tracker(logger_cfg, opt.get("name", "raie"), config=opt)
     msg_logger = MessageLogger(
@@ -302,6 +342,9 @@ def _train(opt: dict, device, max_iters: int | None, log) -> TrainState:
         remote=remote)
     if restore_s is not None and msg_logger.jsonl is not None:
         msg_logger.jsonl.write("resume", state.step, {"seconds": restore_s})
+    if corpus is not None and msg_logger.jsonl is not None:
+        msg_logger.jsonl.write("corpus", state.step, {"upload_s": corpus.upload_s,
+                                                      "mib": corpus.nbytes / 2 ** 20})
     val_loader = (_val_loader_factory(opt, log) if val_freq else None)
     uploader = BatchUploader(device)
     prefetch_iter = [0]
@@ -336,42 +379,82 @@ def _train(opt: dict, device, max_iters: int | None, log) -> TrainState:
 
     def save():
         t0 = time.perf_counter()
+        host_state = host_rng.bit_generator.state if corpus is None else epoch_state
         save_checkpoint(states_dir, current_iter, state, epoch, loop={
-            "epoch_iter": epoch_iter, "host_rng": host_rng.bit_generator.state,
+            "epoch_iter": epoch_iter, "host_rng": host_state,
             "prefetch_rng": prefetch_state})
         save_weights(models_dir, current_iter, state.model, state.ema)
         if msg_logger.jsonl is not None:
             msg_logger.jsonl.write("ckpt", current_iter,
                                    {"seconds": time.perf_counter() - t0})
 
+    def host_batch(item):
+        """The loader's batch, cut to the stage's on the host."""
+        nonlocal prefetch_state
+        pending, rest, prefetch_state = item
+        batch = {**uploader.ready(pending), **rest}
+        lq, gt = batch["lq"], batch.get("gt")
+        extra_prob, mini_gt = 0.0, 0
+        if prog is not None:
+            mb, mini_gt, mini_prob = prog.at(current_iter)
+            bsz = leaves(lq)[0].shape[0]
+            if mb < bsz:
+                idx = host_rng.choice(bsz, size=mb, replace=False)
+                lq = subsample_batch(lq, idx)
+                gt = subsample_batch(gt, idx)
+            extra_prob = max(mini_prob - prog.base_prob, 0.0)
+        return lq, gt, extra_prob, mini_gt, None
+
+    def device_batch(ids):
+        """The corpus's batch at the stage's size, cut on the device (a
+        crop of a crop is a crop: no stage crop follows)."""
+        gen = seeded_generator(device, seed, current_iter)
+        extra_prob, patch = 0.0, corpus.gt_size
+        if prog is not None:
+            mb, patch, mini_prob = prog.at(current_iter)
+            ids = ids[:min(mb, len(ids))]
+            extra_prob = max(mini_prob - prog.base_prob, 0.0)
+        lq, gt = corpus.sample_batch(gen, ids, gt_size=patch)
+        return lq, gt, extra_prob, 0, gen
+
+    def epoch_batches():
+        nonlocal epoch_state
+        if corpus is None:
+            loader.set_epoch(epoch, skip=epoch_iter)
+            prefetch_iter[0] = current_iter  # re-sync the stage counter
+            return DevicePrefetcher(iter(loader), put=put), host_batch
+        corpus.set_epoch(epoch)
+        epoch_state = host_rng.bit_generator.state
+        perm = host_rng.permutation(len(corpus))  # in batches, the remainder dropped
+        starts = range(epoch_iter * bspg, len(perm) - bspg + 1, bspg)
+        return (perm[s:s + bspg] for s in starts), device_batch
+
+    profile_dir = os.path.join(log_dir, "profile") if profile_steps and log_dir else None
+    profile_from = current_iter + PROFILE_AFTER
+    profiling = contextlib.ExitStack()
+
     t_data = time.time()
     try:
         while current_iter < total_iters:
-            loader.set_epoch(epoch, skip=epoch_iter)
-            prefetch_iter[0] = current_iter  # re-sync the stage counter
-            prefetcher = DevicePrefetcher(iter(loader), put=put)
+            batches, prepare = epoch_batches()
             try:
-                for pending, rest, prefetch_state in prefetcher:
+                for item in batches:
                     current_iter += 1
                     epoch_iter += 1
-                    batch = {**uploader.ready(pending), **rest}
+                    if profile_dir and current_iter == profile_from + 1:
+                        profiling.enter_context(trace(profile_dir))
+                    lq, gt, extra_prob, mini_gt, gen = prepare(item)
                     data_time = time.time() - t_data
-
-                    lq, gt = batch["lq"], batch.get("gt")
-                    extra_prob, mini_gt = 0.0, 0
-                    if prog is not None:
-                        mb, mini_gt, mini_prob = prog.at(current_iter)
-                        bsz = leaves(lq)[0].shape[0]
-                        if mb < bsz:
-                            idx = host_rng.choice(bsz, size=mb, replace=False)
-                            lq = subsample_batch(lq, idx)
-                            gt = subsample_batch(gt, idx)
-                        extra_prob = max(mini_prob - prog.base_prob, 0.0)
                     if target_fn is not None:  # after the subsample
                         gt = online_targets(target_fn, lq)
                     state, metrics = trainer.step(
                         state, lq, gt, np.random.default_rng([seed, current_iter]),
-                        extra_prob=extra_prob, mini_gt_size=mini_gt)
+                        extra_prob=extra_prob, mini_gt_size=mini_gt, gen=gen)
+                    if profile_dir and current_iter == profile_from + profile_steps:
+                        float(metrics["l_pix"])  # the device's queue drains first
+                        profiling.close()
+                        _log_profile(log_dir, profile_steps, current_iter, msg_logger, log)
+                        profile_dir = None
 
                     scalars = None
                     if current_iter % print_freq == 0:
@@ -421,11 +504,12 @@ def _train(opt: dict, device, max_iters: int | None, log) -> TrainState:
                     # not this iteration's checkpoint or validation
                     t_data = time.time()
             finally:
-                prefetcher.close()
+                batches.close()
             if epoch_iter >= n_batches:  # the epoch ran to its end
                 epoch += 1
                 epoch_iter = 0
     finally:
+        profiling.close()  # a run that ends inside the profile's window
         if watchdog is not None:
             watchdog.stop()
         msg_logger.close()

@@ -8,7 +8,9 @@ further where the stage's prob exceeds the dataset's base prob.
 
 Each random function keeps its deterministic core apart from its draws:
 ``crop_at`` crops at given offsets, ``ops/mask.py::mask_with_keep`` masks by
-a given ``keep``; the draws come from an explicit numpy generator.
+a given ``keep``; the draws come from an explicit numpy generator, and the
+extra mask of a device-resident batch from a ``torch.Generator`` on the
+device.
 """
 
 from __future__ import annotations
@@ -97,11 +99,13 @@ def stage_crop(lq, gt, rng: np.random.Generator, gt_size: int,
     return lq, gt
 
 
-def stage_extra_mask(lq, rng: np.random.Generator, extra_prob: float,
-                     value: float = 0.1):
+def stage_extra_mask(lq, rng: np.random.Generator | torch.Generator,
+                     extra_prob: float, value: float = 0.1):
     """Extra Bernoulli masking where the stage's prob exceeds the base prob
     (train.py:431-448), on lq['img'] (or lq) only, every element drawn
-    independently; ``extra_prob <= 0`` leaves lq as it is and draws
+    independently: on the host from a numpy generator, or on the device
+    from a ``torch.Generator`` there (a device-resident batch's route, which
+    uploads nothing); ``extra_prob <= 0`` leaves lq as it is and draws
     nothing."""
     if extra_prob <= 0:
         return lq

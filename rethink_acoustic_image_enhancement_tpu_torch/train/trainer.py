@@ -4,7 +4,8 @@ package's ``train/trainer.py`` without a mesh).
 
 One ``Trainer.step``:
   * sub-crop to the stage's patch, extra masking, mixup (their draws from
-    an explicit numpy generator, the same on every device);
+    an explicit numpy generator, the same on every device; a device-resident
+    batch's extra mask from a ``torch.Generator`` on the device);
   * forward and loss in float32 with TF32 off (``highest_precision``), or
     with ``compute_dtype`` bfloat16: bfloat16 copies of the float32 master
     parameters through ``torch.func.functional_call``, so the gradients
@@ -166,15 +167,18 @@ class Trainer:
         return self.loss_fn(pred, gt)
 
     def step(self, state: TrainState, lq, gt, rng: np.random.Generator,
-             extra_prob: float = 0.0, mini_gt_size: int = 0):
+             extra_prob: float = 0.0, mini_gt_size: int = 0,
+             gen: torch.Generator | None = None):
         """One iteration on NCHW tensors (or dicts of them) on the device,
         their batch already the stage's. Updates ``state`` in place and
         returns (state, metrics): 'l_pix' and 'grad_norm' as 0-d tensors
-        on the device (no host sync), 'lr' as a float."""
+        on the device (no host sync), 'lr' as a float. ``gen``, a generator
+        on the device, draws the extra mask there (a device-resident
+        batch's route); the other draws come from ``rng``."""
         if self.gt_size and mini_gt_size and mini_gt_size < self.gt_size:
             lq, gt = stage_crop(lq, gt, rng, self.gt_size, mini_gt_size,
                                 scale=self.scale)
-        lq = stage_extra_mask(lq, rng, extra_prob)
+        lq = stage_extra_mask(lq, rng if gen is None else gen, extra_prob)
         if self.mixup:
             gt, lq = mixing_augment(rng, gt, lq, self.mixup_beta,
                                     self.mixup_identity)

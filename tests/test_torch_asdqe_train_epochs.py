@@ -1,10 +1,13 @@
 """The port's ASDQE trainer (``train/asdqe_trainer.py::train_asdqe``)
 against the JAX package's over two epochs, dropout off on both sides (in JAX
 through ``flax.linen.intercept_methods`` on ``nn.Dropout``, in this file
-only; in the port by rate 0); its refusal of device-resident corpora."""
+only; in the port by rate 0); its device-resident route (ported with the
+device corpora: it trains on the CPU when asked, and without a GPU the
+default device names device='cpu')."""
 
 import json
 
+import numpy as np
 import pytest
 import torch
 
@@ -80,8 +83,15 @@ def test_two_epochs_match_jax(siqa, tmp_path):
 
 
 def test_device_resident_names_the_roadmap(siqa):
-    with pytest.raises(NotImplementedError, match="Queue A: device-resident corpora, item 4"):
-        ttr.train_asdqe(siqa, device_resident=True, device="cpu")
+    """Once refused, naming its ROADMAP.md item; now it trains from the
+    device corpus (the JSON scores unused), on the GPU by default."""
+    out = ttr.train_asdqe(siqa, device_resident=True, device="cpu", epochs=1,
+                          batch_size=2, accumulation_steps=2, gt_size=32,
+                          compute_dtype=None, log=lambda m: None)
+    assert np.isfinite(out["history"][0]["train_mse"])
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            ttr.train_asdqe(siqa, device_resident=True)
 
 
 def test_corpus_scores_are_the_mix_rates(siqa):

@@ -45,12 +45,13 @@ def test_train_then_score(siqa, tmp_path, capsys, monkeypatch):
 
 
 def test_refusals(siqa, tmp_path):
-    with pytest.raises(SystemExit, match="Queue A: device-resident corpora, item 4"):
-        cli.main(_argv(siqa, tmp_path / "a", "--device-resident", "--device", "cpu"))
+    """Without --param only --device-resident trains (it was refused,
+    naming its ROADMAP.md item, before the device corpora were ported)."""
     argv = _argv(siqa, tmp_path / "b", "--device", "cpu")
     i = argv.index("--param")
     assert cli.main(argv[:i] + argv[i + 2:]) == 2
     if not torch.cuda.is_available():  # the default device needs a GPU
-        with pytest.raises(SystemExit, match="no CUDA device"):
-            cli.main(_argv(siqa, tmp_path / "c"))
+        for extra in ((), ("--device-resident",)):
+            with pytest.raises(SystemExit, match="no CUDA device.*--device cpu"):
+                cli.main(_argv(siqa, tmp_path / "c", *extra))
         assert not (tmp_path / "c").exists()

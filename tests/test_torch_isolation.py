@@ -34,7 +34,8 @@ def test_every_port_module_imports_without_jax():
                  "train.progressive", "train.config", "train.trainer",
                  "train.checkpoints", "train.loop", "utils.logging",
                  "utils.tracking", "utils.watchdog", "utils.native",
-                 "train.distill", "train.asdqe_trainer"):
+                 "train.distill", "train.asdqe_trainer", "train.device_corpus",
+                 "utils.profiling"):
         assert f"{PORT}.{name}" in modules, name
     code = "\n".join([
         "import importlib, sys",

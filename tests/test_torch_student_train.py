@@ -16,9 +16,10 @@ narrowed configs/KDLAES.yml (hidden [4, 8, 16]; 16-24 px frames; 5 frames):
     stack scored frame by frame and averaged (within 1e-4). Scoring a stack
     as one F-channel image, the loop's route before this repair, gives
     another number;
-  * both KDLAES configs pass validate; KDLAES_FLS_ft.yml's device-resident
-    corpus is refused, naming its ROADMAP.md item; without it, and with the
-    trained zoo student as its pretrained weights, it trains.
+  * both KDLAES configs pass validate, KDLAES_FLS_ft.yml with its
+    device-resident corpus (refused before the device corpora were ported);
+    without it, and with the trained zoo student as its pretrained weights,
+    it trains.
 """
 
 import os
@@ -268,11 +269,7 @@ def test_frame_stack_validation_matches_jax(corpus, tmp_path):
 def test_kdlaes_configs_validate(tmp_path):
     for path in (KDLAES_YML, FLS_YML):
         opt = tcfg.parse(path, True, root_path=str(tmp_path))
-        if path == FLS_YML:
-            with pytest.raises(NotImplementedError,
-                               match="Queue A: device-resident corpora, item 4"):
-                tcfg.validate(opt)
-            del opt["datasets"]["train"]["device_resident"]
+        assert bool(opt["datasets"]["train"].get("device_resident")) == (path == FLS_YML)
         tcfg.validate(opt)
 
 

@@ -131,3 +131,20 @@ def write_siqa_corpus(root, n, h, w, seed):
         with open(os.path.join(roots["param"], f"{i:04d}.json"), "w") as f:
             json.dump({"score": rate}, f)
     return {f"dataroot_{k}": v for k, v in roots.items()}
+
+
+def device_student_config(roots, total, iters=(2, 3), **train_ds):
+    """configs/KDLAES.yml, device-resident, narrowed: hidden [4, 8, 16],
+    3-frame stacks, batch 2 at 12 then 16 px, no validation."""
+    with open(os.path.join(REPO, "configs", "KDLAES.yml")) as f:
+        cfg = yaml.safe_load(f)
+    cfg["datasets"]["train"].update(
+        roots, num_pairs=3, batch_size_per_gpu=2, mini_batch_sizes=[2, 1],
+        iters=list(iters), gt_size=16, gt_sizes=[12, 16], probs=[0.1, 0.3],
+        num_worker_per_gpu=2, device_resident=True, **train_ds)
+    del cfg["datasets"]["val"]
+    cfg["network_g"]["hidden_channels"] = [4, 8, 16]
+    cfg["train"].update(total_iter=total, warmup_iter=-1)
+    cfg["val"]["val_freq"] = 0
+    cfg["logger"].update(print_freq=1, save_checkpoint_freq=total, use_tb_logger=False)
+    return cfg

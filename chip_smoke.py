@@ -116,10 +116,27 @@ fp32 predictors' own pinning is what runs:
      host-to-device copies (none larger than 4 KiB), its top kernel the
      same as `profile_step`'s on one device-resident step; the corpus's
      crop and flip as gathers against a per-item loop of slices.
+ 13. data-parallel training: (a) two ranks sharing the one card over gloo
+     (child processes of this script, `--dp-rank`, started with torchrun's
+     env): configs/KDLAET.yml at full width from the host loader, one step
+     per curriculum stage, to 4 (a checkpoint, a validation on rank 0) and
+     resumed to 6; the ranks' parameters bit for bit equal (sha256); two
+     seeded steps on each rank's 6 rows of a batch of 12 at 64 (mask,
+     mixup) against one process on the card at 12 (loss and grad_norm
+     within 1e-4 relative, weights by the step rule); ms a step, the
+     gradient reduction's ms a step, peak memory per rank; (b)
+     configs/KDLAES_FLS_ft.yml device-resident on 64 frames, 4 steps of 4
+     rows per rank; the ranks' rows of one global batch (8 x 7 @ 192) equal
+     the one-process batch bit for bit, a step's uploads within 4 KiB; (c)
+     `python -m torch.distributed.run --nproc_per_node=1 -m ...cli train
+     --launcher pytorch` over NCCL: its checkpoint and metrics.jsonl; (d)
+     two NCCL ranks where there are two cards, else a line saying why not.
+     Training reaches no kernel: every count stays 0, the ranks' too.
 Each path runs with every launch count set to 0 just before it and read just
-after. Prints one JSON line per phase 6-12, a "kernels" JSON line, the card
+after. Prints one JSON line per phase 6-13, a "kernels" JSON line, the card
 line, and as its last line {"ok": true, "device": {...}}. Details go to
 chiprun_out/chip_smoke.json.
+`chip_smoke.py --dp-rank SPEC` is one rank of phase 13, not for use alone.
 """
 
 from __future__ import annotations
@@ -2426,9 +2443,405 @@ def phase_device_resident(results, card, work):
     log(f"phase 12: {row['phase_s']:.1f} s")
 
 
+# ------------------------------------------------------------ phase 13 ---
+
+DP_WORLD = 2  # ranks sharing the one card over gloo
+DP_ROWS = 6  # configs/KDLAET.yml's batch_size_per_gpu: the step check's rows per rank
+DP_FLS_IDS = (3, 17, 29, 41, 5, 11, 23, 37)  # one global device-resident batch: 2 ranks x 4
+DP_TIMEOUT_S = 600  # a rank or launcher still running then fails the phase
+DP_DEVICE = "cuda"  # the one-process references' device
+
+
+def dp_digest(named):
+    """sha256 of the parameters' bytes in name order: equal digests, equal
+    bits."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for _, p in sorted(named, key=lambda kv: kv[0]):
+        h.update(p.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def dp_teacher_steps(opt, device, rows, steps=2):
+    """``steps`` seeded steps of the config's full-width teacher on ``rows``
+    of one (12, 3, 128, 128) batch cut to 64, extra mask 0.1, mixup (every
+    draw from host generators keyed by the step, the same on every rank):
+    the metrics, the parameters and each step's gradients, on the host."""
+    import torch
+
+    from rethink_acoustic_image_enhancement_tpu_torch.train import loop as tloop
+
+    _, trainer = tloop.build_everything(opt, device=device)
+    state = trainer.init_state()
+    rng = np.random.default_rng(21)
+    b = DP_WORLD * DP_ROWS
+    img = rng.random((b, 3, 128, 128), dtype=np.float32)
+    hq = np.clip(img + rng.normal(0, 0.05, img.shape), 0, 1).astype(np.float32)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a[rows])).to(device)
+
+    lq = {"img": t(img), "denoise_rate": t(np.full((b, 1, 128, 128), 0.7, np.float32))}
+    gt = {"hq": t(hq), "sr": t(hq.repeat(2, 2).repeat(2, 3))}
+    metrics, grads = [], []
+    for k in range(steps):
+        state, m = trainer.step(state, lq, gt, np.random.default_rng([7, k]), extra_prob=0.1,
+                                mini_gt_size=64)
+        metrics.append({key: float(v) for key, v in m.items()})
+        grads.append({n: p.grad.detach().cpu() for n, p in state.model.named_parameters()})
+    params = {n: p.detach().cpu() for n, p in state.model.named_parameters()}
+    del state, trainer
+    torch.cuda.empty_cache()
+    return metrics, params, grads
+
+
+def dp_child(spec_path):
+    """One rank of phase 13 (``chip_smoke.py --dp-rank SPEC``, started with
+    torchrun's env): joins the gloo group on the card, then (a) trains the
+    teacher to 4 and resumes it to 6, and runs the seeded steps on its
+    rows; (b) trains the device-resident student, samples its rows of one
+    global batch and records one step's uploads. Writes what it saw to
+    ``<out>_rank{r}.json`` (rank 0 also its step parameters)."""
+    import torch
+
+    sys.path.insert(0, HERE)
+    from rethink_acoustic_image_enhancement_tpu_torch import parallel
+    from rethink_acoustic_image_enhancement_tpu_torch.eval.infer import resolve_device
+    from rethink_acoustic_image_enhancement_tpu_torch.train import config as tcfg
+    from rethink_acoustic_image_enhancement_tpu_torch.train import loop as tloop
+    from rethink_acoustic_image_enhancement_tpu_torch.train import trainer as ttr
+    from rethink_acoustic_image_enhancement_tpu_torch.train.device_corpus import (
+        build_device_corpus,
+        seeded_generator,
+    )
+    from rethink_acoustic_image_enhancement_tpu_torch.utils import profiling
+
+    with open(spec_path) as fh:
+        spec = json.load(fh)
+    assert parallel.init_distributed(backend="gloo")
+    rank, world = parallel.rank(), parallel.world_size()
+    device = resolve_device(None)
+    torch.cuda.set_device(device)
+    torch.empty(1, device=device)  # the allocator's statistics exist from the first allocation
+    fns = reset_counts()
+    out = dict(rank=rank, world=world, device=str(device), backend=parallel.backend_name())
+    reduce_ms = []
+    reduce = ttr.reduce_gradients
+
+    def timed_reduce(params):
+        torch.cuda.synchronize(device)
+        parallel.barrier()  # the reduction's own time, not the wait for the other rank
+        t0 = time.perf_counter()
+        reduce(params)
+        torch.cuda.synchronize(device)
+        reduce_ms.append((time.perf_counter() - t0) * 1e3)
+
+    ttr.reduce_gradients = timed_reduce
+
+    def parse(yml):
+        return tcfg.parse(yml, is_train=True, root_path=spec["work"])
+
+    # (a) the teacher through the loop: to 4 (a checkpoint, a validation), resumed to 6
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    for yml in spec["teacher_ymls"]:
+        state = tloop.train_from_config(parse(yml), device=device)
+    out["teacher"] = dict(digest=dp_digest(state.model.named_parameters()), step=state.step,
+                          reduce_ms=list(reduce_ms), train_s=time.perf_counter() - t0,
+                          peak_gib=torch.cuda.max_memory_allocated(device) / 2 ** 30)
+    del state
+    reduce_ms.clear()
+    rows = slice(rank * DP_ROWS, (rank + 1) * DP_ROWS)
+    metrics, params, _ = dp_teacher_steps(parse(spec["teacher_ymls"][0]), device, rows)
+    out["teacher_steps"] = dict(metrics=metrics, digest=dp_digest(params.items()),
+                                reduce_ms=list(reduce_ms))
+    if rank == 0:
+        torch.save(params, spec["out"] + "_step_params.pt")
+    del params
+    torch.cuda.empty_cache()
+
+    # (b) the device-resident student through the loop
+    reduce_ms.clear()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    state = tloop.train_from_config(parse(spec["student_yml"]), device=device)
+    out["student"] = dict(digest=dp_digest(state.model.named_parameters()), step=state.step,
+                          reduce_ms=list(reduce_ms), train_s=time.perf_counter() - t0,
+                          peak_gib=torch.cuda.max_memory_allocated(device) / 2 ** 30)
+    del state
+    opt = parse(spec["student_yml"])
+    corpus = build_device_corpus(opt["datasets"]["train"], device)
+    ids = np.asarray(DP_FLS_IDS)
+    k = len(ids) // world
+    mine = slice(rank * k, (rank + 1) * k)
+    lq, gt = corpus.sample_batch(seeded_generator(device, 0, 5), ids, gt_size=192, rows=mine)
+    torch.save({"lq": lq.cpu(), "gt": gt.cpu()}, spec["out"] + f"_batch{rank}.pt")
+    _, trainer = tloop.build_everything(opt, device=device)
+    state = trainer.init_state()
+    state.step = 300  # past the warm-up
+
+    def step(j):
+        gen = seeded_generator(device, 0, j)
+        lq, gt = corpus.sample_batch(gen, ids, gt_size=192, rows=mine)
+        return trainer.step(state, lq, gt, np.random.default_rng(j), extra_prob=0.05, gen=gen)
+
+    step(0)
+    torch.cuda.synchronize(device)
+    with profiling.uploads() as h2d:
+        _, m = step(1)
+        float(m["l_pix"])
+    out["student_step_h2d_bytes"] = h2d
+    out["launches"] = read_counts(fns)
+    with open(spec["out"] + f"_rank{rank}.json", "w") as fh:
+        json.dump(out, fh)
+    parallel.shutdown()
+    return 0
+
+
+def dp_launch(argv, work, world, name, env_extra=None):
+    """Start ``world`` processes of ``argv`` with torchrun's env on a free
+    port (or one launcher process when ``world`` is 0) and wait for them
+    under ``DP_TIMEOUT_S``; every process is killed on the way out. Returns
+    (stdout of each, wall s); fails on a non-zero exit."""
+    import socket
+
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    base = {k: v for k, v in os.environ.items()
+            if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    base["PYTHONPATH"] = HERE + (os.pathsep + base["PYTHONPATH"] if base.get("PYTHONPATH") else "")
+    procs, logs = [], []
+    t0 = time.perf_counter()
+    try:
+        for r in range(max(world, 1)):
+            env = dict(base, **(env_extra or {}))
+            if world:
+                env.update(RANK=str(r), WORLD_SIZE=str(world), LOCAL_RANK=str(r),
+                           MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+            cmd = [a.replace("{port}", str(port)) for a in argv]
+            log_path = os.path.join(work, f"{name}_{r}.log")
+            logs.append(log_path)
+            with open(log_path, "w") as fh:
+                procs.append(subprocess.Popen(cmd, cwd=work, env=env, stdout=fh,
+                                              stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + DP_TIMEOUT_S
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 1))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    texts = []
+    for p, path in zip(procs, logs):
+        with open(path) as fh:
+            texts.append(fh.read())
+        assert p.returncode == 0, (name, p.returncode, texts[-1][-4000:])
+    return texts, wall
+
+
+def dp_teacher_ymls(work, roots, val_roots):
+    """configs/KDLAET.yml at full width but for its dataroots and depth: one
+    step per curriculum stage, to 4 (a checkpoint and a validation at 4),
+    then resumed to 6."""
+    import yaml
+
+    with open(os.path.join(HERE, "configs", "KDLAET.yml")) as fh:
+        cfg = yaml.safe_load(fh)
+    cfg["name"] = "dp_teacher"
+    cfg["datasets"]["train"].update(roots, iters=[1] * 6)
+    cfg["datasets"]["val"].update(val_roots)
+    cfg["val"]["val_freq"] = 4
+    cfg["logger"].update(save_checkpoint_freq=4, print_freq=1, use_tb_logger=False)
+    ymls = []
+    for total in (4, 6):
+        cfg["train"]["total_iter"] = total
+        ymls.append(os.path.join(work, f"dp_teacher_{total}.yml"))
+        with open(ymls[-1], "w") as fh:
+            yaml.safe_dump(cfg, fh)
+    return ymls, cfg
+
+
+def phase_data_parallel(results, card, work):
+    """Phase 13: data-parallel training. (a) and (b) two gloo ranks on the
+    one card (child processes of this script, torchrun's env); (c) the real
+    launcher, ``python -m torch.distributed.run`` over NCCL with one rank;
+    (d) two NCCL ranks where there are two cards."""
+    import torch
+
+    from rethink_acoustic_image_enhancement_tpu_torch.train import config as tcfg
+    from rethink_acoustic_image_enhancement_tpu_torch.train.device_corpus import (
+        build_device_corpus,
+        seeded_generator,
+    )
+    from rethink_acoustic_image_enhancement_tpu_torch.train.progressive import ProgressiveSchedule
+
+    t_phase = time.perf_counter()
+    counts = reset_counts()
+    row = dict(card=card, world=DP_WORLD, backend="gloo, two ranks on cuda:0")
+    roots = write_train_corpus(os.path.join(work, "triples"), 24, seed=200)
+    val_roots = write_train_corpus(os.path.join(work, "val"), 2, seed=300)
+    lq_dir, gt_dir = write_fls_frames(os.path.join(work, "fls_frames"))
+    row["corpora_write_s"] = time.perf_counter() - t_phase
+    teacher_ymls, tcfg_dict = dp_teacher_ymls(work, roots, val_roots)
+    student_yml, scfg = fls_config(work, lq_dir, gt_dir, "dp_fls", total=4, iters=[2, 2])
+    spec = dict(work=work, out=os.path.join(work, "dp"), teacher_ymls=teacher_ymls,
+                student_yml=student_yml)
+    spec_path = os.path.join(work, "dp_spec.json")
+    with open(spec_path, "w") as fh:
+        json.dump(spec, fh)
+
+    # (a) and (b): the ranks
+    _, ranks_wall = dp_launch([sys.executable, os.path.abspath(__file__), "--dp-rank", spec_path],
+                              work, DP_WORLD, "dp_rank")
+    ranks = []
+    for r in range(DP_WORLD):
+        with open(f"{spec['out']}_rank{r}.json") as fh:
+            ranks.append(json.load(fh))
+    assert [(x["rank"], x["world"], x["backend"]) for x in ranks] == [
+        (r, DP_WORLD, "gloo") for r in range(DP_WORLD)], ranks
+    for key in ("teacher", "teacher_steps", "student"):
+        assert len({x[key]["digest"] for x in ranks}) == 1, (key, [x[key]["digest"] for x in ranks])
+    assert ranks[0]["teacher_steps"]["metrics"] == ranks[1]["teacher_steps"]["metrics"]
+    assert not any(v for x in ranks for v in x["launches"].values()), [x["launches"] for x in ranks]
+
+    # (a) the loop's record (rank 0's), then the step against one process at twice the rows
+    exp, events, steps = train_events(work, "dp_teacher")
+    assert [e["iter"] for e in steps] == list(range(1, 7)), [e["iter"] for e in steps]
+    assert [e["iter"] for e in events if e["kind"] == "resume"] == [4]
+    assert [e["iter"] for e in events if e["kind"] == "ckpt"] == [4, 6]
+    vals = [e for e in events if e["kind"] == "val"]
+    assert [e["iter"] for e in vals] == [4] and np.isfinite(vals[0]["psnr"]), vals
+    assert ranks[0]["teacher"]["step"] == 6
+    opt = tcfg.parse(teacher_ymls[0], is_train=True, root_path=work)
+    t0 = time.perf_counter()
+    m_one, p_one, g_one = dp_teacher_steps(opt, torch.device(DP_DEVICE),
+                                           slice(0, DP_WORLD * DP_ROWS))
+    one_s = time.perf_counter() - t0
+    p_dp = torch.load(spec["out"] + "_step_params.pt")
+    m_dp = ranks[0]["teacher_steps"]["metrics"]
+    rel = {k: max(abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(m_dp, m_one))
+           for k in ("l_pix", "grad_norm")}
+    lr = max(m["lr"] for m in m_one)
+    gmax = [max(float(v.abs().max()) for v in g.values()) for g in g_one]
+    over, rel_p = 0, 0.0
+    for n, want in p_one.items():
+        big = torch.ones(want.shape, dtype=torch.bool)
+        for g, top in zip(g_one, gmax):
+            big &= g[n].abs() > 1e-6 * top
+        diff = (p_dp[n] - want).abs()
+        over += int((diff > torch.where(big, 0.05 * lr * 2, 2 * lr * 2)).sum())
+        rel_p = max(rel_p, float(diff.max()) / max(float(want.abs().max()), 1e-30))
+    assert max(rel.values()) <= 1e-4 and over == 0, (rel, over)
+    assert all(a["lr"] == b["lr"] for a, b in zip(m_dp, m_one))
+    n_params = sum(v.numel() for v in p_one.values())
+    del p_dp, p_one, g_one
+    prog = ProgressiveSchedule.from_dataset_opt(tcfg_dict["datasets"]["train"])
+    row["teacher"] = dict(
+        config="configs/KDLAET.yml full width (26.88 M parameters), host loader, iters [1]*6: "
+               "to 4 (checkpoint, validation), resumed to 6; batch_size_per_gpu 6 per rank",
+        steps=[dict(iter=e["iter"], stage=prog.stage(e["iter"]) + 1,
+                    rows_per_rank=prog.at(e["iter"])[0], patch=prog.at(e["iter"])[1],
+                    ms=1e3 * e["iter_time"], data_ms=1e3 * e["data_time"], l_pix=e["l_pix"])
+               for e in steps],
+        reduce_ms_per_step=ranks[0]["teacher"]["reduce_ms"],
+        parameters=n_params, reduce_mb=4 * n_params / 1e6,
+        peak_gib_per_rank=[x["teacher"]["peak_gib"] for x in ranks],
+        train_s=ranks[0]["teacher"]["train_s"],
+        ranks_bitwise_equal=True,
+        step_vs_one_process=dict(rows_per_rank=DP_ROWS, one_process_batch=DP_WORLD * DP_ROWS,
+                                 patch=64, rel=rel, weights_over_rule=over,
+                                 max_weight_rel=rel_p, loss_dp=[m["l_pix"] for m in m_dp],
+                                 loss_one=[m["l_pix"] for m in m_one],
+                                 reduce_ms=ranks[0]["teacher_steps"]["reduce_ms"],
+                                 one_process_s=one_s))
+
+    # (b) the device-resident student: the ranks' rows of one global batch are
+    # the one-process batch, bit for bit; a step's uploads
+    corpus = build_device_corpus(scfg["datasets"]["train"], DP_DEVICE)
+    lq, gt = corpus.sample_batch(seeded_generator(DP_DEVICE, 0, 5), np.asarray(DP_FLS_IDS),
+                                 gt_size=192)
+    parts = [torch.load(f"{spec['out']}_batch{r}.pt") for r in range(DP_WORLD)]
+    assert torch.equal(torch.cat([p["lq"] for p in parts]), lq.cpu())
+    assert torch.equal(torch.cat([p["gt"] for p in parts]), gt.cpu())
+    assert tuple(lq.shape) == (len(DP_FLS_IDS), 7, 192, 192), lq.shape
+    del corpus, lq, gt
+    torch.cuda.empty_cache()
+    for x in ranks:
+        assert x["student_step_h2d_bytes"] and max(x["student_step_h2d_bytes"]) <= MAX_STEP_UPLOAD, x
+    _, events, s_steps = train_events(work, "dp_fls")
+    assert [e["iter"] for e in s_steps] == [1, 2, 3, 4], s_steps
+    sprog = ProgressiveSchedule.from_dataset_opt(scfg["datasets"]["train"])
+    row["student"] = dict(
+        config="configs/KDLAES_FLS_ft.yml full width, device-resident, 64 frames, iters [2, 2]: "
+               "global 8 x 7 (4 per rank) at 192 then 256, from the zoo student",
+        stages=stage_rows(s_steps, sprog, 7, 4),
+        reduce_ms_per_step=ranks[0]["student"]["reduce_ms"],
+        peak_gib_per_rank=[x["student"]["peak_gib"] for x in ranks],
+        global_batch_equals_one_process=True,
+        step_h2d_bytes=[x["student_step_h2d_bytes"] for x in ranks])
+    row["ranks_wall_s"] = ranks_wall
+
+    # (c) the real launcher over NCCL, one rank
+    nccl_yml, _ = fls_config(work, lq_dir, gt_dir, "dp_nccl", total=2, iters=[2, 2])
+    launcher = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node={n}",
+                "--master_addr=127.0.0.1", "--master_port={port}", "-m", f"{PORT}.cli",
+                "train", "-opt", "{yml}", "--launcher", "pytorch"]
+
+    def torchrun(n, yml, name):
+        argv = [a.replace("{n}", str(n)).replace("{yml}", yml) for a in launcher]
+        (text,), wall = dp_launch(argv, work, 0, name, env_extra={"LOGLEVEL": "INFO"})
+        exp = os.path.join(work, "experiments", os.path.basename(yml)[:-4])
+        assert os.path.isfile(os.path.join(exp, "training_states", "ckpt_2.pth")), text[-3000:]
+        assert os.path.isfile(os.path.join(exp, "metrics.jsonl")), text[-3000:]
+        for r in range(n):
+            assert f"multi-process: rank {r}/{n}, device cuda:{r}, backend nccl" in text, \
+                text[-3000:]
+        _, _, st = train_events(work, os.path.basename(yml)[:-4])
+        assert [e["iter"] for e in st] == [1, 2], st
+        return dict(call_s=wall, ms_per_step=[1e3 * e["iter_time"] for e in st],
+                    l_pix=[e["l_pix"] for e in st])
+
+    row["nccl_one_rank"] = torchrun(1, nccl_yml, "dp_nccl")
+    # (d) two NCCL ranks, one card each, where there are two
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        yml2, _ = fls_config(work, lq_dir, gt_dir, "dp_nccl2", total=2, iters=[2, 2])
+        row["nccl_two_ranks"] = torchrun(2, yml2, "dp_nccl2")
+    else:
+        row["nccl_two_ranks"] = (f"not run: {n_cards} card visible; two NCCL ranks need a "
+                                 "card each (NCCL refuses two ranks on one device)")
+    launches = read_counts(counts)
+    assert not any(launches.values()), launches  # training reaches no kernel
+    row["kernel_launches"] = dict(parent=launches, ranks=[x["launches"] for x in ranks])
+    row["phase_s"] = time.perf_counter() - t_phase
+    results["data_parallel"] = row
+    print(json.dumps({"data_parallel": row}), flush=True)
+    t = row["teacher"]
+    log("data parallel, teacher, 2 gloo ranks on one card: " + ", ".join(
+        f"{s['rows_per_rank']}x2@{s['patch']} {s['ms']:.1f} ms" for s in t["steps"])
+        + f"; gradient reduction ({t['reduce_mb']:.1f} MB) "
+        f"{np.median(t['reduce_ms_per_step']):.1f} ms a step; peak "
+        f"{t['peak_gib_per_rank']} GiB per rank; step vs one process at 12: {rel}, "
+        f"max weight rel {rel_p:.2e} [{card}]")
+    log("data parallel, student device-resident: " + ", ".join(
+        f"{s['batch']}x7@{s['patch']} per rank {np.median(s['ms_per_step']):.1f} ms a step"
+        for s in row["student"]["stages"]) + f"; step uploads {row['student']['step_h2d_bytes']} "
+        f"bytes; NCCL one rank through torchrun {row['nccl_one_rank']['call_s']:.1f} s; "
+        f"two NCCL ranks: {row['nccl_two_ranks'] if isinstance(row['nccl_two_ranks'], str) else 'ran'}"
+        f" [{card}]")
+    log(f"phase 13: {row['phase_s']:.1f} s")
+
+
 # ------------------------------------------------------------ main -------
 
 def main() -> int:
+    if len(sys.argv) == 3 and sys.argv[1] == "--dp-rank":  # a rank of phase 13
+        return dp_child(sys.argv[2])
     import torch
 
     if not torch.cuda.is_available():
@@ -2488,6 +2901,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="raie_device_") as work:
         phase_device_resident(results, card, work)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="raie_dp_") as work:
+        phase_data_parallel(results, card, work)
     results["path_launches"] = dict(whole_image=whole_launches, tiled=tiled_launches,
                                     group=group_launches, zoo_cli=zoo_launches,
                                     distill=distill_launches, **path_launches)

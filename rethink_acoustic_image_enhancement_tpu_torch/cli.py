@@ -1,6 +1,8 @@
 """Command-line entry points of the PyTorch/CUDA port.
 
-  raie-torch train -opt cfg.yml  config-driven training (auto-resume)
+  raie-torch train -opt cfg.yml  config-driven training (auto-resume;
+                                 --launcher pytorch under torchrun or SLURM
+                                 for data parallelism)
   raie-torch train-asdqe ...     ASDQE quality-scorer training
   raie-torch test -opt cfg.yml   config-driven offline evaluation
   raie-torch infer-teacher ...   KDLAE-T denoise (whole image, groups, tiles)
@@ -50,16 +52,44 @@ def _device(name: str):
         raise SystemExit(f"error: {exc} (--device cpu on the command line)") from None
 
 
+def _init_ranks(args) -> None:
+    """Join the process group before any device use (the reference's
+    --launcher pytorch|slurm -> init_dist handshake, train.py:57-67): the
+    flags win, else the launcher's env. A launcher asked for without its
+    env exits; nothing falls back to one process."""
+    from . import parallel
+
+    if args.launcher == "none" and not (args.coordinator or args.num_processes):
+        return
+    backend = "gloo" if args.device == "cpu" else None
+    if not parallel.init_distributed(args.coordinator, args.num_processes,
+                                     args.process_id, backend=backend) \
+            and args.num_processes != 1:
+        raise SystemExit(
+            f"error: --launcher {args.launcher}: no launcher env (torchrun's "
+            "RANK and WORLD_SIZE, or SLURM's SLURM_PROCID and SLURM_NTASKS "
+            "with MASTER_ADDR or a single-host SLURM_STEP_NODELIST) and no "
+            "--coordinator/--num-processes/--process-id")
+
+
 def _cmd_train(args) -> int:
+    from . import parallel
     from .train.config import parse
     from .train.loop import train_from_config
 
-    device = _device(args.device)
-    opt = parse(args.opt, is_train=True)
-    if args.stall_timeout:
-        opt["train"]["stall_timeout_s"] = args.stall_timeout
-    train_from_config(opt, device=device, max_iters=args.max_iters,
-                      profile_steps=args.profile_steps)
+    _init_ranks(args)
+    try:
+        device = _device(args.device)
+        opt = parse(args.opt, is_train=True)
+        if parallel.is_initialized():
+            print(f"multi-process: rank {parallel.rank()}/{parallel.world_size()}, "
+                  f"device {device}, backend {parallel.backend_name()}", flush=True)
+        if args.stall_timeout:
+            opt["train"]["stall_timeout_s"] = args.stall_timeout
+        train_from_config(opt, device=device, max_iters=args.max_iters,
+                          profile_steps=args.profile_steps)
+    finally:
+        parallel.shutdown()
     return 0
 
 
@@ -528,6 +558,16 @@ def main(argv=None) -> int:
     p.add_argument("--profile-steps", type=int, default=0,
                    help="trace N steady steps (3 iterations after the first) "
                         "into <log>/profile and log the device ms by kernel")
+    p.add_argument("--launcher", choices=["none", "env", "pytorch", "slurm"],
+                   default="none",
+                   help="data parallel across processes: 'env' (alias "
+                        "'pytorch') reads torchrun's or SLURM's env, 'slurm' "
+                        "is another alias of env (the reference's --launcher, "
+                        "train.py:60); one rank per card, cuda:LOCAL_RANK")
+    p.add_argument("--coordinator", default=None,
+                   help="rank 0's host:port (e.g. host0:29500)")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
     p.add_argument("--stall-timeout", type=float, default=0,
                    help="hard-exit (code 17) when no training iteration "
                         "completes for N seconds, for a supervisor to "

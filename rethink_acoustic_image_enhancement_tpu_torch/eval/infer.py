@@ -58,13 +58,12 @@ def _pad_reflect_np(x: np.ndarray, ph: int, pw: int, axes=(1, 2)) -> np.ndarray:
 
 
 def resolve_device(device: str | torch.device | None) -> torch.device:
-    """``None`` means the GPU, and raises where there is none."""
+    """``None`` means the GPU (in a process group, this rank's card:
+    ``parallel.local_device``), and raises where there is none."""
     if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device: the port runs on the GPU by default; "
-                "pass device='cpu' to run on the CPU")
-        return torch.device("cuda")
+        from ..parallel import local_device
+
+        return local_device()
     return torch.device(device)
 
 

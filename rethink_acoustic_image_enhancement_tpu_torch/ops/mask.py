@@ -46,18 +46,26 @@ def same_device(a: torch.device, b: torch.device) -> bool:
 
 
 def input_mask(img: torch.Tensor, rng: np.random.Generator | torch.Generator,
-               prob: float, value: float = 0.1) -> torch.Tensor:
+               prob: float, value: float = 0.1,
+               rows: tuple[int, int] | None = None) -> torch.Tensor:
     """Bernoulli-mask a tensor of any shape: P(drop) = clip(prob, 0, 1).
     The uniforms come from ``rng``: a numpy generator draws them on the host,
-    a ``torch.Generator`` on its own device, which must be the tensor's."""
+    a ``torch.Generator`` on its own device, which must be the tensor's.
+    ``rows`` (first, total): ``img`` holds rows [first, first + len(img))
+    of a batch of ``total``; the uniforms are drawn for that whole batch
+    and this rank's rows of them used, so that the ranks' masks together
+    are the one a single process draws."""
     prob = min(max(float(prob), 0.0), 1.0)
+    shape = tuple(img.shape) if rows is None else (rows[1], *img.shape[1:])
+    first = 0 if rows is None else rows[0]
     if isinstance(rng, torch.Generator):
         if not same_device(rng.device, img.device):
             raise ValueError(f"the generator is on {rng.device}, the tensor "
                              f"on {img.device}")
-        return mask_with_keep(img, uniform(img.shape, rng) >= prob, value)
-    u = torch.from_numpy(rng.random(tuple(img.shape), dtype=np.float32))
-    return mask_with_keep(img, (u >= prob).to(img.device), value)
+        u = uniform(shape, rng)[first:first + img.shape[0]]
+        return mask_with_keep(img, u >= prob, value)
+    u = rng.random(shape, dtype=np.float32)[first:first + img.shape[0]]
+    return mask_with_keep(img, (torch.from_numpy(u) >= prob).to(img.device), value)
 
 
 def prob_thresholds(prob: float) -> tuple[float, float]:

@@ -9,7 +9,9 @@ scheme, base_model.py:213-351).
     ``convert/weights.py::load_pth`` and the CLI's ``--weights`` read.
 
 Files are written to a temporary name and renamed, so a run cut during a
-save leaves the previous checkpoint whole. ``find_latest_checkpoint``
+save leaves the previous checkpoint whole. In a process group only rank 0
+writes, and every rank leaves a save together (a barrier); every rank
+restores the same file onto its own device. ``find_latest_checkpoint``
 scans for the highest iteration (train.py:171-192). ``load_pretrained``
 reads a reference-layout ``.pth`` (a port ``net_g_*.pth`` or a reference
 one) strictly, or merges it non-strictly (``strict_load_g: false``,
@@ -27,6 +29,7 @@ import torch
 from torch import nn
 
 from ..convert.weights import read_pth
+from ..parallel import barrier, is_master
 
 
 def _atomic_save(obj: Any, path: str) -> str:
@@ -41,6 +44,15 @@ def _host(sd: dict) -> dict:
     return {k: v.detach().cpu() for k, v in sd.items()}
 
 
+def _onto(device: torch.device):
+    """``torch.load``'s map_location for this rank: what was saved from any
+    card goes to ``device``; what was saved from the host (the parameters,
+    the optimizer's step counts) stays there."""
+    if device.type != "cuda":
+        return "cpu"
+    return {f"cuda:{i}": str(device) for i in range(torch.cuda.device_count())}
+
+
 def ckpt_path(root: str, step: int) -> str:
     return osp.join(root, f"ckpt_{step}.pth")
 
@@ -48,24 +60,29 @@ def ckpt_path(root: str, step: int) -> str:
 def save_checkpoint(root: str, step: int, state, epoch: int = 0,
                     loop: dict | None = None) -> str:
     """The full training state; ``loop`` holds the loop's position (epoch
-    batch, host generator states) for an exact resume."""
-    payload = {
-        "params": _host(state.model.state_dict()),
-        "opt_state": state.optimizer.state_dict(),
-        "step": int(state.step),
-        "epoch": int(epoch),
-        "loop": loop or {},
-    }
-    if state.ema is not None:
-        payload["params_ema"] = _host(state.ema.state_dict())
-    return _atomic_save(payload, ckpt_path(root, step))
+    batch, host generator states) for an exact resume. Written by rank 0;
+    every rank returns once it is on disk."""
+    path = ckpt_path(root, step)
+    if is_master():
+        payload = {
+            "params": _host(state.model.state_dict()),
+            "opt_state": state.optimizer.state_dict(),
+            "step": int(state.step),
+            "epoch": int(epoch),
+            "loop": loop or {},
+        }
+        if state.ema is not None:
+            payload["params_ema"] = _host(state.ema.state_dict())
+        _atomic_save(payload, path)
+    barrier()
+    return path
 
 
 def restore_checkpoint(root: str, step: int, state):
     """Load ``ckpt_{step}.pth`` into the live ``state`` (in place);
     returns (state, epoch, loop)."""
-    payload = torch.load(ckpt_path(root, step), map_location="cpu",
-                         weights_only=True)
+    payload = torch.load(ckpt_path(root, step), weights_only=True,
+                         map_location=_onto(next(state.model.parameters()).device))
     state.model.load_state_dict(payload["params"], strict=True)
     state.optimizer.load_state_dict(payload["opt_state"])
     if state.ema is not None:
@@ -77,11 +94,16 @@ def restore_checkpoint(root: str, step: int, state):
 def save_weights(root: str, step: int | str, model: nn.Module,
                  ema: nn.Module | None = None) -> str:
     """``net_g_{step}.pth`` in the reference layout; ``step`` may be a
-    label such as 'best'."""
-    payload = {"params": _host(model.state_dict())}
-    if ema is not None:
-        payload["params_ema"] = _host(ema.state_dict())
-    return _atomic_save(payload, osp.join(root, f"net_g_{step}.pth"))
+    label such as 'best'. Written by rank 0; every rank returns once it is
+    on disk."""
+    path = osp.join(root, f"net_g_{step}.pth")
+    if is_master():
+        payload = {"params": _host(model.state_dict())}
+        if ema is not None:
+            payload["params_ema"] = _host(ema.state_dict())
+        _atomic_save(payload, path)
+    barrier()
+    return path
 
 
 def find_latest_checkpoint(root: str) -> int | None:

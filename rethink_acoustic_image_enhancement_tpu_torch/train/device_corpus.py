@@ -24,8 +24,13 @@ them. Each sampler keeps its draws apart from their use:
 ``torch.Generator`` on the corpus's device, and ``apply(ids, draws)`` is a
 function of the corpus and those values alone (the tests feed it the values
 the JAX sampler draws from a key). Crops and flips are gathers over index
-grids, so no offset or mode crosses to the host. The JAX corpora's mesh
-placement waits for data parallelism (ROADMAP.md, Queue A, item 6).
+grids, so no offset or mode crosses to the host.
+
+With several ranks (the JAX corpora's mesh placement, ``_mesh_place`` and
+``_batch_out_shardings``: each device generates its shard of one global
+sample) every rank draws the global batch's values from the same generator
+and applies them to its own rows only: ``sample_batch(..., rows=slice)``.
+The ranks' rows, concatenated, are the batch one process samples.
 """
 
 from __future__ import annotations
@@ -161,10 +166,18 @@ class _Corpus:
     def set_epoch(self, epoch: int) -> None:
         del epoch
 
-    def sample_batch(self, gen: torch.Generator, ids, gt_size: int | None = None, **kw):
-        """``apply(ids, draw(gen, ids, gt_size))``."""
+    def sample_batch(self, gen: torch.Generator, ids, gt_size: int | None = None,
+                     rows: slice | None = None, **kw):
+        """``apply(ids, draw(gen, ids, gt_size))``; with ``rows``, the draw
+        is for all of ``ids`` and the apply for those rows only."""
         ids = self.ids(ids)
-        return self.apply(ids, self.draw(gen, ids, gt_size), **kw)
+        draws = self.draw(gen, ids, gt_size)
+        if rows is not None:
+            n = len(ids)
+            ids, draws = ids[rows], {k: v[rows] if isinstance(v, torch.Tensor)
+                                     and v.ndim and v.shape[0] == n else v
+                                     for k, v in draws.items()}
+        return self.apply(ids, draws, **kw)
 
 
 def _canvas(img: np.ndarray, th: int, tw: int) -> np.ndarray:

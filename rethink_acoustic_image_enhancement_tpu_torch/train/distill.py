@@ -11,7 +11,9 @@ originals. Two entry points:
   * ``make_online_target_fn``: the in-loop variant (``train.distill.online``):
     a frozen teacher turns a (B, F, H, W) grayscale stack into same-shape
     targets on the device. Gray frames go in as RGB and come back as the
-    mean of the clamped RGB output.
+    mean of the clamped RGB output. With several ranks each runs the
+    teacher on its own rows, on its own card; the loss then gathers the
+    targets with the predictions.
 """
 
 from __future__ import annotations

@@ -30,6 +30,17 @@ that a resumed run draws the same permutation.
 ``profile_steps`` N > 0 traces N steps, 3 iterations after the first, into
 ``<log>/profile`` (``utils/profiling.py``) and logs and records the device
 time by kernel.
+
+In a process group of N ranks (``parallel/``; ``raie-torch train
+--launcher``) each rank reads its stride of every epoch
+(``EnlargedShuffleSampler``'s rank and world size), cut per rank to the
+stage's mini-batch, and the step is the one-process step on the ranks'
+rows concatenated (``trainer.py``). A device-resident corpus hands every
+rank the same ``batch_size_per_gpu`` x N global ids from the shared
+permutation, the stage's batch being N times its mini-batch; each rank
+samples its own rows of that one global sample. Rank 0 alone validates,
+profiles, logs metrics and writes checkpoints and weights while the others
+wait; a resume restores the same checkpoint on every rank.
 """
 
 from __future__ import annotations
@@ -51,6 +62,8 @@ from ..losses import build_loss
 from ..metrics import get_metric
 from ..models import build_network
 from ..ops.layout import crop_to, pad_to_multiple
+from ..parallel import barrier, is_master, rank, world_size
+from ..parallel.collectives import agree, broadcast_module
 from ..utils.image_io import imwrite, to_ubyte
 from ..utils.logging import MessageLogger, get_logger
 from ..utils.profiling import aggregate_trace, trace
@@ -216,13 +229,15 @@ def _val_loader_factory(opt: dict, log) -> Callable | None:
 def train_from_config(opt: dict, device=None, max_iters: int | None = None,
                       profile_steps: int = 0) -> TrainState:
     """A whole training run; ``max_iters`` overrides total_iter. ``device``
-    None is the GPU, and raises where there is none. ``profile_steps`` > 0
-    traces that many steps (module docstring)."""
-    make_exp_dirs(opt)
+    None is the GPU (this rank's card in a process group), and raises where
+    there is none. ``profile_steps`` > 0 traces that many steps (module
+    docstring)."""
+    if is_master():
+        make_exp_dirs(opt)
     logger = get_logger("raie-torch")
     log_dir = opt["path"].get("log")
     handler = None
-    if log_dir:
+    if log_dir and is_master():
         handler = logging.FileHandler(
             os.path.join(log_dir, f"train_{int(time.time())}.log"))
         handler.setFormatter(logging.Formatter(
@@ -281,18 +296,20 @@ def _train(opt: dict, device, max_iters: int | None, log,
         log("online distillation: frozen teacher targets in the loop")
     ds_opt = opt["datasets"]["train"]
     bspg = int(ds_opt["batch_size_per_gpu"])
+    n_ranks, my_rank = world_size(), rank()
     corpus = loader = None
     if ds_opt.get("device_resident"):
         corpus = build_device_corpus(ds_opt, device)
         log(f"device-resident corpus: {corpus.describe()}, uploaded in "
             f"{corpus.upload_s:.3f} s")
-        n_items, n_batches = len(corpus), len(corpus) // bspg
+        n_items, n_batches = len(corpus), len(corpus) // (bspg * n_ranks)
     else:
         dataset = create_dataset(ds_opt)
         loader = BatchLoader(
             dataset, bspg,
             EnlargedShuffleSampler(len(dataset),
                                    ratio=ds_opt.get("dataset_enlarge_ratio", 1),
+                                   rank=my_rank, world_size=n_ranks,
                                    shuffle=ds_opt.get("use_shuffle", True),
                                    seed=seed),
             num_workers=ds_opt.get("num_worker_per_gpu", 4),
@@ -300,7 +317,7 @@ def _train(opt: dict, device, max_iters: int | None, log,
         n_items, n_batches = len(dataset), len(loader)
     if n_batches == 0:
         raise ValueError(f"the training set ({n_items} items) makes no "
-                         f"batch of {bspg}")
+                         f"batch of {bspg} on each of {n_ranks} rank(s)")
     prog = ProgressiveSchedule.from_dataset_opt(ds_opt)
 
     total_iters = int(max_iters or opt["train"]["total_iter"])
@@ -321,9 +338,11 @@ def _train(opt: dict, device, max_iters: int | None, log,
     restore_s = None
     if states_dir and opt["path"].get("resume_state", "auto") is not None:
         latest = find_latest_checkpoint(states_dir)
+        agree(-1 if latest is None else latest, device, "the checkpoint to resume")
         if latest is not None:
             t0 = time.perf_counter()
             state, epoch, pos = restore_checkpoint(states_dir, latest, state)
+            broadcast_module(state.model, state.ema)
             restore_s = time.perf_counter() - t0
             epoch_iter = int(pos.get("epoch_iter", 0))
             if "host_rng" in pos:
@@ -336,16 +355,18 @@ def _train(opt: dict, device, max_iters: int | None, log,
     remote = make_tracker(logger_cfg, opt.get("name", "raie"), config=opt)
     msg_logger = MessageLogger(
         total_iters, start_iter=state.step, log=log,
-        tb_log_dir=(os.path.join(log_dir, "tb") if log_dir
+        tb_log_dir=(os.path.join(log_dir, "tb") if log_dir and is_master()
                     and logger_cfg.get("use_tb_logger") else None),
-        jsonl_path=os.path.join(log_dir, "metrics.jsonl") if log_dir else None,
+        jsonl_path=(os.path.join(log_dir, "metrics.jsonl")
+                    if log_dir and is_master() else None),
         remote=remote)
     if restore_s is not None and msg_logger.jsonl is not None:
         msg_logger.jsonl.write("resume", state.step, {"seconds": restore_s})
     if corpus is not None and msg_logger.jsonl is not None:
         msg_logger.jsonl.write("corpus", state.step, {"upload_s": corpus.upload_s,
                                                       "mib": corpus.nbytes / 2 ** 20})
-    val_loader = (_val_loader_factory(opt, log) if val_freq else None)
+    val_loader = (_val_loader_factory(opt, log) if val_freq and is_master()
+                  else None)
     uploader = BatchUploader(device)
     prefetch_iter = [0]
 
@@ -412,9 +433,11 @@ def _train(opt: dict, device, max_iters: int | None, log,
         extra_prob, patch = 0.0, corpus.gt_size
         if prog is not None:
             mb, patch, mini_prob = prog.at(current_iter)
-            ids = ids[:min(mb, len(ids))]
+            ids = ids[:min(mb * n_ranks, len(ids))]
             extra_prob = max(mini_prob - prog.base_prob, 0.0)
-        lq, gt = corpus.sample_batch(gen, ids, gt_size=patch)
+        k = len(ids) // n_ranks  # this rank's rows of the global sample
+        rows = slice(my_rank * k, (my_rank + 1) * k) if n_ranks > 1 else None
+        lq, gt = corpus.sample_batch(gen, ids, gt_size=patch, rows=rows)
         return lq, gt, extra_prob, 0, gen
 
     def epoch_batches():
@@ -426,10 +449,12 @@ def _train(opt: dict, device, max_iters: int | None, log,
         corpus.set_epoch(epoch)
         epoch_state = host_rng.bit_generator.state
         perm = host_rng.permutation(len(corpus))  # in batches, the remainder dropped
-        starts = range(epoch_iter * bspg, len(perm) - bspg + 1, bspg)
-        return (perm[s:s + bspg] for s in starts), device_batch
+        chunk = bspg * n_ranks  # the global batch's ids, the same on every rank
+        starts = range(epoch_iter * chunk, len(perm) - chunk + 1, chunk)
+        return (perm[s:s + chunk] for s in starts), device_batch
 
-    profile_dir = os.path.join(log_dir, "profile") if profile_steps and log_dir else None
+    profile_dir = (os.path.join(log_dir, "profile")
+                   if profile_steps and log_dir and is_master() else None)
     profile_from = current_iter + PROFILE_AFTER
     profiling = contextlib.ExitStack()
 
@@ -472,13 +497,13 @@ def _train(opt: dict, device, max_iters: int | None, log,
                         last_saved = current_iter
                         log(f"saved checkpoint @ {current_iter}")
                         keep = int(logger_cfg.get("keep_checkpoints", 0) or 0)
-                        gone = keep and prune_checkpoints(states_dir, models_dir,
-                                                          keep)
+                        gone = keep and is_master() and prune_checkpoints(
+                            states_dir, models_dir, keep)
                         if gone:
                             log(f"rotated {len(gone)} old checkpoints")
                     if val_loader is not None and current_iter % val_freq == 0:
-                        # the reference validates the EMA net when there is
-                        # one (image_restoration_model.py:242-245)
+                        # rank 0 alone; the reference validates the EMA net
+                        # when there is one (image_restoration_model.py:242-245)
                         t0 = time.perf_counter()
                         scores = validate_model(state.ema or state.model,
                                                 val_loader(), opt)
@@ -496,6 +521,8 @@ def _train(opt: dict, device, max_iters: int | None, log,
                                            step=current_iter)
                             log(f"validation @ {current_iter}: " + ", ".join(
                                 f"{k}={v:.4f}" for k, v in scores.items()))
+                    if val_freq and current_iter % val_freq == 0:
+                        barrier()  # the other ranks wait for the validation
                         if watchdog is not None:  # validation is a legitimate gap
                             watchdog.beat()
                     if current_iter >= total_iters:

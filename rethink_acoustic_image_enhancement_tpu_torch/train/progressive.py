@@ -10,7 +10,9 @@ Each random function keeps its deterministic core apart from its draws:
 ``crop_at`` crops at given offsets, ``ops/mask.py::mask_with_keep`` masks by
 a given ``keep``; the draws come from an explicit numpy generator, and the
 extra mask of a device-resident batch from a ``torch.Generator`` on the
-device.
+device. With several ranks every rank holds the same generators: the crop
+offset is one for the whole batch, and the extra mask is drawn over the
+global batch, each rank keeping its rows.
 """
 
 from __future__ import annotations
@@ -100,15 +102,18 @@ def stage_crop(lq, gt, rng: np.random.Generator, gt_size: int,
 
 
 def stage_extra_mask(lq, rng: np.random.Generator | torch.Generator,
-                     extra_prob: float, value: float = 0.1):
+                     extra_prob: float, value: float = 0.1,
+                     rows: tuple[int, int] | None = None):
     """Extra Bernoulli masking where the stage's prob exceeds the base prob
     (train.py:431-448), on lq['img'] (or lq) only, every element drawn
     independently: on the host from a numpy generator, or on the device
     from a ``torch.Generator`` there (a device-resident batch's route, which
     uploads nothing); ``extra_prob <= 0`` leaves lq as it is and draws
-    nothing."""
+    nothing. ``rows`` (first, total) places a rank's rows in the global
+    batch: the draw is the global batch's, of which the rank keeps its
+    rows (``ops/mask.py::input_mask``)."""
     if extra_prob <= 0:
         return lq
     if isinstance(lq, dict):
-        return {**lq, "img": input_mask(lq["img"], rng, extra_prob, value)}
-    return input_mask(lq, rng, extra_prob, value)
+        return {**lq, "img": input_mask(lq["img"], rng, extra_prob, value, rows)}
+    return input_mask(lq, rng, extra_prob, value, rows)

@@ -20,6 +20,18 @@ One ``Trainer.step``:
     ``grad_norm`` over all of them, before clipping;
   * the EMA copy (base_model.py:54-62): ``ema * d + params * (1 - d)``.
 
+In a process group of N ranks (``parallel/``) each rank holds its rows of
+the global batch and the step is the one-process step on the concatenated
+batch, as the JAX package's step is one program over it: the crop offset
+is one for all ranks (every rank holds the same generators), the extra mask
+and mixup draw over the global batch (``progressive.py``, ``mixup.py``),
+the loss is taken over the gathered global batch (``losses/__init__.py``),
+and the gradients are summed over the ranks and divided by N
+(``parallel/collectives.py::reduce_gradients``) before the norm, the clip,
+AdamW and the EMA, which are then the same on every rank. ``init_state``
+broadcasts rank 0's model. The reduction follows the backward; it does not
+overlap it.
+
 A stage or block with ``fused=True`` is refused: on the GPU the stage and
 block kernels return tensors with no autograd graph, so the parameters
 upstream of them would get no gradient there while the CPU's plain version
@@ -36,10 +48,12 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..data.loader import tree_map
+from ..data.loader import leaves, tree_map
 from ..eval.infer import highest_precision, resolve_device
 from ..models.blocks import TransformerBlock
 from ..models.kdlae_teacher import TransformerStage
+from ..parallel import world_size
+from ..parallel.collectives import broadcast_module, local_rows, reduce_gradients
 from .mixup import mixing_augment
 from .progressive import stage_crop, stage_extra_mask
 from .schedules import Schedule, build_schedule
@@ -145,6 +159,7 @@ class Trainer:
 
     def init_state(self) -> TrainState:
         model = self.model.to(self.device).float().train()
+        broadcast_module(model)
         trainable = [p for n, p in model.named_parameters()
                      if self.optimizer.trainable(n)]
         ema = None
@@ -174,14 +189,19 @@ class Trainer:
         returns (state, metrics): 'l_pix' and 'grad_norm' as 0-d tensors
         on the device (no host sync), 'lr' as a float. ``gen``, a generator
         on the device, draws the extra mask there (a device-resident
-        batch's route); the other draws come from ``rng``."""
+        batch's route); the other draws come from ``rng``. With several
+        ranks, lq and gt are this rank's rows, as many on every rank, and
+        ``rng`` and ``gen`` are in the same state on every rank; the metrics
+        are the global batch's."""
+        rows = local_rows(leaves(lq)[0].shape[0]) if world_size() > 1 else None
         if self.gt_size and mini_gt_size and mini_gt_size < self.gt_size:
             lq, gt = stage_crop(lq, gt, rng, self.gt_size, mini_gt_size,
                                 scale=self.scale)
-        lq = stage_extra_mask(lq, rng if gen is None else gen, extra_prob)
+        lq = stage_extra_mask(lq, rng if gen is None else gen, extra_prob,
+                              rows=rows)
         if self.mixup:
             gt, lq = mixing_augment(rng, gt, lq, self.mixup_beta,
-                                    self.mixup_identity)
+                                    self.mixup_identity, rows=rows)
 
         model, opt = state.model, state.optimizer
         params = list(model.parameters())
@@ -189,6 +209,7 @@ class Trainer:
         with highest_precision():
             loss = self._forward_loss(model, lq, gt, rng)
             loss.backward()
+        reduce_gradients(params)
         grads = [torch.zeros_like(p) if p.grad is None else p.grad
                  for p in params]
         grad_norm = global_norm(grads)

@@ -6,7 +6,10 @@ under a hard timeout, so a card that does not answer yields a diagnosis
 ("wedged") instead of a hang. The child reports the device's name and count,
 the first-call and steady dispatch time of a small matmul with a sync, and
 the host -> device and device -> host rates of one pinned buffer.
-``--platform cpu`` probes the CPU instead of the GPU.
+``--platform cpu`` probes the CPU instead of the GPU. The host side also
+reports the data-parallel launch it sees: the world size and rank of the
+process group or of the launcher's env, and the backend (NCCL on cards,
+gloo on the CPU) that ``parallel.init_distributed`` would take.
 """
 
 from __future__ import annotations
@@ -129,8 +132,26 @@ def run_doctor(probe_timeout: float = 120.0, bandwidth_mb: float = 8.0,
                     report["host_rss_mb"] = int(line.split()[1]) // 1024
     except OSError:
         pass
+    report["distributed"] = distributed_report(platform)
     report["backend"] = _probe_backend(probe_timeout, bandwidth_mb, platform)
     return report
+
+
+def distributed_report(platform: str = "") -> dict:
+    """World size, rank and backend: the process group's where there is
+    one, else the launcher's env and the backend it would get."""
+    import torch
+
+    from .. import parallel
+
+    if parallel.is_initialized():
+        return {"world_size": parallel.world_size(), "rank": parallel.rank(),
+                "backend": parallel.backend_name(), "initialized": True}
+    env = parallel.detect_launch_env()
+    cpu = platform == "cpu" or not torch.cuda.is_available()
+    return {"world_size": env.get("num_processes", 1), "rank": env.get("process_id", 0),
+            "backend": "gloo" if cpu else "nccl", "initialized": False,
+            "coordinator": env.get("coordinator_address")}
 
 
 def format_report(report: dict) -> str:
@@ -139,6 +160,11 @@ def format_report(report: dict) -> str:
         f"cuda {report['cuda']}  host cpus {report['host_cpus']}"
         + (f"  rss {report['host_rss_mb']} MB" if "host_rss_mb" in report else ""),
     ]
+    d = report.get("distributed")
+    if d is not None:
+        lines.append(f"data parallel: world size {d['world_size']}, rank {d['rank']}, "
+                     f"backend {d['backend']}"
+                     + ("" if d["initialized"] else " (not initialised)"))
     b = report["backend"]
     if b["status"] == "ok":
         power = (f", power limit {b['power_limit_w']} W"

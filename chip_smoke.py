@@ -132,11 +132,32 @@ fp32 predictors' own pinning is what runs:
      --launcher pytorch` over NCCL: its checkpoint and metrics.jsonl; (d)
      two NCCL ranks where there are two cards, else a line saying why not.
      Training reaches no kernel: every count stays 0, the ranks' too.
+ 14. data-parallel serving (`devices=[...]`: every card, or two copies on
+     cuda:0 where there is one, a line saying why): (a) the phase-3 teacher
+     tiled as in phase 5 (256x256 tiles and full-width strips, 8 a call,
+     each chunk split over the copies), the stage-kernel count 3 a chunk a
+     copy and checked against the gate, uint8 within 1 level of the same
+     copies with the plain stage and of one device, each on >= 99% of
+     pixels, and zero-mask pixels 0; images/s beside one
+     device's, one chunk's wall ms and idle share (the union of the device
+     activity's intervals); (b) phase 6's 18 stacks through denoise_batch,
+     and 17 (the even split pads): within 1 level of one device on
+     >= 99.9%, frames/s, peak memory per device; (c) phase 7's 16 pairs
+     batch-1 through score_pairs and as (8, 512, 512, 3) batches: within
+     1e-4 of one device, pairs/s; (d) NIQE of 16 frames (host, s an
+     image), FID between two seeded sets of 16 frames in the zoo scorer's
+     feature space on the card against the CPU (features within 1e-4
+     relative, FID within 1e-3), and InceptionV3 pool3 through
+     make_inception_feature_fn from a saved .pth of seeded random weights
+     on 32 frames (512 resized to 299, fp32, TF32 off), images/s, 2 of them
+     within 1e-3 relative of the same function on the CPU.
 Each path runs with every launch count set to 0 just before it and read just
-after. Prints one JSON line per phase 6-13, a "kernels" JSON line, the card
+after. Prints one JSON line per phase 6-14, a "kernels" JSON line, the card
 line, and as its last line {"ok": true, "device": {...}}. Details go to
 chiprun_out/chip_smoke.json.
-`chip_smoke.py --dp-rank SPEC` is one rank of phase 13, not for use alone.
+`chip_smoke.py --dp-rank SPEC` is one rank of phase 13, not for use alone;
+`chip_smoke.py --phase 14` builds and runs phase 14 alone (its JSON line,
+no "kernels" or "ok" line).
 """
 
 from __future__ import annotations
@@ -2837,11 +2858,363 @@ def phase_data_parallel(results, card, work):
     log(f"phase 13: {row['phase_s']:.1f} s")
 
 
+# ------------------------------------------------------------ phase 14 ---
+
+STAGES_PER_CHUNK = 3  # the gate admits 3 of the flagship's stages at 256^2 tiles
+
+
+def serving_devices():
+    """(devices, why): every card, or two copies on cuda:0 where there is
+    one card, and the line that says so."""
+    import torch
+
+    n = torch.cuda.device_count()
+    if n >= 2:
+        return [f"cuda:{i}" for i in range(n)], f"{n} cards: one copy on each"
+    return ["cuda:0", "cuda:0"], ("one card visible: two copies share cuda:0 (scaling "
+                                  "across cards is not measured)")
+
+
+def sync_all(devices):
+    import torch
+
+    for d in sorted(set(devices)):
+        torch.cuda.synchronize(d)
+
+
+def device_busy(prof):
+    """(summed ms, busy ms) of every device activity in a profile: the sum
+    of the kernels' and copies' times, and the union of their intervals
+    (where streams overlap on a card the sum outgrows the wall); (None,
+    None) where the profile holds none."""
+    import torch
+
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not spans:
+        return None, None
+    union, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
+    for s_, e_ in spans[1:]:
+        if s_ > cur_e:
+            union += cur_e - cur_s
+            cur_s, cur_e = s_, e_
+        else:
+            cur_e = max(cur_e, e_)
+    union += cur_e - cur_s
+    return sum(e_ - s_ for s_, e_ in spans) / 1e3, union / 1e3
+
+
+def phase_dp_teacher(row, card, devices):
+    """(a) the phase-3 flagship teacher (bf16, fused) tiled on every copy,
+    against the same copies with the plain stage and against one device;
+    returns the counted stage-kernel calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from rethink_acoustic_image_enhancement_tpu_torch.eval.infer import TeacherPredictor
+    from rethink_acoustic_image_enhancement_tpu_torch.models import (
+        TransformerStage,
+        flagship_teacher,
+        init_weights_,
+        kdlae_teacher,
+    )
+    from rethink_acoustic_image_enhancement_tpu_torch.ops import stage as pstage
+    from rethink_acoustic_image_enhancement_tpu_torch.ops import stage_gate
+
+    model = init_weights_(flagship_teacher(static="train"),
+                          torch.Generator().manual_seed(0)).to(torch.bfloat16)
+    one = TeacherPredictor(model, fused=True, dtype=torch.bfloat16)
+    dp = TeacherPredictor(model, fused=True, dtype=torch.bfloat16, devices=devices)
+    del model
+    n_copies = len(dp.models)
+    imgs = [sonar_frame(512, 512, 5), sonar_frame(512, 512, 6), sonar_frame(500, 380, 7)]
+    seen = []  # the hooks fire on every copy
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, args: seen.append((mod, tuple(args[0].shape))) or None)
+        for model in dp.models for m in model.modules() if isinstance(m, TransformerStage)]
+    modes = [dict(tile=256, halo=0, tile_batch=8),
+             dict(tile=(256, 512), halo=(8, 0), tile_batch=8)]
+    rows, total = [], 0
+    for kw in modes:
+        one.denoise_tiled(imgs, 0.8, **kw)  # warm-ups: cuDNN plans at these batches
+        dp.denoise_tiled(imgs, 0.8, **kw)
+        sync_all(devices)
+        t0 = time.perf_counter()
+        refs = one.denoise_tiled(imgs, 0.8, **kw)
+        torch.cuda.synchronize()
+        one_s = time.perf_counter() - t0
+        seen.clear()
+        counts = reset_counts()
+        t0 = time.perf_counter()
+        outs = dp.denoise_tiled(imgs, 0.8, **kw)
+        sync_all(devices)
+        dp_s = time.perf_counter() - t0
+        launches = read_counts(counts)["stage"]
+        admitted = [(m, shp) for m, shp in seen if stage_gate.stage_worthwhile(
+            shp[0], shp[2], shp[3], m.dim, m.num_heads, m.bias_free_ln, m.use_bias,
+            m.ffn_expansion_factor)]
+        chunks = sum(1 for m, _ in seen if m is dp.model.encoder_level1)
+        per_copy = kw["tile_batch"] // n_copies
+        assert launches == len(admitted) == STAGES_PER_CHUNK * chunks * n_copies > 0, (
+            launches, len(admitted), chunks)
+        assert all(shp[0] == per_copy for _, shp in admitted), sorted({s for _, s in admitted})
+
+        # the same copies at the same batch with the plain stage
+        fused_stage = kdlae_teacher.fused_transformer_stage
+        kdlae_teacher.fused_transformer_stage = pstage.stage_plain
+        try:
+            plains = dp.denoise_tiled(imgs, 0.8, **kw)
+        finally:
+            kdlae_teacher.fused_transformer_stage = fused_stage
+        agree = []
+        for img, out, plain, ref in zip(imgs, outs, plains, refs):
+            h, w = img.shape[:2]
+            mask = np.all(img == 0, axis=-1)
+            for key, s in (("hq", 1), ("sr", 2)):
+                o = out[key]
+                assert o.dtype == np.uint8 and o.shape == (h * s, w * s, 3), (key, o.shape)
+                assert not o[np.repeat(np.repeat(mask, s, 0), s, 1)].any(), \
+                    f"{key}: zero-mask pixels not 0"
+                frac_plain, worst_plain = within_levels(o, plain[key])
+                frac, worst = within_levels(o, ref[key])
+                agree.append(dict(shape=[h, w], key=key, within_1_level_of_plain=frac_plain,
+                                  max_levels_from_plain=worst_plain, within_1_level=frac,
+                                  max_levels=worst))
+                assert frac_plain >= 0.99, \
+                    f"{key}: only {frac_plain:.4f} of pixels within 1 level of the plain stage"
+                assert frac >= 0.99, f"{key}: only {frac:.4f} of pixels within 1 level"
+
+        # one call that is one chunk of 8 tiles: wall, device busy, idle share
+        t_h, t_w = (kw["tile"],) * 2 if isinstance(kw["tile"], int) else kw["tile"]
+        one_chunk = [sonar_frame(512, 512, 20 + i) for i in range(8 * t_h * t_w // (512 * 512))]
+        walls = {}
+        for name, pred in (("one_device", one), ("copies", dp)):
+            t0 = time.perf_counter()
+            pred.denoise_tiled(one_chunk, 0.8, **kw)
+            sync_all(devices)
+            walls[name] = (time.perf_counter() - t0) * 1e3
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            dp.denoise_tiled(one_chunk, 0.8, **kw)
+            sync_all(devices)
+        summed_ms, busy_ms = device_busy(prof)
+        mode = dict(kw, images=len(imgs), chunks=chunks, copies=n_copies,
+                    tiles_per_copy_call=per_copy, stage_calls=launches,
+                    gate_predicted=len(admitted), wall_s=dp_s, one_device_wall_s=one_s,
+                    images_per_s=len(imgs) / dp_s, one_device_images_per_s=len(imgs) / one_s,
+                    chunk_wall_ms=walls["copies"], one_device_chunk_wall_ms=walls["one_device"],
+                    chunk_device_summed_ms=summed_ms, chunk_device_busy_ms=busy_ms,
+                    chunk_idle_share=None if busy_ms is None else 1 - busy_ms / walls["copies"],
+                    agreement=agree)
+        rows.append(mode)
+        total += launches
+        log(f"data-parallel tiled {kw} on {devices}: {mode['images_per_s']:.2f} images/s "
+            f"(one device {mode['one_device_images_per_s']:.2f}); {chunks} chunks, {launches} "
+            f"stage calls ({STAGES_PER_CHUNK} a chunk a copy, gate {len(admitted)}); one "
+            f"chunk: wall "
+            f"{walls['copies']:.2f} ms (one device {walls['one_device']:.2f}), device busy "
+            + ("not measured (the profile saw no device activity)" if busy_ms is None else
+               f"{busy_ms:.2f} ms of {summed_ms:.2f} summed (idle share "
+               f"{mode['chunk_idle_share']:.3f})") + "; within 1 level of the plain stage: "
+            f"{min(a['within_1_level_of_plain'] for a in agree):.4f}, of one device: "
+            f"{min(a['within_1_level'] for a in agree):.4f} [{card}]")
+    for h in hooks:
+        h.remove()
+    row["teacher_tiled"] = rows
+    return total
+
+
+def phase_dp_student(row, card, devices):
+    """(b) phase 6's stacks through denoise_batch on every copy, at 18 and
+    at 17 (the even split pads), against one device."""
+    import copy
+
+    import torch
+
+    from rethink_acoustic_image_enhancement_tpu_torch.eval.infer import StudentPredictor
+    from rethink_acoustic_image_enhancement_tpu_torch.models import KDLAEStudent
+
+    torch.manual_seed(0)
+    model = KDLAEStudent(residual=True, hidden_channels=(16, 32, 64))
+    one = StudentPredictor(copy.deepcopy(model))
+    dp = StudentPredictor(model, devices=devices)
+    stacks = sonar_stacks(18, 7, 512, 512, seed=30)
+    rows = []
+    for b in (18, 17):
+        x = stacks[:b]
+        one.denoise_batch(x)  # warm-ups: cuDNN plans at these shapes
+        dp.denoise_batch(x)
+        sync_all(devices)
+        for d in sorted(set(devices)):
+            torch.cuda.reset_peak_memory_stats(d)
+        t0 = time.perf_counter()
+        out = dp.denoise_batch(x)
+        dp_s = time.perf_counter() - t0
+        peaks = {d: torch.cuda.max_memory_allocated(d) / 2**30 for d in sorted(set(devices))}
+        t0 = time.perf_counter()
+        ref = one.denoise_batch(x)
+        one_s = time.perf_counter() - t0
+        assert out.shape == x.shape and out.dtype == np.uint8, (out.shape, out.dtype)
+        share, worst = within_levels(out, ref)
+        frames = x.shape[0] * x.shape[1]
+        rows.append(dict(batch=b, frames_per_s=frames / dp_s,
+                         one_device_frames_per_s=frames / one_s, peak_gib=peaks,
+                         within_1_level=share, max_levels=worst))
+        log(f"data-parallel student {b}x7x512x512 on {devices}: {frames / dp_s:.1f} frames/s "
+            f"(one device {frames / one_s:.1f}), peak {peaks} GiB; within 1 level of one "
+            f"device {share:.5f}, max {worst} [{card}]")
+        assert share >= 0.999, f"student batch {b}: {share} within 1 level of one device"
+    row["student"] = rows
+
+
+def phase_dp_scorer(row, card, devices):
+    """(c) phase 7's pairs batch-1 through score_pairs and as batches of 8
+    on every copy, against one device."""
+    import torch
+
+    from rethink_acoustic_image_enhancement_tpu_torch.eval.asdqe_eval import score_pairs
+    from rethink_acoustic_image_enhancement_tpu_torch.eval.infer import ASDQEScorer
+
+    one = ASDQEScorer(seeded_scorer_model(7))
+    dp = ASDQEScorer(seeded_scorer_model(7), devices=devices)
+    rng = np.random.default_rng(40)
+    pairs = []
+    for i in range(16):
+        lq = sonar_frame(512, 512, 40 + i)
+        noise = rng.integers(-30, 31, size=lq.shape)
+        pairs.append((lq, np.clip(lq.astype(np.int16) // 2 + noise, 0, 255).astype(np.uint8)))
+    lq8 = [np.stack([p[0] for p in pairs[k:k + 8]]) for k in (0, 8)]
+    gt8 = [np.stack([p[1] for p in pairs[k:k + 8]]) for k in (0, 8)]
+    scores, secs = {}, {}
+    for name, scorer in (("one_device", one), ("copies", dp)):
+        score_pairs(scorer, pairs[:2])  # warm-ups, batch 1 and batch 8
+        scorer(lq8[0], gt8[0])
+        sync_all(devices)
+        t0 = time.perf_counter()
+        scores[name, 1] = score_pairs(scorer, pairs)
+        secs[name, 1] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        scores[name, 8] = np.concatenate([scorer(a, b) for a, b in zip(lq8, gt8)])
+        secs[name, 8] = time.perf_counter() - t0
+    got1, got8 = scores["copies", 1], scores["copies", 8]
+    err = max(float(np.abs(got1 - scores["one_device", 1]).max()),
+              float(np.abs(got8 - scores["one_device", 8]).max()))
+    row["scorer"] = dict(pairs=16, max_abs_vs_one_device=err, **{
+        f"{'' if name == 'copies' else 'one_device_'}batch{b}_pairs_per_s": 16 / sec
+        for (name, b), sec in secs.items()})
+    log(f"data-parallel scorer on {devices}: batch-1 {16 / secs['copies', 1]:.1f} pairs/s "
+        f"(one device {16 / secs['one_device', 1]:.1f}), batch 8 {16 / secs['copies', 8]:.1f} "
+        f"(one device {16 / secs['one_device', 8]:.1f}); scores within {err:.2e} of one "
+        f"device [{card}]")
+    assert np.isfinite(got8).all() and got1.shape == got8.shape == (16,)
+    assert err <= 1e-4, f"scores {err} from one device"
+    torch.cuda.empty_cache()
+
+
+def phase_metrics(row, card):
+    """(d) NIQE on the host; FID in the zoo scorer's feature space on the
+    card against the CPU; InceptionV3 pool3 from a saved .pth of seeded
+    random weights through ``make_inception_feature_fn``, on the card
+    against the CPU."""
+    import torch
+
+    from rethink_acoustic_image_enhancement_tpu_torch.metrics import fid, inception
+    from rethink_acoustic_image_enhancement_tpu_torch.metrics.niqe import calculate_niqe
+
+    frames = [sonar_frame(512, 512, 300 + i) for i in range(16)]
+    t0 = time.perf_counter()
+    niqe = [calculate_niqe(f) for f in frames]
+    niqe_s = (time.perf_counter() - t0) / len(frames)
+    assert all(np.isfinite(v) and v > 0 for v in niqe), niqe
+
+    set_a = np.stack([sonar_frame(512, 512, 400 + i) for i in range(16)]).astype(np.float32) / 255
+    set_b = np.stack([sonar_frame(512, 512, 500 + i) // 2 + 40 for i in range(16)]
+                     ).astype(np.float32) / 255
+
+    def batches(x, n):
+        return [x[i:i + n] for i in range(0, len(x), n)]
+
+    card_fn = fid.make_asdqe_feature_fn()
+    assert card_fn.feature_space.startswith("asdqe-trained("), card_fn.feature_space
+    card_fn(set_a[:2])  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fa, fb = (fid.extract_features(batches(x, 8), card_fn) for x in (set_a, set_b))
+    feat_s = time.perf_counter() - t0
+    cpu_fn = fid.make_asdqe_feature_fn(device="cpu")
+    ca, cb = (fid.extract_features(batches(x, 4), cpu_fn) for x in (set_a, set_b))
+    feat_rel = max(float(np.abs(f - c).max() / np.abs(c).max())
+                   for f, c in ((fa, ca), (fb, cb)))
+    fid_card = fid.fid_between_feature_sets(fa, fb)
+    fid_cpu = fid.fid_between_feature_sets(ca, cb)
+    fid_rel = abs(fid_card - fid_cpu) / abs(fid_cpu)
+
+    # a user's .pth (seeded random weights) through the entry point, on the
+    # card and on the CPU
+    model = inception.init_weights_(inception.InceptionV3(), torch.Generator().manual_seed(0))
+    with tempfile.TemporaryDirectory(prefix="raie_inception_") as tmp:
+        path = os.path.join(tmp, "inception.pth")
+        torch.save(model.state_dict(), path)
+        card_inc = inception.make_inception_feature_fn(path)
+        cpu_inc = inception.make_inception_feature_fn(path, device="cpu")
+    del model
+    assert card_inc.feature_space == f"inception-pool3(fid:{path})", card_inc.feature_space
+    frames32 = np.stack([sonar_frame(512, 512, 600 + i) for i in range(32)]).astype(np.float32) / 255
+    card_inc(frames32[:8])  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    feats = card_inc(frames32)
+    inc_s = time.perf_counter() - t0
+    cpu = cpu_inc(frames32[:2])
+    inc_rel = float(np.abs(feats[:2] - cpu).max() / np.abs(cpu).max())
+    row["metrics"] = dict(
+        niqe_s_per_image=niqe_s, niqe_range=[float(min(niqe)), float(max(niqe))],
+        fid_feature_space=card_fn.feature_space, fid_features_per_s=32 / feat_s,
+        fid_card=fid_card, fid_cpu=fid_cpu, fid_rel_err=fid_rel, fid_feature_rel_err=feat_rel,
+        inception_images_per_s=32 / inc_s, inception_rel_err=inc_rel,
+        inception_feature_absmax=float(np.abs(feats).max()))
+    log(f"metrics: NIQE {niqe_s * 1e3:.1f} ms an image (host), values "
+        f"{row['metrics']['niqe_range']}; FID (zoo ASDQE space) {fid_card:.6f} on the card, "
+        f"{fid_cpu:.6f} on the CPU (rel {fid_rel:.2e}; features rel {feat_rel:.2e}), "
+        f"{32 / feat_s:.1f} features/s; InceptionV3 pool3 {32 / inc_s:.1f} images/s at "
+        f"512->299, rel {inc_rel:.2e} of the CPU [{card}]")
+    assert feat_rel <= 1e-4, f"ASDQE features {feat_rel} from the CPU's"
+    assert fid_rel <= 1e-3, f"FID {fid_card} against {fid_cpu} on the CPU"
+    assert np.isfinite(feats).all() and feats.shape == (32, 2048)
+    assert inc_rel <= 1e-3, f"pool3 features {inc_rel} from the CPU's"
+
+
+def phase_dp_serving(results, card):
+    """Phase 14: data-parallel serving on a list of devices, and the
+    metrics; returns the stage-kernel calls of the copies' tiled runs."""
+    import torch
+
+    t0 = time.perf_counter()
+    devices, why = serving_devices()
+    log(f"phase 14 devices {devices}: {why}")
+    row = dict(card=card, devices=devices, why=why)
+    launches = phase_dp_teacher(row, card, devices)
+    torch.cuda.empty_cache()
+    phase_dp_student(row, card, devices)
+    torch.cuda.empty_cache()
+    phase_dp_scorer(row, card, devices)
+    phase_metrics(row, card)
+    row["stage_launches"] = launches
+    row["phase_s"] = time.perf_counter() - t0
+    results["dp_serving"] = row
+    print(json.dumps({"dp_serving": row}), flush=True)
+    log(f"phase 14: {row['phase_s']:.1f} s")
+    return launches
+
+
 # ------------------------------------------------------------ main -------
 
 def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--dp-rank":  # a rank of phase 13
         return dp_child(sys.argv[2])
+    only_14 = sys.argv[1:] == ["--phase", "14"]  # phase 14 alone, after the build
+    if sys.argv[1:] and not only_14:
+        print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
+        return 2
     import torch
 
     if not torch.cuda.is_available():
@@ -2876,6 +3249,10 @@ def main() -> int:
 
     results = {"card": card, "torch": torch.__version__,
                "cuda": torch.version.cuda, "build_s": build_s}
+    if only_14:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32_defaults
+        phase_dp_serving(results, card)
+        return 0
     stage_rows = phase_kernels(results, card)
     ln_rows = phase_layernorm_kernel(results, card)
     gdfn_rows = phase_gdfn_kernel(results, card)
@@ -2904,9 +3281,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="raie_dp_") as work:
         phase_data_parallel(results, card, work)
+    torch.cuda.empty_cache()
+    dp_launches = phase_dp_serving(results, card)
     results["path_launches"] = dict(whole_image=whole_launches, tiled=tiled_launches,
                                     group=group_launches, zoo_cli=zoo_launches,
-                                    distill=distill_launches, **path_launches)
+                                    distill=distill_launches, dp_serving=dp_launches,
+                                    **path_launches)
 
     def entry(name, source, replaces, launches, rows, main_row):
         assert launches > 0, f"{name}: no launch on a driven path"
@@ -2923,7 +3303,7 @@ def main() -> int:
     kernels = {"kernels": [
         entry("fused_transformer_stage", "stage.cu", "stage.py:324",
               whole_launches + tiled_launches + group_launches + zoo_launches
-              + distill_launches,
+              + distill_launches + dp_launches,
               stage_rows, stage_rows[0]),
         entry("fused_channel_layernorm", "layernorm.cu", "layernorm.py:58",
               path_launches["layernorm"], ln_rows, ln_rows[1]),

@@ -392,7 +392,7 @@ DATASETS = {
 }
 
 # dataset types of the JAX package still to be ported -> their ROADMAP.md item
-_REMAINING = "Queue A: NIQE, FID and the remaining datasets"
+_REMAINING = "Queue A: the remaining datasets"
 NOT_PORTED = {
     "Dataset_GaussianDenoising": _REMAINING,
     "Dataset_SingleImage": _REMAINING,

@@ -2,7 +2,7 @@
 every image's bytes through one ``get(filepath, key) -> bytes`` interface.
 
 The disk backend is ported. LMDB shards and memcached are still to be
-ported (ROADMAP.md, Queue A: NIQE, FID and the remaining datasets):
+ported (ROADMAP.md, Queue A: the remaining datasets):
 asking for them raises.
 """
 
@@ -29,8 +29,7 @@ class FileClient:
         if backend in _NOT_PORTED:
             raise NotImplementedError(
                 f"the {backend} backend is not ported yet (ROADMAP.md, Queue "
-                "A: NIQE, FID and the remaining datasets); use io_backend: "
-                "{type: disk}")
+                "A: the remaining datasets); use io_backend: {type: disk}")
         if backend not in self._backends:
             raise ValueError(f"backend {backend!r} not supported; choose from "
                              f"{sorted(self._backends)}")

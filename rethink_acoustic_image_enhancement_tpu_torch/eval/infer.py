@@ -26,13 +26,31 @@ bfloat16. Every forward that computes in float32 runs with TF32 off
 
 Runs on ``cuda`` unless the caller asks for another device; with no GPU
 and no device named it raises rather than fall back to the CPU.
+
+Data-parallel serving (the JAX predictors' ``mesh`` with a ``data`` axis):
+``devices=[...]`` in place of ``device`` puts one copy of the model, with
+its own transfer streams, on each entry (an entry may repeat: two copies
+can share a card). The batch paths split their batch into one contiguous
+part per copy (padded to an even split by repeating the last item, the
+padding sliced off): ``TeacherPredictor.denoise_tiled`` (each chunk's
+tiles; ``tile_batch`` must divide), ``StudentPredictor.denoise_batch`` and
+``ASDQEScorer.upload`` / ``dispatch`` / ``__call__``. The calling thread
+enqueues every copy's part in turn, each with its copy's device current, on
+that device's current stream, and waits for none of them before the last
+is enqueued (the scorer's scores are gathered onto ``devices[0]`` without a
+host sync), so that copies on several cards run at once. Everything else (the teacher's
+``__call__`` and ``denoise_group``) runs ``devices[0]``'s copy. A part's
+batch is smaller than the whole, so outputs may differ from one device by
+rounding (uint8 within 1 level), as in the JAX package.
 """
 
 from __future__ import annotations
 
 import contextlib
 import copy
+import threading
 from concurrent.futures import ThreadPoolExecutor
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -67,21 +85,37 @@ def resolve_device(device: str | torch.device | None) -> torch.device:
     return torch.device(device)
 
 
+class _Precision:
+    """The process-wide TF32 flags held off while any thread is inside
+    ``highest_precision`` (entries counted under a lock)."""
+    lock = threading.Lock()
+    depth = 0
+    saved: tuple[bool, bool] = (True, True)
+
+
 @contextlib.contextmanager
 def highest_precision():
     """Full float32 products inside: TF32 off for cuDNN convolutions and
-    cuBLAS matmuls, both flags restored on exit, exceptions included (the
-    counterpart of ``jax.default_matmul_precision("highest")``; PyTorch
-    allows TF32 in cuDNN by default)."""
-    conv = torch.backends.cudnn.allow_tf32
-    matmul = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    cuBLAS matmuls, both flags restored when the last thread inside leaves,
+    exceptions included (the counterpart of
+    ``jax.default_matmul_precision("highest")``; PyTorch allows TF32 in
+    cuDNN by default). The flags are process-wide, so threads that serve
+    at once share one entry rather than restore them under each other."""
+    with _Precision.lock:
+        if _Precision.depth == 0:
+            _Precision.saved = (torch.backends.cudnn.allow_tf32,
+                                torch.backends.cuda.matmul.allow_tf32)
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+        _Precision.depth += 1
     try:
         yield
     finally:
-        torch.backends.cudnn.allow_tf32 = conv
-        torch.backends.cuda.matmul.allow_tf32 = matmul
+        with _Precision.lock:
+            _Precision.depth -= 1
+            if _Precision.depth == 0:
+                (torch.backends.cudnn.allow_tf32,
+                 torch.backends.cuda.matmul.allow_tf32) = _Precision.saved
 
 
 def _to_ubyte_device(x: torch.Tensor) -> torch.Tensor:
@@ -140,6 +174,53 @@ class Transfers:
 _MAX_IN_FLIGHT = 16  # tile chunks dispatched before the oldest is fetched
 
 
+def _serving_devices(device, devices) -> list[torch.device] | None:
+    """``devices`` as a list of devices (None without it); ``device`` beside
+    it, or an empty list, raises."""
+    if devices is None:
+        return None
+    if device is not None:
+        raise ValueError(f"pass device= or devices=, not both (device={device}, "
+                         f"devices={list(devices)})")
+    devices = [torch.device(d) for d in devices]
+    if not devices:
+        raise ValueError("devices= needs at least one device")
+    return devices
+
+
+class _Copy(NamedTuple):
+    """One data-parallel copy: its model on its device and its transfer
+    streams."""
+    model: nn.Module
+    device: torch.device
+    transfers: Transfers
+
+    def context(self):
+        """The copy's device current (nothing on the CPU)."""
+        if self.device.type == "cuda":
+            return torch.cuda.device(self.device)
+        return contextlib.nullcontext()
+
+
+def _make_copies(model: nn.Module, devices: list[torch.device] | None,
+                 transfers: Transfers | None = None) -> list[_Copy] | None:
+    """``devices``' copies: ``model`` (already on ``devices[0]``) with
+    ``transfers`` (new ones if None) first, then an ``_own_copy`` of it on
+    each other entry; None without ``devices``."""
+    if devices is None:
+        return None
+    return [_Copy(model, devices[0], transfers or Transfers(devices[0]))] + [
+        _Copy(_own_copy(model, d), d, Transfers(d)) for d in devices[1:]]
+
+
+def _even_split(x: np.ndarray, n: int) -> list[np.ndarray]:
+    """``x`` padded along axis 0 to a multiple of ``n`` by repeating its
+    last item, cut into ``n`` equal contiguous parts."""
+    if len(x) % n:
+        x = np.concatenate([x, np.repeat(x[-1:], n - len(x) % n, axis=0)])
+    return np.split(x, n)
+
+
 class TeacherPredictor:
     """KDLAE-T denoiser with the notebook's pre/postprocessing.
 
@@ -149,18 +230,20 @@ class TeacherPredictor:
     pixel-(un)shuffle into their convs. ``shape_bucket`` rounds padded
     sizes up to a coarser grid (MDTA statistics are global over the padded
     pixels, so bucketed outputs deviate slightly from multiple-of-8
-    padding)."""
+    padding). ``devices`` serves tiles data-parallel (module docstring)."""
 
     def __init__(self, model: KDLAETeacher | None = None, multiple_of: int = 8,
                  shape_bucket: int | None = None,
                  dtype: torch.dtype = torch.float32, fused: bool = False,
                  fused_resample: bool = False,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None,
+                 devices: Sequence[str | torch.device] | None = None):
         if shape_bucket and shape_bucket % multiple_of:
             raise ValueError(
                 f"shape_bucket={shape_bucket} must be a multiple of "
                 f"multiple_of={multiple_of}")
-        self.device = resolve_device(device)
+        devices = _serving_devices(device, devices)
+        self.device = devices[0] if devices else resolve_device(device)
         if model is None:
             model = KDLAETeacher(layernorm_type="BiasFree", static="train",
                                  params="cat")
@@ -174,16 +257,24 @@ class TeacherPredictor:
         self.shape_bucket = shape_bucket
         self.dtype = dtype
         self._transfers = Transfers(self.device)
+        self._copies = _make_copies(self.model, devices, self._transfers)
+
+    @property
+    def models(self) -> list[nn.Module]:
+        """The model of each copy (``[self.model]`` without ``devices``)."""
+        return [self.model] if self._copies is None else [cp.model for cp in self._copies]
 
     def _forward(self, x: np.ndarray, denoise_rate: float):
         img = torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
         return self._forward_device(img, denoise_rate)
 
     @torch.inference_mode()
-    def _forward_device(self, img: torch.Tensor, rate: float | torch.Tensor):
+    def _forward_device(self, img: torch.Tensor, rate: float | torch.Tensor,
+                        model: nn.Module | None = None):
         """(B, H, W, 3) uint8 or float on the device, and the denoise rate
         (a float, or a 0-d tensor of the serving dtype on the device) ->
-        uint8 NHWC 'hq' and 'sr' (or None) on the device."""
+        uint8 NHWC 'hq' and 'sr' (or None) on the device, through ``model``
+        (a copy on img's device; ``self.model`` by default)."""
         if img.dtype == torch.uint8:
             # divide in float32 first, then cast: the model input equals
             # the host reader's float values in every serving dtype
@@ -192,11 +283,12 @@ class TeacherPredictor:
             img = img.to(self.dtype)
         img = img.permute(0, 3, 1, 2)
         if not isinstance(rate, torch.Tensor):
-            rate = torch.full((), rate, dtype=self.dtype, device=self.device)
+            rate = torch.full((), rate, dtype=self.dtype, device=img.device)
         plane = rate.reshape(1, 1, 1, 1).expand(img.shape[0], 1, img.shape[2],
                                                img.shape[3])
         with highest_precision() if self._fp32 else contextlib.nullcontext():
-            out = self.model({"img": img, "denoise_rate": plane})
+            out = (self.model if model is None else model)(
+                {"img": img, "denoise_rate": plane})
         hq = _to_ubyte_device(out["hq"]).permute(0, 2, 3, 1)
         sr = (None if out["sr"] is None
               else _to_ubyte_device(out["sr"]).permute(0, 2, 3, 1))
@@ -232,9 +324,13 @@ class TeacherPredictor:
         and group k-1 is fetched and post-processed. With ``shape_bucket``
         images whose bucketed padded size matches group together (each
         cropped back to its own size); other mixed shapes are served per
-        image, and so is a tail shorter than a group."""
+        image, and so is a tail shorter than a group. With ``devices`` every
+        image goes through ``__call__`` (as the JAX package serves a mesh per
+        image)."""
         if not imgs_rgb:
             return []
+        if self._copies is not None:
+            return [self(im, denoise_rate, zero_mask=zero_mask) for im in imgs_rgb]
         shape0 = imgs_rgb[0].shape
         if any(im.shape != shape0 for im in imgs_rgb):
             m_b = self.shape_bucket
@@ -356,9 +452,15 @@ class TeacherPredictor:
         On the GPU the chunks' uploads and fetches go through pinned host
         buffers on side streams, so chunk k+1's upload and chunk k-1's
         fetch overlap chunk k's forward; at most 16 chunks are in flight.
+        With ``devices`` each chunk's tiles split evenly over the copies
+        (``tile_batch`` must divide by their number).
         """
         if not imgs_rgb:
             return []
+        if self._copies is not None and tile_batch % len(self._copies):
+            raise ValueError(
+                f"tile_batch ({tile_batch}) must be divisible by the number "
+                f"of devices ({len(self._copies)})")
         t_h, t_w = (tile, tile) if isinstance(tile, int) else tile
         h_h, h_w = (halo, halo) if isinstance(halo, int) else halo
         T_h, T_w = t_h + 2 * h_h, t_w + 2 * h_w
@@ -415,38 +517,63 @@ class TeacherPredictor:
 
     def _forward_tiles(self, tiles: list[np.ndarray], tile_batch: int,
                        denoise_rate: float):
-        """Forward same-shape tiles ``tile_batch`` at a time; returns the
-        lists of uint8 'hq' tiles and 'sr' tiles (empty without the SR
-        head) in order. On the GPU uploads and fetches are non-blocking
-        copies through pinned buffers on side streams; a chunk is read on
-        the host only after its fetch event."""
-        pending: list = []         # (n, hq_host, sr_host, fetched event)
-        hq_tiles: list[np.ndarray] = []
-        sr_tiles: list[np.ndarray] = []
-
-        def drain_one():
-            n, hq, sr, fetched = pending.pop(0)
-            if fetched is not None:
-                fetched.synchronize()
-            hq_tiles.extend(hq[:n].numpy().copy())
-            if sr is not None:
-                sr_tiles.extend(sr[:n].numpy().copy())
-
+        """Forward same-shape tiles ``tile_batch`` at a time (the last chunk
+        repeats its last tile, so every call has one batch shape); returns
+        the lists of uint8 'hq' tiles and 'sr' tiles (empty without the SR
+        head) in order. With ``devices`` each chunk is cut into one
+        contiguous part per copy and the parts put back in order."""
+        chunks = []
         for b in range(0, len(tiles), tile_batch):
             chunk = tiles[b:b + tile_batch]
-            n = len(chunk)
-            if n < tile_batch:  # keep one batch shape
-                chunk = chunk + [chunk[-1]] * (tile_batch - n)
-            x, event = self._transfers.upload(torch.from_numpy(np.stack(chunk)))
-            x, = self._transfers.on_current(x, event)
-            (hq, sr), fetched = self._transfers.fetch(
-                *self._forward_device(x, denoise_rate))
-            pending.append((n, hq, sr, fetched))
+            chunks.append((len(chunk), chunk + [chunk[-1]] * (tile_batch - len(chunk))))
+        copies = self._copies or [_Copy(self.model, self.device, self._transfers)]
+        outs = self._serve_chunks(copies, [c for _, c in chunks], denoise_rate)
+        hq_tiles: list[np.ndarray] = []
+        sr_tiles: list[np.ndarray] = []
+        for (n, _), (hq, sr) in zip(chunks, outs):
+            hq_tiles.extend(hq[:n])
+            if sr is not None:
+                sr_tiles.extend(sr[:n])
+        return hq_tiles, sr_tiles
+
+    def _serve_chunks(self, copies: list[_Copy],
+                      chunks: list[list[np.ndarray]],
+                      denoise_rate: float) -> list[tuple]:
+        """(hq, sr or None) uint8 host arrays of each chunk of tiles, each
+        chunk cut into one contiguous part per copy, every part enqueued
+        from this thread through its copy's model and ``transfers``. On the
+        GPU uploads and fetches are non-blocking copies through pinned
+        buffers on side streams; a chunk is read on the host only after its
+        parts' fetch events, and at most ``_MAX_IN_FLIGHT`` are in flight."""
+        per = len(chunks[0]) // len(copies)
+        pending: list = []         # per chunk: (hq_host, sr_host, fetched) a copy
+        outs: list[tuple] = []
+
+        def drain_one():
+            parts = pending.pop(0)
+            for _, _, fetched in parts:
+                if fetched is not None:
+                    fetched.synchronize()
+            outs.append(tuple(
+                None if parts[0][j] is None else
+                np.concatenate([p[j].numpy() for p in parts]) for j in range(2)))
+
+        for chunk in chunks:
+            parts = []
+            for k, cp in enumerate(copies):
+                with cp.context():
+                    x, event = cp.transfers.upload(
+                        torch.from_numpy(np.stack(chunk[k * per:(k + 1) * per])))
+                    x, = cp.transfers.on_current(x, event)
+                    (hq, sr), fetched = cp.transfers.fetch(
+                        *self._forward_device(x, denoise_rate, cp.model))
+                parts.append((hq, sr, fetched))
+            pending.append(parts)
             if len(pending) >= _MAX_IN_FLIGHT:
                 drain_one()
         while pending:
             drain_one()
-        return hq_tiles, sr_tiles
+        return outs
 
 
 def _own_copy(model: nn.Module, device: torch.device) -> nn.Module:
@@ -479,27 +606,43 @@ class StudentPredictor:
 
     With float32 weights (the zoo's) the model computes in float32 whatever
     ``dtype`` is: bfloat16 serving rounds the input stack (uint8 / 255 in
-    float32, then bfloat16), as the JAX predictor's flax module does."""
+    float32, then bfloat16), as the JAX predictor's flax module does.
+    ``devices`` serves ``denoise_batch`` data-parallel (module docstring)."""
 
     def __init__(self, model: KDLAEStudent | None = None, multiple_of: int = 32,
                  num_frames: int = 7, dtype: torch.dtype = torch.float32,
-                 device: str | torch.device | None = None):
-        self.device = resolve_device(device)
+                 device: str | torch.device | None = None,
+                 devices: Sequence[str | torch.device] | None = None):
+        devices = _serving_devices(device, devices)
+        self.device = devices[0] if devices else resolve_device(device)
         if model is None:
             model = KDLAEStudent(residual=True, hidden_channels=(16, 32, 64))
         self.model: nn.Module = _own_copy(model, self.device)
         self.multiple_of = multiple_of
         self.num_frames = num_frames
         self.dtype = dtype
+        self._copies = _make_copies(self.model, devices)
 
-    @torch.inference_mode()
     def _forward(self, x: np.ndarray) -> torch.Tensor:
         """(B, F, H, W) uint8 or float32 on the host -> uint8 on the device."""
-        stack = torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+        return self._forward_device(
+            torch.from_numpy(np.ascontiguousarray(x)).to(self.device), self.model)
+
+    @torch.inference_mode()
+    def _forward_device(self, stack: torch.Tensor, model: nn.Module) -> torch.Tensor:
         if stack.dtype == torch.uint8:
             stack = stack.float() / 255.0
         with highest_precision():
-            return _to_ubyte_device(self.model(stack.to(self.dtype)))
+            return _to_ubyte_device(model(stack.to(self.dtype)))
+
+    def _dispatch_part(self, cp: _Copy, x: np.ndarray):
+        """Enqueue one copy's part of a batch: upload, forward, fetch;
+        returns (the host output, the event that ends its fetch)."""
+        with cp.context():
+            (stack,), event = cp.transfers.upload(torch.from_numpy(x))
+            stack, = cp.transfers.on_current((stack,), event)
+            (out,), fetched = cp.transfers.fetch(self._forward_device(stack, cp.model))
+        return out, fetched
 
     def _padded(self, stacks: np.ndarray) -> np.ndarray:
         h, w = stacks.shape[2:]
@@ -515,9 +658,22 @@ class StudentPredictor:
 
     def denoise_batch(self, stacks: np.ndarray) -> np.ndarray:
         """(B, F, H, W) stacks in one forward: the 3-D conv student has no
-        coupling across stacks, so batching is exact."""
+        coupling across stacks, so batching is exact. With ``devices`` the
+        batch is padded to an even split, one part per copy."""
+        b = stacks.shape[0]
         h, w = stacks.shape[2:]
-        return self._forward(self._padded(stacks))[:, :, :h, :w].cpu().numpy()
+        x = self._padded(stacks)
+        if self._copies is not None:
+            parts = _even_split(np.ascontiguousarray(x), len(self._copies))
+            handles = [self._dispatch_part(cp, part)
+                       for cp, part in zip(self._copies, parts)]
+            outs = []
+            for out, fetched in handles:
+                if fetched is not None:
+                    fetched.synchronize()
+                outs.append(out.numpy())
+            return np.concatenate(outs)[:b, :, :h, :w]
+        return self._forward(x)[:, :, :h, :w].cpu().numpy()
 
     def load_stack(self, folder: str, start: int = 0) -> np.ndarray:
         """``num_frames`` consecutive grayscale frames, resized to the first
@@ -590,32 +746,39 @@ class ASDQEScorer:
     """Pairwise quality scorer (ASDQE_test.py infer loop). With float32
     weights the model computes in float32 with TF32 off whatever ``dtype``
     is; bfloat16 rounds the images (and their difference, taken before the
-    convs)."""
+    convs). ``devices`` scores batches data-parallel (module docstring)."""
 
     def __init__(self, model: DenoiseRatePredictor | None = None,
                  dtype: torch.dtype = torch.float32,
-                 device: str | torch.device | None = None):
-        self.device = resolve_device(device)
+                 device: str | torch.device | None = None,
+                 devices: Sequence[str | torch.device] | None = None):
+        devices = _serving_devices(device, devices)
+        self.device = devices[0] if devices else resolve_device(device)
         if model is None:
             model = DenoiseRatePredictor()
         self.model: nn.Module = _own_copy(model, self.device)
         self.dtype = dtype
         self._transfers = Transfers(self.device)
+        self._copies = _make_copies(self.model, devices, self._transfers)
 
     @torch.inference_mode()
-    def _forward(self, lq: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
+    def _forward(self, lq: torch.Tensor, gt: torch.Tensor,
+                 model: nn.Module | None = None) -> torch.Tensor:
         def prep(x):
             if x.dtype == torch.uint8:  # f32 / 255 first, as the teacher
                 x = x.float() / 255.0
             return x.to(self.dtype).permute(0, 3, 1, 2)
 
         with highest_precision():
-            return self.model(prep(lq), prep(gt)).reshape(-1).float()
+            return (self.model if model is None else model)(
+                prep(lq), prep(gt)).reshape(-1).float()
 
     def upload(self, lq: np.ndarray, gt: np.ndarray):
         """Upload one pair, (H, W, 3) or (B, H, W, 3), uint8 as it is and
         floats in the serving dtype. Thread-safe: the score pipeline
-        uploads pair k+1 from a worker while pair k computes."""
+        uploads pair k+1 from a worker while pair k computes. With
+        ``devices`` the batch is padded to an even split (a batch of 1 too,
+        as the JAX package pads it for a mesh) and each copy gets its part."""
         if lq.ndim == 3:
             lq, gt = lq[None], gt[None]
 
@@ -623,12 +786,27 @@ class ASDQEScorer:
             t = torch.from_numpy(np.ascontiguousarray(x))
             return t if t.dtype == torch.uint8 else t.to(self.dtype)
 
+        if self._copies is not None:
+            n = len(self._copies)
+            return [cp.transfers.upload(ship(a), ship(b)) for cp, a, b in
+                    zip(self._copies, _even_split(lq, n), _even_split(gt, n))]
         dev, event = self._transfers.upload(ship(lq), ship(gt))
         return (*dev, event)
 
     def dispatch(self, uploaded) -> torch.Tensor:
         """Score an ``upload``-ed pair: a (B,) float32 tensor on the device
-        (``.cpu()`` is the fetch)."""
+        (``.cpu()`` is the fetch). With ``devices`` each copy scores its part
+        on its device's current stream, and the parts are gathered onto
+        ``devices[0]`` with non-blocking copies: (B padded to the even
+        split,), the real scores first."""
+        if self._copies is not None:
+            scores = []
+            for cp, ((lq, gt), event) in zip(self._copies, uploaded):
+                with cp.context():
+                    lq, gt = cp.transfers.on_current((lq, gt), event)
+                    scores.append(self._forward(lq, gt, cp.model).to(
+                        self.device, non_blocking=True))
+            return torch.cat(scores)
         lq, gt, event = uploaded
         lq, gt = self._transfers.on_current((lq, gt), event)
         return self._forward(lq, gt)
@@ -636,4 +814,5 @@ class ASDQEScorer:
     def __call__(self, lq: np.ndarray, gt: np.ndarray) -> np.ndarray:
         """lq / gt: (H, W, 3) or (B, H, W, 3), float [0,1] or uint8;
         returns (B,) float32 scores."""
-        return self.dispatch(self.upload(lq, gt)).cpu().numpy()
+        b = 1 if lq.ndim == 3 else lq.shape[0]
+        return self.dispatch(self.upload(lq, gt)).cpu().numpy()[:b]

@@ -13,6 +13,11 @@ each library as ``<lib>.log`` (``build_log``, ``kernel_resources``).
 ``stage_clocks`` is ``csrc/stage.cu`` with ``-DRAIE_PHASE_CLOCKS``, whose
 kernels count cycles per phase (``ops/phase_clocks.py``). No serving path
 loads it.
+
+Every wrapper launches under ``on_device`` (the tensor's card is the current
+device, so the C side's launches, occupancy queries and shared-memory
+opt-in land there) and counts a launch with ``count_launch`` (under one lock:
+copies of a model may serve from one thread per device).
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -34,6 +40,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 VARIANTS = {"stage_clocks": ("stage", ("-DRAIE_PHASE_CLOCKS",))}
 
 _loaded: dict[str, ctypes.CDLL] = {}
+_load_lock = threading.Lock()  # one build and one load of a library per process
+_launch_lock = threading.Lock()  # the wrappers' ``launches`` counts
 
 
 def _source(name: str) -> tuple[str, tuple[str, ...]]:
@@ -97,12 +105,14 @@ def build_all() -> dict[str, Path]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The ctypes handle of library <name>, building it on first use."""
-    if name not in _loaded:
-        proc, tmp, out = _start(name)
-        _finish(name, proc, tmp, out)
-        _loaded[name] = ctypes.CDLL(str(out))
-    return _loaded[name]
+    """The ctypes handle of library <name>, building it on first use (once,
+    whichever thread asks first)."""
+    with _load_lock:
+        if name not in _loaded:
+            proc, tmp, out = _start(name)
+            _finish(name, proc, tmp, out)
+            _loaded[name] = ctypes.CDLL(str(out))
+        return _loaded[name]
 
 
 def bind(name: str, signatures: dict[str, list]) -> ctypes.CDLL:
@@ -110,16 +120,37 @@ def bind(name: str, signatures: dict[str, list]) -> ctypes.CDLL:
     points set (a pointer passed untyped would be cut to 32 bits) and its
     ``raie_<source>_error_string`` typed."""
     lib = load(name)
-    if not getattr(lib, "_raie_typed", False):
-        for fn_name, args in signatures.items():
-            fn = getattr(lib, fn_name)
-            fn.argtypes = args
-            fn.restype = ctypes.c_int
-        err = getattr(lib, f"raie_{_source(name)[0]}_error_string")
-        err.argtypes = [ctypes.c_int]
-        err.restype = ctypes.c_char_p
-        lib._raie_typed = True
+    with _load_lock:
+        if not getattr(lib, "_raie_typed", False):
+            for fn_name, args in signatures.items():
+                fn = getattr(lib, fn_name)
+                fn.argtypes = args
+                fn.restype = ctypes.c_int
+            err = getattr(lib, f"raie_{_source(name)[0]}_error_string")
+            err.argtypes = [ctypes.c_int]
+            err.restype = ctypes.c_char_p
+            lib._raie_typed = True
     return lib
+
+
+def on_device(x, what: str, **weights):
+    """The device guard of a kernel call on CUDA tensor ``x``: raises a
+    ValueError naming both devices where a weight (None for an absent
+    optional one) lies on another device, and returns
+    ``torch.cuda.device(x.device)`` to launch under."""
+    import torch
+
+    for key, w in weights.items():
+        if w is not None and w.device != x.device:
+            raise ValueError(f"{what} kernel: {key} is on {w.device}, x on {x.device}")
+    return torch.cuda.device(x.device)
+
+
+def count_launch(fn) -> None:
+    """``fn.launches += 1`` under a lock (a read-modify-write that threads
+    launching at once would otherwise lose)."""
+    with _launch_lock:
+        fn.launches += 1
 
 
 def check(lib: ctypes.CDLL, name: str, code: int, what: str) -> None:

@@ -12,8 +12,8 @@ divides C. Both depthwise convs see zeros outside the image, as torch's
 so a LayerNorm bias does not leak into the border ring.
 
 On a CUDA tensor it runs the three launches of ``csrc/stage.cu`` (Gram,
-softmax, apply; see the note there) and counts the call in
-``fused_transformer_block.launches``; on a CPU tensor it runs
+softmax, apply; see the note there) on x's device, whose weights must lie
+there too, and counts the call in ``fused_transformer_block.launches``; on a CPU tensor it runs
 ``block_plain``, the same arithmetic in plain PyTorch: bf16 operands with
 float32 accumulation for the five products, the qkv and W_in outputs
 rounded to bf16 before their float32 depthwise 3x3, two-pass LayerNorm and
@@ -187,12 +187,14 @@ class BlockRunner:
     def __init__(self, x: torch.Tensor, heads: int, fp: int, library=None):
         b, h, w, c = x.shape
         self.lib = lib() if library is None else library
+        self.device = x.device
         self.shape = (b, h, w, c)
         self.heads, self.fp = heads, fp
         # the Gram per head where fragments of 16 channels stay inside a
         # head; else the full C x C Gram with the softmax masked per head
         self.gram_heads = heads if (c // heads) % 16 == 0 else 1
-        self.plan = plan_tiles(self.lib, c, self.gram_heads)
+        with torch.cuda.device(x.device):  # occupancy of x's card
+            self.plan = plan_tiles(self.lib, c, self.gram_heads)
         (self.gth, self.gtw), self.fc = self.plan.gram_tile, self.plan.fc
         self.ath, self.atw = self.plan.apply_tile
         n_tiles = -(-h // self.gth) * -(-w // self.gtw)
@@ -209,30 +211,36 @@ class BlockRunner:
 
     def run(self, src: torch.Tensor, dst: torch.Tensor, p: dict, i: int,
             eps: float) -> None:
-        """Block i of the packed weights p (``pack_blocks``)."""
+        """Block i of the packed weights p (``pack_blocks``) on the device
+        the runner was made for, where ``src``, ``dst`` and p must lie."""
+        if src.device != self.device:
+            raise ValueError(f"block kernel: runner made for {self.device}, "
+                             f"src on {src.device}")
         b, h, w, c = self.shape
         lb = self.lib
+        tensors = {k: v for k, v in p.items() if isinstance(v, torch.Tensor)}
 
         def ptr(name):
             return None if p[name] is None else p[name][i].data_ptr()
 
         src_bf16 = int(src.dtype == torch.bfloat16)
-        _build.check(lb, "stage", lb.raie_stage_gram(
-            src.data_ptr(), src_bf16, ptr("ln1"), ptr("ln1b"), ptr("wqkv"),
-            ptr("dwqkv"), self.part.data_ptr(), self.v.data_ptr(), b, h, w, c,
-            self.gram_heads, self.gth, self.gtw, self.groups, eps,
-            self.stream), "A (Gram)")
-        _build.check(lb, "stage", lb.raie_stage_softmax(
-            self.part.data_ptr(), ptr("temp"), self.attn_t.data_ptr(), b, c,
-            self.gram_heads, self.heads, self.groups, self.stream),
-            "B (softmax)")
-        _build.check(lb, "stage", lb.raie_stage_apply(
-            src.data_ptr(), src_bf16, dst.data_ptr(),
-            int(dst.dtype == torch.bfloat16), self.v.data_ptr(),
-            self.attn_t.data_ptr(), ptr("wproj"), ptr("ln2"), ptr("ln2b"),
-            ptr("win"), ptr("wdw"), ptr("wout"), b, h, w, c, self.gram_heads,
-            self.fp, self.fc, self.ath, self.atw, eps, self.stream),
-            "C (apply)")
+        with _build.on_device(src, "block", dst=dst, **tensors):
+            _build.check(lb, "stage", lb.raie_stage_gram(
+                src.data_ptr(), src_bf16, ptr("ln1"), ptr("ln1b"), ptr("wqkv"),
+                ptr("dwqkv"), self.part.data_ptr(), self.v.data_ptr(), b, h, w,
+                c, self.gram_heads, self.gth, self.gtw, self.groups, eps,
+                self.stream), "A (Gram)")
+            _build.check(lb, "stage", lb.raie_stage_softmax(
+                self.part.data_ptr(), ptr("temp"), self.attn_t.data_ptr(), b, c,
+                self.gram_heads, self.heads, self.groups, self.stream),
+                "B (softmax)")
+            _build.check(lb, "stage", lb.raie_stage_apply(
+                src.data_ptr(), src_bf16, dst.data_ptr(),
+                int(dst.dtype == torch.bfloat16), self.v.data_ptr(),
+                self.attn_t.data_ptr(), ptr("wproj"), ptr("ln2"), ptr("ln2b"),
+                ptr("win"), ptr("wdw"), ptr("wout"), b, h, w, c,
+                self.gram_heads, self.fp, self.fc, self.ath, self.atw, eps,
+                self.stream), "C (apply)")
 
 
 def _block_cuda(x, ln1_w, ln1_b, w_qkv, dw_qkv, temperature, w_proj, ln2_w,
@@ -242,18 +250,23 @@ def _block_cuda(x, ln1_w, ln1_b, w_qkv, dw_qkv, temperature, w_proj, ln2_w,
     if x.shape[0] != 1:
         raise ValueError(f"block kernel takes batch 1, got {x.shape[0]}")
     c = x.shape[-1]
-    _check_heads(c, num_heads, temperature.reshape(-1))
-    ln1_b, ln2_b = _biases(ln1_w, ln1_b, ln2_w, ln2_b, bias_free)
+    guard = _build.on_device(
+        x, "block", ln1_w=ln1_w, ln1_b=ln1_b, w_qkv=w_qkv, dw_qkv=dw_qkv,
+        temperature=temperature, w_proj=w_proj, ln2_w=ln2_w, ln2_b=ln2_b,
+        w_in=w_in, w_dw=w_dw, w_out=w_out)
+    with guard:
+        _check_heads(c, num_heads, temperature.reshape(-1))
+        ln1_b, ln2_b = _biases(ln1_w, ln1_b, ln2_w, ln2_b, bias_free)
 
-    def one(t):
-        return None if t is None else t[None]
+        def one(t):
+            return None if t is None else t[None]
 
-    p = pack_blocks(x.device, one(ln1_w), one(w_qkv), one(dw_qkv),
-                    one(temperature), one(w_proj), one(ln2_w), one(w_in),
-                    one(w_dw), one(w_out), one(ln1_b), one(ln2_b))
-    y = torch.empty_like(x)
-    BlockRunner(x, num_heads, p["fp"]).run(x, y, p, 0, ln_eps)
-    fused_transformer_block.launches += 1
+        p = pack_blocks(x.device, one(ln1_w), one(w_qkv), one(dw_qkv),
+                        one(temperature), one(w_proj), one(ln2_w), one(w_in),
+                        one(w_dw), one(w_out), one(ln1_b), one(ln2_b))
+        y = torch.empty_like(x)
+        BlockRunner(x, num_heads, p["fp"]).run(x, y, p, 0, ln_eps)
+    _build.count_launch(fused_transformer_block)
     return y
 
 

@@ -9,8 +9,8 @@ and ``apply_ln=False`` skips it. The depthwise conv sees zeros outside the
 image, as torch's ``padding=1`` gives it: LN(x) is masked after the
 LayerNorm, so a LayerNorm bias does not leak into the border ring.
 
-On a CUDA tensor it launches ``csrc/gdfn.cu`` and counts the launch in
-``fused_ln_gdfn.launches``; on a CPU tensor it runs ``gdfn_plain``, the same
+On a CUDA tensor it launches ``csrc/gdfn.cu`` on x's device, whose weights
+must lie there too, and counts the launch in ``fused_ln_gdfn.launches``; on a CPU tensor it runs ``gdfn_plain``, the same
 arithmetic in plain PyTorch: bf16 operands with float32 accumulation for
 the two products, the W_in output rounded to bf16 before its float32
 depthwise 3x3, two-pass LayerNorm and exact-erf GELU (the kernel's
@@ -172,25 +172,28 @@ def _gdfn_cuda(x, ln_weight, ln_bias, w_in, w_dw, w_out, bias_free,
                apply_ln, ln_eps) -> torch.Tensor:
     x = check_input(x, "GDFN")
     b, h, w, c = x.shape
-    p = pack_ffn(w_in.reshape(1, c, -1), w_dw.reshape(1, 9, -1),
-                 w_out.reshape(1, -1, c), c, x.device)
+    guard = _build.on_device(x, "GDFN", ln_weight=ln_weight, ln_bias=ln_bias,
+                             w_in=w_in, w_dw=w_dw, w_out=w_out)
+    with guard:
+        p = pack_ffn(w_in.reshape(1, c, -1), w_dw.reshape(1, 9, -1),
+                     w_out.reshape(1, -1, c), c, x.device)
 
-    def f32(t):
-        return t.detach().to(device=x.device, dtype=torch.float32).contiguous()
+        def f32(t):
+            return t.detach().to(dtype=torch.float32).contiguous()
 
-    lnw = f32(ln_weight)
-    lnb = _ln_bias(ln_weight, ln_bias, bias_free)
-    lnb = None if lnb is None or not apply_ln else f32(lnb)
-    lib = _build.bind("gdfn", _SIGNATURES)
-    fc, (th, tw), _ = plan_ffn(lib, c)
-    y = torch.empty_like(x)
-    _build.check(lib, "gdfn", lib.raie_gdfn(
-        x.data_ptr(), y.data_ptr(), int(x.dtype == torch.bfloat16),
-        lnw.data_ptr(), None if lnb is None else lnb.data_ptr(),
-        int(apply_ln), p["win"].data_ptr(), p["wdw"].data_ptr(),
-        p["wout"].data_ptr(), b, h, w, c, p["fp"], fc, th, tw, ln_eps,
-        torch.cuda.current_stream(x.device).cuda_stream), "launch")
-    fused_ln_gdfn.launches += 1
+        lnw = f32(ln_weight)
+        lnb = _ln_bias(ln_weight, ln_bias, bias_free)
+        lnb = None if lnb is None or not apply_ln else f32(lnb)
+        lib = _build.bind("gdfn", _SIGNATURES)
+        fc, (th, tw), _ = plan_ffn(lib, c)
+        y = torch.empty_like(x)
+        _build.check(lib, "gdfn", lib.raie_gdfn(
+            x.data_ptr(), y.data_ptr(), int(x.dtype == torch.bfloat16),
+            lnw.data_ptr(), None if lnb is None else lnb.data_ptr(),
+            int(apply_ln), p["win"].data_ptr(), p["wdw"].data_ptr(),
+            p["wout"].data_ptr(), b, h, w, c, p["fp"], fc, th, tw, ln_eps,
+            torch.cuda.current_stream(x.device).cuda_stream), "launch")
+    _build.count_launch(fused_ln_gdfn)
     return y
 
 

@@ -7,7 +7,8 @@ mean, mean not subtracted), else ``(x - mean) / sqrt(var + eps) * weight +
 bias`` (a missing bias counts as zeros). Statistics are float32 and take two
 passes; the result has x's dtype.
 
-On a CUDA tensor it launches ``csrc/layernorm.cu`` and counts the launch in
+On a CUDA tensor it launches ``csrc/layernorm.cu`` on x's device, whose
+weight and bias must lie there too, and counts the launch in
 ``fused_channel_layernorm.launches``; on a CPU tensor it runs its plain
 version, ``ops/norm.py::channel_layernorm``.
 """
@@ -48,20 +49,21 @@ def _layernorm_cuda(x, weight, bias, bias_free, eps) -> torch.Tensor:
                          f"most {128 * vec}, for {x.dtype} (C={c})")
     if weight.numel() != c or (bias is not None and bias.numel() != c):
         raise ValueError(f"LayerNorm weight/bias must have {c} elements")
-    x = x.contiguous()
-    y = torch.empty_like(x)
+    with _build.on_device(x, "LayerNorm", weight=weight, bias=bias):
+        x = x.contiguous()
+        y = torch.empty_like(x)
 
-    def f32(t):
-        return t.detach().to(device=x.device, dtype=torch.float32).contiguous()
+        def f32(t):
+            return t.detach().to(dtype=torch.float32).contiguous()
 
-    w = f32(weight)
-    b = None if bias_free else f32(torch.zeros_like(weight) if bias is None else bias)
-    lib = _build.bind("layernorm", _SIGNATURES)
-    _build.check(lib, "layernorm", lib.raie_layernorm(
-        x.data_ptr(), int(x.dtype == torch.bfloat16), w.data_ptr(),
-        None if b is None else b.data_ptr(), y.data_ptr(), x.numel() // c, c,
-        eps, torch.cuda.current_stream(x.device).cuda_stream), "launch")
-    fused_channel_layernorm.launches += 1
+        w = f32(weight)
+        b = None if bias_free else f32(torch.zeros_like(weight) if bias is None else bias)
+        lib = _build.bind("layernorm", _SIGNATURES)
+        _build.check(lib, "layernorm", lib.raie_layernorm(
+            x.data_ptr(), int(x.dtype == torch.bfloat16), w.data_ptr(),
+            None if b is None else b.data_ptr(), y.data_ptr(), x.numel() // c, c,
+            eps, torch.cuda.current_stream(x.device).cuda_stream), "launch")
+    _build.count_launch(fused_channel_layernorm)
     return y
 
 

@@ -10,8 +10,8 @@ Samples are independent (per-sample MDTA statistics).
 
 On a CUDA tensor it runs the Hopper kernels of ``csrc/stage.cu`` (three
 launches per block through ``ops/block.py::BlockRunner``, see the note
-there) and counts the call in
-``fused_transformer_stage.launches``; on a CPU tensor it runs
+there) on x's device, whose weights must lie there too, and counts the
+call in ``fused_transformer_stage.launches``; on a CPU tensor it runs
 ``stage_plain``, the same arithmetic in plain PyTorch: bf16 operands with
 float32 accumulation for the five products, the qkv and W_in outputs
 rounded to bf16 before their float32 depthwise 3x3, two-pass LayerNorm and
@@ -26,6 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import _build
 from .block import BlockRunner, block_f32, pack_blocks
 from .gdfn import check_input
 
@@ -83,23 +84,24 @@ def stage_plain(x, ln1_w, w_qkv, dw_qkv, temperature, w_proj, ln2_w, w_in,
 
 def _stage_cuda(x, ln_eps, **weights) -> torch.Tensor:
     x = check_input(x, "stage")
-    c = x.shape[-1]
-    p = pack_blocks(x.device, **weights)
-    n, heads = p["temp"].shape
-    if c % heads or (c // heads) % 16:
-        raise ValueError(f"stage kernel needs C/heads a multiple of 16 "
-                         f"(C={c}, heads={heads})")
-    runner = BlockRunner(x, heads, p["fp"])
-    # blocks hand over in float32; only the last writes x's dtype
-    out = torch.empty_like(x)
-    bufs = [torch.empty(x.shape, dtype=torch.float32, device=x.device)
-            for _ in range(min(2, n - 1))]
-    src = x
-    for i in range(n):
-        dst = out if i == n - 1 else bufs[i % 2]
-        runner.run(src, dst, p, i, ln_eps)
-        src = dst
-    fused_transformer_stage.launches += 1
+    with _build.on_device(x, "stage", **weights):
+        c = x.shape[-1]
+        p = pack_blocks(x.device, **weights)
+        n, heads = p["temp"].shape
+        if c % heads or (c // heads) % 16:
+            raise ValueError(f"stage kernel needs C/heads a multiple of 16 "
+                             f"(C={c}, heads={heads})")
+        runner = BlockRunner(x, heads, p["fp"])
+        # blocks hand over in float32; only the last writes x's dtype
+        out = torch.empty_like(x)
+        bufs = [torch.empty(x.shape, dtype=torch.float32, device=x.device)
+                for _ in range(min(2, n - 1))]
+        src = x
+        for i in range(n):
+            dst = out if i == n - 1 else bufs[i % 2]
+            runner.run(src, dst, p, i, ln_eps)
+            src = dst
+    _build.count_launch(fused_transformer_stage)
     return src
 
 

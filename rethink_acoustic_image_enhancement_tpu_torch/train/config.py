@@ -89,7 +89,7 @@ def validate(opt: dict[str, Any]) -> None:
             if int(train.get(key) or 1) > 1:
                 raise NotImplementedError(
                     f"train.{key} is not ported yet (ROADMAP.md, Queue A: "
-                    "data parallel)")
+                    "spatial and tensor-parallel serving and training)")
         pix = train.get("pixel_opt", {})
         if pix.get("type") not in LOSSES:
             raise KeyError(f"train.pixel_opt.type {pix.get('type')!r} not in "

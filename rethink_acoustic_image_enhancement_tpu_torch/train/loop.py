@@ -59,7 +59,7 @@ from ..data.loader import (BatchLoader, BatchUploader, DevicePrefetcher,
                            EnlargedShuffleSampler, is_frame_stack, leaves)
 from ..eval.infer import highest_precision
 from ..losses import build_loss
-from ..metrics import get_metric
+from ..metrics import NO_REFERENCE, get_metric
 from ..models import build_network
 from ..ops.layout import crop_to, pad_to_multiple
 from ..parallel import barrier, is_master, rank, world_size
@@ -113,12 +113,24 @@ def _host_nhwc(x: torch.Tensor) -> np.ndarray:
     return x.permute(0, 2, 3, 1).float().cpu().numpy()
 
 
-def _score(fn, p_img: np.ndarray, t_img: np.ndarray, cfg: dict) -> float:
+def _metric(cfg: dict):
+    """The ``val.metrics`` entry ``cfg`` as fn(output, target) -> float; a
+    no-reference metric (NIQE) is given the output alone (the JAX loop
+    hands it the target as ``crop_border``, which raises)."""
+    cfg = dict(cfg)
+    kind = cfg.pop("type")
+    fn = get_metric(kind)
+    if kind in NO_REFERENCE:
+        return lambda p, t: float(fn(p, **cfg))
+    return lambda p, t: float(fn(p, t, **cfg))
+
+
+def _score(fn, p_img: np.ndarray, t_img: np.ndarray) -> float:
     """A metric of one item; an (F, H, W) stack's is the mean over frames."""
     if p_img.ndim == 3 and p_img.shape[-1] not in (1, 3):
-        return float(np.mean([fn(p[..., None], t[..., None], **cfg)
+        return float(np.mean([fn(p[..., None], t[..., None])
                               for p, t in zip(p_img, t_img)]))
-    return float(fn(p_img, t_img, **cfg))
+    return fn(p_img, t_img)
 
 
 def validate_model(model: torch.nn.Module, val_loader, opt: dict,
@@ -194,12 +206,11 @@ def validate_model(model: torch.nn.Module, val_loader, opt: dict,
                     sr_count += 1
                     ps_img, ts_img = quantise(pred_sr[b]), quantise(target_sr[b])
                 for name, cfg in metric_cfgs.items():
-                    cfg = dict(cfg)
-                    fn = get_metric(cfg.pop("type"))
-                    sums[name] += _score(fn, p_img, t_img, cfg)
+                    fn = _metric(cfg)
+                    sums[name] += _score(fn, p_img, t_img)
                     if ps_img is not None:
-                        sums[f"{name}_sr"] = sums.get(f"{name}_sr", 0.0) + float(
-                            fn(ps_img, ts_img, **cfg))
+                        sums[f"{name}_sr"] = sums.get(f"{name}_sr", 0.0) + fn(
+                            ps_img, ts_img)
                 count += 1
             if max_items is not None and count >= max_items:
                 break

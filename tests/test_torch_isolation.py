@@ -35,7 +35,8 @@ def test_every_port_module_imports_without_jax():
                  "train.checkpoints", "train.loop", "utils.logging",
                  "utils.tracking", "utils.watchdog", "utils.native",
                  "train.distill", "train.asdqe_trainer", "train.device_corpus",
-                 "utils.profiling", "parallel", "parallel.collectives"):
+                 "utils.profiling", "parallel", "parallel.collectives",
+                 "metrics.niqe", "metrics.fid", "metrics.inception"):
         assert f"{PORT}.{name}" in modules, name
     code = "\n".join([
         "import importlib, sys",

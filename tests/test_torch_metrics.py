@@ -60,10 +60,13 @@ def test_identical_images():
 
 
 def test_registry():
-    assert set(tm.METRICS) == {"calculate_psnr", "calculate_ssim",
-                               "calculate_ssim_2d"}
+    """The JAX registry's keys; NIQE is ported, an unknown name (FID, which
+    is no per-image metric, among them) is a KeyError in both."""
+    assert set(tm.METRICS) == set(jm.METRICS)
     assert tm.get_metric("calculate_psnr") is tm.calculate_psnr
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.get_metric("calculate_niqe")
-    with pytest.raises(KeyError):
-        tm.get_metric("nope")
+    assert tm.get_metric("calculate_niqe") is tm.calculate_niqe
+    for name in ("calculate_fid", "nope"):
+        with pytest.raises(KeyError):
+            jm.get_metric(name)
+        with pytest.raises(KeyError):
+            tm.get_metric(name)

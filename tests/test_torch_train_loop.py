@@ -220,8 +220,8 @@ def test_cli_default_device_needs_a_gpu(corpus, tmp_path, monkeypatch):
     ("distill", {"online": True, "teacher": {"type": "KDLAE_teacher"},
                  "teacher_weights": "artifacts/kdlaet_full50k"},
      "online distillation"),
-    ("spatial_shard", 2, "data parallel"),
-    ("model_shard", 4, "data parallel"),
+    ("spatial_shard", 2, "spatial and tensor-parallel"),
+    ("model_shard", 4, "spatial and tensor-parallel"),
     # ported with the device corpora: accepted on every phase, as in JAX
     ("device_resident", True, "device-resident corpora"),
 ])

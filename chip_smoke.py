@@ -151,13 +151,39 @@ fp32 predictors' own pinning is what runs:
      make_inception_feature_fn from a saved .pth of seeded random weights
      on 32 frames (512 resized to 299, fp32, TF32 off), images/s, 2 of them
      within 1e-3 relative of the same function on the CPU.
+ 15. the remaining datasets, in a temporary directory of seeded corpora:
+     (a) configs/Restormer_baseline.yml at full width (dim 48, [4,6,6,8],
+     refinement 4, BiasFree) through `cli.main(["train", ...])` for 4 steps
+     at 8@128 and a validation, from LMDB shards that
+     data/lmdb_util.py::make_lmdb_from_folder wrote from 24 + 2 seeded
+     512x512 colour pairs, and again from the folders: the first loss equal
+     bit for bit, every loss within 1e-4 relative; each route's data ms,
+     the shards' open and record-lookup MB/s with their bytes, and the route
+     (the codec or the lmdb package);
+     (b) the same network on Dataset_GaussianDenoising as the Restormer
+     project's GaussianColorDenoising config (in_ch 3, sigma random in
+     [0, 50], sigma_test 25), 3 steps and a validation: finite losses and
+     PSNR, one batch of BatchLoader and BatchUploader on the card equal to
+     the dataset's items; (c) the dual-pixel Restormer (inp_channels 6,
+     WithBias) on Dataset_DefocusDeblur_DualPixel_16bit, 8 seeded 16-bit
+     triples at DPDD's 1680x1120, 3 steps; then the flagship-width KDLAE-T
+     with dual_pixel_task, params 'none', seeded, bf16, fused, on one whole
+     frame of that dataset: its stage-kernel calls counted (they join the
+     stage's launches), >= 99% of hq values within 1/255 of the same model
+     with the plain stage; (d) Vimeo90K septuplets (448x256), a REDS clip
+     (1280x720), FFHQ (1024^2) and VideoTest through BatchLoader and the
+     uploader onto the card, one epoch of 64 items each (the sampler
+     enlarged): each batch equal to the items, items/s after a warm batch;
+     (e) flow_warp, OverlapPatchTimePoseEmbed, WDSpybottle and two
+     ResidualBlockNoBN on the card against the CPU at 7x256x448, float32,
+     TF32 off, max|d| within 1e-5 of max|ref|.
 Each path runs with every launch count set to 0 just before it and read just
-after. Prints one JSON line per phase 6-14, a "kernels" JSON line, the card
+after. Prints one JSON line per phase 6-15, a "kernels" JSON line, the card
 line, and as its last line {"ok": true, "device": {...}}. Details go to
 chiprun_out/chip_smoke.json.
 `chip_smoke.py --dp-rank SPEC` is one rank of phase 13, not for use alone;
-`chip_smoke.py --phase 14` builds and runs phase 14 alone (its JSON line,
-no "kernels" or "ok" line).
+`chip_smoke.py --phase 14` (or 15) builds and runs that phase alone (its
+JSON line, no "kernels" or "ok" line).
 """
 
 from __future__ import annotations
@@ -3206,13 +3232,496 @@ def phase_dp_serving(results, card):
     return launches
 
 
+# ------------------------------------------------------------ phase 15 ---
+
+P15_SIZE = 512  # (a) and (b): the seeded images' side
+P15_TRAIN, P15_VAL = 24, 2  # pairs written for training and for validation
+P15_STEPS = 4  # (a): steps per route; (b) and (c) take 3
+DPDD_HW = (1120, 1680)  # DPDD's frame size (h, w)
+DPDD_TRIPLES = 8  # (c): one batch of 8 at the config's first stage
+VIDEO_SIZES = dict(vimeo_gt=(256, 448), reds_gt=(720, 1280), ffhq=(1024, 1024), scale=4,
+                   gt_size=256, reds_frames=10, vimeo_clips=8, ffhq_images=8)
+VIDEO_EPOCH_ITEMS = 64  # (d): each set's sampler enlarged to at least this many items
+CODEC_PASSES = 10  # (a): passes over every record when timing the codec's lookups
+WARP_SHAPE = (7, 256, 448)  # (e): a Vimeo90K septuplet
+
+
+def colour_frame(h, w, seed, depth=8):
+    """A seeded smooth colour image (two random sinusoid gratings per
+    channel) as uint8, or uint16 with ``depth=16``."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w] / max(h, w)
+    img = np.empty((h, w, 3), np.float64)
+    for c in range(3):
+        f1, f2, p1, p2 = rng.uniform(1, 6), rng.uniform(2, 9), *rng.uniform(0, 6.3, 2)
+        img[..., c] = 0.5 + 0.25 * np.sin(2 * np.pi * f1 * xx + p1) \
+            + 0.2 * np.sin(2 * np.pi * f2 * (xx + yy) + p2)
+    top = 65535 if depth == 16 else 255
+    return np.rint(np.clip(img, 0, 1) * top).astype(np.uint16 if depth == 16 else np.uint8)
+
+
+def write_pair_folders(root, n, seed, noise=20.0):
+    """n seeded colour images (gt) and noisy versions (lq) at P15_SIZE;
+    returns the two dataroots."""
+    from rethink_acoustic_image_enhancement_tpu_torch.utils.image_io import imwrite
+
+    rng = np.random.default_rng(seed)
+    dirs = {k: os.path.join(root, k) for k in ("lq", "gt")}
+    for d in dirs.values():
+        os.makedirs(d, exist_ok=True)
+    for i in range(n):
+        gt = colour_frame(P15_SIZE, P15_SIZE, seed * 1000 + i)
+        lq = np.clip(gt + rng.normal(0, noise, gt.shape), 0, 255).astype(np.uint8)
+        imwrite(os.path.join(dirs["gt"], f"{i:04d}.png"), gt)
+        imwrite(os.path.join(dirs["lq"], f"{i:04d}.png"), lq)
+    return {f"dataroot_{k}": d for k, d in dirs.items()}
+
+
+def baseline_config(name, train, val, steps):
+    """configs/Restormer_baseline.yml at full width, cut to ``steps`` steps
+    at its own batch and patch (8 @ 128), a checkpoint and a validation at
+    the end, every step logged."""
+    import yaml
+
+    with open(os.path.join(HERE, "configs", "Restormer_baseline.yml")) as fh:
+        cfg = yaml.safe_load(fh)
+    cfg["name"] = name
+    cfg["datasets"]["train"].update(train, iters=[steps])
+    cfg["datasets"]["val"].update(val)
+    cfg["train"]["total_iter"] = steps
+    cfg["logger"].update(print_freq=1, save_checkpoint_freq=steps)
+    cfg["val"]["val_freq"] = steps
+    return cfg
+
+
+def cli_train(work, cfg):
+    """`train -opt` on ``cfg`` from ``work`` on the card: (train events,
+    val events, wall s)."""
+    import yaml
+
+    yml = os.path.join(work, cfg["name"] + ".yml")
+    with open(yml, "w") as fh:
+        yaml.safe_dump(cfg, fh)
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        _, wall = run_cli(["train", "-opt", yml])
+    finally:
+        os.chdir(cwd)
+    events = jsonl_events(os.path.join(work, "experiments", cfg["name"], "metrics.jsonl"))
+    return ([e for e in events if e["kind"] == "train"],
+            [e for e in events if e["kind"] == "val"], wall)
+
+
+def codec_read_rate(shards):
+    """The route the lmdb backend takes (data/lmdb_codec.py here) on
+    ``shards``, timed in two parts: opening them (the codec reads each whole
+    file), over the files' bytes, and ``CODEC_PASSES`` passes of ``get``
+    over every record, over the records' bytes."""
+    from rethink_acoustic_image_enhancement_tpu_torch.data.file_client import FileClient
+    from rethink_acoustic_image_enhancement_tpu_torch.data.lmdb_util import paths_from_lmdb
+
+    keys = {s: paths_from_lmdb(s) for s in shards}
+    file_bytes = sum(os.path.getsize(os.path.join(s, "data.mdb")) for s in shards)
+    t0 = time.perf_counter()
+    client = FileClient("lmdb", db_paths=list(shards), client_keys=list(shards))
+    open_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(CODEC_PASSES):
+        record_bytes = sum(len(client.get(k, s)) for s in shards for k in keys[s])
+    get_s = time.perf_counter() - t0
+    return dict(shard_file_bytes=file_bytes, record_bytes=record_bytes,
+                records=sum(map(len, keys.values())), open_s=open_s,
+                open_mb_s=file_bytes / 1e6 / open_s, get_passes=CODEC_PASSES, get_s=get_s,
+                get_mb_s=CODEC_PASSES * record_bytes / 1e6 / get_s)
+
+
+def phase15_lmdb(row, card, work):
+    """(a) the full-width Restormer trained from LMDB shards and from the
+    same folders on disk: the same first loss bit for bit."""
+    from rethink_acoustic_image_enhancement_tpu_torch.data.lmdb_util import (
+        lmdb_route,
+        make_lmdb_from_folder,
+    )
+
+    t0 = time.perf_counter()
+    train = write_pair_folders(os.path.join(work, "train"), P15_TRAIN, seed=500)
+    val = write_pair_folders(os.path.join(work, "val"), P15_VAL, seed=501)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    shards = {}
+    for split, roots in (("train", train), ("val", val)):
+        for key, folder in roots.items():
+            shards[(split, key)] = folder + ".lmdb"
+            make_lmdb_from_folder(folder, shards[(split, key)])
+    shard_s = time.perf_counter() - t0
+    codec = codec_read_rate(list(shards.values()))
+    lmdb = {"type": "lmdb"}
+    routes = {}
+    for name, tr, va in (
+            ("disk", train, val),
+            ("lmdb", {**{k: shards[("train", k)] for k in train}, "io_backend": lmdb},
+             {**{k: shards[("val", k)] for k in val}, "io_backend": lmdb})):
+        fns = reset_counts()
+        steps, vals, wall = cli_train(work, baseline_config(f"restormer_{name}", tr, va,
+                                                            P15_STEPS))
+        assert [e["iter"] for e in steps] == list(range(1, P15_STEPS + 1)), steps
+        assert all(np.isfinite(e["l_pix"]) for e in steps) and len(vals) == 1, vals
+        routes[name] = dict(losses=[e["l_pix"] for e in steps],
+                            grad_norms=[e["grad_norm"] for e in steps],
+                            data_ms=[1e3 * e["data_time"] for e in steps],
+                            iter_ms=[1e3 * e["iter_time"] for e in steps],
+                            val_psnr=vals[0]["psnr"], train_call_s=wall,
+                            kernel_launches=read_counts(fns))
+    a, b = routes["disk"], routes["lmdb"]
+    assert a["losses"][0] == b["losses"][0], (a["losses"], b["losses"])
+    rel = max(abs(x - y) / abs(x) for x, y in zip(a["losses"], b["losses"]))
+    assert rel <= 1e-4, (a["losses"], b["losses"])
+    row["lmdb"] = dict(
+        config="configs/Restormer_baseline.yml at full width (dim 48, [4,6,6,8], refinement 4, "
+               f"BiasFree): iters [{P15_STEPS}] at 8@128, a validation at the end",
+        corpus=f"{P15_TRAIN} + {P15_VAL} seeded {P15_SIZE}^2 colour pairs, PNG",
+        route=lmdb_route(), write_s=write_s, shard_write_s=shard_s, codec=codec,
+        losses_rel_diff=rel, **{
+            f"{k}_route": v for k, v in routes.items()})
+    log(f"(a) LMDB ({lmdb_route()} route; {codec['shard_file_bytes']} B of shards opened at "
+        f"{codec['open_mb_s']:.0f} MB/s, records got at {codec['get_mb_s']:.0f} MB/s): losses {b['losses']} vs disk "
+        f"{a['losses']} (rel {rel:.2e}); data ms lmdb {np.median(b['data_ms']):.1f} disk "
+        f"{np.median(a['data_ms']):.1f} [{card}]")
+    return train, val
+
+
+def phase15_gaussian(row, card, work, train, val):
+    """(b) Gaussian colour denoising from the clean images, and one batch
+    the loader put on the card against the CPU dataset's items."""
+    import torch
+
+    from rethink_acoustic_image_enhancement_tpu_torch.data import loader as tld
+    from rethink_acoustic_image_enhancement_tpu_torch.data.datasets import create_dataset
+
+    cfg = baseline_config("restormer_gaussian", {}, {}, 3)
+    for phase, roots in (("train", train), ("val", val)):
+        ds = cfg["datasets"][phase]
+        ds.pop("dataroot_lq")
+        ds.update(type="Dataset_GaussianDenoising", dataroot_gt=roots["dataroot_gt"], in_ch=3)
+    cfg["datasets"]["train"].update(sigma_type="random", sigma_range=[0, 50])
+    cfg["datasets"]["val"]["sigma_test"] = 25
+    fns = reset_counts()
+    steps, vals, wall = cli_train(work, cfg)
+    assert len(steps) == 3 and all(np.isfinite(e["l_pix"]) for e in steps), steps
+    assert len(vals) == 1 and np.isfinite(vals[0]["psnr"]), vals
+
+    opt = dict(cfg["datasets"]["train"], phase="train", scale=1)
+    ds = create_dataset(opt)
+    sampler = tld.EnlargedShuffleSampler(len(ds), 1, shuffle=True, seed=opt.get("seed", 0))
+    loader = tld.BatchLoader(ds, 8, sampler, num_workers=4)
+    uploader = tld.BatchUploader(torch.device("cuda"), ds.frame_stacks)
+    batch = uploader(next(iter(loader)))
+    torch.cuda.synchronize()
+    idx = sampler.epoch_indices(0)[:8]
+    for key in ("lq", "gt"):
+        on_card = batch[key].permute(0, 2, 3, 1).cpu().numpy()
+        want = np.stack([ds[int(i)][key] for i in idx])
+        assert on_card.dtype == want.dtype and np.array_equal(on_card, want), key
+    row["gaussian"] = dict(
+        config="Restormer_baseline.yml's network on Dataset_GaussianDenoising as "
+               "GaussianColorDenoising_Restormer.yml: in_ch 3, sigma random in [0, 50], "
+               "sigma_test 25, 3 steps at 8@128",
+        losses=[e["l_pix"] for e in steps], val_psnr=vals[0]["psnr"],
+        iter_ms=[1e3 * e["iter_time"] for e in steps], train_call_s=wall,
+        kernel_launches=read_counts(fns), batch_on_card_equals_items=True)
+    log(f"(b) gaussian: losses {row['gaussian']['losses']}, val PSNR {vals[0]['psnr']:.2f} "
+        f"at sigma 25 [{card}]")
+
+
+def write_dpdd(root, n, seed):
+    """n seeded 16-bit lqL / lqR / gt triples at DPDD_HW: the gt a smooth
+    colour image, each view it shifted by 3 px and noised."""
+    import cv2
+
+    rng = np.random.default_rng(seed)
+    dirs = {k: os.path.join(root, k) for k in ("lqL", "lqR", "gt")}
+    for d in dirs.values():
+        os.makedirs(d, exist_ok=True)
+    for i in range(n):
+        gt = colour_frame(*DPDD_HW, seed * 1000 + i, depth=16)
+        views = {"gt": gt}
+        for key, shift in (("lqL", -3), ("lqR", 3)):
+            v = np.roll(gt, shift, axis=1).astype(np.float64) + rng.normal(0, 300, gt.shape)
+            views[key] = np.clip(v, 0, 65535).astype(np.uint16)
+        for key, img in views.items():
+            assert cv2.imwrite(os.path.join(dirs[key], f"{i:03d}.png"), img[..., ::-1])
+    return {f"dataroot_{k}": d for k, d in dirs.items()}
+
+
+def phase15_dual_pixel(row, card, work):
+    """(c) the dual-pixel Restormer trained on 16-bit triples, then the
+    flagship-width dual-pixel KDLAE-T through the stage kernel on one whole
+    frame against the same model with the plain stage; returns the
+    stage-kernel calls."""
+    import torch
+
+    from rethink_acoustic_image_enhancement_tpu_torch.data.datasets import create_dataset
+    from rethink_acoustic_image_enhancement_tpu_torch.models import (
+        KDLAETeacher,
+        TransformerStage,
+        init_weights_,
+        kdlae_teacher,
+    )
+    from rethink_acoustic_image_enhancement_tpu_torch.ops import stage as pstage
+    from rethink_acoustic_image_enhancement_tpu_torch.ops import stage_gate
+
+    t0 = time.perf_counter()
+    roots = write_dpdd(os.path.join(work, "dpdd"), DPDD_TRIPLES, seed=600)
+    write_s = time.perf_counter() - t0
+    cfg = baseline_config("restormer_dpdd", {}, {}, 3)
+    ds_opt = dict(type="Dataset_DefocusDeblur_DualPixel_16bit", geometric_augs=True, **roots)
+    cfg["datasets"]["train"] = dict(cfg["datasets"]["train"], **ds_opt)
+    cfg["datasets"]["train"].pop("dataroot_lq")
+    del cfg["datasets"]["val"]
+    cfg["val"]["val_freq"] = 0
+    cfg["network_g"].update(inp_channels=6, dual_pixel_task=True, LayerNorm_type="WithBias")
+    fns = reset_counts()
+    steps, _, wall = cli_train(work, cfg)
+    assert len(steps) == 3 and all(np.isfinite(e["l_pix"]) for e in steps), steps
+    train_launches = read_counts(fns)
+
+    item = create_dataset(dict(ds_opt, phase="val", scale=1))[0]
+    h, w = DPDD_HW
+    assert item["lq"].shape == (h, w, 6) and item["gt"].shape == (h, w, 3)
+    model = KDLAETeacher(inp_channels=6, dual_pixel_task=True, params="none", static="test",
+                         layernorm_type="BiasFree")
+    init_weights_(model, torch.Generator().manual_seed(15))
+    model = model.to(torch.bfloat16).cuda().eval().set_fused(True)
+    x = torch.from_numpy(item["lq"]).cuda().permute(2, 0, 1)[None].bfloat16()
+    seen = []  # what the gate admits, read off each stage's input in the run
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, args: seen.append((mod, tuple(args[0].shape))) or None)
+        for m in model.modules() if isinstance(m, TransformerStage)]
+    with torch.inference_mode():
+        model({"img": x})  # warm-up
+        torch.cuda.synchronize()
+        for hk in hooks:
+            hk.remove()
+        want = sum(stage_gate.stage_worthwhile(
+            b, hh, ww, m.dim, m.num_heads, m.bias_free_ln, m.use_bias,
+            m.ffn_expansion_factor) for m, (b, _, hh, ww) in seen)
+        fns = reset_counts()
+        t0 = time.perf_counter()
+        hq = model({"img": x})["hq"].float()
+        torch.cuda.synchronize()
+        fused_ms = (time.perf_counter() - t0) * 1e3
+        launches = read_counts(fns)["stage"]
+        plain_stage = kdlae_teacher.fused_transformer_stage
+        kdlae_teacher.fused_transformer_stage = pstage.stage_plain
+        try:
+            ref = model({"img": x})["hq"].float()
+        finally:
+            kdlae_teacher.fused_transformer_stage = plain_stage
+    assert hq.shape == (1, 3, h, w) and torch.isfinite(hq).all().item()
+    d = (hq - ref).abs()
+    within = float((d <= 1 / 255).float().mean())
+    assert launches == want >= 1, (launches, want)
+    assert within >= 0.99, f"only {within:.4f} of hq values within 1/255 of the plain stage"
+    row["dual_pixel"] = dict(
+        config="DefocusDeblur_DualPixel_16bit_Restormer.yml's network (inp_channels 6, "
+               "dual_pixel_task, WithBias) on Dataset_DefocusDeblur_DualPixel_16bit, 3 steps "
+               "at 8@128",
+        triples=DPDD_TRIPLES, frame=list(DPDD_HW), write_s=write_s,
+        losses=[e["l_pix"] for e in steps], iter_ms=[1e3 * e["iter_time"] for e in steps],
+        data_ms=[1e3 * e["data_time"] for e in steps], train_call_s=wall,
+        train_kernel_launches=train_launches,
+        teacher="KDLAE-T flagship width, dual_pixel_task, params none, inp_channels 6, "
+                "seeded init_weights_, bf16, fused",
+        stage_launches=launches, fused_ms=fused_ms, hq_within_1_255=within,
+        hq_max_abs_diff=float(d.max()))
+    log(f"(c) dual pixel: losses {row['dual_pixel']['losses']}; teacher {h}x{w} fused "
+        f"{fused_ms:.1f} ms, {launches} stage calls, {within:.5f} of hq within 1/255 of the "
+        f"plain stage [{card}]")
+    del model, x, hq, ref
+    torch.cuda.empty_cache()
+    return launches
+
+
+def write_video_sets(root):
+    """Vimeo90K septuplets, one REDS clip, FFHQ faces and (the REDS clip
+    again) a VideoTest folder at their published frame sizes, seeded."""
+    from rethink_acoustic_image_enhancement_tpu_torch.utils.image_io import imwrite
+
+    v = VIDEO_SIZES
+    s = v["scale"]
+
+    def put(path, hw, seed):
+        rng = np.random.default_rng(seed)
+        imwrite(path, rng.integers(0, 256, (*hw, 3), dtype=np.uint8))
+
+    keys = [f"00001/{k:04d}" for k in range(1, v["vimeo_clips"] + 1)]
+    for j, key in enumerate(keys):
+        for i in range(1, 8):
+            gh, gw = v["vimeo_gt"]
+            put(os.path.join(root, "vimeo", "gt", key, f"im{i}.png"), (gh, gw), 700 + 10 * j + i)
+            put(os.path.join(root, "vimeo", "lq", key, f"im{i}.png"), (gh // s, gw // s),
+                800 + 10 * j + i)
+    with open(os.path.join(root, "vimeo", "meta.txt"), "w") as fh:
+        fh.write("".join(f"{k} 7 ({v['vimeo_gt'][0]},{v['vimeo_gt'][1]},3)\n" for k in keys))
+    for i in range(v["reds_frames"]):
+        gh, gw = v["reds_gt"]
+        put(os.path.join(root, "reds", "gt", "000", f"{i:08d}.png"), (gh, gw), 900 + i)
+        put(os.path.join(root, "reds", "lq", "000", f"{i:08d}.png"), (gh // s, gw // s), 950 + i)
+    for i in range(v["ffhq_images"]):
+        put(os.path.join(root, "ffhq", f"{i:08d}.png"), v["ffhq"], 990 + i)
+    r = os.path.join(root, "reds")
+    return {
+        "Vimeo90KDataset": dict(dataroot_gt=os.path.join(root, "vimeo", "gt"),
+                                dataroot_lq=os.path.join(root, "vimeo", "lq"),
+                                meta_info_file=os.path.join(root, "vimeo", "meta.txt"),
+                                num_frame=7, random_reverse=True, scale=s, gt_size=v["gt_size"]),
+        "REDSDataset": dict(dataroot_gt=os.path.join(r, "gt"), dataroot_lq=os.path.join(r, "lq"),
+                            num_frame=5, interval_list=[1], random_reverse=False,
+                            frames_per_clip=v["reds_frames"], scale=s, gt_size=v["gt_size"]),
+        "FFHQDataset": dict(dataroot_gt=os.path.join(root, "ffhq"), use_hflip=True,
+                            mean=[0.5, 0.5, 0.5], std=[0.5, 0.5, 0.5]),
+        "VideoTestDataset": dict(dataroot_gt=os.path.join(r, "gt"),
+                                 dataroot_lq=os.path.join(r, "lq"), num_frame=5,
+                                 padding="reflection"),
+    }
+
+
+def phase15_video(row, card, work):
+    """(d) the video and face sets through BatchLoader and the uploader onto
+    the card, one epoch of batches of 4 with the sampler enlarged to
+    ``VIDEO_EPOCH_ITEMS`` items: each batch equal to the CPU items, and
+    items/s over the epoch after its first (warm) batch."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from rethink_acoustic_image_enhancement_tpu_torch.data import loader as tld
+    from rethink_acoustic_image_enhancement_tpu_torch.data.datasets import create_dataset
+
+    t0 = time.perf_counter()
+    opts = write_video_sets(os.path.join(work, "video"))
+    write_s = time.perf_counter() - t0
+    out = {}
+    for name, opt in opts.items():
+        ds = create_dataset(dict(opt, type=name, seed=5))
+        uploader = tld.BatchUploader(torch.device("cuda"), ds.frame_stacks)
+        bs = 4
+        ratio = -(-VIDEO_EPOCH_ITEMS // len(ds))
+        sampler = tld.EnlargedShuffleSampler(len(ds), ratio, shuffle=True, seed=5)
+        loader = tld.BatchLoader(ds, bs, sampler, num_workers=4)
+        got = []
+        for host in loader:
+            got.append(uploader(host))
+            if len(got) == 1:  # the warm batch: threads, pinned buffers, copy stream
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        idx = sampler.epoch_indices(0)
+        with ThreadPoolExecutor(8) as pool:
+            items = list(pool.map(lambda i: ds[int(i)], idx[:bs * len(got)]))
+        shapes = {}
+        for b, dev in enumerate(got):
+            for key, t in dev.items():
+                if not isinstance(t, torch.Tensor):
+                    continue  # paths and keys stay on the host
+                want = np.stack([it[key] for it in items[b * bs:(b + 1) * bs]])
+                host = t.cpu()
+                if want.ndim == 4 and not ds.frame_stacks:
+                    host = host.permute(0, 2, 3, 1)  # the uploader's NCHW back to NHWC
+                host = host.numpy()
+                assert host.dtype == want.dtype and np.array_equal(host, want), (name, key, b)
+                shapes[key] = list(want.shape)
+        timed = bs * (len(got) - 1)
+        out[name] = dict(files=len(ds), batch=bs, batches=len(got), timed_items=timed,
+                         timed_s=secs, items_per_s=timed / secs, shapes=shapes)
+        log(f"(d) {name}: {out[name]['items_per_s']:.1f} items/s through the loader onto the "
+            f"card ({timed} items after a warm batch, {secs:.2f} s), batch shapes {shapes}")
+        del got, items
+        torch.cuda.empty_cache()
+    row["video"] = dict(write_s=write_s, sets=out)
+
+
+def phase15_parts(row, card):
+    """(e) flow_warp, the embeds and a stack of arch_utils' residual blocks
+    on the card against the CPU at a Vimeo90K septuplet's size, float32,
+    TF32 off."""
+    import torch
+
+    from rethink_acoustic_image_enhancement_tpu_torch.models import arch_utils, embeds
+    from rethink_acoustic_image_enhancement_tpu_torch.ops.warp import flow_warp
+
+    f, h, w = WARP_SHAPE
+    rng = np.random.default_rng(16)
+    frames = torch.from_numpy(rng.random((1, f, h, w), dtype=np.float32))
+    x = torch.from_numpy(rng.random((f, 3, h, w), dtype=np.float32))
+    flow = torch.from_numpy((rng.random((f, h, w, 2)) * 8 - 4).astype(np.float32))
+    torch.manual_seed(16)
+    embed = embeds.OverlapPatchTimePoseEmbed(in_frames=f, embed_dim=48, out_dim=48,
+                                             base_size=(128, 128)).eval()
+    spy = embeds.WDSpybottle(f, f).eval()
+    res = arch_utils.make_layer(arch_utils.ResidualBlockNoBN, 2, num_feat=48)
+    feats = torch.from_numpy(rng.random((f, 48, h, w), dtype=np.float32))
+    cases = {"flow_warp": (lambda a, b: flow_warp(a, b), (x, flow)),
+             "flow_warp_border": (lambda a, b: flow_warp(a, b, "border"), (x, flow)),
+             "time_pose_embed": (embed, (frames,)),
+             "wd_spybottle": (spy, (frames,)),
+             "residual_blocks": (res, (feats,))}
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    try:
+        with torch.no_grad():
+            for name, (fn, args) in cases.items():
+                ref = fn(*args)
+                if isinstance(fn, torch.nn.Module):
+                    fn.cuda()
+                got = fn(*[a.cuda() for a in args])
+                if isinstance(fn, torch.nn.Module):
+                    fn.cpu()
+                assert got.is_cuda and torch.isfinite(got).all().item(), name
+                rel = ((got.cpu() - ref).abs().max() / ref.abs().max()).item()
+                out[name] = dict(shape=list(ref.shape), rel_err=rel)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    row["parts"] = out
+    log("(e) card vs CPU, max|d| / max|ref|: "
+        + ", ".join(f"{k} {v['rel_err']:.2e}" for k, v in out.items()) + f" [{card}]")
+    over = {k: v["rel_err"] for k, v in out.items() if v["rel_err"] > 1e-5}
+    assert not over, f"card vs CPU beyond 1e-5: {over}"
+
+
+def phase_remaining_datasets(results, card):
+    """Phase 15: the remaining datasets and storage backends, the
+    dual-pixel teacher and the parts no shipped model calls; returns the
+    stage-kernel calls of (c)."""
+    import torch
+
+    t0 = time.perf_counter()
+    row = dict(card=card)
+    with tempfile.TemporaryDirectory(prefix="raie_datasets_") as work:
+        train, val = phase15_lmdb(row, card, work)
+        phase15_gaussian(row, card, work, train, val)
+        torch.cuda.empty_cache()
+        launches = phase15_dual_pixel(row, card, work)
+        phase15_video(row, card, work)
+    phase15_parts(row, card)
+    row["stage_launches"] = launches
+    row["phase_s"] = time.perf_counter() - t0
+    results["remaining_datasets"] = row
+    print(json.dumps({"remaining_datasets": row}), flush=True)
+    log(f"phase 15: {row['phase_s']:.1f} s")
+    return launches
+
+
 # ------------------------------------------------------------ main -------
 
 def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--dp-rank":  # a rank of phase 13
         return dp_child(sys.argv[2])
-    only_14 = sys.argv[1:] == ["--phase", "14"]  # phase 14 alone, after the build
-    if sys.argv[1:] and not only_14:
+    only = sys.argv[2] if sys.argv[1:2] == ["--phase"] and len(sys.argv) == 3 else None
+    if sys.argv[1:] and only not in ("14", "15"):  # one phase alone, after the build
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
         return 2
     import torch
@@ -3249,9 +3758,9 @@ def main() -> int:
 
     results = {"card": card, "torch": torch.__version__,
                "cuda": torch.version.cuda, "build_s": build_s}
-    if only_14:
+    if only:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32_defaults
-        phase_dp_serving(results, card)
+        (phase_dp_serving if only == "14" else phase_remaining_datasets)(results, card)
         return 0
     stage_rows = phase_kernels(results, card)
     ln_rows = phase_layernorm_kernel(results, card)
@@ -3283,10 +3792,12 @@ def main() -> int:
         phase_data_parallel(results, card, work)
     torch.cuda.empty_cache()
     dp_launches = phase_dp_serving(results, card)
+    torch.cuda.empty_cache()
+    dual_pixel_launches = phase_remaining_datasets(results, card)
     results["path_launches"] = dict(whole_image=whole_launches, tiled=tiled_launches,
                                     group=group_launches, zoo_cli=zoo_launches,
                                     distill=distill_launches, dp_serving=dp_launches,
-                                    **path_launches)
+                                    dual_pixel=dual_pixel_launches, **path_launches)
 
     def entry(name, source, replaces, launches, rows, main_row):
         assert launches > 0, f"{name}: no launch on a driven path"
@@ -3303,7 +3814,7 @@ def main() -> int:
     kernels = {"kernels": [
         entry("fused_transformer_stage", "stage.cu", "stage.py:324",
               whole_launches + tiled_launches + group_launches + zoo_launches
-              + distill_launches + dp_launches,
+              + distill_launches + dp_launches + dual_pixel_launches,
               stage_rows, stage_rows[0]),
         entry("fused_channel_layernorm", "layernorm.cu", "layernorm.py:58",
               path_launches["layernorm"], ln_rows, ln_rows[1]),

@@ -22,6 +22,9 @@ arguments of ``ops/block.py::fused_transformer_block`` and
 ``load_pth`` reads a reference-layout checkpoint ``{'params': state_dict[,
 'params_ema']}`` (or a bare state dict) of any of the three families, the
 ASDQE scorer's running statistics included.
+``module_state_dict`` maps the plain flax trees of ``models/arch_utils.py``
+and ``models/embeds.py`` (convs, BatchNorm with its batch statistics, the
+per-frame position maps HWC -> CHW).
 """
 
 from __future__ import annotations
@@ -100,6 +103,34 @@ def gdfn_kernel_args(params: Mapping[str, Any]) -> tuple:
     return (_tensor(params["project_in"]["kernel"]),
             _tensor(params["dwconv"]["kernel"]),
             _tensor(params["project_out"]["kernel"]))
+
+
+def module_state_dict(params: Mapping[str, Any],
+                      batch_stats: Mapping[str, Any] | None = None
+                      ) -> dict[str, torch.Tensor]:
+    """A flax tree of plain convs and BatchNorms (``ResidualBlockNoBN``,
+    ``make_layer``, ``OverlapPatchTimePoseEmbed``, ``BasicSpy``,
+    ``WDSpybottle``) -> the port's state dict: 4-D ``kernel`` -> ``weight``
+    (O, I, kh, kw), BatchNorm ``scale`` -> ``weight``, ``pos_embed_<i>``
+    (h, w, E) -> (E, h, w), and each BatchNorm's ``mean`` / ``var`` ->
+    ``running_mean`` / ``running_var`` (with ``num_batches_tracked`` 0)."""
+    sd: dict[str, torch.Tensor] = {}
+    for key, val in flatten(params).items():
+        parts = key.split(".")
+        val = _float32(val)
+        if parts[-1] == "kernel" and val.ndim == 4:
+            parts[-1], val = "weight", val.transpose(3, 2, 0, 1)
+        elif parts[-1] == "scale":
+            parts[-1] = "weight"
+        elif parts[-1].startswith("pos_embed_"):
+            val = val.transpose(2, 0, 1)
+        sd[".".join(parts)] = torch.from_numpy(np.ascontiguousarray(val))
+    for key, val in flatten(batch_stats or {}).items():
+        parts = key.split(".")
+        parts[-1] = {"mean": "running_mean", "var": "running_var"}[parts[-1]]
+        sd[".".join(parts)] = torch.from_numpy(np.ascontiguousarray(_float32(val)))
+        sd[".".join(parts[:-1] + ["num_batches_tracked"])] = torch.tensor(0)
+    return sd
 
 
 def load_teacher_params(model: nn.Module, params: Mapping[str, Any]) -> nn.Module:

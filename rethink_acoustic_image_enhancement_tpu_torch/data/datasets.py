@@ -1,8 +1,9 @@
 """Map-style datasets returning HWC float32 numpy items.
 
-The port's copy of the JAX package's training datasets for the teacher,
-the student and the scorer (the reference's
-Train/basicsr/data/paired_image_dataset.py), item for item the same:
+The port's copy of the JAX package's datasets (the reference's
+Train/basicsr/data/paired_image_dataset.py and single_image_dataset.py;
+the video and face sets are in ``video_datasets.py``), item for item the
+same:
 
   * HWC float32 numpy out; the teacher's items are
     ``{'lq': {'img', 'denoise_rate'}, 'gt': {'hq', 'sr'}}`` as in the
@@ -12,14 +13,19 @@ Train/basicsr/data/paired_image_dataset.py), item for item the same:
     ``SeedSequence([seed, epoch, index])``: deterministic, safe across
     worker threads and re-rolled per epoch (``set_epoch``).
 
-Every read goes through a ``FileClient`` (the disk backend) and decodes
-with ``utils/image_io.py`` (cv2, else PIL, else the numpy PNG decoder).
-Dataset types that are not ported yet raise, naming their ROADMAP.md item.
+Every read goes through a ``FileClient`` (``io_backend``: disk, lmdb or
+memcached) and decodes with ``utils/image_io.py`` (cv2, else PIL, else the
+numpy PNG decoder); the dual-pixel set's 16-bit PNGs need cv2.
+``Dataset_PairedImage``, ``Dataset_GaussianDenoising`` and
+``Dataset_SingleImage`` read LMDB shards (``data/lmdb_util.py``); the
+datasets that pair several folders by name refuse them, as the reference's
+do.
 """
 
 from __future__ import annotations
 
 import json
+import os.path as osp
 from typing import Any
 
 import numpy as np
@@ -27,11 +33,14 @@ import numpy as np
 from ..ops.mask import input_mask_np
 from ..utils import native
 from ..utils.image_io import imfrombytes_bgr, imfrombytes_gray
+from .lmdb_util import paths_from_lmdb
 from .pairing import (
     paired_multipaths_from_folder,
     paired_paths_from_folder,
     paired_paths_from_folder_param,
+    paired_paths_from_lmdb,
     paired_paths_from_meta_info_file,
+    scan_files,
 )
 from .transforms import (
     add_gaussian_noise,
@@ -42,6 +51,20 @@ from .transforms import (
     random_augmentation,
     sync_augment_multi_scale,
 )
+
+
+def imfrombytes_16bit(buf: bytes) -> np.ndarray:
+    """Encoded 8- or 16-bit image bytes -> float32 [0, 1] in the file's
+    layout, BGR for colour (img_util.imfrombytesDP: IMREAD_UNCHANGED, then
+    /65535 for 16 bits and /255 for 8)."""
+    import cv2
+
+    img = cv2.imdecode(np.frombuffer(buf, np.uint8), cv2.IMREAD_UNCHANGED)
+    if img is None:
+        raise IOError("failed to decode image bytes")
+    if img.dtype == np.uint16:
+        return img.astype(np.float32) / 65535.0
+    return img.astype(np.float32) / 255.0
 
 
 def _reflect101_pad_to(img: np.ndarray, target: int) -> np.ndarray:
@@ -57,10 +80,14 @@ def _reflect101_pad_to(img: np.ndarray, target: int) -> np.ndarray:
 
 class _SeededDataset:
     """Per-(epoch, index) generator and an optional decode cache.
+    ``frame_stacks`` is True where the items are (F, H, W) frame stacks,
+    False where their images are HWC.
 
     ``cache_decoded: true`` in the dataset options keeps decoded images in
     RAM by path (the reference decodes the whole source image for every
     crop); opt-in, because it holds the decoded corpus in host memory."""
+
+    frame_stacks = False
 
     def __init__(self, seed: int = 0, cache_decoded: bool = False,
                  io_opt: dict | None = None):
@@ -84,17 +111,23 @@ class _SeededDataset:
         return self._file_client
 
     def _read(self, path: str, key: str = "default",
-              gray: bool = False) -> np.ndarray:
-        """BGR float32 [0, 1] HWC of ``path`` (HW grayscale with ``gray``),
-        through the cache; a private copy (corruption and augmentation must
-        not write cached memory)."""
-        decode = imfrombytes_gray if gray else imfrombytes_bgr
-        if self._decode_cache is None:
-            return decode(self._client().get(path, key))
-        img = self._decode_cache.get((key, gray, path))
+              decode=imfrombytes_bgr) -> np.ndarray:
+        """``decode`` of the bytes the file client gives for ``path`` (a
+        file path on disk, a record key in LMDB) under client ``key``: BGR
+        float32 [0, 1] HWC by default, ``imfrombytes_gray`` for HW
+        grayscale. Through the cache; a private copy (corruption and
+        augmentation must not write cached memory)."""
+        cache_key = (key, decode.__name__, path)
+        img = None if self._decode_cache is None else self._decode_cache.get(cache_key)
         if img is None:
-            img = decode(self._client().get(path, key))
-            self._decode_cache[(key, gray, path)] = img
+            buf = self._client().get(path, key)
+            if buf is None:
+                raise IOError(f"{self._io_opt.get('type', 'disk')} backend has "
+                              f"no entry for {path!r} (client {key!r})")
+            img = decode(buf)
+            if self._decode_cache is None:
+                return img
+            self._decode_cache[cache_key] = img
         return img.copy()
 
     def _rng(self, index: int) -> np.random.Generator:
@@ -102,20 +135,60 @@ class _SeededDataset:
             np.random.SeedSequence([self._seed, self._epoch, index]))
 
 
+def _io_opt_no_lmdb(opt: dict, name: str) -> dict:
+    """``io_backend`` of a dataset that pairs several folders by name: LMDB
+    is refused, as the reference's such datasets refuse it
+    (paired_image_dataset.py:451-453)."""
+    io_opt = dict(opt.get("io_backend") or {"type": "disk"})
+    if io_opt.get("type") == "lmdb":
+        raise NotImplementedError(
+            f"{name} does not support the lmdb backend (multi-modality "
+            "folder pairing; matches the reference behavior) — use "
+            "Dataset_PairedImage for lmdb corpora")
+    return io_opt
+
+
+def _io_opt_lmdb(opt: dict, folders: list[str], keys: list[str]) -> dict:
+    """``io_backend`` with one LMDB client per modality: the dataroots are
+    the shards (paired_image_dataset.py:343-346)."""
+    io_opt = dict(opt.get("io_backend") or {"type": "disk"})
+    if io_opt.get("type") == "lmdb":
+        io_opt.setdefault("db_paths", folders)
+        io_opt.setdefault("client_keys", keys)
+    return io_opt
+
+
+def _single_folder_paths(opt: dict, root: str, io_opt: dict) -> list[str]:
+    """One folder's images: a shard's keys, the meta-info file's names or
+    the folder's files."""
+    if io_opt.get("type") == "lmdb":
+        return paths_from_lmdb(root)
+    if opt.get("meta_info_file"):
+        with open(opt["meta_info_file"]) as f:
+            return [osp.join(root, line.split(" ")[0].strip())
+                    for line in f if line.strip()]
+    return [osp.join(root, f) for f in scan_files(root)]
+
+
 class PairedImageDataset(_SeededDataset):
     """Generic LQ/GT pairs (Dataset_PairedImage,
     paired_image_dataset.py:299-421): pad, random crop, degenerate-input
-    noise, 8-way geometric augmentation; BGR files flipped to RGB."""
+    noise, 8-way geometric augmentation; BGR files flipped to RGB. With
+    ``io_backend: {type: lmdb}`` the two dataroots are shards and the pairs
+    their shared keys."""
 
     def __init__(self, opt: dict):
+        folders = [opt["dataroot_lq"], opt["dataroot_gt"]]
+        io_opt = _io_opt_lmdb(opt, folders, ["lq", "gt"])
         super().__init__(opt.get("seed", 0), opt.get("cache_decoded", False),
-                         opt.get("io_backend"))
+                         io_opt)
         self.opt = opt
         self.phase = opt.get("phase", "train")
         self.scale = opt.get("scale", 1)
-        folders = [opt["dataroot_lq"], opt["dataroot_gt"]]
         tmpl = opt.get("filename_tmpl", "{}")
-        if opt.get("meta_info_file"):
+        if io_opt.get("type") == "lmdb":
+            self.paths = paired_paths_from_lmdb(folders, ["lq", "gt"])
+        elif opt.get("meta_info_file"):
             self.paths = paired_paths_from_meta_info_file(
                 folders, ["lq", "gt"], opt["meta_info_file"], tmpl)
         else:
@@ -160,7 +233,7 @@ class SuperRestorationParamDataset(_SeededDataset):
 
     def __init__(self, opt: dict):
         super().__init__(opt.get("seed", 0), opt.get("cache_decoded", False),
-                         opt.get("io_backend"))
+                         _io_opt_no_lmdb(opt, type(self).__name__))
         self.opt = opt
         self.phase = opt.get("phase", "train")
         self.scale = opt.get("scale", 1)
@@ -253,9 +326,11 @@ class PairedMultiImageDataset(_SeededDataset):
     augmentation. The 'test1' and 'interpolation' phases apply fixed
     corruptions at evaluation. Items are (F, H, W) float32 stacks."""
 
+    frame_stacks = True
+
     def __init__(self, opt: dict):
         super().__init__(opt.get("seed", 0), opt.get("cache_decoded", False),
-                         opt.get("io_backend"))
+                         _io_opt_no_lmdb(opt, type(self).__name__))
         self.opt = opt
         self.phase = opt.get("phase", "train")
         self.scale = opt.get("scale", 1)
@@ -303,8 +378,8 @@ class PairedMultiImageDataset(_SeededDataset):
     def __getitem__(self, index: int) -> dict[str, Any]:
         rng = self._rng(index)
         group = self.paths[index % len(self.paths)]
-        gt_frames = [self._read(g["gt_path"], "gt", gray=True) for g in group]
-        lq_frames = [self._read(g["lq_path"], "lq", gray=True) for g in group]
+        gt_frames = [self._read(g["gt_path"], "gt", imfrombytes_gray) for g in group]
+        lq_frames = [self._read(g["lq_path"], "lq", imfrombytes_gray) for g in group]
         th = max(img.shape[0] for img in gt_frames)
         tw = max(img.shape[1] for img in gt_frames)
         gt = np.stack([pad_image_center(x, th, tw) for x in gt_frames], axis=-1)
@@ -346,7 +421,7 @@ class SIQADataset(_SeededDataset):
 
     def __init__(self, opt: dict):
         super().__init__(opt.get("seed", 0), opt.get("cache_decoded", False),
-                         opt.get("io_backend"))
+                         _io_opt_no_lmdb(opt, type(self).__name__))
         self.opt = opt
         self.phase = opt.get("phase", "train")
         self.gt_size = opt.get("gt_size", None)
@@ -383,25 +458,165 @@ class SIQADataset(_SeededDataset):
                 "lq_path": p["lq_path"], "gt_path": p["gt_path"]}
 
 
+class GaussianDenoisingDataset(_SeededDataset):
+    """Synthetic gaussian noise on clean images (Dataset_GaussianDenoising,
+    paired_image_dataset.py:1107-1247): in training a pad, crop and
+    augmentation, then noise of sigma 'constant', 'random' (uniform in
+    sigma_range) or 'choice' (one of sigma_range); in evaluation noise at
+    sigma_test from ``default_rng(0)`` for every item (the reference seeds
+    numpy with 0 per item). ``in_ch`` 3 reads RGB, 1 grayscale (H, W, 1).
+    With ``io_backend: {type: lmdb}`` the dataroot is a shard."""
+
+    def __init__(self, opt: dict):
+        root = opt["dataroot_gt"]
+        io_opt = _io_opt_lmdb(opt, [root], ["gt"])
+        super().__init__(opt.get("seed", 0), opt.get("cache_decoded", False),
+                         io_opt)
+        self.opt = opt
+        self.phase = opt.get("phase", "train")
+        self.scale = opt.get("scale", 1)
+        self.in_ch = opt.get("in_ch", 3)
+        self.geometric_augs = opt.get("geometric_augs", False)
+        if self.phase == "train":
+            self.sigma_type = opt["sigma_type"]
+            self.sigma_range = opt["sigma_range"]
+            if self.sigma_type not in ("constant", "random", "choice"):
+                raise ValueError(f"sigma_type {self.sigma_type!r}: expected "
+                                 "'constant', 'random' or 'choice'")
+        else:
+            self.sigma_test = opt["sigma_test"]
+        self.paths = _single_folder_paths(opt, root, io_opt)
+
+    def __len__(self) -> int:
+        return len(self.paths)
+
+    def __getitem__(self, index: int) -> dict[str, Any]:
+        rng = self._rng(index)
+        path = self.paths[index % len(self.paths)]
+        if self.in_ch == 3:
+            img_gt = np.ascontiguousarray(self._read(path, "gt")[..., ::-1])
+        else:
+            img_gt = self._read(path, "gt", imfrombytes_gray)[..., None]
+        img_lq = img_gt.copy()
+
+        if self.phase == "train":
+            gt_size = self.opt["gt_size"]
+            img_lq, img_gt = pad_to_min_size(img_lq, img_gt, gt_size)
+            img_gt, img_lq = paired_random_crop(img_gt, img_lq, gt_size,
+                                                self.scale, rng)
+            if self.geometric_augs:
+                img_gt, img_lq = random_augmentation(img_gt, img_lq, rng=rng)
+            if self.sigma_type == "constant":
+                sigma = float(self.sigma_range)
+            elif self.sigma_type == "random":
+                sigma = float(rng.uniform(*self.sigma_range))
+            else:
+                sigma = float(rng.choice(self.sigma_range))
+            img_lq = img_lq + rng.standard_normal(img_lq.shape) * (sigma / 255.0)
+        else:
+            img_lq = img_lq + np.random.default_rng(0).normal(
+                0, self.sigma_test / 255.0, img_lq.shape)
+
+        return {"lq": np.ascontiguousarray(img_lq.astype(np.float32)),
+                "gt": np.ascontiguousarray(img_gt.astype(np.float32)),
+                "lq_path": path, "gt_path": path}
+
+
+class SingleImageDataset(_SeededDataset):
+    """LQ images alone, for inference (Dataset_SingleImage,
+    single_image_dataset.py): one folder, a meta-info list or an LMDB
+    shard; items are ``{'lq': RGB HWC, 'lq_path'}``."""
+
+    def __init__(self, opt: dict):
+        root = opt["dataroot_lq"]
+        io_opt = _io_opt_lmdb(opt, [root], ["lq"])
+        super().__init__(opt.get("seed", 0), opt.get("cache_decoded", False),
+                         io_opt)
+        self.opt = opt
+        self.paths = _single_folder_paths(opt, root, io_opt)
+
+    def __len__(self) -> int:
+        return len(self.paths)
+
+    def __getitem__(self, index: int) -> dict[str, Any]:
+        path = self.paths[index % len(self.paths)]
+        img = np.ascontiguousarray(self._read(path, "lq")[..., ::-1])
+        return {"lq": img.astype(np.float32), "lq_path": path}
+
+
+class DefocusDeblurDualPixel16Dataset(_SeededDataset):
+    """Dual-pixel defocus deblurring (Dataset_DefocusDeblur_DualPixel_16bit,
+    paired_image_dataset.py:1249-1336): 16-bit lqL / lqR / gt triples, one
+    crop window and one augmentation for all three, ``lq`` the left and
+    right views concatenated on channels (6); for a network with
+    ``dual_pixel_task: true, inp_channels: 6``. Needs cv2."""
+
+    def __init__(self, opt: dict):
+        super().__init__(opt.get("seed", 0), opt.get("cache_decoded", False),
+                         _io_opt_no_lmdb(opt, type(self).__name__))
+        self.opt = opt
+        self.phase = opt.get("phase", "train")
+        self.scale = opt.get("scale", 1)
+        self.geometric_augs = opt.get("geometric_augs", False)
+        self.paths = paired_paths_from_folder(
+            [opt["dataroot_lqL"], opt["dataroot_lqR"], opt["dataroot_gt"]],
+            ["lqL", "lqR", "gt"], opt.get("filename_tmpl", "{}"))
+
+    def __len__(self) -> int:
+        return len(self.paths)
+
+    def __getitem__(self, index: int) -> dict[str, Any]:
+        rng = self._rng(index)
+        p = self.paths[index % len(self.paths)]
+        img_gt = self._read(p["gt_path"], "gt", imfrombytes_16bit)
+        img_lql = self._read(p["lqL_path"], "lqL", imfrombytes_16bit)
+        img_lqr = self._read(p["lqR_path"], "lqR", imfrombytes_16bit)
+
+        if self.phase == "train":
+            gt_size = self.opt["gt_size"]
+            img_lql, img_gt = pad_to_min_size(img_lql, img_gt, gt_size)
+            img_lqr, _ = pad_to_min_size(img_lqr, img_lqr, gt_size)
+            # one crop window for all three (paired_random_crop_DP)
+            gts, lqs = paired_random_crop([img_gt], [img_lql, img_lqr],
+                                          gt_size, self.scale, rng)
+            img_gt, (img_lql, img_lqr) = gts[0], lqs
+            if self.geometric_augs:
+                img_lql, img_lqr, img_gt = random_augmentation(
+                    img_lql, img_lqr, img_gt, rng=rng)
+
+        to_rgb = lambda x: np.ascontiguousarray(x[..., ::-1].astype(np.float32))
+        lq = np.concatenate([to_rgb(img_lql), to_rgb(img_lqr)], axis=-1)
+        return {"lq": lq, "gt": to_rgb(img_gt),
+                "lq_path": p["lqL_path"], "gt_path": p["gt_path"]}
+
+
+def _video_datasets():
+    from .video_datasets import (
+        FFHQDataset,
+        REDSDataset,
+        VideoTestDataset,
+        Vimeo90KDataset,
+    )
+
+    return {
+        "REDSDataset": REDSDataset,
+        "Vimeo90KDataset": Vimeo90KDataset,
+        "VideoTestDataset": VideoTestDataset,
+        "FFHQDataset": FFHQDataset,
+    }
+
+
 DATASETS = {
     "Dataset_PairedImage": PairedImageDataset,
     "Dataset_SuperRestoration_param": SuperRestorationParamDataset,
     "Dataset_SuperRestoration": SuperRestorationDataset,
     "Dataset_PairedMutiImage": PairedMultiImageDataset,
     "Dataset_S_IQA": SIQADataset,
+    "Dataset_GaussianDenoising": GaussianDenoisingDataset,
+    "Dataset_SingleImage": SingleImageDataset,
+    "Dataset_DefocusDeblur_DualPixel_16bit": DefocusDeblurDualPixel16Dataset,
 }
-
-# dataset types of the JAX package still to be ported -> their ROADMAP.md item
-_REMAINING = "Queue A: the remaining datasets"
-NOT_PORTED = {
-    "Dataset_GaussianDenoising": _REMAINING,
-    "Dataset_SingleImage": _REMAINING,
-    "Dataset_DefocusDeblur_DualPixel_16bit": _REMAINING,
-    "REDSDataset": _REMAINING,
-    "Vimeo90KDataset": _REMAINING,
-    "VideoTestDataset": _REMAINING,
-    "FFHQDataset": _REMAINING,
-}
+DATASETS.update(_video_datasets())
 
 # Every dataset option key any dataset or the loader layer consumes (the
 # JAX package's set). Config validation rejects keys outside it, so a
@@ -432,11 +647,7 @@ KNOWN_DATASET_KEYS = frozenset({
 
 
 def check_dataset_type(t: str | None) -> None:
-    """Raise for an unknown dataset type, or one not ported yet."""
-    if t in NOT_PORTED:
-        raise NotImplementedError(
-            f"dataset type {t!r} is not ported yet (ROADMAP.md, "
-            f"{NOT_PORTED[t]})")
+    """Raise for an unknown dataset type."""
     if t not in DATASETS:
         raise KeyError(f"unknown dataset type {t!r}; known: {sorted(DATASETS)}")
 

@@ -9,8 +9,9 @@ data_sampler.py, prefetch_dataloader.py:79-126).
     item); ``set_epoch(epoch, skip)`` starts an epoch at a later batch, so
     a resumed run reads what an uninterrupted one would.
   * ``BatchUploader``: host batches to the device as NCHW tensors, the one
-    place where the layout changes (frame stacks keep theirs). Uploads go from pinned memory on a side
-    stream, from any thread, ordered against the compute stream by an event
+    place where the layout changes (frame stacks keep theirs: the
+    dataset's ``frame_stacks`` says which it gives). Uploads go from pinned
+    memory on a side stream, from any thread, ordered against the compute stream by an event
     (``eval/infer.py::Transfers``); ``ready`` makes a batch safe to use.
   * ``DevicePrefetcher``: a background thread that pulls host batches and
     hands them to ``put`` (the loop's subsample and upload) ahead of the
@@ -122,23 +123,21 @@ def leaves(tree) -> list:
     return [tree] if isinstance(tree, (np.ndarray, torch.Tensor)) else []
 
 
-def is_frame_stack(x) -> bool:
-    """A (B, F, H, W) frame stack: 4-D, its last axis no channel axis (1 or
-    3; the JAX package's rule, ``loop.py:241``). Other 4-D arrays are NHWC."""
-    return not isinstance(x, dict) and x.ndim == 4 and x.shape[-1] not in (1, 3)
-
-
-def _nchw(t: torch.Tensor) -> torch.Tensor:
-    if t.ndim != 4 or is_frame_stack(t):
+def _nchw(t: torch.Tensor, frame_stacks: bool) -> torch.Tensor:
+    if t.ndim != 4 or frame_stacks:
         return t
     return t.permute(0, 3, 1, 2).contiguous()
 
 
 class BatchUploader:
-    """HWC host batches -> NCHW device tensors (see the module docstring)."""
+    """HWC host batches -> NCHW device tensors (see the module docstring).
+    ``frame_stacks`` (the dataset's) says whether its 4-D arrays are
+    (B, F, H, W) stacks, which keep their layout, or NHWC batches (a
+    6-channel dual-pixel batch among them)."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, frame_stacks: bool):
         self.device = device
+        self.frame_stacks = frame_stacks
         self._transfers = Transfers(device)
 
     def upload(self, batch: dict) -> tuple[dict, Any]:
@@ -154,7 +153,7 @@ class BatchUploader:
         current stream."""
         batch, event = pending
         self._transfers.on_current(leaves(batch), event)
-        return tree_map(_nchw, batch, torch.Tensor)
+        return tree_map(lambda t: _nchw(t, self.frame_stacks), batch, torch.Tensor)
 
     def __call__(self, batch: dict) -> dict:
         return self.ready(self.upload(batch))

@@ -227,7 +227,7 @@ def train_asdqe(
     train_idx, val_idx = perm[: int(0.8 * n)], perm[int(0.8 * n):]
     opt = MultiStepsAdam(model.parameters(), lr, accumulation_steps)
     plateau = ReduceLROnPlateau()
-    uploader = BatchUploader(device)
+    uploader = BatchUploader(device, dataset.frame_stacks)
 
     history = []
     best_val = float("inf")

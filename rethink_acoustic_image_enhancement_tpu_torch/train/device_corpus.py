@@ -47,7 +47,7 @@ from ..data.datasets import (PairedMultiImageDataset, SuperRestorationDataset,
 from ..data.pairing import _numeric_prefix_key, paired_paths_from_folder, scan_files
 from ..eval.infer import resolve_device
 from ..ops.mask import frame_interpolation_core, mask_with_keep, prob_thresholds, same_device
-from ..utils.image_io import imread_bgr
+from ..utils.image_io import imfrombytes_gray, imread_bgr
 
 
 def seeded_generator(device, *key: int) -> torch.Generator:
@@ -217,8 +217,8 @@ class StudentDeviceCorpus(_Corpus):
                 f"empty corpus: no frame groups fit num_pairs={self.num_pairs} "
                 f"with stride_range={opt.get('stride_range')} over the given folders")
         self._frame_index = {key: i for i, key in enumerate(paths)}
-        lq = [self._ds._read(p, "lq", gray=True) for p, _ in paths]
-        gt = [self._ds._read(p, "gt", gray=True) for _, p in paths]
+        lq = [self._ds._read(p, "lq", imfrombytes_gray) for p, _ in paths]
+        gt = [self._ds._read(p, "gt", imfrombytes_gray) for _, p in paths]
         side = max(self.gt_size, max(f.shape[0] for f in gt),
                    max(f.shape[1] for f in gt))
 

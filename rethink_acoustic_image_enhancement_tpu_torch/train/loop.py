@@ -56,7 +56,7 @@ import torch
 
 from ..data.datasets import create_dataset
 from ..data.loader import (BatchLoader, BatchUploader, DevicePrefetcher,
-                           EnlargedShuffleSampler, is_frame_stack, leaves)
+                           EnlargedShuffleSampler, leaves)
 from ..eval.infer import highest_precision
 from ..losses import build_loss
 from ..metrics import NO_REFERENCE, get_metric
@@ -150,7 +150,8 @@ def validate_model(model: torch.nn.Module, val_loader, opt: dict,
     metric_cfgs = val_opt.get("metrics", {"psnr": {
         "type": "calculate_psnr", "crop_border": 0, "test_y_channel": False}})
     device = next(model.parameters()).device
-    upload = BatchUploader(device)
+    frames = val_loader.dataset.frame_stacks
+    upload = BatchUploader(device, frames)
     quantise = (lambda a: to_ubyte(a).astype(np.float32)) if use_image \
         else (lambda a: a)
 
@@ -161,7 +162,6 @@ def validate_model(model: torch.nn.Module, val_loader, opt: dict,
     sr_count = count = 0
     try:
         for batch in val_loader:
-            frames = is_frame_stack(batch["lq"])
             dev = upload({"lq": batch["lq"], "gt": batch["gt"]})
             lq, gt = dev["lq"], dev["gt"]
             pred_sr = target_sr = None
@@ -378,7 +378,8 @@ def _train(opt: dict, device, max_iters: int | None, log,
                                                       "mib": corpus.nbytes / 2 ** 20})
     val_loader = (_val_loader_factory(opt, log) if val_freq and is_master()
                   else None)
-    uploader = BatchUploader(device)
+    uploader = (None if loader is None
+                else BatchUploader(device, loader.dataset.frame_stacks))
     prefetch_iter = [0]
 
     def put(b):

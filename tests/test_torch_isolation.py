@@ -36,7 +36,11 @@ def test_every_port_module_imports_without_jax():
                  "utils.tracking", "utils.watchdog", "utils.native",
                  "train.distill", "train.asdqe_trainer", "train.device_corpus",
                  "utils.profiling", "parallel", "parallel.collectives",
-                 "metrics.niqe", "metrics.fid", "metrics.inception"):
+                 "metrics.niqe", "metrics.fid", "metrics.inception",
+                 "data.lmdb_codec", "data.lmdb_util", "data.video_datasets",
+                 "eval.bundle_submissions", "models.arch_utils", "models.embeds",
+                 "ops.warp", "utils.download_weights", "utils.face_restoration",
+                 "utils.flow", "utils.matlab"):
         assert f"{PORT}.{name}" in modules, name
     code = "\n".join([
         "import importlib, sys",

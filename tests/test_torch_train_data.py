@@ -5,6 +5,7 @@ the upload to NCHW."""
 
 import json
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -144,13 +145,26 @@ def test_upload_turns_batches_nchw(teacher_roots):
     loader = tld.BatchLoader(tds.create_dataset(opt), 2,
                              tld.EnlargedShuffleSampler(5, seed=0))
     host = next(iter(loader))
-    dev = tld.BatchUploader(torch.device("cpu"))(host)
+    dev = tld.BatchUploader(torch.device("cpu"), loader.dataset.frame_stacks)(host)
     assert dev["lq_path"] == host["lq_path"]
     for (k, sub) in (("lq", "img"), ("lq", "denoise_rate"), ("gt", "hq"),
                      ("gt", "sr")):
         np.testing.assert_array_equal(dev[k][sub].permute(0, 2, 3, 1).numpy(),
                                       host[k][sub])
         assert dev[k][sub].is_contiguous()
+
+
+@pytest.mark.parametrize("name", sorted(tds.DATASETS))
+def test_every_dataset_declares_its_batch_layout(name):
+    """The uploader takes its layout from the dataset, never from a
+    batch's shape: every registered type says whether its 4-D batches are
+    (B, F, H, W) frame stacks (the student's PairedMutiImage alone) or
+    NHWC."""
+    stacks = tds.DATASETS[name].frame_stacks
+    assert isinstance(stacks, bool)
+    assert stacks == (name == "Dataset_PairedMutiImage")
+    with pytest.raises(TypeError):
+        tld.BatchUploader(torch.device("cpu"))
 
 
 def test_prefetcher_order_and_errors():
@@ -170,17 +184,40 @@ def test_prefetcher_order_and_errors():
     assert not pf._thread.is_alive()
 
 
-def test_unported_types_and_backends_name_the_roadmap(tmp_path):
-    for t in ("Dataset_GaussianDenoising", "Dataset_SingleImage", "REDSDataset"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            tds.create_dataset({"type": t})
+def test_unported_types_and_backends_name_the_roadmap(tmp_path, monkeypatch):
+    """Every dataset type and file backend of the JAX package is ported
+    (the name is the test's from before they were): the registries are
+    equal, the lmdb and memcached clients build, and an unknown type or
+    key is still refused."""
+    assert set(tds.DATASETS) == set(jds.DATASETS)
+    assert not hasattr(tds, "NOT_PORTED")
     with pytest.raises(KeyError, match="unknown dataset type"):
         tds.create_dataset({"type": "Nope"})
-    for backend in ("lmdb", "memcached"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            file_client.FileClient(backend)
+    from rethink_acoustic_image_enhancement_tpu_torch.data.lmdb_codec import write_lmdb
+
+    write_lmdb(str(tmp_path / "a.lmdb"), [(b"k", b"v")])
+    client = file_client.FileClient("lmdb", db_paths=[str(tmp_path / "a.lmdb")],
+                                    client_keys=["gt"])
+    assert client.get("k", "gt") == b"v"
+    (tmp_path / "site").mkdir()
+    (tmp_path / "site" / "mc.py").write_text(
+        "class pyvector:\n    pass\n"
+        "class MemcachedClient:\n"
+        "    @staticmethod\n"
+        "    def GetInstance(server_cfg, client_cfg):\n"
+        "        return MemcachedClient()\n"
+        "    def Get(self, path, buf):\n"
+        "        buf.data = path.encode()\n"
+        "def ConvertBuffer(buf):\n    return buf.data\n")
+    monkeypatch.setattr(sys, "path", list(sys.path))
+    monkeypatch.delitem(sys.modules, "mc", raising=False)
+    client = file_client.FileClient("memcached", server_list_cfg="s", client_cfg="c",
+                                    sys_path=str(tmp_path / "site"))
+    assert client.get("x/y.png") == b"x/y.png"
+    monkeypatch.delitem(sys.modules, "mc")
+    with pytest.raises(ValueError, match="not supported"):
+        file_client.FileClient("ceph")
     with pytest.raises(KeyError, match="dataroot_xx"):
         tds.validate_dataset_opt({"type": "Dataset_PairedImage",
                                   "dataroot_xx": "a"})
     assert tds.KNOWN_DATASET_KEYS == jds.KNOWN_DATASET_KEYS
-    assert set(tds.DATASETS) | set(tds.NOT_PORTED) == set(jds.DATASETS)

@@ -11,7 +11,9 @@ Phases (any failure exits non-zero; nothing is caught):
      PyTorch version on the card, at the shapes its paths give it, in bf16
      and fp32, with its time, the plain version's time, the bound for the
      same work and, where one PyTorch call computes the same function, that
-     call's time; the same stage call twice gives the same bits, and one
+     call's time (the stage also at (1,256,256,384), 8 heads: the latent of
+     a 2048^2 frame, through the kernel's wide layout); the same stage call
+     twice gives the same bits, and one
      BiasFree block the bits of a one-block stage. A "stage_phases" JSON
      line: from the instrumented build, the share of a tile's cycles in each
      phase of the block's two tile kernels and the cycles per tile, at
@@ -177,13 +179,36 @@ fp32 predictors' own pinning is what runs:
      (e) flow_warp, OverlapPatchTimePoseEmbed, WDSpybottle and two
      ResidualBlockNoBN on the card against the CPU at 7x256x448, float32,
      TF32 off, max|d| within 1e-5 of max|ref|.
+ 16. spatially sharded serving, every band on cuda:0 (one card: the split's
+     overhead, not scaling): (a) the stage kernel on 1, 2 and 4 row bands
+     (fused_transformer_stage_bands) at the 512^2 request's gate-admitted
+     stage shapes, (1,512,512,96) x4 blocks and (1,256,256,96) x6 blocks,
+     at (1,264,256,96) on 2 bands of 132 rows (4 mod 8), and at the 2048^2
+     latent's (1,256,256,384) x2 blocks on 1 and 2 bands, bf16 and one
+     fp32 case, against the whole-image kernel (one band bit-identical, else
+     within 1e-2) and the band plain version (within 1e-2), with its time,
+     the whole-image kernel's, the plain version's, and the halo and partial
+     bytes one band hands another; (b) the trained bf16 teacher
+     (artifacts/torch_zoo/teacher.pth, fused) through
+     TeacherPredictor(mesh=make_mesh(n_spatial=N)) on 2 and 4 bands of a
+     seeded 512^2 frame and 2 bands of a 2048^2 frame, the band stage called
+     exactly where one device's gate admits the stage, on 1 band bit-identical
+     to one device, on more held to one device's
+     distance from fp32 (share more than 1 level off at most 1.1x + 0.002
+     of it, phase 9's rule: this network moves by whole levels where a bf16
+     rounding changes, and the split adds the MDTA's pixel sums in another
+     order) with the agreement with one device recorded, ms a
+     request against one device, bytes moved a request, the idle share at
+     512^2; the seeded flagship of phase 3 on 2 bands within 1 level of one
+     device on >= 99%; (c) the trained fp32 teacher, fused=False, on 2
+     bands at 512^2 within 1 level of one device on >= 99%.
 Each path runs with every launch count set to 0 just before it and read just
-after. Prints one JSON line per phase 6-15, a "kernels" JSON line, the card
+after. Prints one JSON line per phase 6-16, a "kernels" JSON line, the card
 line, and as its last line {"ok": true, "device": {...}}. Details go to
 chiprun_out/chip_smoke.json.
 `chip_smoke.py --dp-rank SPEC` is one rank of phase 13, not for use alone;
-`chip_smoke.py --phase 14` (or 15) builds and runs that phase alone (its
-JSON line, no "kernels" or "ok" line).
+`chip_smoke.py --phase 14` (or 15, or 16) builds and runs that phase alone
+(its JSON line, no "kernels" or "ok" line).
 """
 
 from __future__ import annotations
@@ -309,12 +334,15 @@ def phase_kernels(results, card):
 
     from rethink_acoustic_image_enhancement_tpu_torch.ops import stage as pstage
 
-    c, f = 96, int(96 * 2.66)
-    cases = [((1, 512, 512, c), 4, 1), ((1, 256, 256, c), 6, 2),
-             ((2, 256, 256, c), 2, 2), ((8, 256, 256, c), 4, 1)]  # the last: a tile batch
+    # the last two: a tile batch, and the latent of a 2048^2 request (the
+    # kernel's wide layout)
+    cases = [((1, 512, 512, 96), 4, 1), ((1, 256, 256, 96), 6, 2),
+             ((2, 256, 256, 96), 2, 2), ((8, 256, 256, 96), 4, 1), ((1, 256, 256, 384), 2, 8)]
     rows = []
     for dtype in (torch.bfloat16, torch.float32):
         for shape, n, heads in cases:
+            c = shape[-1]
+            f = int(c * 2.66)
             rng = np.random.default_rng(len(rows))
             calls_before = pstage.fused_transformer_stage.launches
             wts = seeded_stage_weights(rng, n, c, heads, f, "cuda")
@@ -419,7 +447,8 @@ def reset_counts():
     from rethink_acoustic_image_enhancement_tpu_torch.ops import block, gdfn, layernorm, stage
 
     fns = dict(stage=stage.fused_transformer_stage, layernorm=layernorm.fused_channel_layernorm,
-               gdfn=gdfn.fused_ln_gdfn, block=block.fused_transformer_block)
+               gdfn=gdfn.fused_ln_gdfn, block=block.fused_transformer_block,
+               stage_bands=stage.fused_transformer_stage_bands)
     for fn in fns.values():
         fn.launches = 0
     return fns
@@ -804,8 +833,8 @@ def phase_block_paths(results, card):
                    fused_wall_ms=block_ms, eager_ms=eager_ms)
         paths.append(row)
         log(f"per-block paths (1,96,512,512) bf16 x4 blocks {row} [{card}]")
-        assert n_block == dict(stage=0, layernorm=0, gdfn=0, block=4), n_block
-        assert n_ops == dict(stage=0, layernorm=4, gdfn=4, block=0), n_ops
+        assert n_block == dict(stage=0, layernorm=0, gdfn=0, block=4, stage_bands=0), n_block
+        assert n_ops == dict(stage=0, layernorm=4, gdfn=4, block=0, stage_bands=0), n_ops
         assert torch.isfinite(got).all().item() and torch.isfinite(via_ops).all().item()
         assert rel_block <= TOL_PATH and rel_ops <= TOL_PATH, (rel_block, rel_ops)
         totals["block"] += n_block["block"]
@@ -1297,7 +1326,8 @@ def phase_zoo_cli(results, card, work):
     outs = [fused(img, rate) for img, rate in reqs]
     torch.cuda.synchronize()
     launches = read_counts(counts)
-    assert launches == dict(stage=5 * len(reqs), layernorm=0, gdfn=0, block=0), launches
+    assert launches == dict(stage=5 * len(reqs), layernorm=0, gdfn=0, block=0,
+                            stage_bands=0), launches
     def rel(got, ref, where=None):
         d = (got.float() - ref.float()).abs()
         d = d if where is None else d * where
@@ -1311,8 +1341,9 @@ def phase_zoo_cli(results, card, work):
     kernel_rel, stage_rel, plain_vs_fp32 = [], [], []
     for name, mod, x in stage_inputs:
         b, _, hh, ww = x.shape
-        if not stage_gate.stage_worthwhile(b, hh, ww, mod.dim, mod.num_heads, mod.bias_free_ln,
-                                           mod.use_bias, mod.ffn_expansion_factor):
+        if not stage_gate.stage_worthwhile(b, hh, ww, mod.dim, mod.num_heads,
+                                           mod.bias_free_ln, mod.use_bias,
+                                           mod.ffn_expansion_factor):
             continue
         f = h // hh  # stage pixels whose input pixels are all 0
         outside = torch.from_numpy(zero.reshape(hh, f, ww, f).all(axis=(1, 3))).to(x.device)
@@ -1723,8 +1754,8 @@ def phase_distill_offline(row, card, work, n_seq=3, seq_len=8, size=512):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counts(counts)
-    assert n == n_seq * seq_len and launches == dict(stage=5 * n, layernorm=0, gdfn=0, block=0), \
-        (n, launches)
+    assert n == n_seq * seq_len and launches == dict(stage=5 * n, layernorm=0, gdfn=0, block=0,
+                                                     stage_bands=0), (n, launches)
     targets = decoded(gt_dir, gray=True)
     assert len(targets) == n and all(t.shape == (size, size) for t in targets.values())
     row["offline_distillation"] = dict(frames=n, size=size, wall_s=wall, frames_per_s=n / wall,
@@ -3717,11 +3748,308 @@ def phase_remaining_datasets(results, card):
 
 # ------------------------------------------------------------ main -------
 
+# ------------------------------------------------------------ phase 16 ---
+
+# (a): the 512^2 request's gate-admitted stage shapes (decoder_level1 and the
+# two refinements; encoder_level2 and decoder_level2), level 2 of a
+# 528x512 request on 2 bands (132 rows a band, 4 mod 8: a band's last
+# tile cut at its edge), and the latent of a 2048^2 frame (the kernel's wide
+# layout; 2 of its 8 blocks) on 1 and 2 bands
+SPATIAL_CASES = [((1, 512, 512, 96), 4, 1, (1, 2, 4)), ((1, 256, 256, 96), 6, 2, (1, 2, 4)),
+                 ((1, 264, 256, 96), 6, 2, (2,)), ((1, 256, 256, 384), 2, 8, (1, 2))]
+SPATIAL_SIZE = 512  # (b), (c): the request's side
+SPATIAL_FRAME = 2048  # (b): the frame size the axis exists for, on 2 bands
+SPATIAL_DEVICE = "cuda:0"  # every band's device (the one card)
+
+
+def phase16_band_kernel(row, card):
+    """(a) the band stage against the whole-image kernel and its plain
+    version, the bands on cuda:0; returns the rows."""
+    import torch
+
+    from rethink_acoustic_image_enhancement_tpu_torch.ops import stage as pstage
+    from rethink_acoustic_image_enhancement_tpu_torch.parallel.spatial import (
+        LocalBands,
+        join_rows,
+        split_rows,
+    )
+
+    rows = []
+    for (shape, n, heads, band_counts), dtype in (
+            [(case, torch.bfloat16) for case in SPATIAL_CASES]
+            + [((SPATIAL_CASES[0][0], 4, 1, (1, 2)), torch.float32)]):
+        rng = np.random.default_rng(shape[1] + n)
+        f = int(shape[-1] * 2.66)
+        wts = seeded_stage_weights(rng, n, shape[-1], heads, f, SPATIAL_DEVICE)
+        x = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(SPATIAL_DEVICE, dtype)
+        whole = pstage.fused_transformer_stage(x, **wts)
+        whole_ms = cuda_ms(lambda: pstage.fused_transformer_stage(x, **wts), 5)
+        flops, nbytes = stage_work(*shape, n, heads, f, x.element_size())
+        t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+        for nb in band_counts:
+            bands = LocalBands([SPATIAL_DEVICE] * nb)
+            xs = split_rows(x, bands.devices, dim=1)
+
+            def run():
+                return pstage.fused_transformer_stage_bands(xs, [wts] * nb, bands)
+
+            got = join_rows(run(), SPATIAL_DEVICE, dim=1)
+            torch.cuda.synchronize()
+            moved = dict(bands.moved)
+            plain = join_rows(pstage.stage_plain_bands(xs, [wts] * nb, bands), SPATIAL_DEVICE,
+                              dim=1)
+            torch.cuda.synchronize()
+            assert got.shape == x.shape and got.dtype == dtype
+            assert torch.isfinite(got).all().item(), "non-finite band-kernel output"
+            scale = whole.float().abs().max().item()
+            d_whole = (got.float() - whole.float()).abs().max().item()
+            d_plain = (got.float() - plain.float()).abs().max().item()
+            r = dict(shape=list(shape), n_blocks=n, heads=heads, bands=nb,
+                     band_rows=shape[1] // nb, dtype=str(dtype).replace("torch.", ""),
+                     max_abs_err=d_plain, rel_err=d_plain / plain.float().abs().max().item(),
+                     rel_to_whole=d_whole / scale, bit_identical_to_whole=torch.equal(got, whole),
+                     ms=cuda_ms(run, 5), whole_ms=whole_ms,
+                     plain_ms=cuda_ms(lambda: pstage.stage_plain_bands(xs, [wts] * nb, bands), 1),
+                     bound_ms=max(t_ops, t_bytes),
+                     bound_by="operations" if t_ops >= t_bytes else "bytes",
+                     halo_bytes=moved["halo"], partial_bytes=moved["partials"])
+            rows.append(r)
+            log(f"band stage {r['dtype']} {tuple(shape)} blocks={n} heads={heads} on {nb} bands "
+                f"of {r['band_rows']} rows: {r['ms']:.3f} ms (whole-image kernel "
+                f"{whole_ms:.3f} ms), plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
+                f"({r['bound_by']}); rel to whole {r['rel_to_whole']:.3e}, to plain "
+                f"{r['rel_err']:.3e}, bit-identical {r['bit_identical_to_whole']}; moved halo "
+                f"{moved['halo']} B, partials {moved['partials']} B [{card}]")
+            if nb == 1:
+                assert r["bit_identical_to_whole"], "one band differs from the whole-image kernel"
+            assert r["rel_to_whole"] <= TOL_REL and r["rel_err"] <= TOL_REL, r
+            del got, plain
+        del x, whole
+    row["band_kernel"] = rows
+    return rows
+
+
+def spatial_request(pred, img, rate, reps):
+    """(outputs, wall ms of each of reps requests, kernel calls a request),
+    after one warm-up; the counts set to 0 just before the timed requests
+    and read just after."""
+    import torch
+
+    pred(img, rate)
+    torch.cuda.synchronize()
+    walls = []
+    counts = reset_counts()
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = pred(img, rate)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return out, walls, {k: v // reps for k, v in read_counts(counts).items()}
+
+
+def band_outputs_ok(img, got, what):
+    """uint8 'hq' and 'sr' of the image's shape, zero-mask pixels 0."""
+    mask = np.all(img == 0, axis=-1)
+    h, w = img.shape[:2]
+    for key, s in (("hq", 1), ("sr", 2)):
+        o = got[key]
+        assert o.dtype == np.uint8 and o.shape == (h * s, w * s, 3), (what, key, o.shape)
+        assert not o[np.repeat(np.repeat(mask, s, 0), s, 1)].any(), \
+            f"{what} {key}: zero-mask pixels not 0"
+
+
+def held_to_one_device(img, got, ref, what):
+    """``band_outputs_ok`` and 'hq' and 'sr' within 1 level of one device on
+    >= 99%; returns the agreement rows."""
+    band_outputs_ok(img, got, what)
+    agree = []
+    for key in ("hq", "sr"):
+        frac, worst = within_levels(got[key], ref[key])
+        agree.append(dict(key=key, within_1_level=frac, max_levels=worst))
+        assert frac >= 0.99, f"{what} {key}: only {frac:.4f} of pixels within 1 level"
+    return agree
+
+
+def held_to_fp32(img, got, one, fp32, what):
+    """The trained bf16 teacher moves by whole levels where any bf16 rounding
+    changes (78-87% of hq within 1 level of fp32). On one band every
+    band rule gives one device's bits (checked in phase16_teacher); on more,
+    every conv and resampler still does, and the first step that differs is
+    the MDTA with its pixel sums added in another order, 5.6e-7 apart in
+    fp32; one device moves as far (0.971 of hq within 1 level) when its own
+    input is merely a contiguous copy (scripts/band_divergence.py, PERF.md).
+    So a split is held as phase 9 holds the stage kernel: its share of
+    pixels more than 1 level from one device's fp32 output at most 1.1x +
+    0.002 of one device's bf16 share. Also records the agreement with one
+    device's bf16 output."""
+    band_outputs_ok(img, got, what)
+    agree = []
+    for key in ("hq", "sr"):
+        frac, worst = within_levels(got[key], one[key])
+        off = 1 - within_levels(got[key], fp32[key])[0]
+        off_one = 1 - within_levels(one[key], fp32[key])[0]
+        agree.append(dict(key=key, within_1_level_of_one_device=frac, max_levels=worst,
+                          over_1_level_from_fp32=off, one_device_over_1_level_from_fp32=off_one))
+        assert off <= 1.1 * off_one + 0.002, \
+            f"{what} {key}: {off:.4f} of pixels over 1 level from fp32 (one device {off_one:.4f})"
+    return agree
+
+
+def phase16_teacher(row, card):
+    """(b) the trained bf16 teacher (fused) on 2 and 4 bands of cuda:0 at
+    512^2 and on 2 bands of a 2048^2 frame, held to one device's distance
+    from fp32; the seeded flagship (phase 3's) on 2 bands at 512^2 within 1
+    level of one device; (c) the trained fp32 teacher (fused=False) on 2
+    bands at 512^2 within 1 level of one device. Returns the band-kernel
+    calls of (b)'s timed requests."""
+    import copy
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from rethink_acoustic_image_enhancement_tpu_torch.convert.weights import load_pth
+    from rethink_acoustic_image_enhancement_tpu_torch.eval.infer import TeacherPredictor
+    from rethink_acoustic_image_enhancement_tpu_torch.models import (
+        flagship_teacher,
+        init_weights_,
+    )
+    from rethink_acoustic_image_enhancement_tpu_torch.models.bands import teacher_bands
+    from rethink_acoustic_image_enhancement_tpu_torch.parallel.mesh import make_mesh
+    from rethink_acoustic_image_enhancement_tpu_torch.parallel.spatial import LocalBands
+
+    def on_bands(model, nb, **kw):
+        return TeacherPredictor(model, **kw,
+                                mesh=make_mesh(n_spatial=nb, devices=[SPATIAL_DEVICE] * nb))
+
+    teacher = load_pth(flagship_teacher(static="train"), os.path.join(HERE, TEACHER_PTH))
+    img, rate = sonar_frame(SPATIAL_SIZE, SPATIAL_SIZE, 30), 0.8
+    frame = sonar_frame(SPATIAL_FRAME, SPATIAL_FRAME, 31)
+    # one device in fp32: (c)'s reference and (b)'s yardstick
+    one32 = TeacherPredictor(teacher, dtype=torch.float32)
+    ref32, one32_ms, _ = spatial_request(one32, img, rate, 2)
+    frame32 = one32(frame, rate)
+    bf16 = copy.deepcopy(teacher).to(torch.bfloat16)  # teacher stays fp32 for (c)
+    one = TeacherPredictor(bf16, fused=True, dtype=torch.bfloat16)
+    ref, one_ms, one_calls = spatial_request(one, img, rate, 3)
+    assert one_calls["stage"] == 5, one_calls
+    # one band through the band path (a mesh of one spatial device serves as
+    # one device): nothing split, every band rule exact, one device's bits
+    model = one.model
+    x = (torch.from_numpy(img).to(SPATIAL_DEVICE)[None].float() / 255.0).to(torch.bfloat16)
+    x = x.permute(0, 3, 1, 2)  # the predictor's input: the NHWC upload seen as NCHW
+    plane = torch.full((1, 1, *img.shape[:2]), rate, dtype=torch.bfloat16, device=SPATIAL_DEVICE)
+    with torch.inference_mode():
+        whole = model({"img": x, "denoise_rate": plane})
+        counts = reset_counts()
+        got1 = teacher_bands([model], [x], [plane], LocalBands([SPATIAL_DEVICE]))
+        calls1 = read_counts(counts)
+    assert calls1["stage_bands"] == 5 and calls1["stage"] == 0, calls1
+    for key in ("hq", "sr"):
+        assert torch.equal(got1[key][0], whole[key]), f"1 band: {key} is not one device's"
+    row["teacher_bf16_one_band"] = dict(size=SPATIAL_SIZE, bit_identical_to_one_device=True)
+    log(f"spatial teacher bf16 1 band at {SPATIAL_SIZE}^2 (teacher_bands): hq and sr "
+        f"bit-identical to one device [{card}]")
+    del whole, got1
+    cases, band_calls = [], calls1["stage_bands"]
+    for nb, size in ((2, SPATIAL_SIZE), (4, SPATIAL_SIZE), (2, SPATIAL_FRAME)):
+        split = on_bands(bf16, nb, fused=True, dtype=torch.bfloat16)
+        if size == SPATIAL_SIZE:
+            x, x_ref, x_one_ms, x_calls, x_fp32 = img, ref, one_ms, one_calls, ref32
+        else:
+            x, x_fp32 = frame, frame32
+            x_ref, x_one_ms, x_calls = spatial_request(one, frame, rate, 2)
+        reps = 3 if size == SPATIAL_SIZE else 2
+        split._bands.moved.update(halo=0, partials=0)
+        out, walls, launches = spatial_request(split, x, rate, reps)
+        moved = {k: v // (reps + 1) for k, v in split._bands.moved.items()}  # warm-up too
+        # the band stage exactly where one device's gate admits the whole image
+        assert launches["stage_bands"] == x_calls["stage"] > 0, (launches, x_calls)
+        assert launches["stage"] == 0, launches
+        band_calls += launches["stage_bands"] * reps
+        what = f"{nb} bands at {size}^2"
+        case = dict(bands=nb, size=size, requests=reps, ms=walls, one_device_ms=x_one_ms,
+                    band_stage_calls_per_request=launches["stage_bands"],
+                    halo_bytes_per_request=moved["halo"],
+                    partial_bytes_per_request=moved["partials"],
+                    agreement=held_to_fp32(x, out, x_ref, x_fp32, what))
+        if size == SPATIAL_SIZE:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                split(x, rate)
+                torch.cuda.synchronize()
+            summed, busy = device_busy(prof)
+            case.update(device_busy_ms=busy, device_summed_ms=summed,
+                        idle_share=None if busy is None else 1 - busy / min(walls))
+        cases.append(case)
+        agree = {a["key"]: a for a in case["agreement"]}
+        log(f"spatial teacher bf16 {what}: {min(walls):.2f} ms a request (one device "
+            f"{min(x_one_ms):.2f}), {case['band_stage_calls_per_request']} band-stage calls, "
+            f"moved halo {moved['halo']} B and partials {moved['partials']} B a request"
+            + ("" if case.get("idle_share") is None else
+               f", device busy {case['device_busy_ms']:.2f} ms (idle share "
+               f"{case['idle_share']:.3f})")
+            + "; hq within 1 level of one device: "
+            f"{agree['hq']['within_1_level_of_one_device']:.4f}, over 1 level from fp32: "
+            f"{agree['hq']['over_1_level_from_fp32']:.4f} (one device "
+            f"{agree['hq']['one_device_over_1_level_from_fp32']:.4f}) [{card}]")
+        del split
+        torch.cuda.empty_cache()
+    row["teacher_bf16"] = cases
+    del one, bf16, frame32
+
+    # the seeded flagship of phase 3 (conditioned like a trained network, no
+    # amplification of bf16 roundings) on 2 bands, against one device
+    seeded = init_weights_(flagship_teacher(static="train"),
+                           torch.Generator().manual_seed(0)).to(torch.bfloat16)
+    s_ref, s_one_ms, _ = spatial_request(
+        TeacherPredictor(seeded, fused=True, dtype=torch.bfloat16), img, rate, 1)
+    s_got, s_ms, s_calls = spatial_request(on_bands(seeded, 2, fused=True, dtype=torch.bfloat16),
+                                           img, rate, 1)
+    assert s_calls["stage_bands"] == 5, s_calls
+    band_calls += s_calls["stage_bands"]
+    row["seeded_bf16"] = dict(bands=2, size=SPATIAL_SIZE, ms=s_ms, one_device_ms=s_one_ms,
+                              agreement=held_to_one_device(img, s_got, s_ref,
+                                                           "seeded bf16 on 2 bands"))
+    log(f"seeded teacher bf16 2 bands at {SPATIAL_SIZE}^2: {min(s_ms):.2f} ms (one device "
+        f"{min(s_one_ms):.2f}); within 1 level of one device: "
+        f"{min(a['within_1_level'] for a in row['seeded_bf16']['agreement']):.4f} [{card}]")
+    del seeded
+
+    # (c) the fp32 teacher, fused=False: every stage on the plain band path
+    got, split_ms, launches = spatial_request(on_bands(teacher, 2, dtype=torch.float32),
+                                              img, rate, 2)
+    assert not any(launches.values()), f"the fp32 unfused teacher reached a kernel: {launches}"
+    row["teacher_fp32"] = dict(bands=2, size=SPATIAL_SIZE, ms=split_ms, one_device_ms=one32_ms,
+                               agreement=held_to_one_device(img, got, ref32, "fp32 on 2 bands"))
+    log(f"spatial teacher fp32 unfused 2 bands at {SPATIAL_SIZE}^2: {min(split_ms):.2f} ms a "
+        f"request (one device {min(one32_ms):.2f}); within 1 level of one device: "
+        f"{min(a['within_1_level'] for a in row['teacher_fp32']['agreement']):.4f} [{card}]")
+    return band_calls
+
+
+def phase_spatial(results, card):
+    """Phase 16: spatially sharded teacher serving (row bands on cuda:0);
+    returns (the band-stage rows of (a), the band-stage calls of (b))."""
+    import torch
+
+    t0 = time.perf_counter()
+    row = dict(card=card, devices="cuda:0 for every band (one card: the split's overhead, "
+                                  "not scaling)")
+    rows = phase16_band_kernel(row, card)
+    torch.cuda.empty_cache()
+    launches = phase16_teacher(row, card)
+    row["band_stage_launches"] = launches
+    row["phase_s"] = time.perf_counter() - t0
+    results["spatial"] = row
+    print(json.dumps({"spatial": row}), flush=True)
+    log(f"phase 16: {row['phase_s']:.1f} s")
+    return rows, launches
+
+
 def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--dp-rank":  # a rank of phase 13
         return dp_child(sys.argv[2])
     only = sys.argv[2] if sys.argv[1:2] == ["--phase"] and len(sys.argv) == 3 else None
-    if sys.argv[1:] and only not in ("14", "15"):  # one phase alone, after the build
+    if sys.argv[1:] and only not in ("14", "15", "16"):  # one phase alone, after the build
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
         return 2
     import torch
@@ -3760,7 +4088,8 @@ def main() -> int:
                "cuda": torch.version.cuda, "build_s": build_s}
     if only:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32_defaults
-        (phase_dp_serving if only == "14" else phase_remaining_datasets)(results, card)
+        {"14": phase_dp_serving, "15": phase_remaining_datasets,
+         "16": phase_spatial}[only](results, card)
         return 0
     stage_rows = phase_kernels(results, card)
     ln_rows = phase_layernorm_kernel(results, card)
@@ -3794,6 +4123,8 @@ def main() -> int:
     dp_launches = phase_dp_serving(results, card)
     torch.cuda.empty_cache()
     dual_pixel_launches = phase_remaining_datasets(results, card)
+    torch.cuda.empty_cache()
+    band_rows, band_launches = phase_spatial(results, card)
     results["path_launches"] = dict(whole_image=whole_launches, tiled=tiled_launches,
                                     group=group_launches, zoo_cli=zoo_launches,
                                     distill=distill_launches, dp_serving=dp_launches,
@@ -3822,6 +4153,9 @@ def main() -> int:
               path_launches["gdfn"], gdfn_rows, gdfn_rows[0]),
         entry("fused_transformer_block", "stage.cu", "block.py:338",
               path_launches["block"], block_rows, block_rows[0]),
+        # the stage on row bands: (1, 512, 512, 96) bf16, 4 blocks, 2 bands
+        entry("fused_transformer_stage_bands", "stage.cu", "stage.py:324",
+              band_launches, band_rows, band_rows[1]),
     ]}
     results["kernels"] = kernels["kernels"]
     results["total_s"] = time.perf_counter() - t_start

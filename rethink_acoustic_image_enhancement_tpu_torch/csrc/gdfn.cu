@@ -39,7 +39,7 @@ __global__ void __launch_bounds__(NTA, 2)
 k_gdfn(const T* __restrict__ x, T* __restrict__ y, const float* __restrict__ lnw,
        const float* __restrict__ lnb, FfnWeights wt, Geo g, float eps, bool apply_ln) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const FfnSmem L(g.th, g.tw, g.C, g.C, g.fc, false);
+  const FfnSmem L(g.th, g.tw, g.C, g.C, g.fc, false, g.C);
   const FfnBufs s(smem, L);
   PHASE_CLOCK(pc);
   const int b = blockIdx.y, tile = blockIdx.x;
@@ -54,7 +54,7 @@ k_gdfn(const T* __restrict__ x, T* __restrict__ y, const float* __restrict__ lnw
 }
 
 size_t gdfn_bytes(int th, int tw, int C, int fc) {
-  return FfnSmem(th, tw, C, C, fc, false).total;
+  return FfnSmem(th, tw, C, C, fc, false, C).total;
 }
 
 template <int FC, class T>

@@ -63,6 +63,25 @@
 //       block writes the stage's dtype); the block loop runs in the wrapper.
 //       attn^T, W_proj and the weight chunks are copied to shared memory
 //       with cp.async, each chunk a phase ahead of its use.
+// Row bands (ops/stage.py::fused_transformer_stage_bands): an image split by
+// rows over devices runs the same three launches on each band, x, v and y
+// held with one halo row above and one below the band's own rows (Geo). (A)
+// counts only the band's own rows in its Gram and norms and writes v there;
+// each band's partials, summed over its groups, are added across bands in
+// band order on every band's device, and (B), unchanged, takes that one
+// group, so that every band gets the same attn^T; (C) reads x and v on the
+// halo rows its neighbours filled in. The zero ring stays at the image's
+// own edges (readable()). A whole image is the one band with no halo, and
+// runs the same arithmetic as before bands existed.
+// The wide layout (C = 384, the latent of a 2048^2 frame): a C x C bf16
+// weight is 301 KB, more than a thread block's 227 KB of shared memory, so
+// (A) holds a third of W_qkv nq columns at a time (its product and depthwise
+// step run per chunk, the next chunk loading during the depthwise step) and
+// keeps up to MAXGW Gram fragments a warp in registers, one block an SM; (C)
+// holds W_proj kp rows at a time, loaded between the product's k-steps
+// (r_ln_tile). The host takes it only where no layout holds the weights
+// whole (ops/block.py::plan_tiles), so every narrower width runs the
+// layouts and bits it ran before.
 // Products are bf16 mma.sync m16n8k16 on ldmatrix fragments with fp32
 // accumulation (the Gram's A = q^T through a transposing ldmatrix), a k-step's
 // fragments loaded before its mma run and, where registers allow, a step
@@ -104,19 +123,22 @@ __device__ long long* phase_buf_apply = nullptr;
 // ---- shared-memory layout of kernel (A) (host and device agree through it)
 
 // q, k and v go through the product and the depthwise step a third at a
-// time, so one third of W_qkv (w) and of qkv on the halo (t) is held; the
-// Gram accumulates in registers where a warp's share of its 16x16 fragments
-// is at most MAXG (`regs`), else in `gram` as fp32.
+// time, so one third of W_qkv (w) and of qkv on the halo (t) is held: all
+// nq = C of its columns, or (the wide layout, where a C x C third does not
+// fit beside the tile) nq columns at a time. The Gram accumulates in
+// registers where a warp's share of its 16x16 fragments is at most MAXG
+// (MAXGW in the wide layout) (`regs`), else in `gram` as fp32.
 struct GramSmem {
   size_t xn, w, t, qk, nrm, taps, lnw, lnb, stat, gram, total;
   bool regs;
-  __host__ __device__ GramSmem(int th, int tw, int C, int heads) {
+  __host__ __device__ GramSmem(int th, int tw, int C, int heads, int nq) {
     const int m1 = round16((th + 2) * (tw + 2)), P = th * tw, hc = C / heads, LX = C + PAD;
-    regs = heads * (hc / 16) * (hc / 16) <= MAXG * NWA;
+    const int LW = nq + PAD;
+    regs = heads * (hc / 16) * (hc / 16) <= (nq < C ? MAXGW : MAXG) * NWA;
     size_t o = 0;
     xn = o;    o += align128((size_t)m1 * LX * 2);             // LN1(x) on the halo
-    w = o;     o += align128((size_t)C * LX * 2);              // W_q, W_k or W_v
-    t = o;     o += align128((size_t)m1 * LX * 2);             // q, k or v before the dw3x3
+    w = o;     o += align128((size_t)C * LW * 2);              // W_q, W_k or W_v (nq columns)
+    t = o;     o += align128((size_t)m1 * LW * 2);             // q, k or v before the dw3x3
     qk = o;    o += align128((size_t)P * (2 * C + PAD) * 2);   // q | k on the tile
     nrm = o;   o += align128((size_t)2 * C * tw * 4);          // [2C][tw]
     taps = o;  o += align128((size_t)9 * 3 * C * 4);           // dw_qkv
@@ -135,14 +157,20 @@ struct GramSmem {
 // and LN1 from them (r_ln_tile), then for q, k and v in turn the 1x1 product
 // on the halo and the dw3x3 on the tile, the next third of W_qkv loading
 // while the depthwise step runs; the Gram product of the tile shares v's
-// product phase. Seven barriers a tile.
-template <class T>
-__global__ void __launch_bounds__(NTA, 2)
+// product phase. Seven barriers a tile. In the wide layout (nq < C, G =
+// MAXGW Gram fragments a warp, one block an SM) each third goes nq columns
+// at a time through the same product and depthwise step, the next columns
+// loading during the depthwise step; two barriers a chunk.
+template <class T, int G>
+__global__ void __launch_bounds__(NTA, G > MAXG ? 1 : 2)
 k_gram(const T* __restrict__ x, const float* __restrict__ ln1,
        const float* __restrict__ ln1b, const bf16* __restrict__ wqkv,
-       const float* __restrict__ dwqkv, float* __restrict__ part, bf16* __restrict__ vout, Geo g, int groups, float eps) {
+       const float* __restrict__ dwqkv, float* __restrict__ part, bf16* __restrict__ vout, Geo g,
+       int groups, int nq_wide, float eps) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const GramSmem L(g.th, g.tw, g.C, g.heads);
+  constexpr bool wide = G > MAXG;
+  const int nq = wide ? nq_wide : g.C;  // the narrow instance holds whole thirds
+  const GramSmem L(g.th, g.tw, g.C, g.heads, nq);
   bf16* xn = (bf16*)(smem + L.xn);
   bf16* wb = (bf16*)(smem + L.w);
   bf16* t = (bf16*)(smem + L.t);
@@ -159,7 +187,7 @@ k_gram(const T* __restrict__ x, const float* __restrict__ ln1,
 
   const int b = blockIdx.y, grp = blockIdx.x, warp = threadIdx.x >> 5;
   const int C = g.C, C2 = 2 * C, C3 = 3 * C, hc = g.hc, th = g.th, tw = g.tw;
-  const int LX = C + PAD, LQ = C2 + PAD, LG = hc + PADF;
+  const int LX = C + PAD, LQ = C2 + PAD, LG = hc + PADF, LW = nq + PAD;
   const int w1 = tw + 2, m1 = round16((th + 2) * w1), P = th * tw;
   const int nh = hc / 16, per_head = nh * nh, nfrags = g.heads * per_head;
   PHASE_CLOCK(pc);
@@ -174,9 +202,9 @@ k_gram(const T* __restrict__ x, const float* __restrict__ ln1,
   // this warp's 16x16 fragments of the per-head Gram, f = warp, warp + NWA,
   // ..., as mma accumulators (columns 0-7 and 8-15)
   const int lane = threadIdx.x & 31, gq = lane >> 2, q2 = (lane & 3) * 2;
-  float gacc[MAXG][2][4];
+  float gacc[G][2][4];
 #pragma unroll
-  for (int i = 0; i < MAXG; ++i)
+  for (int i = 0; i < G; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) gacc[i][0][e] = gacc[i][1][e] = 0.f;
   // acc += q^T k of fragment f over the tile: Gram[h][c][d] += sum_p
@@ -199,12 +227,100 @@ k_gram(const T* __restrict__ x, const float* __restrict__ ln1,
   auto frag_at = [&](float* base, int ld, int f) {
     return base + ((f / per_head) * hc + (f % per_head) / nh * 16 + gq) * ld + (f % nh) * 16 + q2;
   };
-  // third s3 of W_qkv's columns (q, k or v) into wb
-  auto load_third = [&](int s3) {
-    const bf16* src = wqkv + s3 * C;
-    load_b_async(wb, C, C, [=](int k, int n) { return src + (size_t)k * C3 + n; });
+  // columns [n0, n0 + nq) of third s3 of W_qkv (q, k or v) into wb
+  auto load_w = [&](int s3, int n0) {
+    const bf16* src = wqkv + s3 * C + n0;
+    load_b_async(wb, C, nq, [=](int k, int n) { return src + (size_t)k * C3 + n; });
   };
-  load_third(0);
+  // t = bf16(LN1(x) @ those columns) on the 1-pixel halo
+  auto qkv_product = [&] {
+    gemm(m1, nq, C, nq / 16, [&](int m, int, int k) { return xn + m * LX + k; }, LX,
+         [&](int k, int n) { return wb + k * LW + n; }, t, LW);
+  };
+  // the tile's Gram product, q and k being complete
+  auto gram_product = [&] {
+    if (L.regs) {
+#pragma unroll
+      for (int i = 0; i < G; ++i)
+        if (warp + i * NWA < nfrags) gram_frag(gacc[i], warp + i * NWA);
+    } else {
+      for (int f = warp; f < nfrags; f += NWA) {
+        float* at = frag_at(gram, LG, f);
+        float acc[2][4];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float2 lo = ld2(at + 8 * e), hi = ld2(at + 8 * LG + 8 * e);
+          acc[e][0] = lo.x, acc[e][1] = lo.y, acc[e][2] = hi.x, acc[e][3] = hi.y;
+        }
+        gram_frag(acc, f);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          st2(at + 8 * e, make_float2(acc[e][0], acc[e][1]));
+          st2(at + 8 * LG + 8 * e, make_float2(acc[e][2], acc[e][3]));
+        }
+      }
+    }
+  };
+  // depthwise 3x3 (fp32 taps) of channels [c0, c0 + nch) of third s3, t
+  // holding them: a thread takes two channels and two adjacent columns of
+  // the tile down all its rows, its taps and three halo rows by four halo
+  // columns in registers, the rows' slots rotating by index. A thread meets
+  // the same (channels, columns) in every tile, so the q/k squared norms sum
+  // without atomics, in a fixed order; v goes to device memory (bf16) for
+  // (C).
+  auto dw_step = [&](int s3, int c0, int nch, int y0, int x0) {
+    const int Ch = nch / 2;
+    for (int idx = threadIdx.x; idx < Ch * (tw / 2); idx += NTA) {
+      const int ch = idx % Ch * 2, j = idx / Ch * 2, cq = s3 * C + c0 + ch;
+      auto at = [&](int row, int col) { return ld2(t + (row * w1 + col) * LW + ch); };
+      float2 wk[9], u[3][4];
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap)
+        wk[tap] = *reinterpret_cast<const float2*>(taps + tap * C3 + cq);
+#pragma unroll
+      for (int row = 0; row < 2; ++row)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) u[row][c] = at(row, j + c);
+      float2 nacc[2] = {make_float2(0.f, 0.f), make_float2(0.f, 0.f)};
+      for (int i0 = 0; i0 < th; i0 += 3) {
+#pragma unroll
+        for (int sl = 0; sl < 3; ++sl) {
+          const int i = i0 + sl;  // output row; halo row i + di lies in slot (sl + di) % 3
+          if (i >= th) break;
+#pragma unroll
+          for (int c = 0; c < 4; ++c) u[(sl + 2) % 3][c] = at(i + 2, j + c);
+          float2 a[2] = {make_float2(0.f, 0.f), make_float2(0.f, 0.f)};
+#pragma unroll
+          for (int dj = 0; dj < 3; ++dj)
+#pragma unroll
+            for (int di = 0; di < 3; ++di)
+#pragma unroll
+              for (int o = 0; o < 2; ++o) fma2(a[o], u[(sl + di) % 3][o + dj], wk[di * 3 + dj]);
+#pragma unroll
+          for (int o = 0; o < 2; ++o) {
+            const int yy = y0 + i, xx = x0 + j + o;
+            const bool in = inside(g, yy, xx);
+            if (s3 < 2) {
+              if (!in) a[o] = make_float2(0.f, 0.f);
+              st2(qk + (i * tw + j + o) * LQ + cq, a[o]);
+              nacc[o].x += a[o].x * a[o].x;
+              nacc[o].y += a[o].y * a[o].y;
+            } else if (in) {
+              st2(vout + pix(g, b, yy, xx) + c0 + ch, a[o]);
+            }
+          }
+        }
+      }
+      if (s3 < 2) {
+#pragma unroll
+        for (int o = 0; o < 2; ++o) {
+          nrm[cq * tw + j + o] += nacc[o].x;
+          nrm[(cq + 1) * tw + j + o] += nacc[o].y;
+        }
+      }
+    }
+  };
+  load_w(0, 0);
 
   for (int tile = grp; tile < g.ntiles; tile += groups) {
     const int y0 = (tile / g.ntj) * th, x0 = (tile % g.ntj) * tw;
@@ -216,104 +332,48 @@ k_gram(const T* __restrict__ x, const float* __restrict__ ln1,
     r_ln_tile<false, false>(s, x, AttnIn{}, g, b, y0, x0, eps, true, ln1b != nullptr, [] {}, pc);
     __syncthreads();  // LN1(x) is complete
     pc.mark(PH_G_LN1);
-    for (int s3 = 0; s3 < 3; ++s3) {
-      // t = bf16(LN1(x) @ W_qkv[:, third]) on the 1-pixel halo
-      gemm(m1, C, C, C / 16, [&](int m, int, int k) { return xn + m * LX + k; }, LX,
-                [&](int k, int n) { return wb + k * LX + n; }, t, LX);
-      if (s3 == 2) {
-        pc.mark(PH_G_QKV);
-        // q and k of this tile are complete (the barrier after k's
-        // depthwise step): the tile's Gram product shares v's product phase
-        if (L.regs) {
-#pragma unroll
-          for (int i = 0; i < MAXG; ++i)
-            if (warp + i * NWA < nfrags) gram_frag(gacc[i], warp + i * NWA);
-        } else {
-          for (int f = warp; f < nfrags; f += NWA) {
-            float* at = frag_at(gram, LG, f);
-            float acc[2][4];
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const float2 lo = ld2(at + 8 * e), hi = ld2(at + 8 * LG + 8 * e);
-              acc[e][0] = lo.x, acc[e][1] = lo.y, acc[e][2] = hi.x, acc[e][3] = hi.y;
-            }
-            gram_frag(acc, f);
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              st2(at + 8 * e, make_float2(acc[e][0], acc[e][1]));
-              st2(at + 8 * LG + 8 * e, make_float2(acc[e][2], acc[e][3]));
-            }
-          }
+    if constexpr (!wide) {
+      for (int s3 = 0; s3 < 3; ++s3) {
+        qkv_product();
+        if (s3 == 2) {
+          pc.mark(PH_G_QKV);
+          // q and k of this tile are complete (the barrier after k's
+          // depthwise step): the tile's Gram product shares v's product phase
+          gram_product();
         }
-      }
-      // t is complete and wb free (after v's product: LN1(x) and q | k too,
-      // for the next tile)
-      __syncthreads();
-      pc.mark(s3 == 2 ? PH_G_GRAM : PH_G_QKV);
-      if (s3 < 2) load_third(s3 + 1);
-      else if (tile + groups < g.ntiles) load_third(0);  // W_q for the next tile
-      // depthwise 3x3 (fp32 taps) of this third: a thread takes two channels
-      // and two adjacent columns of the tile down all its rows, its taps and
-      // three halo rows by four halo columns in registers, the rows' slots
-      // rotating by index. A thread meets the same (channels, columns) in
-      // every tile, so the q/k squared norms sum without atomics, in a fixed
-      // order; v goes to device memory (bf16) for (C).
-      const int Ch = C / 2;
-      for (int idx = threadIdx.x; idx < Ch * (tw / 2); idx += NTA) {
-        const int ch = idx % Ch * 2, j = idx / Ch * 2;
-        auto at = [&](int row, int col) { return ld2(t + (row * w1 + col) * LX + ch); };
-        float2 wk[9], u[3][4];
-#pragma unroll
-        for (int tap = 0; tap < 9; ++tap)
-          wk[tap] = *reinterpret_cast<const float2*>(taps + tap * C3 + s3 * C + ch);
-#pragma unroll
-        for (int row = 0; row < 2; ++row)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) u[row][c] = at(row, j + c);
-        float2 nacc[2] = {make_float2(0.f, 0.f), make_float2(0.f, 0.f)};
-        for (int i0 = 0; i0 < th; i0 += 3) {
-#pragma unroll
-          for (int sl = 0; sl < 3; ++sl) {
-            const int i = i0 + sl;  // output row; halo row i + di lies in slot (sl + di) % 3
-            if (i >= th) break;
-#pragma unroll
-            for (int c = 0; c < 4; ++c) u[(sl + 2) % 3][c] = at(i + 2, j + c);
-            float2 a[2] = {make_float2(0.f, 0.f), make_float2(0.f, 0.f)};
-#pragma unroll
-            for (int dj = 0; dj < 3; ++dj)
-#pragma unroll
-              for (int di = 0; di < 3; ++di)
-#pragma unroll
-                for (int o = 0; o < 2; ++o) fma2(a[o], u[(sl + di) % 3][o + dj], wk[di * 3 + dj]);
-#pragma unroll
-            for (int o = 0; o < 2; ++o) {
-              const int yy = y0 + i, xx = x0 + j + o;
-              const bool in = inside(g, yy, xx);
-              if (s3 < 2) {
-                if (!in) a[o] = make_float2(0.f, 0.f);
-                st2(qk + (i * tw + j + o) * LQ + s3 * C + ch, a[o]);
-                nacc[o].x += a[o].x * a[o].x;
-                nacc[o].y += a[o].y * a[o].y;
-              } else if (in) {
-                st2(vout + (((size_t)b * g.H + yy) * g.W + xx) * C + ch, a[o]);
-              }
-            }
-          }
-        }
+        // t is complete and wb free (after v's product: LN1(x) and q | k
+        // too, for the next tile)
+        __syncthreads();
+        pc.mark(s3 == 2 ? PH_G_GRAM : PH_G_QKV);
+        if (s3 < 2) load_w(s3 + 1, 0);
+        else if (tile + groups < g.ntiles) load_w(0, 0);  // W_q for the next tile
+        dw_step(s3, 0, C, y0, x0);
         if (s3 < 2) {
-#pragma unroll
-          for (int o = 0; o < 2; ++o) {
-            nrm[(s3 * C + ch) * tw + j + o] += nacc[o].x;
-            nrm[(s3 * C + ch + 1) * tw + j + o] += nacc[o].y;
-          }
+          // this third of q | k is complete, t is free, the next third of
+          // W_qkv has landed
+          cp_async_wait();
+          __syncthreads();
+          pc.mark(PH_G_DW);
         }
       }
-      if (s3 < 2) {
-        // this third of q | k is complete, t is free, the next third of
-        // W_qkv has landed
+    } else {
+      // the wide layout: nq columns of a third at a time
+      const int nck = C / nq;
+      for (int ci = 0; ci < 3 * nck; ++ci) {
+        const int s3 = ci / nck, c0 = ci % nck * nq;
+        // these columns of W_qkv have landed; the last depthwise step is
+        // done with t (and q | k complete for the Gram)
         cp_async_wait();
         __syncthreads();
         pc.mark(PH_G_DW);
+        qkv_product();
+        if (ci == 2 * nck) gram_product();
+        // t is complete and wb free
+        __syncthreads();
+        pc.mark(PH_G_QKV);
+        if (ci + 1 < 3 * nck) load_w((ci + 1) / nck, (ci + 1) % nck * nq);
+        else if (tile + groups < g.ntiles) load_w(0, 0);  // for the next tile
+        dw_step(s3, c0, nq, y0, x0);
       }
     }
     pc.tile();
@@ -325,7 +385,7 @@ k_gram(const T* __restrict__ x, const float* __restrict__ ln1,
   float* out = part + ((size_t)b * groups + grp) * (gout + C2);
   if (L.regs) {
 #pragma unroll
-    for (int i = 0; i < MAXG; ++i) {
+    for (int i = 0; i < G; ++i) {
       const int f = warp + i * NWA;
       if (f >= nfrags) continue;
       float* at = frag_at(out, hc, f);
@@ -434,7 +494,7 @@ k_apply(const Tin* __restrict__ x, Tout* __restrict__ y, const bf16* __restrict_
         const float* __restrict__ ln2, const float* __restrict__ ln2b, FfnWeights wt, Geo g,
         float eps) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const FfnSmem L(g.th, g.tw, g.C, g.hc, g.fc, true);
+  const FfnSmem L(g.th, g.tw, g.C, g.hc, g.fc, true, g.kp);
   const FfnBufs s(smem, L);
   bf16* at_s = (bf16*)(smem + L.w);
   bf16* wp_s = (bf16*)(smem + L.wproj);
@@ -452,7 +512,8 @@ k_apply(const Tin* __restrict__ x, Tout* __restrict__ y, const bf16* __restrict_
   load_b_async(at_s, hc, C, [&](int k, int n) {
     return at + (size_t)(n / hc) * hc * hc + k * hc + n % hc;
   });
-  load_b_async(wp_s, C, C, [&](int k, int n) { return wproj + (size_t)k * C + n; });
+  if (g.kp == C)  // else r_ln_tile loads it kp rows at a time
+    load_b_async(wp_s, C, C, [&](int k, int n) { return wproj + (size_t)k * C + n; });
   copy_async(s.lnw, ln2, C * 4);
   if (ln2b != nullptr) copy_async(s.lnb, ln2b, C * 4);
   load_halo_async(vin, v, C + PAD, g, b, y0, x0, m1);
@@ -461,7 +522,7 @@ k_apply(const Tin* __restrict__ x, Tout* __restrict__ y, const bf16* __restrict_
   pc.mark(PH_LOAD);
   // r = x + (attn @ v) @ W_proj and LN2(r), r in registers; W_in's first
   // chunk loads over attn^T and W_proj once the products are done
-  const AttnIn a{v, at_s, wp_s, s.rn};
+  const AttnIn a{v, at_s, wp_s, s.rn, wproj};
   r_ln_tile<true, true>(s, x, a, g, b, y0, x0, eps, true, ln2b != nullptr,
                   [&] { ffn_load_chunk<FC>(s, wt, g, 0, 0); }, pc);
   gdfn_chunks<FC>(s, y, wt, g, b, y0, x0, pc);
@@ -469,10 +530,18 @@ k_apply(const Tin* __restrict__ x, Tout* __restrict__ y, const bf16* __restrict_
 }
 
 // C/heads a multiple of 16 on top of what the tile kernels need: (A) with
-// kind 0, (C) with kind 1.
-bool shape_ok(int kind, int C, int heads, int Fp, int fc, int th, int tw) {
-  return heads > 0 && C % heads == 0 && (C / heads) % 16 == 0 &&
+// kind 0, (C) with kind 1; and `chunk` (nq of (A), kp of (C)) C or a
+// multiple of 16 dividing C.
+bool shape_ok(int kind, int C, int heads, int Fp, int fc, int th, int tw, int chunk) {
+  return heads > 0 && C % heads == 0 && (C / heads) % 16 == 0 && chunk >= 16 &&
+         chunk % 16 == 0 && C % chunk == 0 &&
          (kind == 0 ? tile_shape_ok(C, th, tw) : ffn_shape_ok(C, Fp, fc, th, tw));
+}
+
+// Kernel (A)'s instance: the wide layout's where a third goes in chunks.
+template <class T>
+decltype(&k_gram<T, MAXG>) gram_kernel(int C, int nq) {
+  return nq < C ? k_gram<T, MAXGW> : k_gram<T, MAXG>;
 }
 
 struct ApplyArgs {
@@ -511,25 +580,33 @@ int launch_apply(const ApplyArgs& a) {
 // (or ERR_SMEM / ERR_SHAPE without launching). `heads` is the head count of
 // the Gram's layout: the block's own where C/heads is a multiple of 16, else
 // 1, with the true count given to the softmax alone. A null LayerNorm bias
-// selects the BiasFree variant. ---------------------------------------------
+// selects the BiasFree variant. (halo, y_img, H_img) place H own rows as
+// Geo says: (0, 0, H) for a whole image, halo 1 for a band. `chunk` is (A)'s
+// columns of a W_qkv third held at once (nq) or (C)'s rows of W_proj (kp):
+// 0 for all C, the layout of every width up to 192; a chunk where C x C does
+// not fit beside the tile (C = 384). --------------------------------------
 
 extern "C" {
 
 // Dynamic shared memory of kernel (A) (kind 0) or (C) (kind 1) on th x tw
 // tiles; INT_MAX for a shape the kernel does not take.
-int raie_stage_smem_bytes(int kind, int th, int tw, int C, int heads, int fc) {
-  if (!shape_ok(kind, C, heads, fc, fc, th, tw)) return INT_MAX;
-  return kind == 0 ? (int)GramSmem(th, tw, C, heads).total
-                   : (int)FfnSmem(th, tw, C, C / heads, fc, true).total;
+int raie_stage_smem_bytes(int kind, int th, int tw, int C, int heads, int fc, int chunk) {
+  if (chunk == 0) chunk = C;
+  if (!shape_ok(kind, C, heads, fc, fc, th, tw, chunk)) return INT_MAX;
+  return kind == 0 ? (int)GramSmem(th, tw, C, heads, chunk).total
+                   : (int)FfnSmem(th, tw, C, C / heads, fc, true, chunk).total;
 }
 
 // Thread blocks of that kernel the device keeps resident on one SM
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor), with the layout a launch
 // would take; 0 where it cannot launch.
-int raie_stage_blocks_per_sm(int kind, int th, int tw, int C, int heads, int fc) {
-  if (!shape_ok(kind, C, heads, fc, fc, th, tw)) return 0;
-  if (kind == 0) return resident_blocks(k_gram<float>, NTA, GramSmem(th, tw, C, heads).total);
-  const size_t bytes = FfnSmem(th, tw, C, C / heads, fc, true).total;
+int raie_stage_blocks_per_sm(int kind, int th, int tw, int C, int heads, int fc, int chunk) {
+  if (chunk == 0) chunk = C;
+  if (!shape_ok(kind, C, heads, fc, fc, th, tw, chunk)) return 0;
+  if (kind == 0)
+    return resident_blocks(gram_kernel<float>(C, chunk), NTA,
+                           GramSmem(th, tw, C, heads, chunk).total);
+  const size_t bytes = FfnSmem(th, tw, C, C / heads, fc, true, chunk).total;
   return fc == 64 ? resident_blocks(k_apply<64, float, float>, NTA, bytes)
                   : resident_blocks(k_apply<32, float, float>, NTA, bytes);
 }
@@ -548,24 +625,28 @@ int raie_stage_phase_buffers(void* gram_rows, void* apply_rows) {
 
 int raie_stage_gram(const void* x, int x_is_bf16, const void* ln1, const void* ln1b,
                     const void* wqkv, const void* dwqkv, void* part, void* vout, int B, int H,
-                    int W, int C, int heads, int th, int tw, int groups, float eps,
-                    void* stream) {
-  if (!shape_ok(0, C, heads, 0, 0, th, tw)) return ERR_SHAPE;
-  const Geo g = make_geo(B, H, W, C, heads, 0, 0, th, tw);
-  const size_t bytes = GramSmem(th, tw, C, heads).total;
+                    int W, int C, int heads, int th, int tw, int groups, int chunk, int halo,
+                    int y_img, int H_img, float eps, void* stream) {
+  const int nq = chunk == 0 ? C : chunk;
+  if (!shape_ok(0, C, heads, 0, 0, th, tw, nq)) return ERR_SHAPE;
+  Geo g = make_geo(B, H, W, C, heads, 0, 0, th, tw);
+  if (!set_band(g, halo, y_img, H_img)) return ERR_SHAPE;
+  const size_t bytes = GramSmem(th, tw, C, heads, nq).total;
   const dim3 grid(groups, B);
   cudaStream_t s = (cudaStream_t)stream;
   int err;
   if (x_is_bf16) {
-    if ((err = opt_in(k_gram<bf16>, bytes))) return err;
-    k_gram<bf16><<<grid, NTA, bytes, s>>>((const bf16*)x, (const float*)ln1, (const float*)ln1b,
-                                          (const bf16*)wqkv, (const float*)dwqkv,
-                                          (float*)part, (bf16*)vout, g, groups, eps);
+    auto k = gram_kernel<bf16>(C, nq);
+    if ((err = opt_in(k, bytes))) return err;
+    k<<<grid, NTA, bytes, s>>>((const bf16*)x, (const float*)ln1, (const float*)ln1b,
+                               (const bf16*)wqkv, (const float*)dwqkv, (float*)part,
+                               (bf16*)vout, g, groups, nq, eps);
   } else {
-    if ((err = opt_in(k_gram<float>, bytes))) return err;
-    k_gram<float><<<grid, NTA, bytes, s>>>((const float*)x, (const float*)ln1, (const float*)ln1b,
-                                           (const bf16*)wqkv, (const float*)dwqkv,
-                                           (float*)part, (bf16*)vout, g, groups, eps);
+    auto k = gram_kernel<float>(C, nq);
+    if ((err = opt_in(k, bytes))) return err;
+    k<<<grid, NTA, bytes, s>>>((const float*)x, (const float*)ln1, (const float*)ln1b,
+                               (const bf16*)wqkv, (const float*)dwqkv, (float*)part,
+                               (bf16*)vout, g, groups, nq, eps);
   }
   return (int)cudaGetLastError();
 }
@@ -582,13 +663,16 @@ int raie_stage_apply(const void* x, int x_is_bf16, void* y, int y_is_bf16,
                      const void* vin, const void* attn_t, const void* wproj, const void* ln2,
                      const void* ln2b, const void* win, const void* wdw, const void* wout,
                      int B, int H, int W, int C, int heads, int Fp, int fc, int th, int tw,
-                     float eps, void* stream) {
-  if (!shape_ok(1, C, heads, Fp, fc, th, tw)) return ERR_SHAPE;
-  const Geo g = make_geo(B, H, W, C, heads, Fp, fc, th, tw);
+                     int chunk, int halo, int y_img, int H_img, float eps, void* stream) {
+  const int kp = chunk == 0 ? C : chunk;
+  if (!shape_ok(1, C, heads, Fp, fc, th, tw, kp)) return ERR_SHAPE;
+  Geo g = make_geo(B, H, W, C, heads, Fp, fc, th, tw);
+  if (!set_band(g, halo, y_img, H_img)) return ERR_SHAPE;
+  g.kp = kp;
   const ApplyArgs a{x, y, (const bf16*)vin, (const bf16*)attn_t, (const bf16*)wproj,
                     (const float*)ln2, (const float*)ln2b,
                     FfnWeights{(const bf16*)win, (const float*)wdw, (const bf16*)wout}, g, eps,
-                    FfnSmem(th, tw, C, g.hc, fc, true).total, (cudaStream_t)stream};
+                    FfnSmem(th, tw, C, g.hc, fc, true, kp).total, (cudaStream_t)stream};
   if (x_is_bf16) return y_is_bf16 ? launch_apply<bf16, bf16>(a) : launch_apply<bf16, float>(a);
   return y_is_bf16 ? launch_apply<float, bf16>(a) : launch_apply<float, float>(a);
 }

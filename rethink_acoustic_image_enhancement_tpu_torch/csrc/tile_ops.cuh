@@ -43,6 +43,7 @@ constexpr int NWA = NTA / 32;  // its warps
 constexpr int MAXF = 6;        // 16-channel fragments of r a warp holds (96 channels)
 constexpr int OUTF = 3;        // 16x16 fragments of the W_out accumulator a warp holds
 constexpr int MAXG = 5;        // 16x16 fragments of the Gram a warp holds
+constexpr int MAXGW = 9;       // the same in stage.cu's wide layout (8 heads of 48 channels)
 constexpr int SMEM_LIMIT = 232448;  // 227 KB a block may opt into
 constexpr int ERR_SMEM = 100001;    // tile does not fit in shared memory
 constexpr int ERR_SHAPE = 100002;   // shape the kernels do not take
@@ -52,9 +53,16 @@ constexpr int MAX_C = 384;          // widest rows the kernels take
 constexpr int PAD = 8;
 constexpr int PADF = 4;
 
-// fc: GDFN hidden channels per chunk (64 or 32).
+// fc: GDFN hidden channels per chunk (64 or 32); kp: rows of W_proj that
+// stage.cu's kernel (C) holds at once (C, or a chunk where C x C bf16 does
+// not fit beside the tile). A tensor holds, per
+// sample, H own rows with `halo` rows above and below them (Hs stored rows):
+// the band of rows [y_img, y_img + H) of an image of H_img rows, its halo
+// rows its neighbours' (ops/stage.py::fused_transformer_stage_bands). A
+// whole image is the band with halo 0, y_img 0 and H_img = H.
 struct Geo {
   int B, H, W, C, heads, hc, Fp, fc, th, tw, ntj, ntiles;
+  int halo, Hs, y_img, H_img, kp;
 };
 
 __host__ __device__ inline int round16(int n) { return (n + 15) / 16 * 16; }
@@ -233,15 +241,29 @@ __device__ void gemm(int M, int N, int K, int unit, AP aptr, int lda, BP bptr, b
   }
 }
 
+// A pixel of the band's own rows: computed, counted and stored.
 __device__ __forceinline__ bool inside(const Geo& g, int yy, int xx) {
   return yy >= 0 && yy < g.H && xx >= 0 && xx < g.W;
+}
+
+// A pixel that may be read: a row the tensor holds (own or halo) and that
+// lies in the image. Outside the image the convs see zeros, as torch's
+// padding gives them; a band's halo rows elsewhere are real rows.
+__device__ __forceinline__ bool readable(const Geo& g, int yy, int xx) {
+  return yy >= -g.halo && yy < g.H + g.halo && g.y_img + yy >= 0 && g.y_img + yy < g.H_img &&
+         xx >= 0 && xx < g.W;
+}
+
+// Element offset of pixel (yy, xx) of sample b, yy in [-halo, H + halo).
+__device__ __forceinline__ size_t pix(const Geo& g, int b, int yy, int xx) {
+  return (((size_t)b * g.Hs + (yy + g.halo)) * g.W + xx) * g.C;
 }
 
 // Copy the (th+2) x (tw+2) pixels around a tile (C bf16 channels each) into
 // shared-memory rows of stride ldd (a multiple of 8) with 16-byte cp.async
 // copies by the whole block of NTA threads, as one group: the copy overlaps
-// what follows until cp_async_wait() and a barrier. Pixels outside the image
-// and rows n..m are zeroed with plain stores.
+// what follows until cp_async_wait() and a barrier. Pixels that are not
+// readable and rows n..m are zeroed with plain stores.
 __device__ void load_halo_async(const bf16* x, bf16* dst, int ldd, const Geo& g, int b, int y0,
                                 int x0, int m) {
   const int wr = g.tw + 2, n = (g.th + 2) * wr, nv = g.C / 8;
@@ -250,10 +272,10 @@ __device__ void load_halo_async(const bf16* x, bf16* dst, int ldd, const Geo& g,
   while (p < m) {
     const int yy = y0 - 1 + p / wr, xx = x0 - 1 + p % wr;
     bf16* d = dst + p * ldd + c * 8;
-    if (p < n && inside(g, yy, xx)) {
+    if (p < n && readable(g, yy, xx)) {
       const unsigned sd = (unsigned)__cvta_generic_to_shared(d);
       asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(sd),
-                   "l"(x + (((size_t)b * g.H + yy) * g.W + xx) * g.C + c * 8));
+                   "l"(x + pix(g, b, yy, xx) + c * 8));
     } else {
       *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
     }
@@ -331,14 +353,15 @@ enum { PH_LOAD, PH_ATTN_V, PH_PROJ, PH_LN2, PH_W_IN, PH_DW_GATE, PH_W_OUT, PH_ST
 //       warp has it in registers; then the hidden chunk t2 and the gate gg.
 // Not aliased: two sets of a chunk's depthwise taps (one loads while the
 // other is read), the LayerNorm's weight and bias, and the partial row sums
-// that warps swap where more than one shares a row of r (C > 96).
+// that warps swap where more than one shares a row of r (C > 96). W_proj is
+// held kp rows at a time (kp = C: all of it).
 struct FfnSmem {
   size_t w, wproj, win, wout, rn, x, t2, gg, taps, lnw, lnb, stat, total;
-  __host__ __device__ FfnSmem(int th, int tw, int C, int hc, int fc, bool attn) {
+  __host__ __device__ FfnSmem(int th, int tw, int C, int hc, int fc, bool attn, int kp) {
     const int m1 = round16((th + 2) * (tw + 2)), P = th * tw, LX = C + PAD;
     const size_t win_b = align128((size_t)C * (2 * fc + PAD) * 2);
     const size_t wout_b = align128((size_t)fc * LX * 2);
-    const size_t attn_b = align128((size_t)hc * LX * 2), proj_b = align128((size_t)C * LX * 2);
+    const size_t attn_b = align128((size_t)hc * LX * 2), proj_b = align128((size_t)kp * LX * 2);
     const size_t rows_b = align128((size_t)m1 * LX * 2);
     const size_t t2_b = align128((size_t)m1 * (2 * fc + PAD) * 2);
     const size_t gg_b = align128((size_t)P * (fc + PAD) * 2);
@@ -398,14 +421,16 @@ __device__ __forceinline__ void ffn_load_chunk(const FfnBufs& s, const FfnWeight
   });
 }
 
-// What stage.cu's kernel (C) gives r_ln_tile beyond the tile, all in shared
+// What stage.cu's kernel (C) gives r_ln_tile beyond the tile, in shared
 // memory: v on the halo and attn @ v (m1 rows of stride C + PAD), attn^T (hc
-// rows) and W_proj (C rows) of the same stride.
+// rows) and W_proj (g.kp rows) of the same stride; and W_proj (C x C) in
+// device memory, which the product loads kp rows at a time where kp < C.
 struct AttnIn {
   const bf16* v;
   const bf16* attn_t;
-  const bf16* wproj;
+  bf16* wproj;
   bf16* oa;
+  const bf16* wproj_dev;
 };
 
 // r = x [+ (attn @ v) @ W_proj] on the tile's 1-pixel halo, LN(r) (bf16) to
@@ -501,13 +526,13 @@ __device__ __forceinline__ void r_ln_tile_n(const FfnBufs& s, const Tin* __restr
     const int row0 = m0 + gq, row1 = row0 + 8;
     const int hy0 = row0 / w1, hx0 = row0 % w1, hy1 = row1 / w1, hx1 = row1 % w1;
     const int yy0 = y0 - 1 + hy0, xx0 = x0 - 1 + hx0, yy1 = y0 - 1 + hy1, xx1 = x0 - 1 + hx1;
-    const bool in0 = active && row0 < n1 && inside(g, yy0, xx0);
-    const bool in1 = active && row1 < n1 && inside(g, yy1, xx1);
+    const bool in0 = active && row0 < n1 && readable(g, yy0, xx0);
+    const bool in1 = active && row1 < n1 && readable(g, yy1, xx1);
     const int c0 = f_lo * 16 + q2;  // this lane's first channel
-    const Tin* px0 = x + (((size_t)b * g.H + (in0 ? yy0 : 0)) * g.W + (in0 ? xx0 : 0)) * C + c0;
-    const Tin* px1 = x + (((size_t)b * g.H + (in1 ? yy1 : 0)) * g.W + (in1 ? xx1 : 0)) * C + c0;
-    // the accumulators start at x, read in their own layout (0 outside the
-    // image and on the padding rows)
+    const Tin* px0 = x + pix(g, b, in0 ? yy0 : 0, in0 ? xx0 : 0) + c0;
+    const Tin* px1 = x + pix(g, b, in1 ? yy1 : 0, in1 ? xx1 : 0) + c0;
+    // the accumulators start at x, read in their own layout (0 where it is
+    // not readable and on the padding rows)
     float acc[2 * MAXF][4];
 #pragma unroll
     for (int j = 0; j < 2 * MAXF; ++j) {
@@ -516,17 +541,31 @@ __device__ __forceinline__ void r_ln_tile_n(const FfnBufs& s, const Tin* __restr
       acc[j][0] = lo.x, acc[j][1] = lo.y, acc[j][2] = hi.x, acc[j][3] = hi.y;
     }
     if constexpr (Attn) {
-      if (active) {
-        // r = x + bf16(attn @ v) @ W_proj
-        for (int k = 0; k < C; k += 16) {
-          unsigned af[4], bf[MAXF][4];
-          ldsm_x4(af, a.oa + (m0 + lrow) * LX + k + lcol);
+      // r = x + bf16(attn @ v) @ W_proj, W_proj's rows kc .. kc + kp - 1 at
+      // a time (all at once where kp = C, loaded by the caller)
+      const int kp = g.kp;
+      for (int kc = 0; kc < C; kc += kp) {
+        if (kp < C) {
+          // every warp is past the last rows' product (at the first chunk:
+          // past attn @ v, which does not share W_proj's bytes)
+          __syncthreads();
+          const bf16* src = a.wproj_dev + (size_t)kc * C;
+          load_b_async(a.wproj, kp, C, [=](int k, int n) { return src + (size_t)k * C + n; });
+          cp_async_wait();
+          __syncthreads();
+        }
+        if (active) {
+          for (int k = kc; k < kc + kp; k += 16) {
+            unsigned af[4], bf[MAXF][4];
+            ldsm_x4(af, a.oa + (m0 + lrow) * LX + k + lcol);
 #pragma unroll
-          for (int j = 0; j < MAXF; ++j)
-            if (j < nf) ldsm_x4_t(bf[j], a.wproj + (k + lrow) * LX + (f_lo + j) * 16 + lcol);
+            for (int j = 0; j < MAXF; ++j)
+              if (j < nf)
+                ldsm_x4_t(bf[j], a.wproj + (k - kc + lrow) * LX + (f_lo + j) * 16 + lcol);
 #pragma unroll
-          for (int j = 0; j < MAXF; ++j)
-            if (j < nf) frag_mma(acc[2 * j], acc[2 * j + 1], af, bf[j]);
+            for (int j = 0; j < MAXF; ++j)
+              if (j < nf) frag_mma(acc[2 * j], acc[2 * j + 1], af, bf[j]);
+          }
         }
       }
       pc.mark(PH_PROJ);
@@ -783,7 +822,7 @@ __device__ __forceinline__ void gdfn_chunks(const FfnBufs& s, Tout* __restrict__
     for (int r = 0; r < 2; ++r) {
       const int p = orow[i] + gq + 8 * r, yy = y0 + p / tw, xx = x0 + p % tw;
       if (!inside(g, yy, xx)) continue;
-      Tout* o = y + (((size_t)b * g.H + yy) * g.W + xx) * C + ocol[i] + q2;
+      Tout* o = y + pix(g, b, yy, xx) + ocol[i] + q2;
       st2(o, make_float2(oacc[2 * i][2 * r], oacc[2 * i][2 * r + 1]));
       st2(o + 8, make_float2(oacc[2 * i + 1][2 * r], oacc[2 * i + 1][2 * r + 1]));
     }
@@ -800,7 +839,18 @@ inline Geo make_geo(int B, int H, int W, int C, int heads, int Fp, int fc, int t
   g.Fp = Fp; g.fc = fc; g.th = th; g.tw = tw;
   g.ntj = (W + tw - 1) / tw;
   g.ntiles = ((H + th - 1) / th) * g.ntj;
+  g.halo = 0; g.Hs = H; g.y_img = 0; g.H_img = H; g.kp = C;
   return g;
+}
+
+// g as the band of rows [y_img, y_img + H) of an image of H_img rows, held
+// with `halo` (0 or 1) rows above and below; false where that is no band
+// (halo 0 is the whole image only).
+inline bool set_band(Geo& g, int halo, int y_img, int H_img) {
+  if (halo < 0 || halo > 1 || y_img < 0 || y_img + g.H > H_img) return false;
+  if (halo == 0 && (y_img != 0 || H_img != g.H)) return false;
+  g.halo = halo; g.Hs = g.H + 2 * halo; g.y_img = y_img; g.H_img = H_img;
+  return true;
 }
 
 // What every tile kernel needs: 16-channel fragments up to MAX_C channels
@@ -847,7 +897,8 @@ inline const char* tile_error_string(int code) {
   if (code == ERR_SHAPE)
     return "needs C (and C/heads) a multiple of 16, C <= 384, th*tw a multiple of 16 (with "
            "th*tw*C <= 6144 where the kernel ends in the GDFN), Fp a multiple of the chunk "
-           "(32 or 64)";
+           "(32 or 64), and a band inside its image with a halo of 0 (the whole image) or 1 "
+           "row";
   return cudaGetErrorString((cudaError_t)code);
 }
 

@@ -42,6 +42,17 @@ host sync), so that copies on several cards run at once. Everything else (the te
 ``__call__`` and ``denoise_group``) runs ``devices[0]``'s copy. A part's
 batch is smaller than the whole, so outputs may differ from one device by
 rounding (uint8 within 1 level), as in the JAX package.
+
+Meshes (``parallel/mesh.py``): ``mesh=`` in place of ``devices`` takes the
+JAX predictors' rules. A mesh whose only axis above 1 is ``data`` is
+``devices=`` its data-axis devices. A ``spatial`` axis of N > 1 serves the
+teacher's ``__call__`` (and ``denoise_group``, per image) on row bands:
+the padded height rounds up to ``multiple_of * N`` (``shape_bucket * N``),
+one band a device of the mesh's first spatial row, each with its own copy
+of the model (``models/bands.py``); ``hq`` and ``sr`` are put together on
+the first. Extra padding rows enter the global MDTA statistics, as
+``shape_bucket``'s do. Tiled serving, the student and the scorer refuse a
+spatial or model axis, and a ``model`` axis is not ported yet.
 """
 
 from __future__ import annotations
@@ -57,7 +68,10 @@ import torch
 from torch import nn
 
 from ..models import DenoiseRatePredictor, KDLAEStudent, KDLAETeacher
+from ..models.bands import teacher_bands
 from ..ops.mask import apply_zero_mask, zero_mask_from_input
+from ..parallel.mesh import DATA_AXIS, MODEL_AXIS, SPATIAL_AXIS
+from ..parallel.spatial import LocalBands, join_rows, split_rows
 from ..utils.image_io import (imread_gray, imread_rgb_ubyte, list_images,
                               resize_area, to_ubyte)
 
@@ -174,9 +188,29 @@ class Transfers:
 _MAX_IN_FLIGHT = 16  # tile chunks dispatched before the oldest is fetched
 
 
-def _serving_devices(device, devices) -> list[torch.device] | None:
-    """``devices`` as a list of devices (None without it); ``device`` beside
-    it, or an empty list, raises."""
+def _data_axis_devices(mesh, who: str) -> list[torch.device]:
+    """The devices of a data-parallel serving mesh, whose only axis above 1
+    may be 'data' (the JAX package's ``_data_axis_size`` rule)."""
+    if mesh.shape[SPATIAL_AXIS] > 1 or mesh.shape[MODEL_AXIS] > 1:
+        raise ValueError(
+            f"{who} shards its batch over the '{DATA_AXIS}' mesh axis only; "
+            "spatial/model axes are not supported on this path")
+    return mesh.data_devices()
+
+
+def _mesh_alone(mesh, device, devices) -> None:
+    if mesh is not None and (devices is not None or device is not None):
+        raise ValueError(f"pass mesh= alone, not with device= or devices= "
+                         f"(mesh={mesh}, device={device}, devices={devices})")
+
+
+def _serving_devices(device, devices, mesh=None, who: str = "") -> list[torch.device] | None:
+    """``devices`` as a list of devices (None without it), or a data mesh's
+    devices; ``device`` or ``mesh`` beside ``devices``, ``device`` beside
+    ``mesh``, or an empty list raises."""
+    _mesh_alone(mesh, device, devices)
+    if mesh is not None:
+        return _data_axis_devices(mesh, who)
     if devices is None:
         return None
     if device is not None:
@@ -230,19 +264,37 @@ class TeacherPredictor:
     pixel-(un)shuffle into their convs. ``shape_bucket`` rounds padded
     sizes up to a coarser grid (MDTA statistics are global over the padded
     pixels, so bucketed outputs deviate slightly from multiple-of-8
-    padding). ``devices`` serves tiles data-parallel (module docstring)."""
+    padding). ``devices`` serves tiles data-parallel; ``mesh`` serves a
+    data mesh as ``devices``, or one image on row bands over a spatial axis
+    (module docstring)."""
 
     def __init__(self, model: KDLAETeacher | None = None, multiple_of: int = 8,
                  shape_bucket: int | None = None,
                  dtype: torch.dtype = torch.float32, fused: bool = False,
                  fused_resample: bool = False,
                  device: str | torch.device | None = None,
-                 devices: Sequence[str | torch.device] | None = None):
+                 devices: Sequence[str | torch.device] | None = None,
+                 mesh=None):
         if shape_bucket and shape_bucket % multiple_of:
             raise ValueError(
                 f"shape_bucket={shape_bucket} must be a multiple of "
                 f"multiple_of={multiple_of}")
-        devices = _serving_devices(device, devices)
+        self.mesh = mesh
+        self._bands = None  # the exchange of a spatial mesh's row bands
+        if mesh is not None and mesh.shape[MODEL_AXIS] > 1:
+            if mesh.shape[SPATIAL_AXIS] > 1:
+                raise ValueError(
+                    "tensor-parallel ('model') and spatial mesh axes "
+                    "cannot be combined in one predictor; use one axis > 1")
+            raise NotImplementedError(
+                "tensor-parallel serving (a 'model' mesh axis) is not ported "
+                "yet: ROADMAP.md Queue A item 5")
+        if mesh is not None and mesh.shape[SPATIAL_AXIS] > 1:
+            _mesh_alone(mesh, device, devices)
+            self._bands = LocalBands(mesh.spatial_devices())
+            devices = self._bands.devices
+        else:
+            devices = _serving_devices(device, devices, mesh, "TeacherPredictor")
         self.device = devices[0] if devices else resolve_device(device)
         if model is None:
             model = KDLAETeacher(layernorm_type="BiasFree", static="train",
@@ -300,14 +352,42 @@ class TeacherPredictor:
         and, with the SR head, 'sr' (2H, 2W, 3), both uint8."""
         h, w, _ = img_rgb.shape
         m = self.shape_bucket or self.multiple_of
-        ph, pw = _round_up(h, m) - h, _round_up(w, m) - w
+        n = 1 if self._bands is None else self._bands.n
+        # padded rows split evenly over the bands
+        ph, pw = _round_up(h, m * n) - h, _round_up(w, m) - w
         x = _pad_reflect_np(img_rgb[None], ph, pw)
         if x.dtype != np.uint8:
             x = x.astype(np.float32)
-        hq, sr = self._forward(x, denoise_rate)
+        if self._bands is not None:
+            hq, sr = self._forward_bands(x, denoise_rate)
+        else:
+            hq, sr = self._forward(x, denoise_rate)
         return _postprocess(img_rgb, hq[0].cpu().numpy(),
                             None if sr is None else sr[0].cpu().numpy(),
                             zero_mask)
+
+    @torch.inference_mode()
+    def _forward_bands(self, x: np.ndarray, denoise_rate: float):
+        """``_forward_device`` on row bands: (1, H, W, 3) on the host, one
+        band uploaded to each band's device, the uint8 bands of 'hq' and 'sr'
+        put together on the first."""
+        devices = self._bands.devices
+        imgs, rates = [], []
+        for band in split_rows(torch.from_numpy(np.ascontiguousarray(x)), devices, dim=1):
+            img = (band.float() / 255.0 if band.dtype == torch.uint8 else band)
+            imgs.append(img.to(self.dtype).permute(0, 3, 1, 2))
+            rates.append(torch.full((img.shape[0], 1, *img.shape[1:3]), denoise_rate,
+                                    dtype=self.dtype, device=img.device))
+        with highest_precision() if self._fp32 else contextlib.nullcontext():
+            out = teacher_bands(self.models, imgs, rates, self._bands)
+
+        def joined(key):
+            if out[key] is None:
+                return None
+            return join_rows([_to_ubyte_device(o).permute(0, 2, 3, 1) for o in out[key]],
+                             devices[0], dim=1)
+
+        return joined("hq"), joined("sr")
 
     def denoise_file(self, path: str, denoise_rate: float = 1.0, **kw) -> dict:
         return self(imread_rgb_ubyte(path), denoise_rate, **kw)
@@ -368,8 +448,8 @@ class TeacherPredictor:
 
     def scan_eligible(self, imgs: list[np.ndarray], group_size: int) -> bool:
         """True when ``imgs`` can run as one group (a full group of one raw
-        shape, or of one bucketed shape)."""
-        if len(imgs) != group_size:
+        shape, or of one bucketed shape; never on row bands)."""
+        if len(imgs) != group_size or self._bands is not None:
             return False
         shape0 = imgs[0].shape
         if all(im.shape == shape0 for im in imgs):
@@ -457,6 +537,8 @@ class TeacherPredictor:
         """
         if not imgs_rgb:
             return []
+        if self.mesh is not None:
+            _data_axis_devices(self.mesh, "tiled serving")
         if self._copies is not None and tile_batch % len(self._copies):
             raise ValueError(
                 f"tile_batch ({tile_batch}) must be divisible by the number "
@@ -607,13 +689,15 @@ class StudentPredictor:
     With float32 weights (the zoo's) the model computes in float32 whatever
     ``dtype`` is: bfloat16 serving rounds the input stack (uint8 / 255 in
     float32, then bfloat16), as the JAX predictor's flax module does.
-    ``devices`` serves ``denoise_batch`` data-parallel (module docstring)."""
+    ``devices`` (or a data ``mesh``) serves ``denoise_batch`` data-parallel
+    (module docstring)."""
 
     def __init__(self, model: KDLAEStudent | None = None, multiple_of: int = 32,
                  num_frames: int = 7, dtype: torch.dtype = torch.float32,
                  device: str | torch.device | None = None,
-                 devices: Sequence[str | torch.device] | None = None):
-        devices = _serving_devices(device, devices)
+                 devices: Sequence[str | torch.device] | None = None,
+                 mesh=None):
+        devices = _serving_devices(device, devices, mesh, "StudentPredictor")
         self.device = devices[0] if devices else resolve_device(device)
         if model is None:
             model = KDLAEStudent(residual=True, hidden_channels=(16, 32, 64))
@@ -746,13 +830,15 @@ class ASDQEScorer:
     """Pairwise quality scorer (ASDQE_test.py infer loop). With float32
     weights the model computes in float32 with TF32 off whatever ``dtype``
     is; bfloat16 rounds the images (and their difference, taken before the
-    convs). ``devices`` scores batches data-parallel (module docstring)."""
+    convs). ``devices`` (or a data ``mesh``) scores batches data-parallel
+    (module docstring)."""
 
     def __init__(self, model: DenoiseRatePredictor | None = None,
                  dtype: torch.dtype = torch.float32,
                  device: str | torch.device | None = None,
-                 devices: Sequence[str | torch.device] | None = None):
-        devices = _serving_devices(device, devices)
+                 devices: Sequence[str | torch.device] | None = None,
+                 mesh=None):
+        devices = _serving_devices(device, devices, mesh, "ASDQEScorer")
         self.device = devices[0] if devices else resolve_device(device)
         if model is None:
             model = DenoiseRatePredictor()

@@ -189,13 +189,17 @@ class Downsample(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.fused:
             return self.body(x)
+        dtype = torch.promote_types(x.dtype, self.body[0].weight.dtype)
+        return F.conv2d(x.to(dtype), self.folded_weight().to(dtype),
+                        stride=2, padding=1)
+
+    def folded_weight(self) -> torch.Tensor:
+        """The stride-2 4x4 kernel (4F, C, 4, 4) of the ``fused`` form."""
         w3 = self.body[0].weight  # (F, C, 3, 3)
         f, c = w3.shape[:2]
-        dtype = torch.promote_types(x.dtype, w3.dtype)
         w4 = torch.stack([F.pad(w3, (j, 1 - j, i, 1 - i))
                           for i in (0, 1) for j in (0, 1)], dim=1)
-        return F.conv2d(x.to(dtype), w4.reshape(f * 4, c, 4, 4).to(dtype),
-                        stride=2, padding=1)
+        return w4.reshape(f * 4, c, 4, 4)
 
 
 class Upsample(nn.Module):
@@ -216,11 +220,16 @@ class Upsample(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.fused:
             return self.body(x)
+        dtype = torch.promote_types(x.dtype, self.body[0].weight.dtype)
+        return F.conv_transpose2d(x.to(dtype), self.folded_weight().to(dtype),
+                                  stride=2, padding=2)
+
+    def folded_weight(self) -> torch.Tensor:
+        """The stride-2 transposed 6x6 kernel (C, F, 6, 6) of the ``fused``
+        form."""
         w3 = self.body[0].weight  # (4F, C, 3, 3), out channel f*4 + i*2 + j
         c = w3.shape[1]
         f = w3.shape[0] // 4
         # [f, i, j, c, 2 - dy, 2 - dx] -> [c, f, (2 - dy, i), (2 - dx, j)]
         w6 = w3.reshape(f, 2, 2, c, 3, 3).flip(4, 5).permute(3, 0, 4, 1, 5, 2)
-        dtype = torch.promote_types(x.dtype, w3.dtype)
-        return F.conv_transpose2d(x.to(dtype), w6.reshape(c, f, 6, 6).to(dtype),
-                                  stride=2, padding=2)
+        return w6.reshape(c, f, 6, 6)

@@ -13,6 +13,7 @@ model to bfloat16 to compute in bfloat16.
 
 from __future__ import annotations
 
+import operator
 from typing import Sequence
 
 import torch
@@ -119,22 +120,27 @@ class KDLAETeacher(nn.Module):
         return self
 
     def forward(self, inputs: dict) -> dict:
-        inp_img = inputs["img"]
-        x1, d1 = _unet(self, inp_img)
+        return self.wire(_layers(self), _cat, operator.add, inputs["img"],
+                         inputs.get("denoise_rate"))
 
+    def wire(self, run, cat, add, img, rate) -> dict:
+        """``forward``'s dataflow over three callables: ``run(name, x)``
+        applies the layer of that name, ``cat(a, b)`` joins along channels,
+        ``add(a, b)`` adds. ``forward`` passes the layers themselves;
+        ``models/bands.py::teacher_bands`` their row-band forms."""
+        x1, d1 = _unet(run, cat, img)
         if self.dual_pixel_task:
-            out_hq = self.output(d1 + self.skip_conv(x1))
+            out_hq = run("output", add(d1, run("skip_conv", x1)))
         else:
-            out = self.output(d1)
+            out = run("output", d1)
             if self.params == "cat":
-                out = torch.cat([out, inputs["denoise_rate"]], 1)
-                out = self.output2(self.refinement_out(self.output_param(out)))
-            out_hq = out + inp_img
+                out = run("output2", run("refinement_out",
+                                         run("output_param", cat(out, rate))))
+            out_hq = add(out, img)
 
         out_sr = None
         if self.static == "train":
-            sr = self.enhance(self.upen(self.cen(out_hq)))
-            out_sr = self.outputen(sr)
+            out_sr = run("outputen", run("enhance", run("upen", run("cen", out_hq))))
         return {"hq": out_hq, "sr": out_sr}
 
 
@@ -174,20 +180,30 @@ def _build_unet(m: nn.Module, inp_channels, out_channels, d, num_blocks,
     m.output = Conv2d(d * 2, out_channels, 3, padding=1, bias=b)
 
 
-def _unet(m: nn.Module, inp_img: torch.Tensor):
-    """(patch embedding, refined level-1 features) of the shared U-Net."""
-    x1 = m.patch_embed(inp_img)
-    e1 = m.encoder_level1(x1)
-    e2 = m.encoder_level2(m.down1_2(e1))
-    e3 = m.encoder_level3(m.down2_3(e2))
-    latent = m.latent(m.down3_4(e3))
+def _layers(m: nn.Module):
+    """``run(name, x)``: m's layer of that name applied to x."""
+    return lambda name, x: getattr(m, name)(x)
 
-    d3 = m.reduce_chan_level3(torch.cat([m.up4_3(latent), e3], 1))
-    d3 = m.decoder_level3(d3)
-    d2 = m.reduce_chan_level2(torch.cat([m.up3_2(d3), e2], 1))
-    d2 = m.decoder_level2(d2)
-    d1 = m.decoder_level1(torch.cat([m.up2_1(d2), e1], 1))
-    return x1, m.refinement(d1)
+
+def _cat(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.cat([a, b], 1)
+
+
+def _unet(run, cat, inp_img):
+    """(patch embedding, refined level-1 features) of the shared U-Net, over
+    ``run`` and ``cat`` as ``KDLAETeacher.wire`` takes them."""
+    x1 = run("patch_embed", inp_img)
+    e1 = run("encoder_level1", x1)
+    e2 = run("encoder_level2", run("down1_2", e1))
+    e3 = run("encoder_level3", run("down2_3", e2))
+    latent = run("latent", run("down3_4", e3))
+
+    d3 = run("reduce_chan_level3", cat(run("up4_3", latent), e3))
+    d3 = run("decoder_level3", d3)
+    d2 = run("reduce_chan_level2", cat(run("up3_2", d3), e2))
+    d2 = run("decoder_level2", d2)
+    d1 = run("decoder_level1", cat(run("up2_1", d2), e1))
+    return x1, run("refinement", d1)
 
 
 class Restormer(nn.Module):
@@ -213,7 +229,7 @@ class Restormer(nn.Module):
                     stage, fused_resample)
 
     def forward(self, inp_img: torch.Tensor) -> torch.Tensor:
-        x1, d1 = _unet(self, inp_img)
+        x1, d1 = _unet(_layers(self), _cat, inp_img)
         if self.dual_pixel_task:
             return self.output(d1 + self.skip_conv(x1))
         return self.output(d1) + inp_img

@@ -30,39 +30,100 @@ import torch
 
 from . import _build
 from .gdfn import (bf16_round, check_input, dw3x3, ffn_candidates,
-                   ffn_f32, pack_ffn, pick_layout)
+                   ffn_f32, ffn_hidden, ffn_out, pack_ffn, pick_layout)
 from .norm import channel_layernorm
 
 _L2_EPS = 1e-12
 _GRAM_TILES = ((8, 16), (8, 8), (4, 8), (4, 4))
+# The wide layouts' chunks, for a width whose C x C weights do not fit beside
+# a tile (C = 384): kernel (A)'s columns of a W_qkv third and kernel (C)'s
+# rows of W_proj held at once.
+_GRAM_CHUNKS = (64, 32)
+_PROJ_CHUNKS = (128, 64)
 
 
 # ------------------------------------------------------------- plain ----
 
-def block_f32(x, ln1, ln1b, wqkv, dwqkv, temp, wproj, ln2, ln2b, win, wdw,
-              wout, eps) -> torch.Tensor:
-    """One block in float32 out, on float32 2-D/3-D weights (C, 3C),
-    (3, 3, 3C), (heads,), (C, C), (C, 2F), (3, 3, 2F), (F, C); a None bias
-    is the BiasFree LayerNorm."""
-    b, h, w, c = x.shape
-    heads = temp.numel()
-    hc = c // heads
-    x32 = x.float()
-    t = bf16_round(bf16_round(channel_layernorm(x32, ln1, ln1b, eps=eps))
-                   @ bf16_round(wqkv))
-    qkv = dw3x3(t, dwqkv)
-    q, k, v = (qkv[..., i * c:(i + 1) * c].reshape(b, h * w, heads, hc)
-               for i in range(3))
+class BlockWeights(NamedTuple):
+    """One block's float32 weights as ``block_f32`` takes them: 2-D/3-D
+    (C, 3C), (3, 3, 3C), (heads,), (C, C), (C, 2F), (3, 3, 2F), (F, C); a
+    None bias is the BiasFree LayerNorm."""
+    ln1: torch.Tensor
+    ln1b: torch.Tensor | None
+    wqkv: torch.Tensor
+    dwqkv: torch.Tensor
+    temp: torch.Tensor
+    wproj: torch.Tensor
+    ln2: torch.Tensor
+    ln2b: torch.Tensor | None
+    win: torch.Tensor
+    wdw: torch.Tensor
+    wout: torch.Tensor
+
+
+def qkv_hidden(x32, ln1, ln1b, wqkv, eps) -> torch.Tensor:
+    """The qkv depthwise input: bf16(bf16(LN1(x)) @ bf16(W_qkv))."""
+    return bf16_round(bf16_round(channel_layernorm(x32, ln1, ln1b, eps=eps))
+                      @ bf16_round(wqkv))
+
+
+def gram_part(qkv: torch.Tensor, heads: int) -> torch.Tensor:
+    """(b, heads, hc, hc + 2): the per-head Gram q^T k (bf16 operands)
+    over qkv's pixels, then the squared norms of q's and of k's channels as
+    two more columns; parts of row bands add up to the whole image's."""
+    b, h, w, c3 = qkv.shape
+    c = c3 // 3
+    q, k = (qkv[..., i * c:(i + 1) * c].reshape(b, h * w, heads, c // heads)
+            for i in range(2))
     gram = torch.einsum("bphc,bphd->bhcd", bf16_round(q), bf16_round(k))
-    qnorm = q.square().sum(1).sqrt().clamp_min(_L2_EPS)  # (b, heads, hc)
-    knorm = k.square().sum(1).sqrt().clamp_min(_L2_EPS)
+    return torch.cat([gram, q.square().sum(1)[..., None],
+                      k.square().sum(1)[..., None]], -1)
+
+
+def attend(x32, qkv, part, temp, wproj) -> torch.Tensor:
+    """r = x + bf16(attn @ v) @ W_proj, attn the softmax of the Gram over
+    max(||q||, 1e-12) max(||k||, 1e-12) times the temperature, from the
+    summed ``gram_part``."""
+    b, h, w, c3 = qkv.shape
+    c, heads = c3 // 3, temp.numel()
+    hc = c // heads
+    gram = part[..., :hc]
+    qnorm = part[..., hc].sqrt().clamp_min(_L2_EPS)  # (b, heads, hc)
+    knorm = part[..., hc + 1].sqrt().clamp_min(_L2_EPS)
     logits = (gram / qnorm[..., :, None] / knorm[..., None, :]
               * temp.reshape(1, heads, 1, 1))
     attn = torch.softmax(logits, dim=-1)
+    v = qkv[..., 2 * c:].reshape(b, h * w, heads, hc)
     oa = torch.einsum("bhcd,bphd->bphc", bf16_round(attn),
                       bf16_round(v)).reshape(b, h, w, c)
-    r = x32 + bf16_round(oa) @ bf16_round(wproj)
+    return x32 + bf16_round(oa) @ bf16_round(wproj)
+
+
+def block_f32(x, ln1, ln1b, wqkv, dwqkv, temp, wproj, ln2, ln2b, win, wdw,
+              wout, eps) -> torch.Tensor:
+    """One block in float32 out, on ``BlockWeights``' float32 weights."""
+    x32 = x.float()
+    qkv = dw3x3(qkv_hidden(x32, ln1, ln1b, wqkv, eps), dwqkv)
+    r = attend(x32, qkv, gram_part(qkv, temp.numel()), temp, wproj)
     return ffn_f32(r, ln2, ln2b, win, wdw, wout, eps)
+
+
+def block_f32_bands(xs, ws, bands, eps) -> list[torch.Tensor]:
+    """``block_f32`` on an image split in row bands (``parallel/spatial.py``;
+    ``bands`` the exchange): xs[j] band j, ws[j] its ``BlockWeights`` on
+    its device. Both depthwise convs read a halo row from each neighbour,
+    and the Gram and norms are summed across bands; one band computes
+    ``block_f32``'s bits."""
+    x32 = [x.float() for x in xs]
+    t = [qkv_hidden(x, w.ln1, w.ln1b, w.wqkv, eps) for x, w in zip(x32, ws)]
+    qkv = [dw3x3(th, w.dwqkv, halo=True)
+           for th, w in zip(bands.exchange_halo(t, 1, dim=1), ws)]
+    parts = bands.sum_across([gram_part(q, w.temp.numel()) for q, w in zip(qkv, ws)])
+    r = [attend(x, q, p, w.temp, w.wproj) for x, q, p, w in zip(x32, qkv, parts, ws)]
+    u = [ffn_hidden(ri, w.ln2, w.ln2b, w.win, eps) for ri, w in zip(r, ws)]
+    a = [dw3x3(uh, w.wdw, halo=True)
+         for uh, w in zip(bands.exchange_halo(u, 1, dim=1), ws)]
+    return [ffn_out(ri, ai, w.wout) for ri, ai, w in zip(r, a, ws)]
 
 
 def _biases(ln1_w, ln1_b, ln2_w, ln2_b, bias_free: bool):
@@ -129,11 +190,11 @@ def pack_blocks(device, ln1_w, w_qkv, dw_qkv, temperature, w_proj, ln2_w,
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "raie_stage_smem_bytes": [_I] * 6,
-    "raie_stage_blocks_per_sm": [_I] * 6,
-    "raie_stage_gram": [_P, _I] + [_P] * 6 + [_I] * 8 + [ctypes.c_float, _P],
+    "raie_stage_smem_bytes": [_I] * 7,
+    "raie_stage_blocks_per_sm": [_I] * 7,
+    "raie_stage_gram": [_P, _I] + [_P] * 6 + [_I] * 12 + [ctypes.c_float, _P],
     "raie_stage_softmax": [_P, _P, _P] + [_I] * 5 + [_P],
-    "raie_stage_apply": [_P, _I, _P, _I] + [_P] * 8 + [_I] * 9
+    "raie_stage_apply": [_P, _I, _P, _I] + [_P] * 8 + [_I] * 13
     + [ctypes.c_float, _P],
 }
 
@@ -147,30 +208,44 @@ def lib(name: str = "stage") -> ctypes.CDLL:
 class TilePlan(NamedTuple):
     """Tiles of the Gram kernel (A) and of the apply kernel (C), (C)'s chunk
     of hidden channels, and the thread blocks of each that the device keeps
-    resident on one SM."""
+    resident on one SM; the wide layouts' chunks (0: the C x C weights held
+    whole)."""
     gram_tile: tuple[int, int]
     gram_blocks: int
     fc: int
     apply_tile: tuple[int, int]
     apply_blocks: int
+    gram_chunk: int = 0
+    apply_chunk: int = 0
+
+
+def _chunks(c: int, sizes) -> list[int]:
+    return [k for k in sizes if k < c and c % k == 0]
 
 
 def plan_tiles(library, c: int, gram_heads: int) -> TilePlan:
     """The layouts of the Gram kernel (its tile) and of the apply kernel
     (tile and chunk) by ``ops/gdfn.py::pick_layout``: two blocks resident per
-    SM where a layout allows it, else one."""
-    gram = pick_layout(
-        [(th, tw) for th, tw in _GRAM_TILES],
-        lambda th, tw: library.raie_stage_smem_bytes(0, th, tw, c, gram_heads, 0),
-        lambda th, tw: library.raie_stage_blocks_per_sm(0, th, tw, c, gram_heads, 0))
-    apply = pick_layout(
-        ffn_candidates(),
-        lambda th, tw, fc: library.raie_stage_smem_bytes(1, th, tw, c, gram_heads, fc),
-        lambda th, tw, fc: library.raie_stage_blocks_per_sm(1, th, tw, c, gram_heads, fc))
+    SM where a layout allows it, else one. A kernel takes its wide layout
+    (C x C weights in chunks) only where no layout holds them whole."""
+
+    def pick(kind, candidates, chunks):
+        def ask(f):
+            return lambda *cand: f(kind, *cand[:2], c, gram_heads, *cand[2:])
+
+        smem = ask(library.raie_stage_smem_bytes)
+        blocks = ask(library.raie_stage_blocks_per_sm)
+        return (pick_layout([cand + (0,) for cand in candidates], smem, blocks)
+                or pick_layout([cand + (k,) for cand in candidates for k in chunks],
+                               smem, blocks))
+
+    gram = pick(0, [(th, tw, 0) for th, tw in _GRAM_TILES], _chunks(c, _GRAM_CHUNKS))
+    apply = pick(1, ffn_candidates(), _chunks(c, _PROJ_CHUNKS))
     if gram is None or apply is None:
         raise ValueError(f"no block-kernel tile fits {c} channels")
-    (ath, atw, fc), apply_blocks = apply
-    return TilePlan(gram[0], gram[1], fc, (ath, atw), apply_blocks)
+    (gth, gtw, _, gk), gram_blocks = gram
+    (ath, atw, fc, ak), apply_blocks = apply
+    return TilePlan((gth, gtw), gram_blocks, fc, (ath, atw), apply_blocks, gk, ak)
 
 
 def gram_groups(n_tiles: int, n_sm: int, batch: int, blocks_per_sm: int = 1) -> int:
@@ -182,10 +257,25 @@ def gram_groups(n_tiles: int, n_sm: int, batch: int, blocks_per_sm: int = 1) -> 
 class BlockRunner:
     """Scratch and launch geometry of the block kernels for one checked
     input (``check_input``); ``run`` is one TransformerBlock (three
-    launches) from ``src`` to ``dst``, either float32 or bfloat16."""
+    launches) from ``src`` to ``dst``, either float32 or bfloat16.
 
-    def __init__(self, x: torch.Tensor, heads: int, fp: int, library=None):
+    ``band=(first_row, image_rows)``: x is a band of rows of a taller image,
+    held with one halo row above and one below its own (B, rows + 2, W, C),
+    and so are ``src``, ``dst`` and ``v``; the kernels zero-pad only at the
+    image's own edges and read the halo rows elsewhere. A band runs
+    ``gram``, ``softmax`` and ``apply`` apart, since every band's partial
+    Gram (``part``) meets between the first two
+    (``ops/stage.py::fused_transformer_stage_bands``)."""
+
+    def __init__(self, x: torch.Tensor, heads: int, fp: int, library=None,
+                 band: tuple[int, int] | None = None):
         b, h, w, c = x.shape
+        self.halo = 0 if band is None else 1
+        h -= 2 * self.halo
+        self.y_img, self.h_img = (0, h) if band is None else band
+        if h < 1 or self.y_img < 0 or self.y_img + h > self.h_img:
+            raise ValueError(f"block kernel: rows [{self.y_img}, {self.y_img + h}) "
+                             f"are no band of an image of {self.h_img} rows")
         self.lib = lib() if library is None else library
         self.device = x.device
         self.shape = (b, h, w, c)
@@ -209,38 +299,69 @@ class BlockRunner:
         self.v = torch.empty(x.shape, dtype=torch.bfloat16, device=dev)
         self.stream = torch.cuda.current_stream(dev).cuda_stream
 
+    def _guard(self, src: torch.Tensor, p: dict, **more):
+        if src.device != self.device:
+            raise ValueError(f"block kernel: runner made for {self.device}, "
+                             f"src on {src.device}")
+        tensors = {k: v for k, v in p.items() if isinstance(v, torch.Tensor)}
+        return _build.on_device(src, "block", **more, **tensors)
+
+    def gram(self, src: torch.Tensor, p: dict, i: int, eps: float) -> None:
+        """(A): v and this input's partial Gram and norms into ``part``."""
+        b, h, w, c = self.shape
+        lb = self.lib
+        ptr = _ptr(p, i)
+        with self._guard(src, p):
+            _build.check(lb, "stage", lb.raie_stage_gram(
+                src.data_ptr(), int(src.dtype == torch.bfloat16), ptr("ln1"),
+                ptr("ln1b"), ptr("wqkv"), ptr("dwqkv"), self.part.data_ptr(),
+                self.v.data_ptr(), b, h, w, c, self.gram_heads, self.gth,
+                self.gtw, self.groups, self.plan.gram_chunk, self.halo,
+                self.y_img, self.h_img, eps, self.stream), "A (Gram)")
+
+    def softmax(self, part: torch.Tensor, p: dict, i: int) -> None:
+        """(B): attn^T from ``part`` (this runner's, or every band's side by
+        side along its groups, on this device)."""
+        b, _, _, c = self.shape
+        lb = self.lib
+        if part.device != self.device or part.shape[0] != b or part.shape[2:] != self.part.shape[2:]:
+            raise ValueError(f"block kernel: partial Grams {tuple(part.shape)} on "
+                             f"{part.device} for a runner of {tuple(self.part.shape)} "
+                             f"on {self.device}")
+        with self._guard(part, p):
+            _build.check(lb, "stage", lb.raie_stage_softmax(
+                part.data_ptr(), _ptr(p, i)("temp"), self.attn_t.data_ptr(), b, c,
+                self.gram_heads, self.heads, part.shape[1], self.stream),
+                "B (softmax)")
+
+    def apply(self, src: torch.Tensor, dst: torch.Tensor, p: dict, i: int,
+              eps: float) -> None:
+        """(C): dst = the block's output from src, v and attn^T."""
+        b, h, w, c = self.shape
+        lb = self.lib
+        ptr = _ptr(p, i)
+        with self._guard(src, p, dst=dst):
+            _build.check(lb, "stage", lb.raie_stage_apply(
+                src.data_ptr(), int(src.dtype == torch.bfloat16), dst.data_ptr(),
+                int(dst.dtype == torch.bfloat16), self.v.data_ptr(),
+                self.attn_t.data_ptr(), ptr("wproj"), ptr("ln2"), ptr("ln2b"),
+                ptr("win"), ptr("wdw"), ptr("wout"), b, h, w, c,
+                self.gram_heads, self.fp, self.fc, self.ath, self.atw,
+                self.plan.apply_chunk, self.halo, self.y_img, self.h_img, eps,
+                self.stream), "C (apply)")
+
     def run(self, src: torch.Tensor, dst: torch.Tensor, p: dict, i: int,
             eps: float) -> None:
         """Block i of the packed weights p (``pack_blocks``) on the device
         the runner was made for, where ``src``, ``dst`` and p must lie."""
-        if src.device != self.device:
-            raise ValueError(f"block kernel: runner made for {self.device}, "
-                             f"src on {src.device}")
-        b, h, w, c = self.shape
-        lb = self.lib
-        tensors = {k: v for k, v in p.items() if isinstance(v, torch.Tensor)}
+        self.gram(src, p, i, eps)
+        self.softmax(self.part, p, i)
+        self.apply(src, dst, p, i, eps)
 
-        def ptr(name):
-            return None if p[name] is None else p[name][i].data_ptr()
 
-        src_bf16 = int(src.dtype == torch.bfloat16)
-        with _build.on_device(src, "block", dst=dst, **tensors):
-            _build.check(lb, "stage", lb.raie_stage_gram(
-                src.data_ptr(), src_bf16, ptr("ln1"), ptr("ln1b"), ptr("wqkv"),
-                ptr("dwqkv"), self.part.data_ptr(), self.v.data_ptr(), b, h, w,
-                c, self.gram_heads, self.gth, self.gtw, self.groups, eps,
-                self.stream), "A (Gram)")
-            _build.check(lb, "stage", lb.raie_stage_softmax(
-                self.part.data_ptr(), ptr("temp"), self.attn_t.data_ptr(), b, c,
-                self.gram_heads, self.heads, self.groups, self.stream),
-                "B (softmax)")
-            _build.check(lb, "stage", lb.raie_stage_apply(
-                src.data_ptr(), src_bf16, dst.data_ptr(),
-                int(dst.dtype == torch.bfloat16), self.v.data_ptr(),
-                self.attn_t.data_ptr(), ptr("wproj"), ptr("ln2"), ptr("ln2b"),
-                ptr("win"), ptr("wdw"), ptr("wout"), b, h, w, c,
-                self.gram_heads, self.fp, self.fc, self.ath, self.atw, eps,
-                self.stream), "C (apply)")
+def _ptr(p: dict, i: int):
+    """Block i's pointer of a packed weight (None for an absent bias)."""
+    return lambda name: None if p[name] is None else p[name][i].data_ptr()
 
 
 def _block_cuda(x, ln1_w, ln1_b, w_qkv, dw_qkv, temperature, w_proj, ln2_w,

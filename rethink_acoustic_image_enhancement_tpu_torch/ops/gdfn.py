@@ -41,29 +41,40 @@ def bf16_round(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.bfloat16).float()
 
 
-def dw3x3(t: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def dw3x3(t: torch.Tensor, w: torch.Tensor, halo: bool = False) -> torch.Tensor:
     """Zero-padded depthwise 3x3 on NHWC float32, taps (3, 3, K) in the
-    kernels' order."""
-    h, w_ = t.shape[1], t.shape[2]
-    tp = F.pad(t, (0, 0, 1, 1, 1, 1))
-    acc = torch.zeros_like(t)
+    kernels' order. With ``halo`` t holds one row above and one below its
+    own rows (a row band's, ``parallel/spatial.py``): only the columns are
+    zero-padded, and the output has t's own rows."""
+    tp = F.pad(t, (0, 0, 1, 1) + ((0, 0) if halo else (1, 1)))
+    h, w_ = tp.shape[1] - 2, t.shape[2]
+    acc = t.new_zeros((t.shape[0], h, w_, t.shape[3]))
     for di in range(3):
         for dj in range(3):
             acc = acc + tp[:, di:di + h, dj:dj + w_, :] * w[di, dj]
     return acc
 
 
+def ffn_hidden(r: torch.Tensor, ln_w, ln_b, w_in, eps: float,
+               apply_ln: bool = True) -> torch.Tensor:
+    """The GDFN's depthwise input: bf16(bf16(LN(r)) @ bf16(W_in))."""
+    rn = channel_layernorm(r, ln_w, ln_b, eps=eps) if apply_ln else r
+    return bf16_round(bf16_round(rn) @ bf16_round(w_in))
+
+
+def ffn_out(r: torch.Tensor, a: torch.Tensor, w_out) -> torch.Tensor:
+    """r + W_out (gelu(a1) * a2), ``a`` the depthwise output."""
+    f = w_out.shape[0]
+    x1, x2 = a[..., :f], a[..., f:]
+    g = 0.5 * x1 * (1.0 + torch.erf(x1 * 2.0 ** -0.5)) * x2
+    return bf16_round(g) @ bf16_round(w_out) + r
+
+
 def ffn_f32(r: torch.Tensor, ln_w, ln_b, w_in, w_dw, w_out, eps: float,
             apply_ln: bool = True) -> torch.Tensor:
     """r + GDFN(LN(r)) on float32 NHWC r with float32 (C, 2F), (3, 3, 2F)
     and (F, C) weights; ``ln_b is None`` is the BiasFree LayerNorm."""
-    f = w_out.shape[0]
-    rn = channel_layernorm(r, ln_w, ln_b, eps=eps) if apply_ln else r
-    t = bf16_round(bf16_round(rn) @ bf16_round(w_in))
-    a = dw3x3(t, w_dw)
-    x1, x2 = a[..., :f], a[..., f:]
-    g = 0.5 * x1 * (1.0 + torch.erf(x1 * 2.0 ** -0.5)) * x2
-    return bf16_round(g) @ bf16_round(w_out) + r
+    return ffn_out(r, dw3x3(ffn_hidden(r, ln_w, ln_b, w_in, eps, apply_ln), w_dw), w_out)
 
 
 def _ln_bias(ln_weight, ln_bias, bias_free: bool):

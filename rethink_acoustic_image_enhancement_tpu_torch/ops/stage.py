@@ -19,6 +19,11 @@ exact-erf GELU (the kernel's Abramowitz-Stegun erf is within 1.5e-7).
 Blocks hand their output to the next in float32; only the stage's output
 is cast to x's dtype (the TPU kernel stored every block's output in x's
 dtype).
+
+``fused_transformer_stage_bands`` is the same stage on an image split in row
+bands over devices (spatially sharded serving, ``parallel/spatial.py``), the
+same three launches per block and band; ``stage_plain_bands`` is its plain
+version.
 """
 
 from __future__ import annotations
@@ -27,7 +32,7 @@ import numpy as np
 import torch
 
 from . import _build
-from .block import BlockRunner, block_f32, pack_blocks
+from .block import BlockRunner, BlockWeights, block_f32, block_f32_bands, pack_blocks
 from .gdfn import check_input
 
 
@@ -60,24 +65,42 @@ def stack_block_params(params_list) -> dict[str, torch.Tensor]:
 
 # ------------------------------------------------------------- plain ----
 
+def _block_weights(i, c, ln1_w, w_qkv, dw_qkv, temperature, w_proj, ln2_w,
+                   w_in, w_dw, w_out) -> BlockWeights:
+    """Block i of the stacked weights as ``block_f32`` takes them."""
+    temp = temperature.float().reshape(ln1_w.shape[0], -1)
+    if c % temp.shape[1]:
+        raise ValueError(f"{temp.shape[1]} heads do not divide {c} channels")
+    return BlockWeights(
+        ln1_w[i].float(), None, w_qkv[i].reshape(c, 3 * c).float(),
+        dw_qkv[i].reshape(3, 3, 3 * c).float(), temp[i],
+        w_proj[i].reshape(c, c).float(), ln2_w[i].float(), None,
+        w_in[i].reshape(c, -1).float(), w_dw[i].reshape(3, 3, -1).float(),
+        w_out[i].reshape(-1, c).float())
+
+
 def stage_plain(x, ln1_w, w_qkv, dw_qkv, temperature, w_proj, ln2_w, w_in,
                 w_dw, w_out, ln_eps: float = 1e-5) -> torch.Tensor:
     """The stage in plain PyTorch (the kernel's arithmetic)."""
-    n = ln1_w.shape[0]
-    c = x.shape[-1]
-    temp = temperature.float().reshape(n, -1)
-    if c % temp.shape[1]:
-        raise ValueError(f"{temp.shape[1]} heads do not divide {c} channels")
+    weights = dict(ln1_w=ln1_w, w_qkv=w_qkv, dw_qkv=dw_qkv,
+                   temperature=temperature, w_proj=w_proj, ln2_w=ln2_w,
+                   w_in=w_in, w_dw=w_dw, w_out=w_out)
     y = x
-    for i in range(n):  # blocks hand over in float32
-        y = block_f32(
-            y, ln1_w[i].float(), None, w_qkv[i].reshape(c, 3 * c).float(),
-            dw_qkv[i].reshape(3, 3, 3 * c).float(), temp[i],
-            w_proj[i].reshape(c, c).float(), ln2_w[i].float(), None,
-            w_in[i].reshape(c, -1).float(),
-            w_dw[i].reshape(3, 3, -1).float(),
-            w_out[i].reshape(-1, c).float(), ln_eps)
+    for i in range(ln1_w.shape[0]):  # blocks hand over in float32
+        y = block_f32(y, *_block_weights(i, x.shape[-1], **weights), ln_eps)
     return y.to(x.dtype)
+
+
+def stage_plain_bands(xs, weights, bands, ln_eps: float = 1e-5) -> list[torch.Tensor]:
+    """``stage_plain`` on an image split in row bands, with the Gram and
+    norms of every block summed across them (``ops/block.py::
+    block_f32_bands``); one band gives ``stage_plain``'s bits."""
+    ys = list(xs)
+    for i in range(weights[0]["ln1_w"].shape[0]):
+        ys = block_f32_bands(
+            ys, [_block_weights(i, x.shape[-1], **w) for x, w in zip(xs, weights)],
+            bands, ln_eps)
+    return [y.to(x.dtype) for x, y in zip(xs, ys)]
 
 
 # ------------------------------------------------------------- CUDA -----
@@ -122,3 +145,84 @@ def fused_transformer_stage(x, ln1_w, w_qkv, dw_qkv, temperature, w_proj,
 
 
 fused_transformer_stage.launches = 0  # CUDA stage calls (3 launches/block)
+
+
+# ------------------------------------------------------------- bands ----
+
+def _stage_bands_cuda(xs, weights, bands, ln_eps) -> list[torch.Tensor]:
+    """Each block on every band: (A) per band; each band's partial Gram
+    summed over its tile groups, then across bands on every band's device;
+    (B) per band; v's halo rows from the neighbours; (C) per band; the
+    output's halo rows for the next block. One band hands (B) its groups
+    as the whole image does. The bands lie on cards of their own, or share
+    one."""
+    xs = [check_input(x, "stage") for x in xs]
+    if any(x.shape != xs[0].shape for x in xs):
+        raise ValueError(f"stage bands differ in shape: {[tuple(x.shape) for x in xs]}")
+    b, hb, w, c = xs[0].shape
+    held = (b, hb + 2, w, c)  # one halo row above and below the band's own
+    runners, packs, srcs, bufs, outs = [], [], [], [], []
+    for j, (x, wts) in enumerate(zip(xs, weights)):
+        with _build.on_device(x, "stage", **wts):
+            p = pack_blocks(x.device, **wts)
+            n, heads = p["temp"].shape
+            if c % heads or (c // heads) % 16:
+                raise ValueError(f"stage kernel needs C/heads a multiple of 16 "
+                                 f"(C={c}, heads={heads})")
+            src = torch.empty(held, dtype=x.dtype, device=x.device)
+            src[:, 1:-1] = x
+            runners.append(BlockRunner(src, heads, p["fp"],
+                                       band=(bands.held[j] * hb, bands.n * hb)))
+            packs.append(p)
+            srcs.append(src)
+            # blocks hand over in float32; only the last writes x's dtype
+            bufs.append([torch.empty(held, dtype=torch.float32, device=x.device)
+                         for _ in range(min(2, n - 1))])
+            outs.append(torch.empty(held, dtype=x.dtype, device=x.device))
+    bands.fill_halo(srcs, 1, dim=1)
+    for i in range(n):
+        dsts = outs if i == n - 1 else [bb[i % 2] for bb in bufs]
+        for r, p, src in zip(runners, packs, srcs):
+            r.gram(src, p, i, ln_eps)
+        parts = ([runners[0].part] if bands.n == 1 else
+                 bands.sum_across([r.part.sum(1, keepdim=True) for r in runners]))
+        for r, p, part in zip(runners, packs, parts):
+            r.softmax(part, p, i)
+        bands.fill_halo([r.v for r in runners], 1, dim=1)
+        for r, p, src, dst in zip(runners, packs, srcs, dsts):
+            r.apply(src, dst, p, i, ln_eps)
+        if i < n - 1:
+            bands.fill_halo(dsts, 1, dim=1)
+        srcs = dsts
+    _build.count_launch(fused_transformer_stage_bands)
+    return [out[:, 1:-1] for out in outs]
+
+
+def fused_transformer_stage_bands(xs, weights, bands, ln_eps: float = 1e-5
+                                  ) -> list[torch.Tensor]:
+    """N BiasFree TransformerBlocks on an image split in row bands
+    (``parallel/spatial.py``; ``bands`` the exchange, e.g. ``LocalBands``):
+    xs[j] is band j of ``bands.held``, NHWC (B, rows, W, C), every band the
+    same shape; weights[j] its stacked weights on its device (the keyword
+    arguments of ``fused_transformer_stage``). Returns the bands of the
+    stage's output. Every block's Gram and q/k norms are summed over all
+    bands, and its depthwise convs read the neighbours' rows, so the bands
+    compute the whole image's stage up to the order of those sums.
+
+    CUDA bands run the three launches of ``csrc/stage.cu`` per band and
+    block (or raise) and count the call in
+    ``fused_transformer_stage_bands.launches``; CPU bands take
+    ``stage_plain_bands``. A band's rows need not fill the kernel's tiles:
+    its last tile is cut at the band's edge, as at an image's."""
+    kinds = {x.device.type for x in xs}
+    if len(xs) != len(weights) or len(xs) != len(bands.held):
+        raise ValueError(f"{len(xs)} bands, {len(weights)} weight sets, "
+                         f"{len(bands.held)} bands held")
+    if kinds == {"cuda"}:
+        return _stage_bands_cuda(xs, weights, bands, ln_eps)
+    if kinds == {"cpu"}:
+        return stage_plain_bands(xs, weights, bands, ln_eps)
+    raise ValueError(f"no band stage implementation for devices {sorted(kinds)}")
+
+
+fused_transformer_stage_bands.launches = 0  # CUDA band-stage calls

@@ -1,0 +1,145 @@
+"""Row bands: one image split by rows over the devices of a mesh's spatial
+axis (the JAX package shards H over ``spatial`` and lets XLA's partitioner
+insert the halo exchanges and the MDTA's pixel-axis sums).
+
+One process drives every band, as JAX's single controller drives every
+device of the mesh: band i of N lies on ``devices[i]`` and holds rows
+[i h, (i + 1) h) of an image of N h rows. Two rules make a layer exact on
+bands (``models/bands.py`` applies them layer by layer):
+
+  * a conv whose taps reach ``r`` rows up and down reads ``r`` halo rows
+    from each neighbour, zeros at the image's top and bottom edge, where
+    the unsplit conv zero-pads (``exchange_halo`` / ``fill_halo``);
+  * a sum over all pixels (the MDTA's Gram and q/k norms) is each band's
+    partial sum added across bands in band order (``sum_across``).
+
+``LocalBands`` does both with copies inside one process; a process-group
+form (one rank per band, for training) can give the same three methods. A
+copy between two cards is a ``non_blocking`` copy ordered by events on
+each device's current stream: the destination's stream waits for what was
+queued on the source's before the copy.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+
+def split_rows(x: torch.Tensor, devices: Sequence[torch.device], dim: int = -2
+               ) -> list[torch.Tensor]:
+    """``x`` cut into ``len(devices)`` equal bands along ``dim``, band i on
+    ``devices[i]``."""
+    n = len(devices)
+    if x.shape[dim] % n:
+        raise ValueError(f"{x.shape[dim]} rows do not split into {n} equal bands")
+    return [_to(band, torch.device(d)) for band, d in zip(x.chunk(n, dim), devices)]
+
+
+def join_rows(bands: Sequence[torch.Tensor], device: torch.device, dim: int = -2
+              ) -> torch.Tensor:
+    """The bands put back together along ``dim`` on ``device``."""
+    return torch.cat([_to(b, torch.device(device)) for b in bands], dim)
+
+
+def _copy_into(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """dst[...] = src without waiting on the host; from another card, after
+    an event that ends what the source's current stream had queued."""
+    if src.device != dst.device and src.device.type == dst.device.type == "cuda":
+        event = torch.cuda.current_stream(src.device).record_event()
+        torch.cuda.current_stream(dst.device).wait_event(event)
+    dst.copy_(src, non_blocking=True)
+
+
+def _empty_as(x: torch.Tensor, shape) -> torch.Tensor:
+    """An empty tensor of ``shape`` in x's memory layout: a channels-last
+    x (the NHWC upload seen as NCHW) gives channels-last, as the whole
+    image's convs see it (cuDNN picks its algorithm, and so its rounding, by
+    layout)."""
+    last = x.dim() == 4 and x.shape[1] > 1 and x.stride(1) == 1 and not x.is_contiguous()
+    return torch.empty(shape, dtype=x.dtype, device=x.device,
+                       memory_format=torch.channels_last if last else torch.contiguous_format)
+
+
+def _to(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """``t`` on ``device`` (itself where it lies there already)."""
+    if t.device == device:
+        return t
+    out = torch.empty(t.shape, dtype=t.dtype, device=device)
+    _copy_into(out, t)
+    return out
+
+
+class LocalBands:
+    """All N bands of an image in this process, band i on ``devices[i]``
+    (devices may repeat: bands can share a card). Each method takes and
+    returns one tensor per band this process holds (``held``), in band
+    order. ``moved`` counts the bytes one band hands another: halo rows,
+    and partial sums (another band's part reaching a band's device)."""
+
+    def __init__(self, devices: Sequence[str | torch.device]):
+        self.devices = [torch.device(d) for d in devices]
+        if not self.devices:
+            raise ValueError("LocalBands needs at least one device")
+        self.moved = {"halo": 0, "partials": 0}
+
+    @property
+    def n(self) -> int:
+        """Bands of the image."""
+        return len(self.devices)
+
+    @property
+    def held(self) -> list[int]:
+        """Indices of the bands this process holds: all of them."""
+        return list(range(self.n))
+
+    def fill_halo(self, bufs: Sequence[torch.Tensor], rows: int, dim: int = -2) -> None:
+        """In place: each band's buffer holds its own rows with ``rows``
+        halo rows above and below them along ``dim``; the halo rows get
+        the neighbours' nearest own rows, zeros at the image's edges."""
+        own = bufs[0].shape[dim] - 2 * rows
+        if own < rows:
+            raise ValueError(f"a band of {own} rows cannot give {rows} halo rows")
+        for i, buf in enumerate(bufs):
+            top, bottom = buf.narrow(dim, 0, rows), buf.narrow(dim, rows + own, rows)
+            if i > 0:
+                _copy_into(top, bufs[i - 1].narrow(dim, own, rows))
+            else:
+                top.zero_()
+            if i < len(bufs) - 1:
+                _copy_into(bottom, bufs[i + 1].narrow(dim, rows, rows))
+            else:
+                bottom.zero_()
+        self.moved["halo"] += 2 * (len(bufs) - 1) * top.numel() * top.element_size()
+
+    def exchange_halo(self, bands: Sequence[torch.Tensor], rows: int, dim: int = -2
+                      ) -> list[torch.Tensor]:
+        """Each band with ``rows`` rows of its neighbours above and below
+        it along ``dim`` (zeros at the image's edges), in the band's memory
+        layout: what a conv that reaches ``rows`` rows reads."""
+        bufs = []
+        for x in bands:
+            shape = list(x.shape)
+            shape[dim] += 2 * rows
+            buf = _empty_as(x, shape)
+            buf.narrow(dim, rows, x.shape[dim]).copy_(x)
+            bufs.append(buf)
+        self.fill_halo(bufs, rows, dim)
+        return bufs
+
+    def sum_across(self, parts: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+        """The bands' partial sums added in band order on every band's
+        device: every band gets the same bits."""
+        self._count_partials(parts)
+        out = []
+        for d in (p.device for p in parts):
+            acc = _to(parts[0], d)
+            for p in parts[1:]:
+                acc = acc + _to(p, d)
+            out.append(acc)
+        return out
+
+    def _count_partials(self, parts: Sequence[torch.Tensor]) -> None:
+        self.moved["partials"] += (len(parts) - 1) * sum(
+            p.numel() * p.element_size() for p in parts)

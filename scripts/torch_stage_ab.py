@@ -12,12 +12,15 @@ against ``stage_plain``, times ``fused_transformer_stage`` at the four
 shapes of PERF.md's stage table (bf16, CUDA events over 5 calls), takes the
 device time of each kernel of one 4-block call at (1,512,512,96) with
 ``torch.profiler`` and, where the checkout has ``ops/phase_clocks.py``, the
-cycles per phase inside a tile at (1,512,512,96) and (8,256,256,96). One
-JSON line per checkout; all of them go to ``chiprun_out/stage_ab.json``.
+cycles per phase inside a tile at (1,512,512,96) and (8,256,256,96). The
+sha256 of each shape's output bytes says whether two checkouts' kernels give
+the same bits. One JSON line per checkout; all of them go to
+``chiprun_out/stage_ab.json``.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import subprocess
@@ -64,7 +67,7 @@ def one(root: str) -> dict:
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    out = dict(root=root, card=card, stage_ms={}, rel_err={})
+    out = dict(root=root, card=card, stage_ms={}, rel_err={}, sha256={})
     for shape, n, heads in CASES:
         rng = np.random.default_rng(n)
         wts = weights(rng, n, 96, heads, 255, "cuda")
@@ -83,6 +86,8 @@ def one(root: str) -> dict:
         key = "x".join(map(str, shape)) + f" blocks={n} heads={heads}"
         out["stage_ms"][key] = start.elapsed_time(end) / 5
         out["rel_err"][key] = rel
+        out["sha256"][key] = hashlib.sha256(
+            got.view(torch.int16).cpu().numpy().tobytes()).hexdigest()
         if shape == CASES[0][0]:
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 pstage.fused_transformer_stage(x, **wts)

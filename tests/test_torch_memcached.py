@@ -91,8 +91,10 @@ def test_memcached_key_is_stringified(fake_mc_dir, tmp_path):
     assert all(isinstance(k, str) for k in mc.INSTANCES[-1].gets)
 
 
-def test_memcached_missing_client_raises_importerror(tmp_path):
-    assert "mc" not in sys.modules
+def test_memcached_missing_client_raises_importerror(tmp_path, monkeypatch):
+    # no client importable: none in sys.modules, none on the path
+    monkeypatch.delitem(sys.modules, "mc", raising=False)
+    monkeypatch.setattr(sys, "path", list(sys.path))
     empty = tmp_path / "empty_site"
     empty.mkdir()
     with pytest.raises(ImportError, match="mc"):

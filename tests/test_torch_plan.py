@@ -30,12 +30,12 @@ class StubLibrary:
         halo = (th + 2) * (tw + 2)
         return int(self.scale * (halo * c * 6 + halo * fc * 4 + c * fc * 3 + 8_000))
 
-    def raie_stage_smem_bytes(self, kind, th, tw, c, heads, fc):
+    def raie_stage_smem_bytes(self, kind, th, tw, c, heads, fc, chunk=0):
         if kind == 0:
             return int(self.gram_bytes * th * tw / 64)
         return self._apply_bytes(th, tw, c, fc)
 
-    def raie_stage_blocks_per_sm(self, kind, th, tw, c, heads, fc):
+    def raie_stage_blocks_per_sm(self, kind, th, tw, c, heads, fc, chunk=0):
         n = (self.raie_stage_smem_bytes(0, th, tw, c, heads, 0) if kind == 0
              else self._apply_bytes(th, tw, c, fc))
         return 0 if n > LIMIT else 2 if n <= HALF else 1
@@ -105,6 +105,33 @@ def test_gram_tile_is_the_largest_with_two_blocks_else_the_largest_that_fits():
     assert (plan.gram_tile, plan.gram_blocks) == ((4, 4), 2)
     plan = pblock.plan_tiles(StubLibrary(gram_bytes=900_000), 96, 1)
     assert (plan.gram_tile, plan.gram_blocks) == ((4, 4), 1)  # 225,000 bytes
+
+
+class WideStub(StubLibrary):
+    """As ``csrc/stage.cu`` at C = 384: the C x C weights held whole fit no
+    tile; in chunks they fit, once per SM."""
+
+    def raie_stage_smem_bytes(self, kind, th, tw, c, heads, fc, chunk=0):
+        if chunk == 0 and c == 384:
+            return LIMIT + 1
+        return super().raie_stage_smem_bytes(kind, th, tw, c, heads, fc) // 4
+
+    def raie_stage_blocks_per_sm(self, kind, th, tw, c, heads, fc, chunk=0):
+        n = self.raie_stage_smem_bytes(kind, th, tw, c, heads, fc, chunk)
+        return 0 if n > LIMIT else 1 if chunk else 2
+
+
+def test_wide_layout_only_where_no_whole_layout_fits():
+    """C = 384 takes the chunked layouts, the largest chunk first; a width
+    whose weights fit whole keeps them whole, though a chunked layout would
+    be resident more often."""
+    plan = pblock.plan_tiles(WideStub(), 384, 8)
+    assert (plan.gram_chunk, plan.apply_chunk) == (64, 128)
+    assert (plan.gram_blocks, plan.apply_blocks) == (1, 1)
+    plan = pblock.plan_tiles(WideStub(), 192, 4)
+    assert (plan.gram_chunk, plan.apply_chunk) == (0, 0)
+    assert pblock._chunks(384, pblock._GRAM_CHUNKS) == [64, 32]
+    assert pblock._chunks(96, pblock._PROJ_CHUNKS) == []  # no chunk divides 96 below it
 
 
 def test_nothing_fits_raises():

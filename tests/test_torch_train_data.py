@@ -210,11 +210,17 @@ def test_unported_types_and_backends_name_the_roadmap(tmp_path, monkeypatch):
         "        buf.data = path.encode()\n"
         "def ConvertBuffer(buf):\n    return buf.data\n")
     monkeypatch.setattr(sys, "path", list(sys.path))
-    monkeypatch.delitem(sys.modules, "mc", raising=False)
-    client = file_client.FileClient("memcached", server_list_cfg="s", client_cfg="c",
-                                    sys_path=str(tmp_path / "site"))
-    assert client.get("x/y.png") == b"x/y.png"
-    monkeypatch.delitem(sys.modules, "mc")
+    # the fake ``mc`` must not outlive the test: the module that was there
+    # before (if any) goes back, never the fake
+    saved_mc = sys.modules.pop("mc", None)
+    try:
+        client = file_client.FileClient("memcached", server_list_cfg="s", client_cfg="c",
+                                        sys_path=str(tmp_path / "site"))
+        assert client.get("x/y.png") == b"x/y.png"
+    finally:
+        sys.modules.pop("mc", None)
+        if saved_mc is not None:
+            sys.modules["mc"] = saved_mc
     with pytest.raises(ValueError, match="not supported"):
         file_client.FileClient("ceph")
     with pytest.raises(KeyError, match="dataroot_xx"):

@@ -202,13 +202,32 @@ fp32 predictors' own pinning is what runs:
      512^2; the seeded flagship of phase 3 on 2 bands within 1 level of one
      device on >= 99%; (c) the trained fp32 teacher, fused=False, on 2
      bands at 512^2 within 1 level of one device on >= 99%.
+ 17. spatially sharded training (train.spatial_shard: 2), two gloo ranks
+     sharing cuda:0, one row band each (child processes of this script,
+     `--sp-rank`, torchrun's env; one card: the split's overhead, not
+     scaling): (a) configs/KDLAET.yml at full width through the loop, two
+     steps in each curriculum stage (12), a checkpoint and a validation on
+     rank 0 at 12; (b) one teacher step and a second at batch 1 on a 512^2
+     crop, the width kept and the depth halved (blocks [2,3,3,4],
+     refinement 2: at full depth each band's fp32 step holds ~39 GiB, and
+     two bands do not fit one 80 GB card); (c) configs/KDLAES.yml's
+     student at 4x7@384, two steps. Gates:
+     the first step of (b) and (c) against one process on the card on the
+     same batch and draws (loss within 1e-5 relative, grad norm 1e-4, every
+     weight within 5e-3 relative and 3 lr absolute: the JAX spatial test's
+     rule), every loss finite, the ranks' parameters bit-equal after every
+     step (sha256), rank 0's checkpoint loading strictly into the
+     whole-image teacher and serving one 512^2 frame, no kernel launch in
+     the ranks. Per step: ms against one process's, halo and partial bytes,
+     peak memory per rank.
 Each path runs with every launch count set to 0 just before it and read just
-after. Prints one JSON line per phase 6-16, a "kernels" JSON line, the card
+after. Prints one JSON line per phase 6-17, a "kernels" JSON line, the card
 line, and as its last line {"ok": true, "device": {...}}. Details go to
 chiprun_out/chip_smoke.json.
-`chip_smoke.py --dp-rank SPEC` is one rank of phase 13, not for use alone;
-`chip_smoke.py --phase 14` (or 15, or 16) builds and runs that phase alone
-(its JSON line, no "kernels" or "ok" line).
+`chip_smoke.py --dp-rank SPEC` and `--sp-rank SPEC` are ranks of phases 13
+and 17, not for use alone; `chip_smoke.py --phase 14` (or 15, 16, 17)
+builds and runs that phase alone (its JSON line, no "kernels" or "ok"
+line).
 """
 
 from __future__ import annotations
@@ -2715,10 +2734,12 @@ def dp_launch(argv, work, world, name, env_extra=None):
                 p.wait()
     wall = time.perf_counter() - t0
     texts = []
-    for p, path in zip(procs, logs):
+    for path in logs:
         with open(path) as fh:
             texts.append(fh.read())
-        assert p.returncode == 0, (name, p.returncode, texts[-1][-4000:])
+    failed = [(r, p.returncode, t[-4000:]) for r, (p, t) in enumerate(zip(procs, texts))
+              if p.returncode != 0]
+    assert not failed, (name, failed)  # every failing process's tail: the first cause may be any
     return texts, wall
 
 
@@ -4045,11 +4066,407 @@ def phase_spatial(results, card):
     return rows, launches
 
 
+# ------------------------------------------------------------ phase 17 ---
+
+SP_WORLD = 2  # ranks sharing the one card over gloo, one band each
+SP_ITERS = [2] * 6  # (a): two steps in each curriculum stage of KDLAET.yml
+SP_SIZE = 512  # (b): the batch-1 crop the spatial axis exists for
+# (b)'s depth: the full-depth teacher's fp32 step at 512^2 held 38.36 GiB of
+# activations on each of two bands when they ran out of an 80 GB H100's
+# memory together (the 1024^2 SR head's blocks the most), so the width stays
+# and the blocks are halved
+SP_DEPTH = dict(num_blocks=[2, 3, 3, 4], num_refinement_blocks=2)
+SP_STUDENT = (4, 7, 384)  # (c): KDLAES.yml's batch_size_per_gpu, num_pairs, gt_size
+SP_DEVICE = "cuda"  # the one-process references' device
+
+
+def sp_batch(kind, device):
+    """(b)'s (1, 3, 512, 512) teacher batch or (c)'s (4, 7, 384, 384) student
+    stacks, seeded, on ``device``."""
+    import torch
+
+    rng = np.random.default_rng(31 if kind == "teacher" else 32)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    if kind == "teacher":
+        img = rng.random((1, 3, SP_SIZE, SP_SIZE), dtype=np.float32)
+        hq = np.clip(img + rng.normal(0, 0.05, img.shape), 0, 1).astype(np.float32)
+        return ({"img": t(img), "denoise_rate": t(np.full((1, 1, SP_SIZE, SP_SIZE), 0.7,
+                                                           np.float32))},
+                {"hq": t(hq), "sr": t(hq.repeat(2, 2).repeat(2, 3))})
+    b, f, side = SP_STUDENT
+    gt = rng.random((b, f, side, side), dtype=np.float32) * 0.9
+    lq = np.clip(gt + rng.normal(0, 0.08, gt.shape), 0, 1).astype(np.float32)
+    return t(lq), t(gt)
+
+
+def sp_steps(opt, kind, device, steps=2, digest=False):
+    """``steps`` seeded steps of the config's full-width network on
+    ``sp_batch(kind)`` (mixup and the extra mask from host generators keyed
+    by the step, the same on every rank): per step the metrics, the
+    synchronised wall ms, the bytes the bands moved and (``digest``) the
+    parameters' sha256; the parameters after the first step and its
+    (clipped) gradients on the host."""
+    import torch
+
+    from rethink_acoustic_image_enhancement_tpu_torch import parallel
+    from rethink_acoustic_image_enhancement_tpu_torch.train import loop as tloop
+
+    _, trainer = tloop.build_everything(opt, device=device)
+    state = trainer.init_state()
+    state.step = max(int(opt["train"].get("warmup_iter", -1)), 0)  # past the warm-up
+    lq, gt = sp_batch(kind, device)
+    rows, first, grads = [], None, None
+    for k in range(steps):
+        before = dict(trainer.bands.moved) if trainer.bands is not None else None
+        torch.cuda.synchronize(device)
+        parallel.barrier()
+        t0 = time.perf_counter()
+        state, m = trainer.step(state, lq, gt, np.random.default_rng([17, k]),
+                                extra_prob=0.02)
+        torch.cuda.synchronize(device)
+        row = dict(ms=(time.perf_counter() - t0) * 1e3,
+                   **{key: float(v) for key, v in m.items()})
+        if before is not None:
+            row.update({f"{key}_bytes": trainer.bands.moved[key] - before[key]
+                        for key in before})
+        if digest:
+            row["digest"] = dp_digest(state.model.named_parameters())
+        rows.append(row)
+        if k == 0:
+            first, grads = first_step(state.model)
+    del state, trainer, lq, gt
+    torch.cuda.empty_cache()
+    return rows, first, grads
+
+
+def first_step(model):
+    """(parameters, gradients) of ``model`` on the host, zeros for a
+    parameter without a gradient."""
+    import torch
+
+    return ({n: p.detach().cpu() for n, p in model.named_parameters()},
+            {n: (torch.zeros_like(p) if p.grad is None else p.grad).detach().cpu()
+             for n, p in model.named_parameters()})
+
+
+def sp_loop_step(record, out=None):
+    """``Trainer.step`` that also digests the parameters after every step
+    into ``record["digests"]`` and keeps the first step's metrics, and its
+    parameters and gradients (saved to ``out`` where given, else kept)."""
+    import torch
+
+    from rethink_acoustic_image_enhancement_tpu_torch.train import trainer as ttr
+
+    step = ttr.Trainer.step
+
+    def digested_step(self, state, *a, **kw):
+        state, m = step(self, state, *a, **kw)
+        record["digests"].append(dp_digest(state.model.named_parameters()))
+        if len(record["digests"]) == 1:
+            record["first_metrics"] = {k: float(v) for k, v in m.items()}
+            first = first_step(state.model)
+            if out is None:
+                record["first"] = first
+            else:
+                torch.save(first, out)
+        return state, m
+
+    return step, digested_step
+
+
+def sp_child(spec_path):
+    """One rank of phase 17 (``chip_smoke.py --sp-rank SPEC``, started with
+    torchrun's env): joins the gloo group on the card, then (a) trains the
+    teacher through the loop on its band, every step's parameters digested,
+    (b) and (c) the seeded steps on its band. Writes what it saw to
+    ``<out>_rank{r}.json`` (rank 0 also its first steps' parameters)."""
+    import torch
+
+    sys.path.insert(0, HERE)
+    from rethink_acoustic_image_enhancement_tpu_torch import parallel
+    from rethink_acoustic_image_enhancement_tpu_torch.eval.infer import resolve_device
+    from rethink_acoustic_image_enhancement_tpu_torch.train import config as tcfg
+    from rethink_acoustic_image_enhancement_tpu_torch.train import loop as tloop
+    from rethink_acoustic_image_enhancement_tpu_torch.train import trainer as ttr
+
+    with open(spec_path) as fh:
+        spec = json.load(fh)
+    assert parallel.init_distributed(backend="gloo")
+    rank = parallel.rank()
+    device = resolve_device(None)
+    torch.cuda.set_device(device)
+    torch.empty(1, device=device)
+    fns = reset_counts()
+    out = dict(rank=rank, world=parallel.world_size(), backend=parallel.backend_name())
+
+    # (a) the teacher through the loop; each step's parameters digested,
+    # rank 0's first step saved
+    made, record = [], dict(digests=[])
+    bands_of = tloop.spatial_bands
+
+    def keep_bands(opt, model):
+        made.append(bands_of(opt, model))
+        return made[-1]
+
+    step, digested_step = sp_loop_step(
+        record, f"{spec['out']}_loop_first.pt" if rank == 0 else None)
+    tloop.spatial_bands, ttr.Trainer.step = keep_bands, digested_step
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    opt = tcfg.parse(spec["teacher_yml"], is_train=True, root_path=spec["work"])
+    state = tloop.train_from_config(opt, device=device)
+    out["loop"] = dict(step=state.step, digests=record["digests"],
+                       first_metrics=record["first_metrics"], moved=dict(made[0].moved),
+                       train_s=time.perf_counter() - t0, n_spatial=made[0].n,
+                       band=made[0].index,
+                       peak_gib=torch.cuda.max_memory_allocated(device) / 2 ** 30)
+    tloop.spatial_bands, ttr.Trainer.step = bands_of, step
+    del state
+    torch.cuda.empty_cache()
+
+    # (b) batch 1 at 512^2; (c) the student at 4x7@384: two seeded steps each
+    for kind, yml in (("teacher", spec["teacher512_yml"]), ("student", spec["student_yml"])):
+        torch.cuda.reset_peak_memory_stats(device)
+        rows, first, _ = sp_steps(tcfg.parse(yml, is_train=True, root_path=spec["work"]),
+                                  kind, device, digest=True)
+        out[kind] = dict(steps=rows,
+                         peak_gib=torch.cuda.max_memory_allocated(device) / 2 ** 30)
+        if rank == 0:
+            torch.save(first, f"{spec['out']}_{kind}_first.pt")
+        del first
+    out["launches"] = read_counts(fns)
+    with open(spec["out"] + f"_rank{rank}.json", "w") as fh:
+        json.dump(out, fh)
+    parallel.shutdown()
+    return 0
+
+
+def sp_ymls(work, roots, val_roots):
+    """configs/KDLAET.yml and configs/KDLAES.yml at full width with
+    ``train.spatial_shard: 2``: (a) the teacher's dataroots replaced and two
+    steps a curriculum stage (12), a checkpoint and a validation at 12; (b)
+    the same teacher at ``SP_DEPTH``; (c) the student as it stands (the
+    steps of (b) and (c) are fed here, not read); (a) with
+    ``spatial_shard: 1``, its one-process reference."""
+    import yaml
+
+    with open(os.path.join(HERE, "configs", "KDLAET.yml")) as fh:
+        teacher = yaml.safe_load(fh)
+    teacher["name"] = "sp_teacher"
+    teacher["datasets"]["train"].update(roots, iters=SP_ITERS)
+    teacher["datasets"]["val"].update(val_roots)
+    teacher["val"]["val_freq"] = sum(SP_ITERS)
+    teacher["train"].update(total_iter=sum(SP_ITERS), spatial_shard=SP_WORLD)
+    teacher["logger"].update(save_checkpoint_freq=sum(SP_ITERS), print_freq=1,
+                             use_tb_logger=False)
+    cut = {**teacher, "name": "sp_teacher512",
+           "network_g": {**teacher["network_g"], **SP_DEPTH}}
+    with open(os.path.join(HERE, "configs", "KDLAES.yml")) as fh:
+        student = yaml.safe_load(fh)
+    student["name"] = "sp_student"
+    student["train"]["spatial_shard"] = SP_WORLD
+    one = {**teacher, "name": "sp_teacher_one", "train": {**teacher["train"], "spatial_shard": 1}}
+    out = []
+    for cfg in (teacher, cut, student, one):
+        out.append(os.path.join(work, f"{cfg['name']}.yml"))
+        with open(out[-1], "w") as fh:
+            yaml.safe_dump(cfg, fh)
+    return out
+
+
+def sp_parity(first_rank, first_one, grads_one, m_rank, m_one):
+    """One step held to one process's: the JAX spatial test's rule (loss
+    1e-5 relative, grad norm 1e-4, every weight within 5e-3 relative and 3
+    lr absolute), and phase 13's step rule: a weight whose one-process
+    gradient is above 1e-6 of the largest within 0.05 lr. AdamW's first
+    update moves a weight by about lr sign(g), so the JAX rule alone passes
+    a gradient of the opposite sign; the step rule holds the backward.
+    Returns the worst of each."""
+    lr = m_one["lr"]
+    rel = {k: abs(m_rank[k] - m_one[k]) / abs(m_one[k]) for k in ("l_pix", "grad_norm")}
+    gmax = max(float(g.abs().max()) for g in grads_one.values())
+    over = over_step = held = 0
+    worst = worst_held = 0.0
+    for n, want in first_one.items():
+        diff = (first_rank[n] - want).abs()
+        over += int((diff > 5e-3 * want.abs() + 3 * lr).sum())
+        big = grads_one[n].abs() > 1e-6 * gmax
+        over_step += int((diff[big] > 0.05 * lr).sum())
+        held += int(big.sum())
+        worst = max(worst, float(diff.max()))
+        if big.any():
+            worst_held = max(worst_held, float(diff[big].max()))
+    assert rel["l_pix"] <= 1e-5 and rel["grad_norm"] <= 1e-4 and over == 0 \
+        and over_step == 0 and m_rank["lr"] == lr, (rel, over, over_step)
+    return dict(rel=rel, weights_over_rule=over, weights_over_step_rule=over_step,
+                weights_under_step_rule=held, max_weight_diff=worst,
+                max_weight_diff_under_step_rule=worst_held, lr=lr)
+
+
+def phase_spatial_train(results, card, work):
+    """Phase 17: spatially sharded training, two gloo ranks sharing the one
+    card, one row band each (child processes of this script, torchrun's
+    env): (a) the flagship teacher through the loop, (b) one teacher step at
+    batch 1 on 512^2, (c) the student at 4x7@384; each against one process
+    on the card ((a) through the same loop with ``spatial_shard: 1``). Every
+    band on one card: the split's overhead, not scaling."""
+    import torch
+
+    from rethink_acoustic_image_enhancement_tpu_torch.convert.weights import load_pth
+    from rethink_acoustic_image_enhancement_tpu_torch.eval.infer import TeacherPredictor
+    from rethink_acoustic_image_enhancement_tpu_torch.models import flagship_teacher
+    from rethink_acoustic_image_enhancement_tpu_torch.train import config as tcfg
+    from rethink_acoustic_image_enhancement_tpu_torch.train import loop as tloop
+    from rethink_acoustic_image_enhancement_tpu_torch.train import trainer as ttr
+    from rethink_acoustic_image_enhancement_tpu_torch.train.progressive import ProgressiveSchedule
+
+    t_phase = time.perf_counter()
+    counts = reset_counts()
+    row = dict(card=card, world=SP_WORLD,
+               backend="gloo, two ranks on cuda:0, one band each (one card: the split's "
+                       "overhead, not scaling)")
+    roots = write_train_corpus(os.path.join(work, "triples"), 12, seed=210)
+    val_roots = write_train_corpus(os.path.join(work, "val"), 2, seed=310)
+    teacher_yml, teacher512_yml, student_yml, teacher_one_yml = sp_ymls(work, roots, val_roots)
+    spec = dict(work=work, out=os.path.join(work, "sp"), teacher_yml=teacher_yml,
+                teacher512_yml=teacher512_yml, student_yml=student_yml)
+    spec_path = os.path.join(work, "sp_spec.json")
+    with open(spec_path, "w") as fh:
+        json.dump(spec, fh)
+    torch.cuda.empty_cache()
+    _, ranks_wall = dp_launch([sys.executable, os.path.abspath(__file__), "--sp-rank", spec_path],
+                              work, SP_WORLD, "sp_rank")
+    ranks = []
+    for r in range(SP_WORLD):
+        with open(f"{spec['out']}_rank{r}.json") as fh:
+            ranks.append(json.load(fh))
+    assert [(x["rank"], x["backend"]) for x in ranks] == [(r, "gloo") for r in range(SP_WORLD)]
+    assert [(x["loop"]["n_spatial"], x["loop"]["band"]) for x in ranks] == [
+        (SP_WORLD, r) for r in range(SP_WORLD)], [x["loop"] for x in ranks]
+    assert not any(v for x in ranks for v in x["launches"].values()), [x["launches"] for x in ranks]
+    # the ranks' parameters bit-equal after every step
+    assert len({tuple(x["loop"]["digests"]) for x in ranks}) == 1
+    for kind in ("teacher", "student"):
+        assert len({tuple(s["digest"] for s in x[kind]["steps"]) for x in ranks}) == 1, kind
+        assert ranks[0][kind]["steps"][0]["l_pix"] == ranks[1][kind]["steps"][0]["l_pix"]
+
+    # (a) rank 0's record: every step logged and finite, the checkpoint, a
+    # validation on whole images; the weights load strictly and serve 512^2
+    exp, events, steps = train_events(work, "sp_teacher")
+    total = sum(SP_ITERS)
+    assert [e["iter"] for e in steps] == list(range(1, total + 1)), [e["iter"] for e in steps]
+    assert len(ranks[0]["loop"]["digests"]) == total
+    assert all(np.isfinite(e["l_pix"]) and np.isfinite(e["grad_norm"]) for e in steps), steps
+    vals = [e for e in events if e["kind"] == "val"]
+    assert [e["iter"] for e in vals] == [total] and np.isfinite(vals[0]["psnr"]), vals
+    net = os.path.join(exp, "models", f"net_g_{total}.pth")
+    model = load_pth(flagship_teacher(static="train"), net)  # strict
+    frame = sonar_frame(SP_SIZE, SP_SIZE, 410)
+    t0 = time.perf_counter()
+    served = TeacherPredictor(model)(frame, 0.7)
+    torch.cuda.synchronize()
+    serve_ms = (time.perf_counter() - t0) * 1e3
+    band_outputs_ok(frame, served, "phase 17 served checkpoint")
+    del model
+
+    # (a)'s one process: the same config with spatial_shard 1 through the
+    # same loop in this process, its parameters digested every step as the
+    # ranks' are; its first step held to rank 0's
+    one = dict(digests=[])
+    step, digested_step = sp_loop_step(one)
+    ttr.Trainer.step = digested_step
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        state = tloop.train_from_config(tcfg.parse(teacher_one_yml, is_train=True,
+                                                   root_path=work),
+                                        device=torch.device(SP_DEVICE))
+        del state
+    finally:
+        ttr.Trainer.step = step
+    peak_one = torch.cuda.max_memory_allocated() / 2 ** 30
+    _, _, one_steps = train_events(work, "sp_teacher_one")
+    assert [e["iter"] for e in one_steps] == [e["iter"] for e in steps]
+    first = torch.load(f"{spec['out']}_loop_first.pt")
+    loop_parity = sp_parity(first[0], *one.pop("first"), ranks[0]["loop"]["first_metrics"],
+                            one["first_metrics"])
+    del first
+    torch.cuda.empty_cache()
+    opt = tcfg.parse(teacher_yml, is_train=True, root_path=work)
+    prog = ProgressiveSchedule.from_dataset_opt(opt["datasets"]["train"])
+    row["loop"] = dict(
+        config="configs/KDLAET.yml full width (dim 48, [4,6,6,8], refinement 4, SR head), "
+               "train.spatial_shard 2, iters [2]*6: 12 steps, a checkpoint and a validation "
+               "at 12; 12 training triples of 256^2 from the host loader",
+        steps=[dict(iter=e["iter"], stage=prog.stage(e["iter"]) + 1,
+                    batch=prog.at(e["iter"])[0], patch=prog.at(e["iter"])[1],
+                    ms=1e3 * e["iter_time"], one_process_ms=1e3 * o["iter_time"],
+                    data_ms=1e3 * e["data_time"], l_pix=e["l_pix"],
+                    one_process_l_pix=o["l_pix"]) for e, o in zip(steps, one_steps)],
+        parity=loop_parity,
+        halo_bytes_per_step=ranks[0]["loop"]["moved"]["halo"] / total,
+        partial_bytes_per_step=ranks[0]["loop"]["moved"]["partials"] / total,
+        peak_gib_per_rank=[x["loop"]["peak_gib"] for x in ranks],
+        one_process_peak_gib=peak_one,
+        train_s=ranks[0]["loop"]["train_s"], val_psnr=vals[0]["psnr"],
+        serve_512_ms=serve_ms, ranks_bitwise_equal_every_step=True)
+
+    # (b), (c): one process on the card, the same batches and draws
+    for kind, yml, label in (("teacher", teacher512_yml,
+                              f"batch 1 at 512^2, dim 48, blocks {SP_DEPTH['num_blocks']}, "
+                              f"refinement {SP_DEPTH['num_refinement_blocks']}"),
+                             ("student", student_yml, "4x7@384")):
+        one_opt = tcfg.parse(yml, is_train=True, root_path=work)
+        one_opt["train"]["spatial_shard"] = 1
+        torch.cuda.reset_peak_memory_stats()
+        one_rows, one_first, one_grads = sp_steps(one_opt, kind, torch.device(SP_DEVICE))
+        peak_one = torch.cuda.max_memory_allocated() / 2 ** 30
+        first = torch.load(f"{spec['out']}_{kind}_first.pt")
+        rank_rows = ranks[0][kind]["steps"]
+        parity = sp_parity(first, one_first, one_grads, rank_rows[0], one_rows[0])
+        assert all(np.isfinite(s["l_pix"]) for s in rank_rows), rank_rows
+        del first, one_first, one_grads
+        torch.cuda.empty_cache()
+        row[kind] = dict(
+            shape=label, parity=parity,
+            steps=[dict(ms=a["ms"], one_process_ms=b["ms"], l_pix=a["l_pix"],
+                        one_process_l_pix=b["l_pix"], halo_bytes=a["halo_bytes"],
+                        partial_bytes=a["partials_bytes"]) for a, b in zip(rank_rows, one_rows)],
+            peak_gib_per_rank=[x[kind]["peak_gib"] for x in ranks],
+            one_process_peak_gib=peak_one)
+    launches = read_counts(counts)
+    assert not any(launches.values()), launches  # training and the fp32 serve reach no kernel
+    row["kernel_launches"] = dict(parent=launches, ranks=[x["launches"] for x in ranks])
+    row["ranks_wall_s"] = ranks_wall
+    row["phase_s"] = time.perf_counter() - t_phase
+    results["spatial_train"] = row
+    print(json.dumps({"spatial_train": row}), flush=True)
+    lp = row["loop"]
+    log("spatial training, 2 gloo ranks (one band each) on one card: loop " + ", ".join(
+        f"{s['batch']}@{s['patch']} {s['ms']:.1f} ms (one process {s['one_process_ms']:.1f})"
+        for s in lp["steps"])
+        + f"; halo {lp['halo_bytes_per_step'] / 1e6:.2f} MB, partials "
+        f"{lp['partial_bytes_per_step'] / 1e6:.2f} MB a step; parity {lp['parity']['rel']}; peak "
+        f"{lp['peak_gib_per_rank']} GiB, one process {lp['one_process_peak_gib']:.2f} [{card}]")
+    for kind in ("teacher", "student"):
+        r = row[kind]
+        log(f"spatial training, {kind} {r['shape']}: " + ", ".join(
+            f"{s['ms']:.1f} ms (one process {s['one_process_ms']:.1f}), halo "
+            f"{s['halo_bytes'] / 1e6:.2f} MB, partials {s['partial_bytes'] / 1e6:.2f} MB"
+            for s in r["steps"]) + f"; parity {r['parity']['rel']}; peak per rank "
+            f"{r['peak_gib_per_rank']} GiB, one process {r['one_process_peak_gib']:.2f} [{card}]")
+    log(f"phase 17: {row['phase_s']:.1f} s")
+
+
 def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--dp-rank":  # a rank of phase 13
         return dp_child(sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] == "--sp-rank":  # a rank of phase 17
+        return sp_child(sys.argv[2])
     only = sys.argv[2] if sys.argv[1:2] == ["--phase"] and len(sys.argv) == 3 else None
-    if sys.argv[1:] and only not in ("14", "15", "16"):  # one phase alone, after the build
+    if sys.argv[1:] and only not in ("14", "15", "16", "17"):  # one phase alone, after the build
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
         return 2
     import torch
@@ -4088,6 +4505,10 @@ def main() -> int:
                "cuda": torch.version.cuda, "build_s": build_s}
     if only:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32_defaults
+        if only == "17":
+            with tempfile.TemporaryDirectory(prefix="raie_sp_") as work:
+                phase_spatial_train(results, card, work)
+            return 0
         {"14": phase_dp_serving, "15": phase_remaining_datasets,
          "16": phase_spatial}[only](results, card)
         return 0
@@ -4125,6 +4546,9 @@ def main() -> int:
     dual_pixel_launches = phase_remaining_datasets(results, card)
     torch.cuda.empty_cache()
     band_rows, band_launches = phase_spatial(results, card)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="raie_sp_") as work:
+        phase_spatial_train(results, card, work)
     results["path_launches"] = dict(whole_image=whole_launches, tiled=tiled_launches,
                                     group=group_launches, zoo_cli=zoo_launches,
                                     distill=distill_launches, dp_serving=dp_launches,

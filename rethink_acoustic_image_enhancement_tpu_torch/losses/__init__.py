@@ -13,6 +13,14 @@ ratio and the 'max' and 'mix' reductions see the batch one process would.
 Every rank then holds the same loss; its backward hands each rank N times
 the gradient of its own rows, which the step's ``reduce_gradients``
 divides out. A single process calls the loss as it is.
+
+On a grid of data indices and bands (``train.spatial_shard``) none of these
+losses is a sum over pixels (``psnr_loss`` takes the log of a per-image
+mean, ``l2_dice`` a global ratio, the video 'max' reduction a max over
+frames of spatial means), so the trainer joins each data index's bands into
+whole images first (``RankBands.join``); the gather is then over the data
+indices, and each rank's gradient carries n_spatial x n_data times its
+share, which ``reduce_gradients`` divides out over the world.
 """
 
 from __future__ import annotations
@@ -21,7 +29,7 @@ import inspect
 from functools import partial
 from typing import Callable
 
-from ..parallel import world_size
+from ..parallel import n_data
 from ..parallel.collectives import gather_rows
 from .pixel import (
     charbonnier_loss,
@@ -67,11 +75,11 @@ def build_loss(pixel_opt: dict) -> Callable:
 
 
 def over_global_batch(fn: Callable) -> Callable:
-    """``fn`` taken over the global batch where there are several ranks
-    (module docstring); ``fn`` itself in a single process."""
+    """``fn`` taken over the global batch where there are several data
+    indices (module docstring); ``fn`` itself where there is one."""
 
     def loss(pred, target, *args, **kwargs):
-        if world_size() > 1:
+        if n_data() > 1:
             pred, target = gather_rows(pred, differentiable=True), gather_rows(target)
         return fn(pred, target, *args, **kwargs)
 

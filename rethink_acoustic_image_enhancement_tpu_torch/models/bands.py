@@ -1,21 +1,32 @@
-"""The KDLAE-T teacher on row bands: one image split by rows over devices
-(the JAX package's ``TeacherPredictor(mesh=...)`` with a ``spatial`` axis,
-``eval/infer.py``), as functions over the model's own modules and weights.
+"""The networks on row bands: one image split by rows over devices or
+ranks, as functions over the model's own modules and weights. Serving (the
+JAX package's ``TeacherPredictor(mesh=...)`` with a ``spatial`` axis,
+``eval/infer.py``) runs the teacher on ``LocalBands``; training
+(``train.spatial_shard``, the JAX trainer's ``spatial_axis``) runs the
+teacher, the Restormer or the student on ``RankBands``, one band a rank
+(``parallel/spatial.py``). Every rule is differentiable: a band's parameter
+gradients, summed over the bands, are the whole image's.
 
 ``teacher_bands(models, imgs, rates, bands)`` is ``KDLAETeacher.forward``
 band by band: ``models[j]`` is band j's copy of the teacher on its device
 (all copies with the same weights and flags), ``imgs[j]`` and ``rates[j]``
 band j of the (B, C, H, W) image and denoise-rate plane, ``bands`` the
-exchange (``parallel/spatial.py``). Each layer takes one of three rules:
+exchange. ``restormer_bands`` and ``student_bands`` (band j of a (B, N, H,
+W) frame stack) run the Restormer's and the student's own wiring the same
+way; ``network_bands`` picks by the model's type. Each layer takes one of
+three rules:
 
   * band-local: the 1x1 convs (``reduce_chan_*``, ``skip_conv``, the
-    MDTA's and GDFN's), the LayerNorms, the skip concatenations, the GELU
-    gate and pixel-(un)shuffle;
+    MDTA's and GDFN's, the student's ``out_conv``), the LayerNorms, the
+    skip concatenations and additions, the GELU gate, pixel-(un)shuffle,
+    and on an even number of rows the student's ``MaxPool3d((1, 2, 2))``
+    and ``ConvTranspose3dS2``;
   * halo: a conv whose taps reach r rows reads r rows of each neighbour
     (zeros at the image's edges, where the whole-image conv zero-pads) in
     place of its row padding: the 3x3 convs (r = 1), the dilated
     ``output_param`` (r = 2), the folded resamplers' stride-2 4x4 conv and
-    transposed 6x6 conv (r = 1 each);
+    transposed 6x6 conv (r = 1 each), the student's 3x3x3 ``Conv3d`` (r = 1
+    on H, the dim -2 of (B, C, N, H, W));
   * sum: the MDTA adds its squared q/k norms over all bands, then each
     band normalises q and k by max(||q||, 1e-12) and max(||k||, 1e-12) and
     rounds them to their dtype, the bands' per-head Grams are added, and
@@ -25,8 +36,9 @@ exchange (``parallel/spatial.py``). Each layer takes one of three rules:
 
 A stage that the gate admits on the whole image's shape
 (``ops/stage_gate.py::stage_worthwhile`` on the global H) runs
-``ops/stage.py::fused_transformer_stage_bands``; any other, and every stage
-without ``fused``, runs its blocks by the rules above.
+``ops/stage.py::fused_transformer_stage_bands`` (serving only: the stage
+kernel has no backward pass, and training refuses ``fused``); any other,
+and every stage without ``fused``, runs its blocks by the rules above.
 """
 
 from __future__ import annotations
@@ -42,7 +54,8 @@ from ..ops.attention import _L2_EPS
 from ..ops.stage import fused_transformer_stage_bands, stack_block_params
 from .blocks import (Conv2d, Downsample, GDFN, MDTA, OverlapPatchEmbed,
                      TransformerBlock, Upsample, flax_block_tree)
-from .kdlae_teacher import KDLAETeacher, TransformerStage
+from .kdlae_student import ConvTranspose3dS2, KDLAEStudent
+from .kdlae_teacher import KDLAETeacher, Restormer, TransformerStage
 
 Bands = list[torch.Tensor]
 
@@ -175,6 +188,14 @@ def layer_bands(mods: Sequence[nn.Module], xs: Bands, bands) -> Bands:
     raise TypeError(f"no band rule for {type(m).__name__}")
 
 
+def _cat(a, b):
+    return [torch.cat(parts, 1) for parts in zip(a, b)]
+
+
+def _add(a, b):
+    return [x + y for x, y in zip(a, b)]
+
+
 def teacher_bands(models: Sequence[KDLAETeacher], imgs: Bands, rates: Bands,
                   bands) -> dict:
     """``KDLAETeacher.forward`` on row bands (the module docstring), through
@@ -184,10 +205,92 @@ def teacher_bands(models: Sequence[KDLAETeacher], imgs: Bands, rates: Bands,
     def run(name, xs):
         return layer_bands([getattr(m, name) for m in models], xs, bands)
 
-    def cat(a, b):
-        return [torch.cat(parts, 1) for parts in zip(a, b)]
+    return models[0].wire(run, _cat, _add, imgs, rates)
 
-    def add(a, b):
-        return [x + y for x, y in zip(a, b)]
 
-    return models[0].wire(run, cat, add, imgs, rates)
+def restormer_bands(models: Sequence[Restormer], imgs: Bands, bands) -> Bands:
+    """``Restormer.forward`` on row bands, through ``Restormer.wire``."""
+
+    def run(name, xs):
+        return layer_bands([getattr(m, name) for m in models], xs, bands)
+
+    return models[0].wire(run, _cat, _add, imgs)
+
+
+def _conv3d_over_halo(conv: nn.Conv3d, xh: torch.Tensor, rows: int) -> torch.Tensor:
+    """``conv`` on a (B, C, N, H, W) band that carries ``rows`` halo rows
+    above and below on H: the halo takes the place of H's padding."""
+    pd, ph, pw = conv.padding
+    return F.conv3d(xh, conv.weight, conv.bias, conv.stride, (pd, ph - rows, pw),
+                    conv.dilation, conv.groups)
+
+
+def conv3d_bands(convs: Sequence[nn.Conv3d], xs: Bands, bands) -> Bands:
+    """A stride-1 'same' Conv3d on bands of (B, C, N, H, W): band-local for
+    a kernel of one row, else over a halo of its H padding."""
+    conv = convs[0]
+    rows = conv.padding[1]
+    if conv.stride[1] != 1 or 2 * rows != conv.dilation[1] * (conv.kernel_size[1] - 1):
+        raise ValueError(f"no band rule for {conv}")
+    if rows == 0:
+        return [c(x) for c, x in zip(convs, xs)]
+    return [_conv3d_over_halo(c, x, rows)
+            for c, x in zip(convs, bands.exchange_halo(xs, rows))]
+
+
+def _even_rows(xs: Bands, what: str) -> None:
+    if xs[0].shape[-2] % 2:
+        raise ValueError(f"{what} on bands of {xs[0].shape[-2]} rows: a band must hold "
+                         "an even number of rows")
+
+
+def student_layer_bands(mods: Sequence[nn.Module], xs: Bands, bands) -> Bands:
+    """One student layer on bands of (B, C, N, H, W), by its type."""
+    m = mods[0]
+    if isinstance(m, nn.Sequential):  # ConvBlock3d: [Conv3d, ReLU] x 2
+        for k in range(len(m)):
+            if isinstance(m[k], nn.Conv3d):
+                xs = conv3d_bands([md[k] for md in mods], xs, bands)
+            else:
+                xs = [md[k](x) for md, x in zip(mods, xs)]
+        return xs
+    if isinstance(m, nn.MaxPool3d):
+        _even_rows(xs, "MaxPool3d")
+        return [md(x) for md, x in zip(mods, xs)]
+    if isinstance(m, ConvTranspose3dS2):
+        return [md(x) for md, x in zip(mods, xs)]
+    if isinstance(m, nn.Conv3d):
+        return conv3d_bands(mods, xs, bands)
+    raise TypeError(f"no band rule for {type(m).__name__}")
+
+
+def student_bands(models: Sequence[KDLAEStudent], stacks: Bands, bands) -> Bands:
+    """``KDLAEStudent.forward`` on row bands of (B, N, H, W) stacks, through
+    ``KDLAEStudent.wire``: bands of the (B, N, H, W) output."""
+
+    def run(name, xs):
+        return student_layer_bands([m.get_submodule(name) for m in models], xs, bands)
+
+    ins = [m.stack_in(x) for m, x in zip(models, stacks)]
+    return [y[:, 0] for y in models[0].wire(run, _add, ins)]
+
+
+BAND_NETWORKS = (KDLAETeacher, Restormer, KDLAEStudent)
+
+
+def network_bands(models: Sequence[nn.Module], lqs: Sequence, bands):
+    """``models[j](lqs[j])`` on row bands for every network with band rules
+    (``BAND_NETWORKS``): a teacher's ``lqs`` are {'img', 'denoise_rate'}
+    band dicts and it returns {'hq', 'sr'} of band lists; the others take
+    and return band lists. Any other network raises NotImplementedError."""
+    m = models[0]
+    if isinstance(m, KDLAETeacher):
+        return teacher_bands(models, [x["img"] for x in lqs],
+                             [x.get("denoise_rate") for x in lqs], bands)
+    if isinstance(m, Restormer):
+        return restormer_bands(models, list(lqs), bands)
+    if isinstance(m, KDLAEStudent):
+        return student_bands(models, list(lqs), bands)
+    raise NotImplementedError(
+        f"{type(m).__name__} has no row-band rules: train.spatial_shard trains "
+        "KDLAE_teacher, Restormer and KDLAE_student (ROADMAP.md, Queue A)")

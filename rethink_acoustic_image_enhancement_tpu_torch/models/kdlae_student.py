@@ -15,6 +15,7 @@ The parameters stay float32 whatever the input: like the flax module
 
 from __future__ import annotations
 
+import operator
 from typing import Sequence
 
 import torch
@@ -67,19 +68,29 @@ class KDLAEStudent(nn.Module):
         self.out_conv = nn.Conv3d(hidden[0], out_channels, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        # (B, N, H, W) -> (B, 1, N, H, W), promoted to the parameters' dtype
+        return self.wire(lambda name, t: self.get_submodule(name)(t),
+                         operator.add, self.stack_in(x))[:, 0]
+
+    def stack_in(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, N, H, W) -> (B, 1, N, H, W), promoted to the parameters'
+        dtype."""
         dtype = torch.promote_types(x.dtype, self.out_conv.weight.dtype)
-        x_in = x.unsqueeze(1).to(dtype)
+        return x.unsqueeze(1).to(dtype)
+
+    def wire(self, run, add, x_in):
+        """``forward``'s dataflow on the (B, 1, N, H, W) stack over two
+        callables: ``run(name, x)`` applies the submodule of that (dotted)
+        name, ``add(a, b)`` adds. ``forward`` passes the submodules
+        themselves; ``models/bands.py::student_bands`` their row-band forms."""
         current, skips = x_in, []
-        for enc in self.encoders:
-            current = enc(current)
+        for i in range(self.num_levels):
+            current = run(f"encoders.{i}", current)
             skips.append(current)
-            current = self.pool(current)
-        current = self.st_fusion(current)
-        for up, dec, skip in zip(self.upconv_layers, self.decoders,
-                                 reversed(skips)):
-            current = dec(up(current) + skip)
-        out = self.out_conv(current)
+            current = run("pool", current)
+        current = run("st_fusion", current)
+        for i, skip in enumerate(reversed(skips)):
+            current = run(f"decoders.{i}", add(run(f"upconv_layers.{i}", current), skip))
+        out = run("out_conv", current)
         if self.residual:
-            out = out + x_in
-        return out[:, 0]
+            out = add(out, x_in)
+        return out

@@ -229,10 +229,15 @@ class Restormer(nn.Module):
                     stage, fused_resample)
 
     def forward(self, inp_img: torch.Tensor) -> torch.Tensor:
-        x1, d1 = _unet(_layers(self), _cat, inp_img)
+        return self.wire(_layers(self), _cat, operator.add, inp_img)
+
+    def wire(self, run, cat, add, inp_img):
+        """``forward``'s dataflow over ``run``, ``cat`` and ``add``, as
+        ``KDLAETeacher.wire`` takes them."""
+        x1, d1 = _unet(run, cat, inp_img)
         if self.dual_pixel_task:
-            return self.output(d1 + self.skip_conv(x1))
-        return self.output(d1) + inp_img
+            return run("output", add(d1, run("skip_conv", x1)))
+        return add(run("output", d1), inp_img)
 
 
 _BRANCH_SCALE = 0.1

@@ -19,7 +19,16 @@ training step needs of them.
     an error; nothing falls back to one process;
   * ``is_master``, ``rank``, ``world_size``, ``backend_name``,
     ``local_device``, ``barrier`` and ``shutdown``; a single process
-    answers 0, 1, None, its one device, and ``barrier`` does nothing.
+    answers 0, 1, None, its one device, and ``barrier`` does nothing;
+  * ``init_grid``: the ranks as an ``n_data x n_spatial`` grid
+    (``train.spatial_shard``): rank r is data index ``r // n_spatial`` and
+    band ``r % n_spatial`` of its data index's images. Each data index's
+    bands form a spatial subgroup (their halos, partial sums and the join
+    of their bands), and each band index across the data indices a data
+    subgroup (the global batch's rows). ``data_index``, ``n_data``,
+    ``band_index``, ``n_spatial``, ``spatial_group`` and ``data_group``
+    read it; without a grid (or with ``n_spatial`` 1) every rank is a data
+    index of its own and the data group is the world.
 """
 
 from __future__ import annotations
@@ -147,6 +156,69 @@ def init_distributed(coordinator_address: str | None = None,
     return True
 
 
+_GRID = {"n_spatial": 1, "spatial": None, "data": None}
+
+
+def init_grid(n_spatial: int) -> None:
+    """Lay the ranks out as ``world_size() // n_spatial`` data indices of
+    ``n_spatial`` bands each (module docstring). Every rank calls it with
+    the same ``n_spatial``; a second call with the grid's own size keeps
+    its groups. Raises where ``n_spatial`` does not divide the world."""
+    n_spatial = int(n_spatial)
+    world = world_size()
+    if n_spatial < 1 or world % n_spatial:
+        raise ValueError(f"{n_spatial} bands do not divide a world of {world} rank(s)")
+    if n_spatial == _GRID["n_spatial"] and (n_spatial == 1 or _GRID["spatial"] is not None):
+        return
+    _GRID.update(n_spatial=1, spatial=None, data=None)
+    if n_spatial == 1:
+        return
+    n_data, r = world // n_spatial, rank()
+    spatial = data = None
+    # new_group is entered by every rank for every group, in the same order
+    for d in range(n_data):
+        g = dist.new_group(list(range(d * n_spatial, (d + 1) * n_spatial)))
+        if d == r // n_spatial:
+            spatial = g
+    for s in range(n_spatial):
+        g = dist.new_group(list(range(s, world, n_spatial)))
+        if s == r % n_spatial:
+            data = g
+    _GRID.update(n_spatial=n_spatial, spatial=spatial,
+                 data=None if n_data == 1 else data)
+
+
+def n_spatial() -> int:
+    """Bands of an image: the grid's ``n_spatial`` (1 without a grid)."""
+    return _GRID["n_spatial"]
+
+
+def band_index() -> int:
+    """This rank's band of its data index's images."""
+    return rank() % n_spatial()
+
+
+def n_data() -> int:
+    """Data indices of the grid: the ranks that hold different rows."""
+    return world_size() // n_spatial()
+
+
+def data_index() -> int:
+    """This rank's data index: which rows of the global batch it holds."""
+    return rank() // n_spatial()
+
+
+def spatial_group():
+    """The process group of this data index's bands (None without bands)."""
+    return _GRID["spatial"]
+
+
+def data_group():
+    """The process group of this band index across the data indices (None:
+    the world, as without bands)."""
+    return _GRID["data"]
+
+
 def barrier() -> None:
     """Wait for every rank (nothing without a process group)."""
     if is_initialized():
@@ -155,5 +227,6 @@ def barrier() -> None:
 
 def shutdown() -> None:
     """Leave the process group, if there is one."""
+    _GRID.update(n_spatial=1, spatial=None, data=None)
     if is_initialized():
         dist.destroy_process_group()

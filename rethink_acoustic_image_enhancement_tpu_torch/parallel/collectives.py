@@ -19,6 +19,16 @@ rank what that program would see:
   * ``broadcast_module``: rank 0's parameters and buffers to every rank;
   * ``agree``: every rank holds the same integer (the checkpoint it resumes).
 
+On a grid of data indices and bands (``train.spatial_shard``,
+``parallel.init_grid``) the rows are a data index's, not a rank's: the
+bands of one data index hold the same rows and ``gather_rows`` sums over the
+data subgroup. ``placed_sum``, the zeroed-buffer sum itself, is also every
+exchange of ``parallel/spatial.py::RankBands`` within a spatial subgroup
+(halo rows, partial sums, and the join of the bands before the loss).
+``reduce_gradients`` sums over the whole world, bands and data alike, and
+divides by the world's size: each rank's gradient then carries
+n_spatial x n_data times its share, as above.
+
 Only ``all_reduce`` and ``broadcast`` are used: gloo moves CUDA tensors for
 those two alone, and two ranks that share one card must use gloo.
 """
@@ -30,23 +40,23 @@ from typing import Iterable, Sequence
 import torch
 import torch.distributed as dist
 
-from . import rank, world_size
+from . import data_group, data_index, n_data, rank, world_size
 
 BUCKET_BYTES = 32 * 2 ** 20
 
 
 def process_shard(items: Sequence, process_index: int | None = None,
                   process_count: int | None = None) -> list:
-    """Rank-strided host-side sharding (the EnlargedSampler's stride,
-    data_sampler.py:40)."""
-    pi = rank() if process_index is None else process_index
-    pc = world_size() if process_count is None else process_count
+    """Data-index-strided host-side sharding (the EnlargedSampler's stride,
+    data_sampler.py:40): the bands of one data index get the same items."""
+    pi = data_index() if process_index is None else process_index
+    pc = n_data() if process_count is None else process_count
     return list(items)[pi::pc]
 
 
 def local_rows(b: int) -> tuple[int, int]:
-    """(first global row, global batch) of this rank's ``b`` rows."""
-    return rank() * b, world_size() * b
+    """(first global row, global batch) of this data index's ``b`` rows."""
+    return data_index() * b, n_data() * b
 
 
 def agree(value: int, device, what: str) -> None:
@@ -60,50 +70,62 @@ def agree(value: int, device, what: str) -> None:
                            f"to {int(t[0])} (rank {rank()} has {value})")
 
 
-def _tree_map(fn, tree):
+def map_tensors(fn, tree):
     if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
+        return {k: map_tensors(fn, v) for k, v in tree.items()}
     return fn(tree) if isinstance(tree, torch.Tensor) else tree
 
 
 class _AllReduceSum(torch.autograd.Function):
-    """A sum over the ranks whose backward is the same sum of the upstream
-    gradients (``torch.distributed.nn.functional.all_reduce``'s rule)."""
+    """A sum over the ranks of ``group`` (None: the world) whose backward is
+    the same sum of the upstream gradients
+    (``torch.distributed.nn.functional.all_reduce``'s rule)."""
 
     @staticmethod
-    def forward(ctx, t):
+    def forward(ctx, t, group):
+        ctx.group = group
         t = t.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(t)
+        dist.all_reduce(t, group=group)
         return t
 
     @staticmethod
     def backward(ctx, grad):
-        return _AllReduceSum.apply(grad)
+        return _AllReduceSum.apply(grad, ctx.group), None
+
+
+def placed_sum(x, i: int, n: int, dim: int, group, differentiable: bool):
+    """Each leaf of ``x`` (a tensor or a dict of them, None leaves kept) as
+    slot i of n along ``dim``, the other slots zeros, summed over ``group``
+    (None: the world): every rank gets every slot bit for bit."""
+
+    def gather(t: torch.Tensor) -> torch.Tensor:
+        if not t.is_floating_point():
+            raise TypeError(f"a gather sums floats; got {t.dtype}")
+        d = dim % t.dim()
+        size = t.shape[d]
+        shape = list(t.shape)
+        if differentiable:
+            shape[d] = i * size
+            before = t.new_zeros(shape)
+            shape[d] = (n - 1 - i) * size
+            after = t.new_zeros(shape)
+            return _AllReduceSum.apply(torch.cat([before, t, after], d), group)
+        shape[d] = n * size
+        buf = t.new_zeros(shape)
+        buf.narrow(d, i * size, size).copy_(t)
+        dist.all_reduce(buf, group=group)
+        return buf
+
+    return map_tensors(gather, x)
 
 
 def gather_rows(x, differentiable: bool = False):
     """The global batch of a tensor (or a dict of them, None leaves kept)
-    of which this rank holds its rows; ``x`` itself in a single process.
-    Every rank must hold the same number of rows."""
-    n = world_size()
-    if n == 1:
+    of which this data index holds its rows; ``x`` itself where there is
+    one data index. Every rank must hold the same number of rows."""
+    if n_data() == 1:
         return x
-    r = rank()
-
-    def gather(t: torch.Tensor) -> torch.Tensor:
-        if not t.is_floating_point():
-            raise TypeError(f"gather_rows sums floats; got {t.dtype}")
-        b = t.shape[0]
-        if differentiable:
-            before = t.new_zeros((r * b, *t.shape[1:]))
-            after = t.new_zeros(((n - 1 - r) * b, *t.shape[1:]))
-            return _AllReduceSum.apply(torch.cat([before, t, after]))
-        buf = t.new_zeros((n * b, *t.shape[1:]))
-        buf[r * b:(r + 1) * b] = t
-        dist.all_reduce(buf)
-        return buf
-
-    return _tree_map(gather, x)
+    return placed_sum(x, data_index(), n_data(), 0, data_group(), differentiable)
 
 
 def _buckets(tensors: list[torch.Tensor], limit: int) -> list[list[torch.Tensor]]:

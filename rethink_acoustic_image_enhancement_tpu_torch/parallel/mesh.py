@@ -6,9 +6,11 @@ JAX package names them:
   * ``data``: batches split over copies of a model, one a device
     (``devices=[...]`` on the predictors, ``eval/infer.py``);
   * ``spatial``: one image's rows split into bands, one a device
-    (``parallel/spatial.py``, ``TeacherPredictor(mesh=...)``);
+    (``parallel/spatial.py``, ``TeacherPredictor(mesh=...)``); in training
+    one a rank (``train.spatial_shard``, ``parallel.init_grid``), not a
+    mesh;
   * ``model``: tensor parallelism, not ported yet (ROADMAP.md Queue A
-    item 5).
+    item 5c).
 
 The JAX module's ``batch_sharding``, ``replicated`` and
 ``shard_batch_pytree`` are XLA placements (shardings that ``jit`` reads) and

@@ -85,11 +85,15 @@ def validate(opt: dict[str, Any]) -> None:
         distill = train.get("distill") or {}
         if distill.get("online"):
             validate_distill(distill)
-        for key in ("spatial_shard", "model_shard"):
-            if int(train.get(key) or 1) > 1:
-                raise NotImplementedError(
-                    f"train.{key} is not ported yet (ROADMAP.md, Queue A: "
-                    "spatial and tensor-parallel serving and training)")
+        if int(train.get("model_shard") or 1) > 1:
+            if int(train.get("spatial_shard") or 1) > 1:  # JAX loop.py:141-144
+                raise ValueError("train.model_shard and train.spatial_shard "
+                                 "cannot be combined (as in the JAX package, "
+                                 "whose SPMD partitioner mis-partitions "
+                                 "feature-sharded convs under halo exchange)")
+            raise NotImplementedError(
+                "train.model_shard is not ported yet (ROADMAP.md, Queue A: "
+                "item 5c, the model axis: tensor-parallel serving and training)")
         pix = train.get("pixel_opt", {})
         if pix.get("type") not in LOSSES:
             raise KeyError(f"train.pixel_opt.type {pix.get('type')!r} not in "

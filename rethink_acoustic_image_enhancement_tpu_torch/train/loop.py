@@ -41,6 +41,13 @@ permutation, the stage's batch being N times its mini-batch; each rank
 samples its own rows of that one global sample. Rank 0 alone validates,
 profiles, logs metrics and writes checkpoints and weights while the others
 wait; a resume restores the same checkpoint on every rank.
+
+``train.spatial_shard: N`` (under ``--launcher``, N dividing the world)
+lays the ranks out as data indices of N bands each (``spatial_bands``,
+``parallel.init_grid``): every stride above is by data index, so the N
+bands of one data index read, cut and draw the same items, and the step
+takes each rank's band of them (``trainer.py``). Rank 0 still validates
+and writes whole-image checkpoints with the whole model.
 """
 
 from __future__ import annotations
@@ -61,9 +68,13 @@ from ..eval.infer import highest_precision
 from ..losses import build_loss
 from ..metrics import NO_REFERENCE, get_metric
 from ..models import build_network
+from ..models.bands import BAND_NETWORKS
+from ..models.kdlae_student import KDLAEStudent
 from ..ops.layout import crop_to, pad_to_multiple
-from ..parallel import barrier, is_master, rank, world_size
+from ..parallel import (barrier, data_index, init_grid, is_master, n_data,
+                        world_size)
 from ..parallel.collectives import agree, broadcast_module
+from ..parallel.spatial import RankBands
 from ..utils.image_io import imwrite, to_ubyte
 from ..utils.logging import MessageLogger, get_logger
 from ..utils.profiling import aggregate_trace, trace
@@ -85,7 +96,9 @@ PROFILE_TOP = 8  # kernels in the profile's log line
 def build_everything(opt: dict, device=None):
     """(model, trainer) from a parsed config. The model is built under
     ``manual_seed`` with the reference's (PyTorch's) default initialisation,
-    then takes ``path.pretrain_network_g`` where one is given."""
+    then takes ``path.pretrain_network_g`` where one is given. With
+    ``train.spatial_shard`` N > 1 the ranks form a grid of N bands a data
+    index and the trainer gets this rank's band (``spatial_bands``)."""
     validate(opt)
     train_opt = opt["train"]
     with torch.random.fork_rng(devices=[]):
@@ -97,8 +110,52 @@ def build_everything(opt: dict, device=None):
                         strict=opt["path"].get("strict_load_g", True))
     trainer = build_trainer_from_config(opt, model,
                                         build_loss(train_opt["pixel_opt"]),
-                                        device=device)
+                                        device=device, bands=spatial_bands(opt, model))
     return model, trainer
+
+
+def spatial_bands(opt: dict, model: torch.nn.Module):
+    """This rank's ``RankBands`` for ``train.spatial_shard`` N > 1, else
+    None. Refuses, before any
+    group is made: a network without band rules; over-sharding the deepest
+    feature map (the JAX package's rule and message, its ``down`` 8 for
+    the teacher and 4 for the student, JAX loop.py:155-169); a curriculum
+    crop whose bands are not a multiple of the network's downsampling (JAX
+    pads such shards; here a band runs the network on its own rows); N > 1
+    without a launcher (one process drives one card; the JAX package's one
+    controller drives every device of its mesh); a world that N does not
+    divide. Then lays out the rank grid (``parallel.init_grid``)."""
+    n = int(opt["train"].get("spatial_shard") or 1)
+    if n <= 1:
+        return None
+    if not isinstance(model, BAND_NETWORKS):
+        raise NotImplementedError(
+            f"train.spatial_shard: {opt['network_g']['type']} has no row-band "
+            "rules (models/bands.py trains KDLAE_teacher, Restormer and "
+            "KDLAE_student; ROADMAP.md, Queue A)")
+    student = isinstance(model, KDLAEStudent)
+    ds_opt = opt.get("datasets", {}).get("train", {})
+    sizes = [int(s) for s in (ds_opt.get("gt_sizes") or [ds_opt.get("gt_size", 0)]) if s]
+    down = 4 if student else 8
+    min_h = min(sizes) // down if sizes else 0
+    if min_h and min_h < n:
+        raise ValueError(
+            f"train.spatial_shard={n} over-shards the deepest "
+            f"feature map ({min_h} rows at the smallest curriculum "
+            f"crop): need spatial_shard <= {min_h}")
+    multiple = 2 ** model.num_levels if student else 8
+    for size in sorted(set(sizes + [int(ds_opt.get("gt_size") or 0)]) - {0}):
+        if size % (n * multiple):
+            raise ValueError(
+                f"train.spatial_shard={n}: the crop of {size} rows does not split into "
+                f"{n} bands of a multiple of {multiple} rows (the network halves a "
+                f"band's rows {multiple.bit_length() - 1} times)")
+    if world_size() == 1:
+        raise ValueError(
+            f"train.spatial_shard={n} needs {n} ranks a data index: run under "
+            "torchrun or SLURM with --launcher (one process drives one band)")
+    init_grid(n)
+    return RankBands()
 
 
 def _forward_clamped(model, x):
@@ -307,20 +364,22 @@ def _train(opt: dict, device, max_iters: int | None, log,
         log("online distillation: frozen teacher targets in the loop")
     ds_opt = opt["datasets"]["train"]
     bspg = int(ds_opt["batch_size_per_gpu"])
-    n_ranks, my_rank = world_size(), rank()
+    # the loader strides by data index: the bands of one data index read
+    # the same items (their rows of the global batch)
+    n_dp, dp_index = n_data(), data_index()
     corpus = loader = None
     if ds_opt.get("device_resident"):
         corpus = build_device_corpus(ds_opt, device)
         log(f"device-resident corpus: {corpus.describe()}, uploaded in "
             f"{corpus.upload_s:.3f} s")
-        n_items, n_batches = len(corpus), len(corpus) // (bspg * n_ranks)
+        n_items, n_batches = len(corpus), len(corpus) // (bspg * n_dp)
     else:
         dataset = create_dataset(ds_opt)
         loader = BatchLoader(
             dataset, bspg,
             EnlargedShuffleSampler(len(dataset),
                                    ratio=ds_opt.get("dataset_enlarge_ratio", 1),
-                                   rank=my_rank, world_size=n_ranks,
+                                   rank=dp_index, world_size=n_dp,
                                    shuffle=ds_opt.get("use_shuffle", True),
                                    seed=seed),
             num_workers=ds_opt.get("num_worker_per_gpu", 4),
@@ -328,7 +387,7 @@ def _train(opt: dict, device, max_iters: int | None, log,
         n_items, n_batches = len(dataset), len(loader)
     if n_batches == 0:
         raise ValueError(f"the training set ({n_items} items) makes no "
-                         f"batch of {bspg} on each of {n_ranks} rank(s)")
+                         f"batch of {bspg} on each of {n_dp} data index(es)")
     prog = ProgressiveSchedule.from_dataset_opt(ds_opt)
 
     total_iters = int(max_iters or opt["train"]["total_iter"])
@@ -445,10 +504,10 @@ def _train(opt: dict, device, max_iters: int | None, log,
         extra_prob, patch = 0.0, corpus.gt_size
         if prog is not None:
             mb, patch, mini_prob = prog.at(current_iter)
-            ids = ids[:min(mb * n_ranks, len(ids))]
+            ids = ids[:min(mb * n_dp, len(ids))]
             extra_prob = max(mini_prob - prog.base_prob, 0.0)
-        k = len(ids) // n_ranks  # this rank's rows of the global sample
-        rows = slice(my_rank * k, (my_rank + 1) * k) if n_ranks > 1 else None
+        k = len(ids) // n_dp  # this rank's rows of the global sample
+        rows = slice(dp_index * k, (dp_index + 1) * k) if n_dp > 1 else None
         lq, gt = corpus.sample_batch(gen, ids, gt_size=patch, rows=rows)
         return lq, gt, extra_prob, 0, gen
 
@@ -461,7 +520,7 @@ def _train(opt: dict, device, max_iters: int | None, log,
         corpus.set_epoch(epoch)
         epoch_state = host_rng.bit_generator.state
         perm = host_rng.permutation(len(corpus))  # in batches, the remainder dropped
-        chunk = bspg * n_ranks  # the global batch's ids, the same on every rank
+        chunk = bspg * n_dp  # the global batch's ids, the same on every rank
         starts = range(epoch_iter * chunk, len(perm) - chunk + 1, chunk)
         return (perm[s:s + chunk] for s in starts), device_batch
 

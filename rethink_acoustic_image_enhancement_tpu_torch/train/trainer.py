@@ -32,6 +32,21 @@ AdamW and the EMA, which are then the same on every rank. ``init_state``
 broadcasts rank 0's model. The reduction follows the backward; it does not
 overlap it.
 
+With ``bands`` (``train.spatial_shard``: a ``parallel/spatial.py::
+RankBands`` on a grid of data indices and bands, ``parallel.init_grid``)
+the rows above are a data index's, and the bands of one data index hold the
+same rows in the same generator states. The crop, the extra mask and mixup
+run on those whole images as above; then the rank takes its band of the
+input's rows (each leaf, the teacher's ``img`` and ``denoise_rate`` planes
+alike) and runs the network on it by its band rules
+(``models/bands.py::network_bands``). Its output's bands are joined into
+the whole images (``RankBands.join``, differentiable), so the target stays
+whole and the loss is the whole-image loss of the global batch; the
+gradients are summed over every rank, bands and data alike, and divided by
+their number. The port's leaves, NCHW images or (B, F, H, W) stacks, carry
+H at dim -2 either way, where the JAX package's batch carries it at 1
+(NHWC) or 2 (stacks): its trainer's ``spatial_axis`` has no counterpart.
+
 A stage or block with ``fused=True`` is refused: on the GPU the stage and
 block kernels return tensors with no autograd graph, so the parameters
 upstream of them would get no gradient there while the CPU's plain version
@@ -50,9 +65,10 @@ from torch import nn
 
 from ..data.loader import leaves, tree_map
 from ..eval.infer import highest_precision, resolve_device
+from ..models.bands import network_bands
 from ..models.blocks import TransformerBlock
 from ..models.kdlae_teacher import TransformerStage
-from ..parallel import world_size
+from ..parallel import n_data
 from ..parallel.collectives import broadcast_module, local_rows, reduce_gradients
 from .mixup import mixing_augment
 from .progressive import stage_crop, stage_extra_mask
@@ -152,6 +168,7 @@ class Trainer:
     gt_size: int = 0  # dataset-level patch (0: no progressive crop)
     loss_takes_rng: bool = False
     compute_dtype: torch.dtype | None = None  # e.g. torch.bfloat16
+    bands: Any = None  # a RankBands: this rank's band of each image
 
     def __post_init__(self):
         refuse_fused(self.model)
@@ -169,6 +186,8 @@ class Trainer:
                           optimizer=self.optimizer.build(trainable), ema=ema)
 
     def _forward_loss(self, model: nn.Module, lq, gt, rng) -> torch.Tensor:
+        if self.bands is not None:
+            model = _OnBands(model, self.bands)
         if self.compute_dtype is None:
             pred = model(lq)
         else:
@@ -177,6 +196,8 @@ class Trainer:
             lq = tree_map(lambda x: x.to(self.compute_dtype), lq, torch.Tensor)
             pred = torch.func.functional_call(model, cast, (lq,))
             pred = tree_map(lambda x: x.float(), pred, torch.Tensor)
+        if self.bands is not None:
+            pred = self.bands.join(pred)
         if self.loss_takes_rng:
             return self.loss_fn(pred, gt, rng=rng)
         return self.loss_fn(pred, gt)
@@ -192,8 +213,9 @@ class Trainer:
         batch's route); the other draws come from ``rng``. With several
         ranks, lq and gt are this rank's rows, as many on every rank, and
         ``rng`` and ``gen`` are in the same state on every rank; the metrics
-        are the global batch's."""
-        rows = local_rows(leaves(lq)[0].shape[0]) if world_size() > 1 else None
+        are the global batch's. With ``bands``, lq and gt are this data
+        index's whole images (module docstring)."""
+        rows = local_rows(leaves(lq)[0].shape[0]) if n_data() > 1 else None
         if self.gt_size and mini_gt_size and mini_gt_size < self.gt_size:
             lq, gt = stage_crop(lq, gt, rng, self.gt_size, mini_gt_size,
                                 scale=self.scale)
@@ -202,6 +224,8 @@ class Trainer:
         if self.mixup:
             gt, lq = mixing_augment(rng, gt, lq, self.mixup_beta,
                                     self.mixup_identity, rows=rows)
+        if self.bands is not None:
+            lq = self.bands.take(lq)
 
         model, opt = state.model, state.optimizer
         params = list(model.parameters())
@@ -236,6 +260,22 @@ class Trainer:
         state.step += 1
         return state, {"l_pix": loss.detach(), "lr": lr,
                        "grad_norm": grad_norm.detach()}
+
+
+class _OnBands(nn.Module):
+    """``model`` run on this rank's band by its band rules; returns the
+    output's bands as ``model`` returns its output (a tensor, or a dict of
+    them with None leaves)."""
+
+    def __init__(self, model: nn.Module, bands):
+        super().__init__()
+        self.model, self.bands = model, bands
+
+    def forward(self, lq):
+        out = network_bands([self.model], [lq], self.bands)
+        if isinstance(out, dict):
+            return {k: None if v is None else v[0] for k, v in out.items()}
+        return out[0]
 
 
 def build_trainer_from_config(opt: dict, model: nn.Module, loss_fn: Callable,

@@ -198,10 +198,13 @@ def _result(state, metrics, grads):
             "params": {n: p.detach().cpu().clone() for n, p in state.model.named_parameters()}}
 
 
-def run_step_case(rows: slice, device="cpu", batches=None) -> dict:
-    """Three steps of the narrow KDLAE-T with L1-Shadow on ``rows`` of
-    ``teacher_batches()``; no draws (no crop, mask or mixup)."""
-    trainer = _trainer(TEACHER, L1_SR, device)
+def run_step_case(rows: slice, device="cpu", batches=None, net=None, pixel_opt=None,
+                  **kw) -> dict:
+    """Three steps of the narrow KDLAE-T with L1-Shadow (or ``net`` with
+    ``pixel_opt``) on ``rows`` of ``teacher_batches()`` (or ``batches``);
+    no draws (no crop, mask or mixup). ``kw`` goes to the Trainer (its
+    ``bands``)."""
+    trainer = _trainer(net or TEACHER, pixel_opt or L1_SR, device, **kw)
     state = trainer.init_state()
     metrics, grads = [], []
     for lq, gt in batches or teacher_batches():
@@ -212,17 +215,18 @@ def run_step_case(rows: slice, device="cpu", batches=None) -> dict:
     return _result(state, metrics, grads)
 
 
-def run_loss_case(name: str, rows: slice, device="cpu") -> dict:
+def run_loss_case(name: str, rows: slice, device="cpu", **kw) -> dict:
     """Three steps of ``LOSS_CASES[name]`` on ``rows`` of a batch of
     ``BATCH``, with the curriculum's draws: a crop from 24 to 16 px, an
     extra mask at 0.1 and mixup with its identity branch, all from a
-    generator seeded by the step."""
+    generator seeded by the step. ``kw`` goes to the Trainer."""
     kind, pixel_opt = LOSS_CASES[name]
     net = TEACHER if kind == "teacher" else STUDENT
     batches = teacher_batches(b=BATCH, h=24, w=24) if kind == "teacher" \
         else student_batches()
     trainer = _trainer(net, pixel_opt, device, mixup=True, mixup_identity=True,
-                       gt_size=24, loss_takes_rng=pixel_opt.get("reduction") == "mix")
+                       gt_size=24, loss_takes_rng=pixel_opt.get("reduction") == "mix",
+                       **kw)
     state = trainer.init_state()
     metrics, grads = [], []
     for k, (lq, gt) in enumerate(batches):
@@ -236,8 +240,80 @@ def run_loss_case(name: str, rows: slice, device="cpu") -> dict:
 
 
 def my_rows(b_global: int) -> slice:
-    k = b_global // parallel.world_size()
-    return slice(parallel.rank() * k, (parallel.rank() + 1) * k)
+    """This data index's rows of a global batch of ``b_global``."""
+    k = b_global // parallel.n_data()
+    return slice(parallel.data_index() * k, (parallel.data_index() + 1) * k)
+
+
+# ------------------------------------------------------ spatial training --
+
+# the spatial cases: (world, the grid's n_spatial, kind, global batch,
+# side) of one step each, no draws; the draw cases: the losses that are no
+# sums over pixels, on 2 bands of a world of 2
+SPATIAL_STEPS = {
+    "teacher_1x2": (2, 2, "teacher", 2, 32),
+    "student_1x2": (2, 2, "student", 2, 32),
+    "teacher_1x4_batch1": (4, 4, "teacher", 1, 64),
+    "teacher_2x2": (4, 2, "teacher", 4, 32),
+}
+SPATIAL_DRAWS = ("L1LossSr", "L2Dice", "PSNRLoss", "L1LossForVideoFrames")
+STUDENT_L1 = {"type": "L1Loss", "loss_weight": 1, "reduction": "mean"}
+
+
+def spatial_batches(kind: str, b: int, side: int):
+    """One seeded batch of the case: NHWC teacher dicts or (B, 3, H, W)
+    stacks."""
+    if kind == "teacher":
+        return teacher_batches(seed=3, b=b, h=side, w=side, steps=1)
+    return student_batches(seed=4, b=b, h=side, w=side, steps=1)
+
+
+def run_spatial_case(name: str, rows: slice, device="cpu", bands=None) -> dict:
+    """``SPATIAL_STEPS[name]``'s step on ``rows`` of its batch, on this
+    rank's band where ``bands`` is given; the bytes the bands moved."""
+    _, _, kind, b, side = SPATIAL_STEPS[name]
+    kw = {} if bands is None else {"bands": bands}
+    net, loss = (TEACHER, L1_SR) if kind == "teacher" else (STUDENT, STUDENT_L1)
+    out = run_step_case(rows, device, spatial_batches(kind, b, side), net, loss, **kw)
+    out["moved"] = None if bands is None else dict(bands.moved)
+    return out
+
+
+def run_spatial() -> dict:
+    """This rank's results of each case of its world on the case's grid
+    (``init_grid``), then the draw cases where the world is 2."""
+    from rethink_acoustic_image_enhancement_tpu_torch.parallel.spatial import RankBands
+
+    out = {}
+    for name, (world, n_spatial, _, b, _) in SPATIAL_STEPS.items():
+        if world == parallel.world_size():
+            parallel.init_grid(n_spatial)
+            out[name] = run_spatial_case(name, my_rows(b), bands=RankBands())
+    if parallel.world_size() == 2:
+        parallel.init_grid(2)
+        for name in SPATIAL_DRAWS:
+            out[name] = run_loss_case(name, my_rows(BATCH), bands=RankBands())
+        out["halo"] = halo_case(RankBands())
+        out["teacher_1x2_bf16"] = run_step_case(
+            my_rows(2), "cpu", spatial_batches("teacher", 2, 32), bands=RankBands(),
+            compute_dtype=torch.bfloat16)
+    return out
+
+
+def halo_case(bands) -> dict:
+    """This rank's band of a seeded (2, 3, 8, 5) image with 2 halo rows by
+    ``exchange_halo``, the bytes it counted, and its backward: the gradient
+    on the band of the sum over the bands of each exchanged band times a
+    seeded weight of its shape."""
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.random((2, 3, 8, 5), dtype=np.float32))
+    weights = torch.from_numpy(rng.random((bands.n, 2, 3, 8 // bands.n + 4, 5),
+                                          dtype=np.float32))
+    band = bands.take(x).requires_grad_(True)
+    (exchanged,) = bands.exchange_halo([band], 2)
+    (exchanged * weights[bands.index]).sum().backward()
+    return {"image": x, "weights": weights, "exchanged": exchanged.detach(),
+            "grad": band.grad, "moved": dict(bands.moved)}
 
 
 # --------------------------------------------------------------- the loop --
@@ -343,6 +419,8 @@ def main(argv) -> int:
         elif case == "losses":
             result = {name: run_loss_case(name, my_rows(BATCH), device)
                       for name in LOSS_CASES}
+        elif case == "spatial":
+            result = run_spatial()
         else:
             raise SystemExit(f"unknown case {case!r}")
         result["rank"], result["world"] = parallel.rank(), parallel.world_size()

@@ -220,12 +220,34 @@ fp32 predictors' own pinning is what runs:
      whole-image teacher and serving one 512^2 frame, no kernel launch in
      the ranks. Per step: ms against one process's, halo and partial bytes,
      peak memory per rank.
+ 18. tensor-parallel serving (a mesh's model axis), every shard on cuda:0
+     (one card: the split's overhead, not scaling): which stages split their
+     heads over 2 and 4 shards at 512^2 and 2048^2 and the share of a
+     request's operations every shard repeats (the meta device); (a) the
+     stage kernel on 2 and 4 model shards (fused_transformer_stage_shards:
+     (A) on a shard's heads or whole, (B), (C') to the partial projection,
+     a sum, the GDFN kernel on the shard's hidden channels, a sum) at
+     (1,512,512,96) x4 blocks with 1 and 2 heads and (1,256,256,384) x2 with
+     8 heads (the wide layout), bf16, against its plain version and the
+     whole-image kernel (within 1e-2), every shard the same bits, with its
+     time, the whole-image kernel's, the plain version's, sums and partial
+     bytes; the GDFN kernel on 128 and 127 of 255 hidden channels (fp32 r,
+     with and without the residual) against its plain version; (b) the
+     trained bf16 teacher (fused) on 2 and 4 shards of a 512^2 frame, the
+     shard stage called exactly where one device's gate admits the stage,
+     held to phase 9's fp32 rule, and the seeded flagship of phase 3 on 2
+     and 4 shards within 1 level of one device on >= 99%; (c) the seeded
+     flagship on 2 shards of a 2048^2 frame (the latent's 8 heads split in
+     the wide layout), within 1 level of one device. Each case: ms a
+     request against one device, the idle share at 512^2, sums and partial
+     bytes a request, shard-stage and GDFN-part launches, weight bytes a
+     shard.
 Each path runs with every launch count set to 0 just before it and read just
-after. Prints one JSON line per phase 6-17, a "kernels" JSON line, the card
+after. Prints one JSON line per phase 6-18, a "kernels" JSON line, the card
 line, and as its last line {"ok": true, "device": {...}}. Details go to
 chiprun_out/chip_smoke.json.
 `chip_smoke.py --dp-rank SPEC` and `--sp-rank SPEC` are ranks of phases 13
-and 17, not for use alone; `chip_smoke.py --phase 14` (or 15, 16, 17)
+and 17, not for use alone; `chip_smoke.py --phase 14` (or 15, 16, 17, 18)
 builds and runs that phase alone (its JSON line, no "kernels" or "ok"
 line).
 """
@@ -467,7 +489,9 @@ def reset_counts():
 
     fns = dict(stage=stage.fused_transformer_stage, layernorm=layernorm.fused_channel_layernorm,
                gdfn=gdfn.fused_ln_gdfn, block=block.fused_transformer_block,
-               stage_bands=stage.fused_transformer_stage_bands)
+               stage_bands=stage.fused_transformer_stage_bands,
+               stage_shards=stage.fused_transformer_stage_shards,
+               gdfn_part=gdfn.fused_ln_gdfn_part)
     for fn in fns.values():
         fn.launches = 0
     return fns
@@ -852,8 +876,9 @@ def phase_block_paths(results, card):
                    fused_wall_ms=block_ms, eager_ms=eager_ms)
         paths.append(row)
         log(f"per-block paths (1,96,512,512) bf16 x4 blocks {row} [{card}]")
-        assert n_block == dict(stage=0, layernorm=0, gdfn=0, block=4, stage_bands=0), n_block
-        assert n_ops == dict(stage=0, layernorm=4, gdfn=4, block=0, stage_bands=0), n_ops
+        none = dict(stage_bands=0, stage_shards=0, gdfn_part=0)
+        assert n_block == dict(stage=0, layernorm=0, gdfn=0, block=4, **none), n_block
+        assert n_ops == dict(stage=0, layernorm=4, gdfn=4, block=0, **none), n_ops
         assert torch.isfinite(got).all().item() and torch.isfinite(via_ops).all().item()
         assert rel_block <= TOL_PATH and rel_ops <= TOL_PATH, (rel_block, rel_ops)
         totals["block"] += n_block["block"]
@@ -1346,7 +1371,7 @@ def phase_zoo_cli(results, card, work):
     torch.cuda.synchronize()
     launches = read_counts(counts)
     assert launches == dict(stage=5 * len(reqs), layernorm=0, gdfn=0, block=0,
-                            stage_bands=0), launches
+                            stage_bands=0, stage_shards=0, gdfn_part=0), launches
     def rel(got, ref, where=None):
         d = (got.float() - ref.float()).abs()
         d = d if where is None else d * where
@@ -1773,8 +1798,9 @@ def phase_distill_offline(row, card, work, n_seq=3, seq_len=8, size=512):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counts(counts)
-    assert n == n_seq * seq_len and launches == dict(stage=5 * n, layernorm=0, gdfn=0, block=0,
-                                                     stage_bands=0), (n, launches)
+    assert n == n_seq * seq_len and launches == dict(
+        stage=5 * n, layernorm=0, gdfn=0, block=0, stage_bands=0, stage_shards=0,
+        gdfn_part=0), (n, launches)
     targets = decoded(gt_dir, gray=True)
     assert len(targets) == n and all(t.shape == (size, size) for t in targets.values())
     row["offline_distillation"] = dict(frames=n, size=size, wall_s=wall, frames_per_s=n / wall,
@@ -4460,13 +4486,322 @@ def phase_spatial_train(results, card, work):
     log(f"phase 17: {row['phase_s']:.1f} s")
 
 
+# ------------------------------------------------------------ phase 18 ---
+
+TENSOR_CASES = [((1, 512, 512, 96), 4, 1), ((1, 512, 512, 96), 4, 2),
+                ((1, 256, 256, 384), 2, 8)]
+TENSOR_SHARDS = (2, 4)  # (a), (b): model shards
+TENSOR_SIZE = 512  # (a), (b): the request's side
+TENSOR_FRAME = 2048  # (c): the 384-channel latent's stage admitted, 8 heads split
+TENSOR_DEVICE = "cuda:0"  # every shard's device (the one card)
+
+
+def split_report(h, w, n):
+    """Which of the flagship's stages split their heads over n model shards
+    at h x w and which hold the whole MDTA on every shard (and whether the
+    gate sends each to the stage kernel), and the operations every shard
+    repeats: all but the blocks' split parts (each layer outside the blocks,
+    the LayerNorms aside, and a whole MDTA), counted from the convs' shapes
+    and the MDTA's two products on the meta device."""
+    import torch
+
+    from rethink_acoustic_image_enhancement_tpu_torch.models import flagship_teacher
+    from rethink_acoustic_image_enhancement_tpu_torch.models.blocks import MDTA, Conv2d
+    from rethink_acoustic_image_enhancement_tpu_torch.models.kdlae_teacher import (
+        TransformerStage,
+    )
+    from rethink_acoustic_image_enhancement_tpu_torch.ops import stage_gate
+    from rethink_acoustic_image_enhancement_tpu_torch.parallel.tensor import heads_split
+
+    m = flagship_teacher(static="train").to("meta")
+    ops = {"other": 0}
+    stages = {}
+
+    def count(name, part):
+        def hook(mod, inp, out):
+            if isinstance(mod, MDTA):  # the Gram and attn @ v
+                b, c, hh, ww = inp[0].shape
+                n_ops = 4 * b * c * (c // mod.num_heads) * hh * ww
+            else:
+                n_ops = 2 * out.numel() * mod.in_channels // mod.groups * (
+                    mod.kernel_size[0] * mod.kernel_size[1])
+            key = (name, part) if part else "other"
+            ops[key] = ops.get(key, 0) + n_ops
+        return hook
+
+    def shape_hook(name):
+        def hook(mod, inp, out):
+            b, c, hh, ww = inp[0].shape
+            stages[name] = dict(channels=c, heads=mod.num_heads, pixels=[hh, ww],
+                                kernel=stage_gate.stage_worthwhile(
+                                    b, hh, ww, c, mod.num_heads, mod.bias_free_ln,
+                                    mod.use_bias, mod.ffn_expansion_factor),
+                                split=heads_split(mod.num_heads, n))
+        return hook
+
+    for name, mod in m.named_modules():
+        top = name.split(".")[0]
+        part = "mdta" if ".attn" in name else "gdfn" if ".ffn" in name else None
+        if isinstance(mod, TransformerStage):
+            mod.register_forward_hook(shape_hook(name))
+        if isinstance(mod, (Conv2d, MDTA)):
+            mod.register_forward_hook(count(top, part))
+    with torch.no_grad():
+        m({"img": torch.empty(1, 3, h, w, device="meta"),
+           "denoise_rate": torch.empty(1, 1, h, w, device="meta")})
+    total = sum(ops.values())
+    whole_mdta = sum(v for k, v in ops.items()
+                     if k != "other" and k[1] == "mdta" and not stages[k[0]]["split"])
+    repeated = (n - 1) * (ops["other"] + whole_mdta)
+    return dict(size=[h, w], shards=n, stages=stages, request_ops=total,
+                outside_blocks_ops=ops["other"], whole_mdta_ops=whole_mdta,
+                repeated_ops=repeated, repeated_share_of_one_device=repeated / total)
+
+
+def phase18_shard_kernel(row, card):
+    """(a) the shard stage on 2 and 4 model shards of cuda:0 against its
+    plain version and the whole-image kernel, and the GDFN kernel on a
+    hidden range against its plain version; returns (the stage rows, the
+    GDFN part rows)."""
+    import torch
+
+    from rethink_acoustic_image_enhancement_tpu_torch.models.shards import shard_stage_weights
+    from rethink_acoustic_image_enhancement_tpu_torch.ops import _build, block
+    from rethink_acoustic_image_enhancement_tpu_torch.ops import gdfn as pgdfn
+    from rethink_acoustic_image_enhancement_tpu_torch.ops import stage as pstage
+    from rethink_acoustic_image_enhancement_tpu_torch.parallel.tensor import LocalShards
+
+    row["ptxas"] = {k: v for k, v in _build.kernel_resources("stage").items()
+                    if k in ("k_gram", "k_project")}
+    rows = []
+    for shape, n, heads in TENSOR_CASES:
+        c = shape[-1]
+        f = int(c * 2.66)
+        rng = np.random.default_rng(c + heads)
+        wts = seeded_stage_weights(rng, n, c, heads, f, TENSOR_DEVICE)
+        x = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(TENSOR_DEVICE,
+                                                                             torch.bfloat16)
+        whole = pstage.fused_transformer_stage(x, **wts)
+        whole_ms = cuda_ms(lambda: pstage.fused_transformer_stage(x, **wts), 5)
+        flops, nbytes = stage_work(*shape, n, heads, f, x.element_size())
+        t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+        for ns in TENSOR_SHARDS:
+            shards = LocalShards([TENSOR_DEVICE] * ns)
+            sw = [shard_stage_weights(wts, ns, j) for j in range(ns)]
+            xs = [x] * ns
+
+            def run():
+                return pstage.fused_transformer_stage_shards(xs, sw, shards)
+
+            counts = reset_counts()
+            got = run()
+            torch.cuda.synchronize()
+            launches = read_counts(counts)
+            moved, sums = shards.moved["partials"], shards.sums
+            plain = pstage.stage_plain_shards(xs, sw, shards)
+            torch.cuda.synchronize()
+            for g in got:
+                assert g.shape == x.shape and g.dtype == x.dtype
+                assert torch.equal(g, got[0]), "shards differ"
+            assert torch.isfinite(got[0]).all().item(), "non-finite shard-kernel output"
+            d_plain = (got[0].float() - plain[0].float()).abs().max().item()
+            r = dict(shape=list(shape), n_blocks=n, heads=heads, shards=ns,
+                     heads_split=heads % ns == 0, dtype="bfloat16", max_abs_err=d_plain,
+                     rel_err=d_plain / plain[0].float().abs().max().item(),
+                     rel_to_whole=(got[0].float() - whole.float()).abs().max().item()
+                     / whole.float().abs().max().item(),
+                     ms=cuda_ms(run, 5), whole_ms=whole_ms,
+                     plain_ms=cuda_ms(lambda: pstage.stage_plain_shards(xs, sw, shards), 1),
+                     bound_ms=max(t_ops, t_bytes),
+                     bound_by="operations" if t_ops >= t_bytes else "bytes",
+                     sums=sums, partial_bytes=moved, launches=launches,
+                     # (A)'s and (C')'s layouts and resident blocks per SM on a shard
+                     plan=block.plan_tiles(block.lib(), c, heads // ns if heads % ns == 0
+                                           else heads, sw[0]["w_proj"].shape[-2])._asdict(),
+                     weight_bytes_per_shard=[sum(t.numel() * t.element_size()
+                                                 for t in w.values()) for w in sw])
+            rows.append(r)
+            log(f"shard stage bf16 {tuple(shape)} blocks={n} heads={heads} on {ns} shards "
+                f"({'heads split' if r['heads_split'] else 'MDTA whole on each'}; "
+                f"plan {r['plan']}): "
+                f"{r['ms']:.3f} ms (whole-image kernel {whole_ms:.3f} ms), plain "
+                f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}); rel "
+                f"to plain {r['rel_err']:.3e}, to whole {r['rel_to_whole']:.3e}; {sums} sums, "
+                f"{moved} B of partials; launches {launches} [{card}]")
+            assert launches["stage_shards"] == 1 and launches["gdfn_part"] == n * ns, launches
+            assert r["rel_err"] <= TOL_REL and r["rel_to_whole"] <= TOL_REL, r
+            del got, plain
+        del x, whole
+    row["shard_kernel"] = rows
+
+    # the GDFN kernel on shard 0's and shard 1's hidden range of 255 (128, 127)
+    part_rows = []
+    c, f = 96, 255
+    rng = np.random.default_rng(18)
+    wts = seeded_stage_weights(rng, 1, c, 1, f, TENSOR_DEVICE)
+    r_in = torch.from_numpy(rng.normal(size=(1, TENSOR_SIZE, TENSOR_SIZE, c)).astype(
+        np.float32)).to(TENSOR_DEVICE)
+    for j in range(2):
+        sw = shard_stage_weights(wts, 2, j)
+        args = (sw["ln2_w"][0], sw["w_in"][0], sw["w_dw"][0], sw["w_out"][0])
+        fs = sw["w_out"].shape[-2]
+        flops, nbytes = gdfn_work(1, TENSOR_SIZE, TENSOR_SIZE, c, fs, 4)
+        part_rows.append(held_to_plain(
+            "gdfn_part", lambda: pgdfn.fused_ln_gdfn_part(r_in, *args, residual=j == 0),
+            lambda: pgdfn.gdfn_part_plain(r_in, *args, residual=j == 0), r_in, flops, nbytes,
+            PEAK_BF16_FLOPS, card, dict(hidden=fs, residual=j == 0)))
+    row["gdfn_part_kernel"] = part_rows
+    return rows, part_rows
+
+
+def request_profile(pred, img, rate, top=8):
+    """One request under torch.profiler: (summed device ms, busy ms, the top
+    kernels by device ms)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        pred(img, rate)
+        torch.cuda.synchronize()
+    summed, busy = device_busy(prof)
+    kernels = sorted(((e.key[:60], e.self_device_time_total / 1e3, e.count)
+                      for e in prof.key_averages() if e.self_device_time_total > 0),
+                     key=lambda k: -k[1])
+    return summed, busy, kernels[:top]
+
+
+def weight_bytes(models):
+    return [sum(p.numel() * p.element_size() for p in m.parameters()) for m in models]
+
+
+def shard_request(pred, img, rate, reps):
+    """``spatial_request`` on a model-axis predictor, with its sums and
+    partial bytes a request (the warm-up counted too)."""
+    pred._shards.moved["partials"], pred._shards.sums = 0, 0
+    out, walls, launches = spatial_request(pred, img, rate, reps)
+    per = dict(sums=pred._shards.sums // (reps + 1),
+               partial_bytes=pred._shards.moved["partials"] // (reps + 1))
+    return out, walls, launches, per
+
+
+def phase18_teacher(row, card):
+    """(b) the trained bf16 teacher (fused) on 2 and 4 model shards of
+    cuda:0 at 512^2, held to one device's distance from fp32, and the seeded
+    flagship of phase 3 on 2 and 4 shards within 1 level of one device; (c)
+    the seeded flagship on 2 shards of a 2048^2 frame within 1 level of one
+    device. Returns the shard-stage and GDFN-part launches of the timed
+    requests."""
+    import torch
+
+    from rethink_acoustic_image_enhancement_tpu_torch.convert.weights import load_pth
+    from rethink_acoustic_image_enhancement_tpu_torch.eval.infer import TeacherPredictor
+    from rethink_acoustic_image_enhancement_tpu_torch.models import (
+        flagship_teacher,
+        init_weights_,
+    )
+    from rethink_acoustic_image_enhancement_tpu_torch.parallel.mesh import make_mesh
+
+    def on_shards(model, ns):
+        return TeacherPredictor(model, fused=True, dtype=torch.bfloat16,
+                                mesh=make_mesh(n_model=ns, devices=[TENSOR_DEVICE] * ns))
+
+    teacher = load_pth(flagship_teacher(static="train"), os.path.join(HERE, TEACHER_PTH))
+    img, rate = sonar_frame(TENSOR_SIZE, TENSOR_SIZE, 30), 0.8
+    ref32, _, _ = spatial_request(TeacherPredictor(teacher, dtype=torch.float32), img, rate, 1)
+    bf16 = teacher.to(torch.bfloat16)
+    one = TeacherPredictor(bf16, fused=True, dtype=torch.bfloat16)
+    ref, one_ms, one_calls = spatial_request(one, img, rate, 3)
+    assert one_calls["stage"] == 5, one_calls
+    summed, busy, top = request_profile(one, img, rate)
+    row["one_device"] = dict(size=TENSOR_SIZE, ms=one_ms, device_busy_ms=busy,
+                             device_summed_ms=summed, top_kernels_ms=top,
+                             idle_share=None if busy is None else 1 - busy / min(one_ms))
+    log(f"one device trained bf16 at {TENSOR_SIZE}^2: {min(one_ms):.2f} ms, device busy "
+        f"{busy} ms; top kernels {top} [{card}]")
+    totals = {"stage_shards": 0, "gdfn_part": 0}
+    cases, seeded, s_refs = [], None, {}
+    for what, ns, size in (("trained", 2, TENSOR_SIZE), ("trained", 4, TENSOR_SIZE),
+                           ("seeded", 2, TENSOR_SIZE), ("seeded", 4, TENSOR_SIZE),
+                           ("seeded", 2, TENSOR_FRAME)):
+        x = img if size == TENSOR_SIZE else sonar_frame(size, size, 31)
+        reps = 3 if size == TENSOR_SIZE else 1
+        if what == "trained":
+            model, (x_ref, x_one_ms, x_calls) = bf16, (ref, one_ms, one_calls)
+        else:
+            if seeded is None:  # phase 3's flagship
+                seeded = init_weights_(flagship_teacher(static="train"),
+                                       torch.Generator().manual_seed(0)).to(torch.bfloat16)
+                s_one = TeacherPredictor(seeded, fused=True, dtype=torch.bfloat16)
+            if size not in s_refs:
+                s_refs[size] = spatial_request(s_one, x, rate, reps)
+            model, (x_ref, x_one_ms, x_calls) = seeded, s_refs[size]
+        pred = on_shards(model, ns)
+        out, walls, launches, per = shard_request(pred, x, rate, reps)
+        # the shard stage exactly where one device's gate admits the image
+        assert launches["stage_shards"] == x_calls["stage"] > 0, (launches, x_calls)
+        assert launches["stage"] == 0 and launches["gdfn_part"] > 0, launches
+        for k in totals:
+            totals[k] += launches[k] * reps
+        label = f"{what} bf16 on {ns} shards at {size}^2"
+        case = dict(model=what, shards=ns, size=size, requests=reps, ms=walls,
+                    one_device_ms=x_one_ms, per_request=dict(per, **launches),
+                    weight_bytes_per_shard=weight_bytes(pred.models),
+                    one_device_weight_bytes=weight_bytes([model])[0],
+                    agreement=(held_to_fp32(x, out, x_ref, ref32, label) if what == "trained"
+                               else held_to_one_device(x, out, x_ref, label)))
+        if size == TENSOR_SIZE:
+            summed, busy, top = request_profile(pred, x, rate)
+            case.update(device_busy_ms=busy, device_summed_ms=summed, top_kernels_ms=top,
+                        idle_share=None if busy is None else 1 - busy / min(walls))
+        cases.append(case)
+        log(f"tensor-parallel teacher {label}: {min(walls):.2f} ms a request (one device "
+            f"{min(x_one_ms):.2f}), per request {case['per_request']}, weight bytes a shard "
+            f"{case['weight_bytes_per_shard']} (one device {case['one_device_weight_bytes']})"
+            + ("" if case.get("idle_share") is None else
+               f", device busy {case['device_busy_ms']:.2f} ms (idle share "
+               f"{case['idle_share']:.3f}); top kernels {case['top_kernels_ms']}")
+            + f"; agreement {case['agreement']} [{card}]")
+        del pred, out
+        torch.cuda.empty_cache()
+    row["teacher"] = cases
+    return totals
+
+
+def phase_tensor(results, card):
+    """Phase 18: tensor-parallel teacher serving (model shards on cuda:0);
+    returns ((a)'s stage rows, (a)'s GDFN part rows, (b)'s and (c)'s
+    launches)."""
+    import torch
+
+    t0 = time.perf_counter()
+    row = dict(card=card, devices="cuda:0 for every shard (one card: the split's overhead, "
+                                  "not scaling)")
+    row["splits"] = [split_report(s, s, n) for s in (TENSOR_SIZE, TENSOR_FRAME)
+                     for n in TENSOR_SHARDS]
+    for rep in row["splits"]:
+        whole = [k for k, v in rep["stages"].items() if not v["split"]]
+        log(f"model shards {rep['shards']} at {rep['size'][0]}^2: MDTA whole on every shard "
+            f"in {whole}; repeated ops {rep['repeated_ops']:.4g} = "
+            f"{rep['repeated_share_of_one_device']:.4f} of one device's "
+            f"{rep['request_ops']:.4g}")
+    rows, part_rows = phase18_shard_kernel(row, card)
+    torch.cuda.empty_cache()
+    launches = phase18_teacher(row, card)
+    row["launches"] = launches
+    row["phase_s"] = time.perf_counter() - t0
+    results["tensor"] = row
+    print(json.dumps({"tensor": row}), flush=True)
+    log(f"phase 18: {row['phase_s']:.1f} s")
+    return rows, part_rows, launches
+
+
 def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--dp-rank":  # a rank of phase 13
         return dp_child(sys.argv[2])
     if len(sys.argv) == 3 and sys.argv[1] == "--sp-rank":  # a rank of phase 17
         return sp_child(sys.argv[2])
     only = sys.argv[2] if sys.argv[1:2] == ["--phase"] and len(sys.argv) == 3 else None
-    if sys.argv[1:] and only not in ("14", "15", "16", "17"):  # one phase alone, after the build
+    if sys.argv[1:] and only not in ("14", "15", "16", "17", "18"):  # one phase alone, after the build
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
         return 2
     import torch
@@ -4510,7 +4845,7 @@ def main() -> int:
                 phase_spatial_train(results, card, work)
             return 0
         {"14": phase_dp_serving, "15": phase_remaining_datasets,
-         "16": phase_spatial}[only](results, card)
+         "16": phase_spatial, "18": phase_tensor}[only](results, card)
         return 0
     stage_rows = phase_kernels(results, card)
     ln_rows = phase_layernorm_kernel(results, card)
@@ -4549,6 +4884,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="raie_sp_") as work:
         phase_spatial_train(results, card, work)
+    torch.cuda.empty_cache()
+    shard_rows, part_rows, shard_launches = phase_tensor(results, card)
     results["path_launches"] = dict(whole_image=whole_launches, tiled=tiled_launches,
                                     group=group_launches, zoo_cli=zoo_launches,
                                     distill=distill_launches, dp_serving=dp_launches,
@@ -4580,6 +4917,13 @@ def main() -> int:
         # the stage on row bands: (1, 512, 512, 96) bf16, 4 blocks, 2 bands
         entry("fused_transformer_stage_bands", "stage.cu", "stage.py:324",
               band_launches, band_rows, band_rows[1]),
+        # the stage on model shards: (1, 512, 512, 96) bf16, 4 blocks, 2 heads
+        # split over 2 shards; the GDFN kernel on shard 0's 128 of 255 hidden
+        # channels, the residual added
+        entry("fused_transformer_stage_shards", "stage.cu", "stage.py:324",
+              shard_launches["stage_shards"], shard_rows, shard_rows[2]),
+        entry("fused_ln_gdfn_part", "gdfn.cu", "gdfn.py:277",
+              shard_launches["gdfn_part"], part_rows, part_rows[0]),
     ]}
     results["kernels"] = kernels["kernels"]
     results["total_s"] = time.perf_counter() - t_start

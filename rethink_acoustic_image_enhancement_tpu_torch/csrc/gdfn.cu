@@ -24,6 +24,12 @@
 // input means. Partial tiles at the right and bottom edges are masked on
 // load and store.
 //
+// A model shard (ops/stage.py::fused_transformer_stage_shards) runs it on its
+// range of the hidden channels: W_in's columns and the taps of that range in
+// both halves, W_out's rows, padded to HIDDEN_PAD as ever, on float32 r, LN
+// taken over all C channels; with residual = 0 (every shard but one) it
+// writes W_out (gelu(t1) * t2) alone, and the host adds the shards' parts.
+//
 // Against the bound: as kernel (C) of stage.cu, latency between short phases
 // rather than the tensor cores, and (10*10)/(8*8) of the W_in product spent
 // on the halo.
@@ -34,7 +40,7 @@
 
 namespace {
 
-template <int FC, class T>
+template <int FC, class T, bool Residual>
 __global__ void __launch_bounds__(NTA, 2)
 k_gdfn(const T* __restrict__ x, T* __restrict__ y, const float* __restrict__ lnw,
        const float* __restrict__ lnb, FfnWeights wt, Geo g, float eps, bool apply_ln) {
@@ -49,30 +55,31 @@ k_gdfn(const T* __restrict__ x, T* __restrict__ y, const float* __restrict__ lnw
     if (lnb != nullptr) copy_async(s.lnb, lnb, g.C * 4);
   }
   ffn_load_chunk<FC>(s, wt, g, 0, 0);
-  r_ln_tile<false, true>(s, x, AttnIn{}, g, b, y0, x0, eps, apply_ln, lnb != nullptr, [] {}, pc);
-  gdfn_chunks<FC>(s, y, wt, g, b, y0, x0, pc);
+  r_ln_tile<false, Residual>(s, x, AttnIn{}, g, b, y0, x0, eps, apply_ln, lnb != nullptr, [] {},
+                             pc);
+  gdfn_chunks<FC, T, Residual>(s, y, wt, g, b, y0, x0, pc);
 }
 
 size_t gdfn_bytes(int th, int tw, int C, int fc) {
   return FfnSmem(th, tw, C, C, fc, false, C).total;
 }
 
-template <int FC, class T>
+template <int FC, class T, bool Residual>
 int launch_fc(const void* x, void* y, const float* lnw, const float* lnb, FfnWeights wt,
            const Geo& g, float eps, int apply_ln, cudaStream_t stream) {
   const size_t bytes = gdfn_bytes(g.th, g.tw, g.C, g.fc);
-  const int err = opt_in(k_gdfn<FC, T>, bytes);
+  const int err = opt_in(k_gdfn<FC, T, Residual>, bytes);
   if (err) return err;
-  k_gdfn<FC, T><<<dim3(g.ntiles, g.B), NTA, bytes, stream>>>((const T*)x, (T*)y, lnw, lnb, wt, g,
-                                                          eps, apply_ln != 0);
+  k_gdfn<FC, T, Residual><<<dim3(g.ntiles, g.B), NTA, bytes, stream>>>(
+      (const T*)x, (T*)y, lnw, lnb, wt, g, eps, apply_ln != 0);
   return (int)cudaGetLastError();
 }
 
-template <class T>
+template <class T, bool Residual>
 int launch(const void* x, void* y, const float* lnw, const float* lnb, FfnWeights wt,
            const Geo& g, float eps, int apply_ln, cudaStream_t stream) {
-  return g.fc == 64 ? launch_fc<64, T>(x, y, lnw, lnb, wt, g, eps, apply_ln, stream)
-                    : launch_fc<32, T>(x, y, lnw, lnb, wt, g, eps, apply_ln, stream);
+  return g.fc == 64 ? launch_fc<64, T, Residual>(x, y, lnw, lnb, wt, g, eps, apply_ln, stream)
+                    : launch_fc<32, T, Residual>(x, y, lnw, lnb, wt, g, eps, apply_ln, stream);
 }
 
 }  // namespace
@@ -81,7 +88,8 @@ int launch(const void* x, void* y, const float* lnw, const float* lnb, FfnWeight
 // tensors; the call launches on `stream` and returns cudaGetLastError() (or
 // ERR_SMEM / ERR_SHAPE without launching). x and y have one dtype; the
 // weights are laid out as tile_ops.cuh::FfnWeights says; a null ln_b selects
-// the BiasFree LayerNorm, apply_ln = 0 none. ---------------------------------
+// the BiasFree LayerNorm, apply_ln = 0 none; residual = 0 leaves x out of y
+// (float32 x and y only: a model shard's partial). ---------------------------
 
 extern "C" {
 
@@ -96,22 +104,24 @@ int raie_gdfn_smem_bytes(int th, int tw, int C, int fc) {
 int raie_gdfn_blocks_per_sm(int th, int tw, int C, int fc) {
   if (!ffn_shape_ok(C, fc, fc, th, tw)) return 0;
   const size_t bytes = gdfn_bytes(th, tw, C, fc);
-  return fc == 64 ? resident_blocks(k_gdfn<64, float>, NTA, bytes)
-                  : resident_blocks(k_gdfn<32, float>, NTA, bytes);
+  return fc == 64 ? resident_blocks(k_gdfn<64, float, true>, NTA, bytes)
+                  : resident_blocks(k_gdfn<32, float, true>, NTA, bytes);
 }
 
 const char* raie_gdfn_error_string(int code) { return tile_error_string(code); }
 
 int raie_gdfn(const void* x, void* y, int is_bf16, const void* ln_w, const void* ln_b,
               int apply_ln, const void* win, const void* wdw, const void* wout, int B, int H,
-              int W, int C, int Fp, int fc, int th, int tw, float eps, void* stream) {
-  if (!ffn_shape_ok(C, Fp, fc, th, tw)) return ERR_SHAPE;
+              int W, int C, int Fp, int fc, int th, int tw, float eps, int residual,
+              void* stream) {
+  if (!ffn_shape_ok(C, Fp, fc, th, tw) || (!residual && is_bf16)) return ERR_SHAPE;
   const Geo g = make_geo(B, H, W, C, 1, Fp, fc, th, tw);
   const FfnWeights wt{(const bf16*)win, (const float*)wdw, (const bf16*)wout};
+  const float *lw = (const float*)ln_w, *lb = (const float*)ln_b;
   cudaStream_t s = (cudaStream_t)stream;
-  if (is_bf16)
-    return launch<bf16>(x, y, (const float*)ln_w, (const float*)ln_b, wt, g, eps, apply_ln, s);
-  return launch<float>(x, y, (const float*)ln_w, (const float*)ln_b, wt, g, eps, apply_ln, s);
+  if (!residual) return launch<float, false>(x, y, lw, lb, wt, g, eps, apply_ln, s);
+  if (is_bf16) return launch<bf16, true>(x, y, lw, lb, wt, g, eps, apply_ln, s);
+  return launch<float, true>(x, y, lw, lb, wt, g, eps, apply_ln, s);
 }
 
 }  // extern "C"

@@ -6,8 +6,8 @@
 // multithreaded C++ equivalents, exposed through a plain C ABI and loaded
 // from Python via ctypes (see native.py). No external dependencies.
 //
-// Build: make -C rethink_acoustic_image_enhancement_tpu/native
-//    or: python -m rethink_acoustic_image_enhancement_tpu.utils.native
+// Build: rethink_acoustic_image_enhancement_tpu_torch/utils/native.py, g++ into build/ on
+//    first use, or: python -m rethink_acoustic_image_enhancement_tpu_torch.utils.native
 
 #include <cstdint>
 #include <cstring>

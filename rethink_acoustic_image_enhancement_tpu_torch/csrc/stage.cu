@@ -73,6 +73,19 @@
 // halo rows its neighbours filled in. The zero ring stays at the image's
 // own edges (readable()). A whole image is the one band with no halo, and
 // runs the same arithmetic as before bands existed.
+// Model shards (ops/stage.py::fused_transformer_stage_shards): a block split
+// by heads over N shards, Megatron-style. (A) reads x of C channels and takes
+// LN1 over all of them, but holds only the shard's columns of each W_qkv
+// third, Cq = C heads_s / heads of them (Geo's Cq), and gives q, k, v, the
+// Gram and the norms of the shard's heads alone; (B) runs unchanged on Cq
+// channels; (C') (k_project) is (C) stopped after the W_proj product on the
+// shard's Cq rows of W_proj: it writes r = x + partial (the shard that adds
+// the residual; x null: the partial alone) in fp32, and the host adds the
+// shards' partials. The GDFN half is then gdfn.cu's kernel on the shard's
+// range of hidden channels, without the residual but on one shard. Where
+// the shards do not divide the heads, every shard runs (A) and (B) whole
+// (Cq = C) and (C') with the residual: r whole, no sum. Everything up to
+// (C') is the same code as the whole image's, whose bits it keeps.
 // The wide layout (C = 384, the latent of a 2048^2 frame): a C x C bf16
 // weight is 301 KB, more than a thread block's 227 KB of shared memory, so
 // (A) holds a third of W_qkv nq columns at a time (its product and depthwise
@@ -124,24 +137,25 @@ __device__ long long* phase_buf_apply = nullptr;
 
 // q, k and v go through the product and the depthwise step a third at a
 // time, so one third of W_qkv (w) and of qkv on the halo (t) is held: all
-// nq = C of its columns, or (the wide layout, where a C x C third does not
+// nq = Cq of its columns, or (the wide layout, where a C x Cq third does not
 // fit beside the tile) nq columns at a time. The Gram accumulates in
 // registers where a warp's share of its 16x16 fragments is at most MAXG
-// (MAXGW in the wide layout) (`regs`), else in `gram` as fp32.
+// (MAXGW in the wide layout) (`regs`), else in `gram` as fp32. x and LN1 have
+// C channels, q, k and v Cq (Geo).
 struct GramSmem {
   size_t xn, w, t, qk, nrm, taps, lnw, lnb, stat, gram, total;
   bool regs;
-  __host__ __device__ GramSmem(int th, int tw, int C, int heads, int nq) {
-    const int m1 = round16((th + 2) * (tw + 2)), P = th * tw, hc = C / heads, LX = C + PAD;
+  __host__ __device__ GramSmem(int th, int tw, int C, int Cq, int heads, int nq) {
+    const int m1 = round16((th + 2) * (tw + 2)), P = th * tw, hc = Cq / heads, LX = C + PAD;
     const int LW = nq + PAD;
-    regs = heads * (hc / 16) * (hc / 16) <= (nq < C ? MAXGW : MAXG) * NWA;
+    regs = heads * (hc / 16) * (hc / 16) <= (nq < Cq ? MAXGW : MAXG) * NWA;
     size_t o = 0;
     xn = o;    o += align128((size_t)m1 * LX * 2);             // LN1(x) on the halo
     w = o;     o += align128((size_t)C * LW * 2);              // W_q, W_k or W_v (nq columns)
     t = o;     o += align128((size_t)m1 * LW * 2);             // q, k or v before the dw3x3
-    qk = o;    o += align128((size_t)P * (2 * C + PAD) * 2);   // q | k on the tile
-    nrm = o;   o += align128((size_t)2 * C * tw * 4);          // [2C][tw]
-    taps = o;  o += align128((size_t)9 * 3 * C * 4);           // dw_qkv
+    qk = o;    o += align128((size_t)P * (2 * Cq + PAD) * 2);  // q | k on the tile
+    nrm = o;   o += align128((size_t)2 * Cq * tw * 4);         // [2Cq][tw]
+    taps = o;  o += align128((size_t)9 * 3 * Cq * 4);          // dw_qkv
     lnw = o;   o += align128((size_t)C * 4);                   // LN1's weight
     lnb = o;   o += align128((size_t)C * 4);                   // and bias
     stat = o;  o += C > 16 * MAXF ? align128((size_t)2 * m1 * 4 * 4) : 0;
@@ -169,8 +183,8 @@ k_gram(const T* __restrict__ x, const float* __restrict__ ln1,
        int groups, int nq_wide, float eps) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr bool wide = G > MAXG;
-  const int nq = wide ? nq_wide : g.C;  // the narrow instance holds whole thirds
-  const GramSmem L(g.th, g.tw, g.C, g.heads, nq);
+  const int nq = wide ? nq_wide : g.Cq;  // the narrow instance holds whole thirds
+  const GramSmem L(g.th, g.tw, g.C, g.Cq, g.heads, nq);
   bf16* xn = (bf16*)(smem + L.xn);
   bf16* wb = (bf16*)(smem + L.w);
   bf16* t = (bf16*)(smem + L.t);
@@ -186,7 +200,8 @@ k_gram(const T* __restrict__ x, const float* __restrict__ ln1,
   s.stat = (float*)(smem + L.stat);
 
   const int b = blockIdx.y, grp = blockIdx.x, warp = threadIdx.x >> 5;
-  const int C = g.C, C2 = 2 * C, C3 = 3 * C, hc = g.hc, th = g.th, tw = g.tw;
+  // C: x's channels (LN1, the product's depth); Cq: q's, k's and v's
+  const int C = g.C, Cq = g.Cq, C2 = 2 * Cq, C3 = 3 * Cq, hc = g.hc, th = g.th, tw = g.tw;
   const int LX = C + PAD, LQ = C2 + PAD, LG = hc + PADF, LW = nq + PAD;
   const int w1 = tw + 2, m1 = round16((th + 2) * w1), P = th * tw;
   const int nh = hc / 16, per_head = nh * nh, nfrags = g.heads * per_head;
@@ -214,7 +229,7 @@ k_gram(const T* __restrict__ x, const float* __restrict__ ln1,
   auto gram_frag = [&](float (&acc)[2][4], int f) {
     const int h = f / per_head, m0 = (f % per_head) / nh * 16, n0 = (f % nh) * 16;
     const bf16* qa = qk + ((lane & 7) + (lane >> 4) * 8) * LQ + h * hc + m0 + ((lane >> 3) & 1) * 8;
-    const bf16* kb = qk + (lane & 15) * LQ + C + h * hc + n0 + (lane >> 4) * 8;
+    const bf16* kb = qk + (lane & 15) * LQ + Cq + h * hc + n0 + (lane >> 4) * 8;
     for (int k = 0; k < P; k += 16) {
       unsigned af[4], bf[4];
       ldsm_x4_t(af, qa + k * LQ);
@@ -229,7 +244,7 @@ k_gram(const T* __restrict__ x, const float* __restrict__ ln1,
   };
   // columns [n0, n0 + nq) of third s3 of W_qkv (q, k or v) into wb
   auto load_w = [&](int s3, int n0) {
-    const bf16* src = wqkv + s3 * C + n0;
+    const bf16* src = wqkv + s3 * Cq + n0;
     load_b_async(wb, C, nq, [=](int k, int n) { return src + (size_t)k * C3 + n; });
   };
   // t = bf16(LN1(x) @ those columns) on the 1-pixel halo
@@ -271,7 +286,7 @@ k_gram(const T* __restrict__ x, const float* __restrict__ ln1,
   auto dw_step = [&](int s3, int c0, int nch, int y0, int x0) {
     const int Ch = nch / 2;
     for (int idx = threadIdx.x; idx < Ch * (tw / 2); idx += NTA) {
-      const int ch = idx % Ch * 2, j = idx / Ch * 2, cq = s3 * C + c0 + ch;
+      const int ch = idx % Ch * 2, j = idx / Ch * 2, cq = s3 * Cq + c0 + ch;
       auto at = [&](int row, int col) { return ld2(t + (row * w1 + col) * LW + ch); };
       float2 wk[9], u[3][4];
 #pragma unroll
@@ -306,7 +321,7 @@ k_gram(const T* __restrict__ x, const float* __restrict__ ln1,
               nacc[o].x += a[o].x * a[o].x;
               nacc[o].y += a[o].y * a[o].y;
             } else if (in) {
-              st2(vout + pix(g, b, yy, xx) + c0 + ch, a[o]);
+              st2(vout + pix(g, b, yy, xx, Cq) + c0 + ch, a[o]);
             }
           }
         }
@@ -347,7 +362,7 @@ k_gram(const T* __restrict__ x, const float* __restrict__ ln1,
         pc.mark(s3 == 2 ? PH_G_GRAM : PH_G_QKV);
         if (s3 < 2) load_w(s3 + 1, 0);
         else if (tile + groups < g.ntiles) load_w(0, 0);  // W_q for the next tile
-        dw_step(s3, 0, C, y0, x0);
+        dw_step(s3, 0, Cq, y0, x0);
         if (s3 < 2) {
           // this third of q | k is complete, t is free, the next third of
           // W_qkv has landed
@@ -358,7 +373,7 @@ k_gram(const T* __restrict__ x, const float* __restrict__ ln1,
       }
     } else {
       // the wide layout: nq columns of a third at a time
-      const int nck = C / nq;
+      const int nck = Cq / nq;
       for (int ci = 0; ci < 3 * nck; ++ci) {
         const int s3 = ci / nck, c0 = ci % nck * nq;
         // these columns of W_qkv have landed; the last depthwise step is
@@ -516,32 +531,76 @@ k_apply(const Tin* __restrict__ x, Tout* __restrict__ y, const bf16* __restrict_
     load_b_async(wp_s, C, C, [&](int k, int n) { return wproj + (size_t)k * C + n; });
   copy_async(s.lnw, ln2, C * 4);
   if (ln2b != nullptr) copy_async(s.lnb, ln2b, C * 4);
-  load_halo_async(vin, v, C + PAD, g, b, y0, x0, m1);
+  load_halo_async(vin, v, C + PAD, g, b, y0, x0, m1, C);
   cp_async_wait();
   __syncthreads();  // attn^T, W_proj, v and the LayerNorm's weights are visible
   pc.mark(PH_LOAD);
   // r = x + (attn @ v) @ W_proj and LN2(r), r in registers; W_in's first
   // chunk loads over attn^T and W_proj once the products are done
-  const AttnIn a{v, at_s, wp_s, s.rn, wproj};
+  const AttnIn a{v, at_s, wp_s, s.rn, wproj, nullptr};
   r_ln_tile<true, true>(s, x, a, g, b, y0, x0, eps, true, ln2b != nullptr,
                   [&] { ffn_load_chunk<FC>(s, wt, g, 0, 0); }, pc);
   gdfn_chunks<FC>(s, y, wt, g, b, y0, x0, pc);
   pc.flush(PHASE_BUF(phase_buf_apply));
 }
 
+// ---- (C') a model shard's attention apply and projection, then stop ------
+
+// (C) up to r: attn @ v of the shard's Cq channels (its heads) and its Cq
+// rows of W_proj, on the 1-pixel halo as (C) computes them, r = x + that
+// (x null: the product alone) written in fp32 on the tile's own pixels. The
+// shared-memory layout is (C)'s with the smallest hidden chunk (unused).
+constexpr int PROJ_FC = 32;
+
+template <class Tin>
+__global__ void __launch_bounds__(NTA, 2)
+k_project(const Tin* __restrict__ x, float* __restrict__ r, const bf16* __restrict__ vin,
+          const bf16* __restrict__ attn_t, const bf16* __restrict__ wproj, Geo g) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const FfnSmem L(g.th, g.tw, g.C, g.hc, PROJ_FC, true, g.kp, g.Cq);
+  const FfnBufs s(smem, L);
+  bf16* at_s = (bf16*)(smem + L.w);
+  bf16* wp_s = (bf16*)(smem + L.wproj);
+  bf16* v = (bf16*)(smem + L.x);
+
+  PHASE_CLOCK(pc);
+  const int b = blockIdx.y, tile = blockIdx.x;
+  const int y0 = (tile / g.ntj) * g.th, x0 = (tile % g.ntj) * g.tw;
+  const int C = g.C, Cq = g.Cq, hc = g.hc;
+  const int m1 = round16((g.th + 2) * (g.tw + 2));
+  const bf16* at = attn_t + (size_t)b * g.heads * hc * hc;
+  load_b_async(at_s, hc, Cq, [&](int k, int n) {
+    return at + (size_t)(n / hc) * hc * hc + k * hc + n % hc;
+  });
+  if (g.kp == Cq)
+    load_b_async(wp_s, Cq, C, [&](int k, int n) { return wproj + (size_t)k * C + n; });
+  load_halo_async(vin, v, Cq + PAD, g, b, y0, x0, m1, Cq);
+  cp_async_wait();
+  __syncthreads();  // attn^T, W_proj and v are visible
+  const AttnIn a{v, at_s, wp_s, s.rn, wproj, r};
+  r_ln_tile<true, false, true>(s, x, a, g, b, y0, x0, 0.f, false, false, [] {}, pc);
+}
+
 // C/heads a multiple of 16 on top of what the tile kernels need: (A) with
-// kind 0, (C) with kind 1; and `chunk` (nq of (A), kp of (C)) C or a
-// multiple of 16 dividing C.
-bool shape_ok(int kind, int C, int heads, int Fp, int fc, int th, int tw, int chunk) {
-  return heads > 0 && C % heads == 0 && (C / heads) % 16 == 0 && chunk >= 16 &&
-         chunk % 16 == 0 && C % chunk == 0 &&
-         (kind == 0 ? tile_shape_ok(C, th, tw) : ffn_shape_ok(C, Fp, fc, th, tw));
+// kind 0, (C) with kind 1, (C') with kind 2; and `chunk` (nq of (A), kp of
+// (C) and (C')) Cq or a multiple of 16 dividing Cq, the heads' channels
+// (C, or a model shard's: a multiple of 16 up to C).
+bool shape_ok(int kind, int C, int Cq, int heads, int Fp, int fc, int th, int tw, int chunk) {
+  // (C) runs whole blocks only; (A) and (C') a shard's heads too
+  const bool tiles = kind == 1 ? Cq == C && ffn_shape_ok(C, Fp, fc, th, tw)
+                               : tile_shape_ok(C, th, tw);
+  return heads > 0 && Cq % heads == 0 && (Cq / heads) % 16 == 0 && Cq <= C && chunk >= 16 &&
+         chunk % 16 == 0 && Cq % chunk == 0 && tiles;
 }
 
 // Kernel (A)'s instance: the wide layout's where a third goes in chunks.
 template <class T>
-decltype(&k_gram<T, MAXG>) gram_kernel(int C, int nq) {
-  return nq < C ? k_gram<T, MAXGW> : k_gram<T, MAXG>;
+decltype(&k_gram<T, MAXG>) gram_kernel(int Cq, int nq) {
+  return nq < Cq ? k_gram<T, MAXGW> : k_gram<T, MAXG>;
+}
+
+size_t project_bytes(int th, int tw, int C, int Cq, int heads, int kp) {
+  return FfnSmem(th, tw, C, Cq / heads, PROJ_FC, true, kp, Cq).total;
 }
 
 struct ApplyArgs {
@@ -582,33 +641,54 @@ int launch_apply(const ApplyArgs& a) {
 // 1, with the true count given to the softmax alone. A null LayerNorm bias
 // selects the BiasFree variant. (halo, y_img, H_img) place H own rows as
 // Geo says: (0, 0, H) for a whole image, halo 1 for a band. `chunk` is (A)'s
-// columns of a W_qkv third held at once (nq) or (C)'s rows of W_proj (kp):
-// 0 for all C, the layout of every width up to 192; a chunk where C x C does
-// not fit beside the tile (C = 384). --------------------------------------
+// columns of a W_qkv third held at once (nq) or (C)'s and (C')'s rows of
+// W_proj (kp): 0 for all Cq, the layout of every width up to 192; a chunk
+// where Cq x C does not fit beside the tile (C = 384). `Cq` is the channels
+// of q, k and v (0: C): a model shard's heads'; (A) then takes the shard's
+// W_qkv (C, 3 Cq) and dw_qkv (9, 3 Cq), writes v (B, Hs, W, Cq) and partials
+// of 2 Cq norms, (B) is called with Cq as its C, and (C') takes W_proj's
+// rows (Cq, C). -------------------------------------------------------------
 
 extern "C" {
 
-// Dynamic shared memory of kernel (A) (kind 0) or (C) (kind 1) on th x tw
-// tiles; INT_MAX for a shape the kernel does not take.
-int raie_stage_smem_bytes(int kind, int th, int tw, int C, int heads, int fc, int chunk) {
-  if (chunk == 0) chunk = C;
-  if (!shape_ok(kind, C, heads, fc, fc, th, tw, chunk)) return INT_MAX;
-  return kind == 0 ? (int)GramSmem(th, tw, C, heads, chunk).total
+// Dynamic shared memory of kernel (A) (kind 0), (C) (kind 1) or (C') (kind
+// 2, fc unused) on th x tw tiles, q, k and v of Cq channels; INT_MAX for a
+// shape the kernel does not take.
+int raie_stage_shard_smem_bytes(int kind, int th, int tw, int C, int Cq, int heads, int fc,
+                                int chunk) {
+  if (Cq == 0) Cq = C;
+  if (chunk == 0) chunk = Cq;
+  if (!shape_ok(kind, C, Cq, heads, fc, fc, th, tw, chunk)) return INT_MAX;
+  if (kind == 2) return (int)project_bytes(th, tw, C, Cq, heads, chunk);
+  return kind == 0 ? (int)GramSmem(th, tw, C, Cq, heads, chunk).total
                    : (int)FfnSmem(th, tw, C, C / heads, fc, true, chunk).total;
 }
 
 // Thread blocks of that kernel the device keeps resident on one SM
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor), with the layout a launch
 // would take; 0 where it cannot launch.
-int raie_stage_blocks_per_sm(int kind, int th, int tw, int C, int heads, int fc, int chunk) {
-  if (chunk == 0) chunk = C;
-  if (!shape_ok(kind, C, heads, fc, fc, th, tw, chunk)) return 0;
+int raie_stage_shard_blocks_per_sm(int kind, int th, int tw, int C, int Cq, int heads, int fc,
+                                   int chunk) {
+  if (Cq == 0) Cq = C;
+  if (chunk == 0) chunk = Cq;
+  if (!shape_ok(kind, C, Cq, heads, fc, fc, th, tw, chunk)) return 0;
   if (kind == 0)
-    return resident_blocks(gram_kernel<float>(C, chunk), NTA,
-                           GramSmem(th, tw, C, heads, chunk).total);
+    return resident_blocks(gram_kernel<float>(Cq, chunk), NTA,
+                           GramSmem(th, tw, C, Cq, heads, chunk).total);
+  if (kind == 2)
+    return resident_blocks(k_project<float>, NTA, project_bytes(th, tw, C, Cq, heads, chunk));
   const size_t bytes = FfnSmem(th, tw, C, C / heads, fc, true, chunk).total;
   return fc == 64 ? resident_blocks(k_apply<64, float, float>, NTA, bytes)
                   : resident_blocks(k_apply<32, float, float>, NTA, bytes);
+}
+
+// The same for a whole block (q, k and v of C channels).
+int raie_stage_smem_bytes(int kind, int th, int tw, int C, int heads, int fc, int chunk) {
+  return raie_stage_shard_smem_bytes(kind, th, tw, C, C, heads, fc, chunk);
+}
+
+int raie_stage_blocks_per_sm(int kind, int th, int tw, int C, int heads, int fc, int chunk) {
+  return raie_stage_shard_blocks_per_sm(kind, th, tw, C, C, heads, fc, chunk);
 }
 
 const char* raie_stage_error_string(int code) { return tile_error_string(code); }
@@ -625,24 +705,27 @@ int raie_stage_phase_buffers(void* gram_rows, void* apply_rows) {
 
 int raie_stage_gram(const void* x, int x_is_bf16, const void* ln1, const void* ln1b,
                     const void* wqkv, const void* dwqkv, void* part, void* vout, int B, int H,
-                    int W, int C, int heads, int th, int tw, int groups, int chunk, int halo,
-                    int y_img, int H_img, float eps, void* stream) {
-  const int nq = chunk == 0 ? C : chunk;
-  if (!shape_ok(0, C, heads, 0, 0, th, tw, nq)) return ERR_SHAPE;
+                    int W, int C, int Cq, int heads, int th, int tw, int groups, int chunk,
+                    int halo, int y_img, int H_img, float eps, void* stream) {
+  if (Cq == 0) Cq = C;
+  const int nq = chunk == 0 ? Cq : chunk;
+  if (!shape_ok(0, C, Cq, heads, 0, 0, th, tw, nq)) return ERR_SHAPE;
   Geo g = make_geo(B, H, W, C, heads, 0, 0, th, tw);
   if (!set_band(g, halo, y_img, H_img)) return ERR_SHAPE;
-  const size_t bytes = GramSmem(th, tw, C, heads, nq).total;
+  g.Cq = Cq;
+  g.hc = Cq / heads;
+  const size_t bytes = GramSmem(th, tw, C, Cq, heads, nq).total;
   const dim3 grid(groups, B);
   cudaStream_t s = (cudaStream_t)stream;
   int err;
   if (x_is_bf16) {
-    auto k = gram_kernel<bf16>(C, nq);
+    auto k = gram_kernel<bf16>(Cq, nq);
     if ((err = opt_in(k, bytes))) return err;
     k<<<grid, NTA, bytes, s>>>((const bf16*)x, (const float*)ln1, (const float*)ln1b,
                                (const bf16*)wqkv, (const float*)dwqkv, (float*)part,
                                (bf16*)vout, g, groups, nq, eps);
   } else {
-    auto k = gram_kernel<float>(C, nq);
+    auto k = gram_kernel<float>(Cq, nq);
     if ((err = opt_in(k, bytes))) return err;
     k<<<grid, NTA, bytes, s>>>((const float*)x, (const float*)ln1, (const float*)ln1b,
                                (const bf16*)wqkv, (const float*)dwqkv, (float*)part,
@@ -665,7 +748,7 @@ int raie_stage_apply(const void* x, int x_is_bf16, void* y, int y_is_bf16,
                      int B, int H, int W, int C, int heads, int Fp, int fc, int th, int tw,
                      int chunk, int halo, int y_img, int H_img, float eps, void* stream) {
   const int kp = chunk == 0 ? C : chunk;
-  if (!shape_ok(1, C, heads, Fp, fc, th, tw, kp)) return ERR_SHAPE;
+  if (!shape_ok(1, C, C, heads, Fp, fc, th, tw, kp)) return ERR_SHAPE;
   Geo g = make_geo(B, H, W, C, heads, Fp, fc, th, tw);
   if (!set_band(g, halo, y_img, H_img)) return ERR_SHAPE;
   g.kp = kp;
@@ -675,6 +758,37 @@ int raie_stage_apply(const void* x, int x_is_bf16, void* y, int y_is_bf16,
                     FfnSmem(th, tw, C, g.hc, fc, true, kp).total, (cudaStream_t)stream};
   if (x_is_bf16) return y_is_bf16 ? launch_apply<bf16, bf16>(a) : launch_apply<bf16, float>(a);
   return y_is_bf16 ? launch_apply<float, bf16>(a) : launch_apply<float, float>(a);
+}
+
+// (C'): r (B, Hs, W, C) fp32 = x + (attn @ v) @ W_proj on a model shard (x
+// null: without x), v (B, Hs, W, Cq), attn_t (B, heads, hc, hc), W_proj
+// (Cq, C); th x tw tiles and kp = chunk as (C)'s layout query gave them.
+int raie_stage_project(const void* x, int x_is_bf16, void* r, const void* vin,
+                       const void* attn_t, const void* wproj, int B, int H, int W, int C, int Cq,
+                       int heads, int th, int tw, int chunk, int halo, int y_img, int H_img,
+                       void* stream) {
+  if (Cq == 0) Cq = C;
+  const int kp = chunk == 0 ? Cq : chunk;
+  if (!shape_ok(2, C, Cq, heads, 0, 0, th, tw, kp)) return ERR_SHAPE;
+  Geo g = make_geo(B, H, W, C, heads, 0, 0, th, tw);
+  if (!set_band(g, halo, y_img, H_img)) return ERR_SHAPE;
+  g.Cq = Cq;
+  g.hc = Cq / heads;
+  g.kp = kp;
+  const size_t bytes = project_bytes(th, tw, C, Cq, heads, kp);
+  const dim3 grid(g.ntiles, B);
+  cudaStream_t s = (cudaStream_t)stream;
+  int err;
+  if (x_is_bf16) {
+    if ((err = opt_in(k_project<bf16>, bytes))) return err;
+    k_project<bf16><<<grid, NTA, bytes, s>>>((const bf16*)x, (float*)r, (const bf16*)vin,
+                                             (const bf16*)attn_t, (const bf16*)wproj, g);
+  } else {
+    if ((err = opt_in(k_project<float>, bytes))) return err;
+    k_project<float><<<grid, NTA, bytes, s>>>((const float*)x, (float*)r, (const bf16*)vin,
+                                              (const bf16*)attn_t, (const bf16*)wproj, g);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

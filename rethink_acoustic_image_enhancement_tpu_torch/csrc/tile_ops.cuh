@@ -54,14 +54,17 @@ constexpr int PAD = 8;
 constexpr int PADF = 4;
 
 // fc: GDFN hidden channels per chunk (64 or 32); kp: rows of W_proj that
-// stage.cu's kernel (C) holds at once (C, or a chunk where C x C bf16 does
-// not fit beside the tile). A tensor holds, per
+// stage.cu's kernel (C) holds at once (Cq, or a chunk where Cq x C bf16 does
+// not fit beside the tile). C is the width of x and of the block's output;
+// Cq that of q, k and v, heads heads of hc = Cq / heads channels: C itself,
+// or on a model shard the channels of the shard's heads
+// (ops/stage.py::fused_transformer_stage_shards). A tensor holds, per
 // sample, H own rows with `halo` rows above and below them (Hs stored rows):
 // the band of rows [y_img, y_img + H) of an image of H_img rows, its halo
 // rows its neighbours' (ops/stage.py::fused_transformer_stage_bands). A
 // whole image is the band with halo 0, y_img 0 and H_img = H.
 struct Geo {
-  int B, H, W, C, heads, hc, Fp, fc, th, tw, ntj, ntiles;
+  int B, H, W, C, Cq, heads, hc, Fp, fc, th, tw, ntj, ntiles;
   int halo, Hs, y_img, H_img, kp;
 };
 
@@ -254,19 +257,23 @@ __device__ __forceinline__ bool readable(const Geo& g, int yy, int xx) {
          xx >= 0 && xx < g.W;
 }
 
-// Element offset of pixel (yy, xx) of sample b, yy in [-halo, H + halo).
+// Element offset of pixel (yy, xx) of sample b, yy in [-halo, H + halo),
+// in a tensor of ch channels (C by default).
+__device__ __forceinline__ size_t pix(const Geo& g, int b, int yy, int xx, int ch) {
+  return (((size_t)b * g.Hs + (yy + g.halo)) * g.W + xx) * ch;
+}
 __device__ __forceinline__ size_t pix(const Geo& g, int b, int yy, int xx) {
-  return (((size_t)b * g.Hs + (yy + g.halo)) * g.W + xx) * g.C;
+  return pix(g, b, yy, xx, g.C);
 }
 
-// Copy the (th+2) x (tw+2) pixels around a tile (C bf16 channels each) into
+// Copy the (th+2) x (tw+2) pixels around a tile (ch bf16 channels each) into
 // shared-memory rows of stride ldd (a multiple of 8) with 16-byte cp.async
 // copies by the whole block of NTA threads, as one group: the copy overlaps
 // what follows until cp_async_wait() and a barrier. Pixels that are not
 // readable and rows n..m are zeroed with plain stores.
 __device__ void load_halo_async(const bf16* x, bf16* dst, int ldd, const Geo& g, int b, int y0,
-                                int x0, int m) {
-  const int wr = g.tw + 2, n = (g.th + 2) * wr, nv = g.C / 8;
+                                int x0, int m, int ch) {
+  const int wr = g.tw + 2, n = (g.th + 2) * wr, nv = ch / 8;
   const int dr = NTA / nv, dc = NTA % nv;  // a thread's next copy, with no division
   int p = threadIdx.x / nv, c = threadIdx.x % nv;
   while (p < m) {
@@ -275,7 +282,7 @@ __device__ void load_halo_async(const bf16* x, bf16* dst, int ldd, const Geo& g,
     if (p < n && readable(g, yy, xx)) {
       const unsigned sd = (unsigned)__cvta_generic_to_shared(d);
       asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(sd),
-                   "l"(x + pix(g, b, yy, xx) + c * 8));
+                   "l"(x + pix(g, b, yy, xx, ch) + c * 8));
     } else {
       *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
     }
@@ -342,9 +349,9 @@ enum { PH_LOAD, PH_ATTN_V, PH_PROJ, PH_LN2, PH_W_IN, PH_DW_GATE, PH_W_OUT, PH_ST
 // ---- a tile that ends in the GDFN ----------------------------------------
 
 // Shared memory of such a block (host and device agree through this). With
-// `attn`, the layout of stage.cu's kernel (C), which first holds attn^T,
-// W_proj, v and attn @ v; else that of gdfn.cu's kernel. Three regions alias
-// by lifetime:
+// `attn`, the layout of stage.cu's kernels (C) and (C'), which first hold
+// attn^T, W_proj, v and attn @ v (of Cq channels; Cq < 0 is C); else that of
+// gdfn.cu's kernel. Three regions alias by lifetime:
 //   w:  attn^T and W_proj side by side, dead after the W_proj product; then
 //       one W_in chunk (win) and one W_out chunk (wout).
 //   rn: attn @ v (bf16), dead after the W_proj product; then LN(r).
@@ -357,12 +364,14 @@ enum { PH_LOAD, PH_ATTN_V, PH_PROJ, PH_LN2, PH_W_IN, PH_DW_GATE, PH_W_OUT, PH_ST
 // held kp rows at a time (kp = C: all of it).
 struct FfnSmem {
   size_t w, wproj, win, wout, rn, x, t2, gg, taps, lnw, lnb, stat, total;
-  __host__ __device__ FfnSmem(int th, int tw, int C, int hc, int fc, bool attn, int kp) {
+  __host__ __device__ FfnSmem(int th, int tw, int C, int hc, int fc, bool attn, int kp,
+                              int Cq = -1) {
     const int m1 = round16((th + 2) * (tw + 2)), P = th * tw, LX = C + PAD;
+    const int LQ = (Cq < 0 ? C : Cq) + PAD;
     const size_t win_b = align128((size_t)C * (2 * fc + PAD) * 2);
     const size_t wout_b = align128((size_t)fc * LX * 2);
-    const size_t attn_b = align128((size_t)hc * LX * 2), proj_b = align128((size_t)kp * LX * 2);
-    const size_t rows_b = align128((size_t)m1 * LX * 2);
+    const size_t attn_b = align128((size_t)hc * LQ * 2), proj_b = align128((size_t)kp * LX * 2);
+    const size_t rows_b = align128((size_t)m1 * LX * 2), vrows_b = align128((size_t)m1 * LQ * 2);
     const size_t t2_b = align128((size_t)m1 * (2 * fc + PAD) * 2);
     const size_t gg_b = align128((size_t)P * (fc + PAD) * 2);
     const size_t seed_b = align128((size_t)P * (C + PADF) * 4);
@@ -371,7 +380,7 @@ struct FfnSmem {
     o += max2(win_b + wout_b, attn ? attn_b + proj_b : 0);
     rn = o;     o += rows_b;
     x = o;      t2 = x;  gg = x + t2_b;
-    o += max2(max2(t2_b + gg_b, seed_b), attn ? rows_b : 0);
+    o += max2(max2(t2_b + gg_b, seed_b), attn ? vrows_b : 0);
     taps = o;   o += align128((size_t)2 * 18 * fc * 4);
     lnw = o;    o += align128((size_t)C * 4);
     lnb = o;    o += align128((size_t)C * 4);
@@ -421,16 +430,18 @@ __device__ __forceinline__ void ffn_load_chunk(const FfnBufs& s, const FfnWeight
   });
 }
 
-// What stage.cu's kernel (C) gives r_ln_tile beyond the tile, in shared
-// memory: v on the halo and attn @ v (m1 rows of stride C + PAD), attn^T (hc
-// rows) and W_proj (g.kp rows) of the same stride; and W_proj (C x C) in
-// device memory, which the product loads kp rows at a time where kp < C.
+// What stage.cu's kernels (C) and (C') give r_ln_tile beyond the tile, in
+// shared memory: v on the halo and attn @ v (m1 rows of stride Cq + PAD),
+// attn^T (hc rows of the same stride) and W_proj (g.kp rows of stride C +
+// PAD); W_proj (Cq x C) in device memory, which the product loads kp rows at
+// a time where kp < Cq; and (C') where r goes (fp32, C channels a pixel).
 struct AttnIn {
   const bf16* v;
   const bf16* attn_t;
   bf16* wproj;
   bf16* oa;
   const bf16* wproj_dev;
+  float* r_out;
 };
 
 // r = x [+ (attn @ v) @ W_proj] on the tile's 1-pixel halo, LN(r) (bf16) to
@@ -451,7 +462,11 @@ struct AttnIn {
 // are written but not yet fenced: gdfn_chunks begins with the barrier.
 // NFS > 0 fixes nf at compile time (C = 16 NFS <= 96, one warp to a row), so
 // the fragment loops carry no runtime bounds; NFS = 0 is any C.
-template <bool Attn, bool Seed, int NFS, class Tin, class F>
+// Stop (stage.cu's kernel (C'), Attn only) ends after the W_proj product:
+// r = [x +] (attn @ v) @ W_proj, attn @ v of g.Cq channels, goes in fp32 to
+// a.r_out on the tile's own pixels, x left out where it is null; no
+// LayerNorm, and products_done is not called.
+template <bool Attn, bool Seed, int NFS, bool Stop, class Tin, class F>
 __device__ __forceinline__ void r_ln_tile_n(const FfnBufs& s, const Tin* __restrict__ x,
                                             const AttnIn& a, const Geo& g, int b, int y0, int x0,
                                             float eps, bool apply_ln, bool with_bias,
@@ -468,17 +483,28 @@ __device__ __forceinline__ void r_ln_tile_n(const FfnBufs& s, const Tin* __restr
   int nf_any = NC - f_lo < fpw ? NC - f_lo : fpw;
   if (nf_any < 0 || warp / ncw >= mt_round) nf_any = 0;
   const int nf = NFS > 0 ? NFS : nf_any;
+  // attn @ v's width, and this warp's fragments of it: its share of C's
+  // fragments where the two widths agree
+  const int Cq = Stop ? g.Cq : C, LQ = Cq + PAD;
+  int fq_lo = f_lo, nfq = nf;
+  if constexpr (Stop) {
+    const int NCQ = Cq / 16, fpwq = (NCQ + ncw - 1) / ncw;
+    fq_lo = cg * fpwq;
+    nfq = NCQ - fq_lo < fpwq ? NCQ - fq_lo : fpwq;
+    if (nfq < 0 || nf == 0) nfq = 0;
+  }
+  const bool has_x = !Stop || x != nullptr;
 
   if constexpr (Attn) {
     const int hc = g.hc;
     int hoff[MAXF];  // first channel of the head each fragment lies in
 #pragma unroll
-    for (int j = 0; j < MAXF; ++j) hoff[j] = (f_lo + j) * 16 / hc * hc;
+    for (int j = 0; j < MAXF; ++j) hoff[j] = (fq_lo + j) * 16 / hc * hc;
     // all of this warp's fragments in one head: they share each A fragment
-    const bool one_head = nf == 0 || hoff[0] == (f_lo + nf - 1) * 16 / hc * hc;
+    const bool one_head = nfq == 0 || hoff[0] == (fq_lo + nfq - 1) * 16 / hc * hc;
     for (int rd = 0; rd < rounds; ++rd) {
       const int m0 = (rd * mt_round + warp / ncw) * 16;
-      if (nf == 0 || m0 >= mtiles * 16) continue;
+      if (nfq == 0 || m0 >= mtiles * 16) continue;
       float acc[2 * MAXF][4];
 #pragma unroll
       for (int j = 0; j < 2 * MAXF; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
@@ -489,29 +515,29 @@ __device__ __forceinline__ void r_ln_tile_n(const FfnBufs& s, const Tin* __restr
         unsigned bf[MAXF][4];
 #pragma unroll
         for (int j = 0; j < MAXF; ++j)
-          if (j < nf) ldsm_x4_t(bf[j], a.attn_t + (k + lrow) * LX + (f_lo + j) * 16 + lcol);
+          if (j < nfq) ldsm_x4_t(bf[j], a.attn_t + (k + lrow) * LQ + (fq_lo + j) * 16 + lcol);
         if (one_head) {
           unsigned af[4];
-          ldsm_x4(af, a.v + (m0 + lrow) * LX + hoff[0] + k + lcol);
+          ldsm_x4(af, a.v + (m0 + lrow) * LQ + hoff[0] + k + lcol);
 #pragma unroll
           for (int j = 0; j < MAXF; ++j)
-            if (j < nf) frag_mma(acc[2 * j], acc[2 * j + 1], af, bf[j]);
+            if (j < nfq) frag_mma(acc[2 * j], acc[2 * j + 1], af, bf[j]);
         } else {
           unsigned af[MAXF][4];
 #pragma unroll
           for (int j = 0; j < MAXF; ++j)
-            if (j < nf) ldsm_x4(af[j], a.v + (m0 + lrow) * LX + hoff[j] + k + lcol);
+            if (j < nfq) ldsm_x4(af[j], a.v + (m0 + lrow) * LQ + hoff[j] + k + lcol);
 #pragma unroll
           for (int j = 0; j < MAXF; ++j)
-            if (j < nf) frag_mma(acc[2 * j], acc[2 * j + 1], af[j], bf[j]);
+            if (j < nfq) frag_mma(acc[2 * j], acc[2 * j + 1], af[j], bf[j]);
         }
       }
 #pragma unroll
       for (int j = 0; j < 2 * MAXF; ++j) {
-        if (j >= 2 * nf) continue;
-        bf16* o = a.oa + (m0 + gq) * LX + f_lo * 16 + 8 * j + q2;
+        if (j >= 2 * nfq) continue;
+        bf16* o = a.oa + (m0 + gq) * LQ + fq_lo * 16 + 8 * j + q2;
         st2(o, make_float2(acc[j][0], acc[j][1]));
-        st2(o + 8 * LX, make_float2(acc[j][2], acc[j][3]));
+        st2(o + 8 * LQ, make_float2(acc[j][2], acc[j][3]));
       }
     }
     // attn @ v is read along whole rows: by the warp that wrote them where it
@@ -536,16 +562,16 @@ __device__ __forceinline__ void r_ln_tile_n(const FfnBufs& s, const Tin* __restr
     float acc[2 * MAXF][4];
 #pragma unroll
     for (int j = 0; j < 2 * MAXF; ++j) {
-      const float2 lo = in0 && j < 2 * nf ? ld2(px0 + 8 * j) : make_float2(0.f, 0.f);
-      const float2 hi = in1 && j < 2 * nf ? ld2(px1 + 8 * j) : make_float2(0.f, 0.f);
+      const float2 lo = has_x && in0 && j < 2 * nf ? ld2(px0 + 8 * j) : make_float2(0.f, 0.f);
+      const float2 hi = has_x && in1 && j < 2 * nf ? ld2(px1 + 8 * j) : make_float2(0.f, 0.f);
       acc[j][0] = lo.x, acc[j][1] = lo.y, acc[j][2] = hi.x, acc[j][3] = hi.y;
     }
     if constexpr (Attn) {
       // r = x + bf16(attn @ v) @ W_proj, W_proj's rows kc .. kc + kp - 1 at
-      // a time (all at once where kp = C, loaded by the caller)
+      // a time (all at once where kp = Cq, loaded by the caller)
       const int kp = g.kp;
-      for (int kc = 0; kc < C; kc += kp) {
-        if (kp < C) {
+      for (int kc = 0; kc < Cq; kc += kp) {
+        if (kp < Cq) {
           // every warp is past the last rows' product (at the first chunk:
           // past attn @ v, which does not share W_proj's bytes)
           __syncthreads();
@@ -557,7 +583,7 @@ __device__ __forceinline__ void r_ln_tile_n(const FfnBufs& s, const Tin* __restr
         if (active) {
           for (int k = kc; k < kc + kp; k += 16) {
             unsigned af[4], bf[MAXF][4];
-            ldsm_x4(af, a.oa + (m0 + lrow) * LX + k + lcol);
+            ldsm_x4(af, a.oa + (m0 + lrow) * LQ + k + lcol);
 #pragma unroll
             for (int j = 0; j < MAXF; ++j)
               if (j < nf)
@@ -569,6 +595,21 @@ __device__ __forceinline__ void r_ln_tile_n(const FfnBufs& s, const Tin* __restr
         }
       }
       pc.mark(PH_PROJ);
+    }
+    if constexpr (Stop) {
+      // r on the tile's own pixels of the band, from the registers
+      if (!active) continue;
+      const bool out0 = hy0 >= 1 && hy0 <= g.th && hx0 >= 1 && hx0 <= g.tw && inside(g, yy0, xx0);
+      const bool out1 = hy1 >= 1 && hy1 <= g.th && hx1 >= 1 && hx1 <= g.tw && inside(g, yy1, xx1);
+      float* r0 = a.r_out + pix(g, b, out0 ? yy0 : 0, out0 ? xx0 : 0) + c0;
+      float* r1 = a.r_out + pix(g, b, out1 ? yy1 : 0, out1 ? xx1 : 0) + c0;
+#pragma unroll
+      for (int j = 0; j < 2 * MAXF; ++j) {
+        if (j >= 2 * nf) continue;
+        if (out0) st2(r0 + 8 * j, make_float2(acc[j][0], acc[j][1]));
+        if (out1) st2(r1 + 8 * j, make_float2(acc[j][2], acc[j][3]));
+      }
+      continue;
     }
     // two-pass statistics of rows row0 and row1 over all C channels
     float mean0 = 0.f, mean1 = 0.f, inv0 = 1.f, inv1 = 1.f;
@@ -653,30 +694,31 @@ __device__ __forceinline__ void r_ln_tile_n(const FfnBufs& s, const Tin* __restr
   }
 }
 
-template <bool Attn, bool Seed, class Tin, class F>
+template <bool Attn, bool Seed, bool Stop = false, class Tin, class F>
 __device__ __forceinline__ void r_ln_tile(const FfnBufs& s, const Tin* __restrict__ x,
                                           const AttnIn& a, const Geo& g, int b, int y0, int x0,
                                           float eps, bool apply_ln, bool with_bias,
                                           F products_done, PhaseClock& pc) {
   if (g.C == 16 * MAXF)
-    r_ln_tile_n<Attn, Seed, MAXF>(s, x, a, g, b, y0, x0, eps, apply_ln, with_bias,
-                                  products_done, pc);
+    r_ln_tile_n<Attn, Seed, MAXF, Stop>(s, x, a, g, b, y0, x0, eps, apply_ln, with_bias,
+                                        products_done, pc);
   else
-    r_ln_tile_n<Attn, Seed, 0>(s, x, a, g, b, y0, x0, eps, apply_ln, with_bias,
-                               products_done, pc);
+    r_ln_tile_n<Attn, Seed, 0, Stop>(s, x, a, g, b, y0, x0, eps, apply_ln, with_bias,
+                                     products_done, pc);
 }
 
 // y = r + W_out (gelu(t1) * t2), t = dw3x3(W_in LN(r)), on the tile at
 // (y0, x0) of sample b, after r_ln_tile: s.rn holds LN(r) on the tile's
 // 1-pixel halo (m1 rows of stride C + PAD) and s.seed r on the tile's own
-// pixels. The hidden channels go in chunks of FC (= g.fc, a template
+// pixels (without Seeded, y = W_out (gelu(t1) * t2) alone and s.seed is not
+// read: the partial sum of a model shard's hidden channels). The hidden channels go in chunks of FC (= g.fc, a template
 // parameter so the depthwise step's strides are constants): W_in chunk,
 // dw3x3 over the real halo, GELU gate, W_out accumulated in registers: a warp
 // keeps up to OUTF 16x16 fragments of the tile-pixels x C output from the
 // seed to the store. The caller has started chunk 0's loads (ffn_load_chunk
 // into taps set 0). Weights load a phase ahead: W_in's next chunk and W_out's
 // current one while the depthwise step runs. Two barriers a chunk.
-template <int FC, class Tout>
+template <int FC, class Tout, bool Seeded = true>
 __device__ __forceinline__ void gdfn_chunks(const FfnBufs& s, Tout* __restrict__ y,
                                             const FfnWeights& wt, const Geo& g, int b, int y0,
                                             int x0, PhaseClock& pc) {
@@ -710,8 +752,8 @@ __device__ __forceinline__ void gdfn_chunks(const FfnBufs& s, Tout* __restrict__
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const float* sp = s.seed + (orow[i] + gq) * LS + ocol[i] + 8 * h + q2;
-      const float2 a0 = i < nmine ? ld2(sp) : make_float2(0.f, 0.f);
-      const float2 a1 = i < nmine ? ld2(sp + 8 * LS) : make_float2(0.f, 0.f);
+      const float2 a0 = Seeded && i < nmine ? ld2(sp) : make_float2(0.f, 0.f);
+      const float2 a1 = Seeded && i < nmine ? ld2(sp + 8 * LS) : make_float2(0.f, 0.f);
       oacc[2 * i + h][0] = a0.x, oacc[2 * i + h][1] = a0.y;
       oacc[2 * i + h][2] = a1.x, oacc[2 * i + h][3] = a1.y;
     }
@@ -833,9 +875,10 @@ __device__ __forceinline__ void gdfn_chunks(const FfnBufs& s, Tout* __restrict__
 
 // ---- host helpers ----------------------------------------------------------
 
+// Cq = C; a model shard's (A) and (C') set Cq and hc after.
 inline Geo make_geo(int B, int H, int W, int C, int heads, int Fp, int fc, int th, int tw) {
   Geo g;
-  g.B = B; g.H = H; g.W = W; g.C = C; g.heads = heads; g.hc = C / heads;
+  g.B = B; g.H = H; g.W = W; g.C = C; g.Cq = C; g.heads = heads; g.hc = C / heads;
   g.Fp = Fp; g.fc = fc; g.th = th; g.tw = tw;
   g.ntj = (W + tw - 1) / tw;
   g.ntiles = ((H + th - 1) / th) * g.ntj;

@@ -51,8 +51,14 @@ the padded height rounds up to ``multiple_of * N`` (``shape_bucket * N``),
 one band a device of the mesh's first spatial row, each with its own copy
 of the model (``models/bands.py``); ``hq`` and ``sr`` are put together on
 the first. Extra padding rows enter the global MDTA statistics, as
-``shape_bucket``'s do. Tiled serving, the student and the scorer refuse a
-spatial or model axis, and a ``model`` axis is not ported yet.
+``shape_bucket``'s do. A ``model`` axis of N > 1 serves the teacher's
+``__call__`` (and ``denoise_group``, per image) tensor-parallel: the image
+padded as for one device and uploaded to each device of the mesh's model
+axis, each holding one shard of the model (``models/shards.py``: every
+block's heads and hidden channels split, the partial sums added across
+shards); ``hq`` and ``sr`` come from the first. A spatial and a model axis
+together raise, as in the JAX package. Tiled serving, the student and the
+scorer refuse a spatial or model axis.
 """
 
 from __future__ import annotations
@@ -69,9 +75,11 @@ from torch import nn
 
 from ..models import DenoiseRatePredictor, KDLAEStudent, KDLAETeacher
 from ..models.bands import teacher_bands
+from ..models.shards import shard_teacher, teacher_shards
 from ..ops.mask import apply_zero_mask, zero_mask_from_input
 from ..parallel.mesh import DATA_AXIS, MODEL_AXIS, SPATIAL_AXIS
 from ..parallel.spatial import LocalBands, join_rows, split_rows
+from ..parallel.tensor import LocalShards
 from ..utils.image_io import (imread_gray, imread_rgb_ubyte, list_images,
                               resize_area, to_ubyte)
 
@@ -265,8 +273,8 @@ class TeacherPredictor:
     sizes up to a coarser grid (MDTA statistics are global over the padded
     pixels, so bucketed outputs deviate slightly from multiple-of-8
     padding). ``devices`` serves tiles data-parallel; ``mesh`` serves a
-    data mesh as ``devices``, or one image on row bands over a spatial axis
-    (module docstring)."""
+    data mesh as ``devices``, one image on row bands over a spatial axis,
+    or one image on model shards over a model axis (module docstring)."""
 
     def __init__(self, model: KDLAETeacher | None = None, multiple_of: int = 8,
                  shape_bucket: int | None = None,
@@ -281,15 +289,16 @@ class TeacherPredictor:
                 f"multiple_of={multiple_of}")
         self.mesh = mesh
         self._bands = None  # the exchange of a spatial mesh's row bands
+        self._shards = None  # the exchange of a model mesh's shards
         if mesh is not None and mesh.shape[MODEL_AXIS] > 1:
             if mesh.shape[SPATIAL_AXIS] > 1:
                 raise ValueError(
                     "tensor-parallel ('model') and spatial mesh axes "
                     "cannot be combined in one predictor; use one axis > 1")
-            raise NotImplementedError(
-                "tensor-parallel serving (a 'model' mesh axis) is not ported "
-                "yet: ROADMAP.md Queue A item 5")
-        if mesh is not None and mesh.shape[SPATIAL_AXIS] > 1:
+            _mesh_alone(mesh, device, devices)
+            self._shards = LocalShards(mesh.model_devices())
+            devices = self._shards.devices[:1]
+        elif mesh is not None and mesh.shape[SPATIAL_AXIS] > 1:
             _mesh_alone(mesh, device, devices)
             self._bands = LocalBands(mesh.spatial_devices())
             devices = self._bands.devices
@@ -309,7 +318,16 @@ class TeacherPredictor:
         self.shape_bucket = shape_bucket
         self.dtype = dtype
         self._transfers = Transfers(self.device)
-        self._copies = _make_copies(self.model, devices, self._transfers)
+        if self._shards is None:
+            self._copies = _make_copies(self.model, devices, self._transfers)
+        else:
+            # one shard of the model a device of the model axis, with the
+            # whole copy's flags; the whole copy goes
+            devices = self._shards.devices
+            self._copies = [_Copy(m.eval(), d, self._transfers if j == 0 else Transfers(d))
+                            for j, (m, d) in enumerate(zip(shard_teacher(self.model, devices),
+                                                           devices))]
+            self.model = self._copies[0].model
 
     @property
     def models(self) -> list[nn.Module]:
@@ -360,6 +378,8 @@ class TeacherPredictor:
             x = x.astype(np.float32)
         if self._bands is not None:
             hq, sr = self._forward_bands(x, denoise_rate)
+        elif self._shards is not None:
+            hq, sr = self._forward_shards(x, denoise_rate)
         else:
             hq, sr = self._forward(x, denoise_rate)
         return _postprocess(img_rgb, hq[0].cpu().numpy(),
@@ -389,6 +409,25 @@ class TeacherPredictor:
 
         return joined("hq"), joined("sr")
 
+    @torch.inference_mode()
+    def _forward_shards(self, x: np.ndarray, denoise_rate: float):
+        """``_forward_device`` on model shards: (1, H, W, 3) on the host,
+        uploaded to every shard's device and prepared there as one device
+        prepares it; shard 0's uint8 'hq' and 'sr'."""
+        imgs, rates = [], []
+        for d in self._shards.devices:
+            img = torch.from_numpy(np.ascontiguousarray(x)).to(d)
+            img = (img.float() / 255.0 if img.dtype == torch.uint8 else img).to(self.dtype)
+            imgs.append(img.permute(0, 3, 1, 2))
+            rate = torch.full((), denoise_rate, dtype=self.dtype, device=d)
+            rates.append(rate.reshape(1, 1, 1, 1).expand(img.shape[0], 1, *img.shape[1:3]))
+        with highest_precision() if self._fp32 else contextlib.nullcontext():
+            out = teacher_shards(self.models, imgs, rates, self._shards)
+        hq = _to_ubyte_device(out["hq"][0]).permute(0, 2, 3, 1)
+        sr = (None if out["sr"] is None
+              else _to_ubyte_device(out["sr"][0]).permute(0, 2, 3, 1))
+        return hq, sr
+
     def denoise_file(self, path: str, denoise_rate: float = 1.0, **kw) -> dict:
         return self(imread_rgb_ubyte(path), denoise_rate, **kw)
 
@@ -404,9 +443,9 @@ class TeacherPredictor:
         and group k-1 is fetched and post-processed. With ``shape_bucket``
         images whose bucketed padded size matches group together (each
         cropped back to its own size); other mixed shapes are served per
-        image, and so is a tail shorter than a group. With ``devices`` every
-        image goes through ``__call__`` (as the JAX package serves a mesh per
-        image)."""
+        image, and so is a tail shorter than a group. With ``devices`` or a
+        mesh every image goes through ``__call__`` (as the JAX package serves
+        a mesh per image)."""
         if not imgs_rgb:
             return []
         if self._copies is not None:
@@ -448,8 +487,9 @@ class TeacherPredictor:
 
     def scan_eligible(self, imgs: list[np.ndarray], group_size: int) -> bool:
         """True when ``imgs`` can run as one group (a full group of one raw
-        shape, or of one bucketed shape; never on row bands)."""
-        if len(imgs) != group_size or self._bands is not None:
+        shape, or of one bucketed shape; never on row bands or model
+        shards)."""
+        if len(imgs) != group_size or self._bands is not None or self._shards is not None:
             return False
         shape0 = imgs[0].shape
         if all(im.shape == shape0 for im in imgs):

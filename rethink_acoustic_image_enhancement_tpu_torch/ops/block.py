@@ -19,6 +19,15 @@ float32 accumulation for the five products, the qkv and W_in outputs
 rounded to bf16 before their float32 depthwise 3x3, two-pass LayerNorm and
 exact-erf GELU. ``ops/stage.py`` runs N BiasFree blocks through the same
 launches.
+
+On model shards (tensor-parallel serving, ``parallel/tensor.py``) a block
+is split Megatron-style: each shard holds the columns of its heads in each
+third of W_qkv (and their depthwise taps and temperatures) and those rows of
+W_proj, and a range of the GDFN's hidden channels. ``qkv_hidden``,
+``gram_part`` and ``attend`` take a shard's weights as they take a whole
+block's; ``attend(..., residual=False)`` gives the shard's partial of
+``W_proj o`` alone; ``block_f32_shards`` is the block on shards, one shard
+``block_f32``'s bits.
 """
 
 from __future__ import annotations
@@ -29,8 +38,8 @@ from typing import NamedTuple
 import torch
 
 from . import _build
-from .gdfn import (bf16_round, check_input, dw3x3, ffn_candidates,
-                   ffn_f32, ffn_hidden, ffn_out, pack_ffn, pick_layout)
+from .gdfn import (FFN_CHUNKS, FFN_TILES, bf16_round, check_input, dw3x3,
+                   ffn_candidates, ffn_f32, ffn_hidden, ffn_out, pack_ffn, pick_layout)
 from .norm import channel_layernorm
 
 _L2_EPS = 1e-12
@@ -62,7 +71,8 @@ class BlockWeights(NamedTuple):
 
 
 def qkv_hidden(x32, ln1, ln1b, wqkv, eps) -> torch.Tensor:
-    """The qkv depthwise input: bf16(bf16(LN1(x)) @ bf16(W_qkv))."""
+    """The qkv depthwise input: bf16(bf16(LN1(x)) @ bf16(W_qkv)), on all
+    of W_qkv's columns or on a shard's (C, 3 Cq) of them."""
     return bf16_round(bf16_round(channel_layernorm(x32, ln1, ln1b, eps=eps))
                       @ bf16_round(wqkv))
 
@@ -80,10 +90,11 @@ def gram_part(qkv: torch.Tensor, heads: int) -> torch.Tensor:
                       k.square().sum(1)[..., None]], -1)
 
 
-def attend(x32, qkv, part, temp, wproj) -> torch.Tensor:
+def attend(x32, qkv, part, temp, wproj, residual: bool = True) -> torch.Tensor:
     """r = x + bf16(attn @ v) @ W_proj, attn the softmax of the Gram over
     max(||q||, 1e-12) max(||k||, 1e-12) times the temperature, from the
-    summed ``gram_part``."""
+    summed ``gram_part``; without ``residual`` the product alone (a shard's
+    partial, W_proj its (Cq, C) rows)."""
     b, h, w, c3 = qkv.shape
     c, heads = c3 // 3, temp.numel()
     hc = c // heads
@@ -96,7 +107,8 @@ def attend(x32, qkv, part, temp, wproj) -> torch.Tensor:
     v = qkv[..., 2 * c:].reshape(b, h * w, heads, hc)
     oa = torch.einsum("bhcd,bphd->bphc", bf16_round(attn),
                       bf16_round(v)).reshape(b, h, w, c)
-    return x32 + bf16_round(oa) @ bf16_round(wproj)
+    y = bf16_round(oa) @ bf16_round(wproj)
+    return x32 + y if residual else y
 
 
 def block_f32(x, ln1, ln1b, wqkv, dwqkv, temp, wproj, ln2, ln2b, win, wdw,
@@ -124,6 +136,30 @@ def block_f32_bands(xs, ws, bands, eps) -> list[torch.Tensor]:
     a = [dw3x3(uh, w.wdw, halo=True)
          for uh, w in zip(bands.exchange_halo(u, 1, dim=1), ws)]
     return [ffn_out(ri, ai, w.wout) for ri, ai, w in zip(r, a, ws)]
+
+
+def block_f32_shards(xs, ws, shards, eps) -> list[torch.Tensor]:
+    """``block_f32`` on model shards (``parallel/tensor.py``; ``shards``
+    the exchange): xs[j] the whole input on shard j's device, ws[j] its
+    ``BlockWeights`` there (its heads' or the whole MDTA, and its hidden
+    channels). Where the shards split the heads, each takes its heads'
+    attention and its partial of W_proj o, shard 0 adding x, and the
+    partials are summed across shards; else each computes r whole. Then
+    each takes LN2 of the whole r and its hidden channels' part of the GDFN,
+    shard 0 adding r, summed across shards. One shard gives ``block_f32``'s
+    bits."""
+    split = ws[0].wqkv.shape[1] < 3 * xs[0].shape[-1]  # each holds some heads' columns
+    first = [j == 0 for j in shards.held]
+    r = []
+    for x, w, own in zip(xs, ws, first):
+        x32 = x.float()
+        qkv = dw3x3(qkv_hidden(x32, w.ln1, w.ln1b, w.wqkv, eps), w.dwqkv)
+        r.append(attend(x32, qkv, gram_part(qkv, w.temp.numel()), w.temp, w.wproj,
+                        residual=own or not split))
+    if split:
+        r = shards.sum_across(r)
+    return shards.sum_across([ffn_f32(ri, w.ln2, w.ln2b, w.win, w.wdw, w.wout, eps,
+                                      residual=own) for ri, w, own in zip(r, ws, first)])
 
 
 def _biases(ln1_w, ln1_b, ln2_w, ln2_b, bias_free: bool):
@@ -170,8 +206,10 @@ def pack_blocks(device, ln1_w, w_qkv, dw_qkv, temperature, w_proj, ln2_w,
     """Kernel operands of n blocks (every weight with a leading ``n`` dim):
     bf16 matrices, fp32 taps, norms and temperatures, and the GDFN's as
     ``ops/gdfn.py::pack_ffn`` lays them out. ``ln1_b``/``ln2_b`` stay None
-    for the BiasFree LayerNorm."""
+    for the BiasFree LayerNorm. A model shard's weights hold cq channels of
+    q, k and v (W_qkv (C, 3 cq), W_proj (cq, C)): ``cq`` in the result."""
     n, c = ln1_w.shape
+    cq = w_qkv.reshape(n, c, -1).shape[-1] // 3
     bf, f32 = torch.bfloat16, torch.float32
 
     def cont(t, dtype, *shape):
@@ -181,8 +219,8 @@ def pack_blocks(device, ln1_w, w_qkv, dw_qkv, temperature, w_proj, ln2_w,
 
     return dict(
         ln1=cont(ln1_w, f32, c), ln1b=cont(ln1_b, f32, c),
-        wqkv=cont(w_qkv, bf, c, 3 * c), dwqkv=cont(dw_qkv, f32, 9, 3 * c),
-        temp=cont(temperature, f32, -1), wproj=cont(w_proj, bf, c, c),
+        wqkv=cont(w_qkv, bf, c, 3 * cq), dwqkv=cont(dw_qkv, f32, 9, 3 * cq),
+        temp=cont(temperature, f32, -1), wproj=cont(w_proj, bf, cq, c), cq=cq,
         ln2=cont(ln2_w, f32, c), ln2b=cont(ln2_b, f32, c),
         **pack_ffn(w_in.reshape(n, c, -1), w_dw.reshape(n, 9, -1),
                    w_out.reshape(n, -1, c), c, device))
@@ -192,10 +230,13 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "raie_stage_smem_bytes": [_I] * 7,
     "raie_stage_blocks_per_sm": [_I] * 7,
-    "raie_stage_gram": [_P, _I] + [_P] * 6 + [_I] * 12 + [ctypes.c_float, _P],
+    "raie_stage_shard_smem_bytes": [_I] * 8,
+    "raie_stage_shard_blocks_per_sm": [_I] * 8,
+    "raie_stage_gram": [_P, _I] + [_P] * 6 + [_I] * 13 + [ctypes.c_float, _P],
     "raie_stage_softmax": [_P, _P, _P] + [_I] * 5 + [_P],
     "raie_stage_apply": [_P, _I, _P, _I] + [_P] * 8 + [_I] * 13
     + [ctypes.c_float, _P],
+    "raie_stage_project": [_P, _I] + [_P] * 4 + [_I] * 12 + [_P],
 }
 
 
@@ -206,10 +247,10 @@ def lib(name: str = "stage") -> ctypes.CDLL:
 
 
 class TilePlan(NamedTuple):
-    """Tiles of the Gram kernel (A) and of the apply kernel (C), (C)'s chunk
-    of hidden channels, and the thread blocks of each that the device keeps
-    resident on one SM; the wide layouts' chunks (0: the C x C weights held
-    whole)."""
+    """Tiles of the Gram kernel (A) and of the apply kernel (C) (on a model
+    shard the projection kernel (C')), (C)'s chunk of hidden channels, and
+    the thread blocks of each that the device keeps resident on one SM; the
+    wide layouts' chunks (0: the C x C weights held whole)."""
     gram_tile: tuple[int, int]
     gram_blocks: int
     fc: int
@@ -223,24 +264,33 @@ def _chunks(c: int, sizes) -> list[int]:
     return [k for k in sizes if k < c and c % k == 0]
 
 
-def plan_tiles(library, c: int, gram_heads: int) -> TilePlan:
+def plan_tiles(library, c: int, gram_heads: int, cq: int | None = None) -> TilePlan:
     """The layouts of the Gram kernel (its tile) and of the apply kernel
     (tile and chunk) by ``ops/gdfn.py::pick_layout``: two blocks resident per
     SM where a layout allows it, else one. A kernel takes its wide layout
-    (C x C weights in chunks) only where no layout holds them whole."""
+    (C x C weights in chunks) only where no layout holds them whole. With
+    ``cq`` (a model shard's q, k and v channels) those of (A) on the shard's
+    heads and of the projection kernel (C') in place of (C)."""
+
+    shard = "" if cq is None else "shard_"
+    widths = (c,) if cq is None else (c, cq)
 
     def pick(kind, candidates, chunks):
         def ask(f):
-            return lambda *cand: f(kind, *cand[:2], c, gram_heads, *cand[2:])
+            return lambda *cand: f(kind, *cand[:2], *widths, gram_heads, *cand[2:])
 
-        smem = ask(library.raie_stage_smem_bytes)
-        blocks = ask(library.raie_stage_blocks_per_sm)
+        smem = ask(getattr(library, f"raie_stage_{shard}smem_bytes"))
+        blocks = ask(getattr(library, f"raie_stage_{shard}blocks_per_sm"))
         return (pick_layout([cand + (0,) for cand in candidates], smem, blocks)
                 or pick_layout([cand + (k,) for cand in candidates for k in chunks],
                                smem, blocks))
 
-    gram = pick(0, [(th, tw, 0) for th, tw in _GRAM_TILES], _chunks(c, _GRAM_CHUNKS))
-    apply = pick(1, ffn_candidates(), _chunks(c, _PROJ_CHUNKS))
+    gram = pick(0, [(th, tw, 0) for th, tw in _GRAM_TILES], _chunks(widths[-1], _GRAM_CHUNKS))
+    if cq is None:
+        apply = pick(1, ffn_candidates(), _chunks(c, _PROJ_CHUNKS))
+    else:  # (C') has no hidden chunk: the smallest, as its layout holds it
+        apply = pick(2, [(th, tw, FFN_CHUNKS[-1]) for th, tw in FFN_TILES],
+                     _chunks(cq, _PROJ_CHUNKS))
     if gram is None or apply is None:
         raise ValueError(f"no block-kernel tile fits {c} channels")
     (gth, gtw, _, gk), gram_blocks = gram
@@ -265,10 +315,17 @@ class BlockRunner:
     image's own edges and read the halo rows elsewhere. A band runs
     ``gram``, ``softmax`` and ``apply`` apart, since every band's partial
     Gram (``part``) meets between the first two
-    (``ops/stage.py::fused_transformer_stage_bands``)."""
+    (``ops/stage.py::fused_transformer_stage_bands``).
+
+    ``cq``: a model shard's block (``ops/stage.py::
+    fused_transformer_stage_shards``), ``heads`` of the shard holding cq
+    channels of q, k and v (cq = C: the whole MDTA); it runs ``gram``,
+    ``softmax`` and ``project`` (kernel (C'), r in fp32) in place of
+    ``apply``, the GDFN being ``ops/gdfn.py``'s kernel on the shard's
+    hidden channels."""
 
     def __init__(self, x: torch.Tensor, heads: int, fp: int, library=None,
-                 band: tuple[int, int] | None = None):
+                 band: tuple[int, int] | None = None, cq: int | None = None):
         b, h, w, c = x.shape
         self.halo = 0 if band is None else 1
         h -= 2 * self.halo
@@ -280,23 +337,25 @@ class BlockRunner:
         self.device = x.device
         self.shape = (b, h, w, c)
         self.heads, self.fp = heads, fp
+        self.shard = cq is not None
+        self.cq = c if cq is None else cq
         # the Gram per head where fragments of 16 channels stay inside a
         # head; else the full C x C Gram with the softmax masked per head
-        self.gram_heads = heads if (c // heads) % 16 == 0 else 1
+        self.gram_heads = heads if (self.cq // heads) % 16 == 0 else 1
         with torch.cuda.device(x.device):  # occupancy of x's card
-            self.plan = plan_tiles(self.lib, c, self.gram_heads)
+            self.plan = plan_tiles(self.lib, c, self.gram_heads, cq)
         (self.gth, self.gtw), self.fc = self.plan.gram_tile, self.plan.fc
         self.ath, self.atw = self.plan.apply_tile
         n_tiles = -(-h // self.gth) * -(-w // self.gtw)
         n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
         self.groups = gram_groups(n_tiles, n_sm, b, self.plan.gram_blocks)
-        ghc = c // self.gram_heads
+        ghc = self.cq // self.gram_heads
         dev = x.device
-        self.part = torch.empty(b, self.groups, self.gram_heads * ghc * ghc + 2 * c,
+        self.part = torch.empty(b, self.groups, self.gram_heads * ghc * ghc + 2 * self.cq,
                                 dtype=torch.float32, device=dev)
         self.attn_t = torch.empty(b, self.gram_heads, ghc, ghc,
                                   dtype=torch.bfloat16, device=dev)
-        self.v = torch.empty(x.shape, dtype=torch.bfloat16, device=dev)
+        self.v = torch.empty(*x.shape[:3], self.cq, dtype=torch.bfloat16, device=dev)
         self.stream = torch.cuda.current_stream(dev).cuda_stream
 
     def _guard(self, src: torch.Tensor, p: dict, **more):
@@ -315,14 +374,14 @@ class BlockRunner:
             _build.check(lb, "stage", lb.raie_stage_gram(
                 src.data_ptr(), int(src.dtype == torch.bfloat16), ptr("ln1"),
                 ptr("ln1b"), ptr("wqkv"), ptr("dwqkv"), self.part.data_ptr(),
-                self.v.data_ptr(), b, h, w, c, self.gram_heads, self.gth,
+                self.v.data_ptr(), b, h, w, c, self.cq, self.gram_heads, self.gth,
                 self.gtw, self.groups, self.plan.gram_chunk, self.halo,
                 self.y_img, self.h_img, eps, self.stream), "A (Gram)")
 
     def softmax(self, part: torch.Tensor, p: dict, i: int) -> None:
         """(B): attn^T from ``part`` (this runner's, or every band's side by
         side along its groups, on this device)."""
-        b, _, _, c = self.shape
+        b = self.shape[0]
         lb = self.lib
         if part.device != self.device or part.shape[0] != b or part.shape[2:] != self.part.shape[2:]:
             raise ValueError(f"block kernel: partial Grams {tuple(part.shape)} on "
@@ -330,15 +389,35 @@ class BlockRunner:
                              f"on {self.device}")
         with self._guard(part, p):
             _build.check(lb, "stage", lb.raie_stage_softmax(
-                part.data_ptr(), _ptr(p, i)("temp"), self.attn_t.data_ptr(), b, c,
+                part.data_ptr(), _ptr(p, i)("temp"), self.attn_t.data_ptr(), b, self.cq,
                 self.gram_heads, self.heads, part.shape[1], self.stream),
                 "B (softmax)")
+
+    def project(self, src: torch.Tensor | None, r: torch.Tensor, p: dict, i: int) -> None:
+        """(C'), a shard's: r (float32, src's shape) = src + (attn @ v) @ its
+        rows of W_proj; ``src`` None: the product alone."""
+        b, h, w, c = self.shape
+        lb = self.lib
+        if not self.shard:
+            raise ValueError("block kernel: project runs a model shard's block")
+        if r.dtype != torch.float32 or r.shape[:3] != self.v.shape[:3] or r.shape[3] != c:
+            raise ValueError(f"block kernel: r must be float32 {(*self.v.shape[:3], c)}, "
+                             f"got {r.dtype} {tuple(r.shape)}")
+        with self._guard(r if src is None else src, p, r=r):
+            _build.check(lb, "stage", lb.raie_stage_project(
+                None if src is None else src.data_ptr(),
+                int(src is not None and src.dtype == torch.bfloat16), r.data_ptr(),
+                self.v.data_ptr(), self.attn_t.data_ptr(), _ptr(p, i)("wproj"), b, h, w, c,
+                self.cq, self.gram_heads, self.ath, self.atw, self.plan.apply_chunk,
+                self.halo, self.y_img, self.h_img, self.stream), "C' (project)")
 
     def apply(self, src: torch.Tensor, dst: torch.Tensor, p: dict, i: int,
               eps: float) -> None:
         """(C): dst = the block's output from src, v and attn^T."""
         b, h, w, c = self.shape
         lb = self.lib
+        if self.shard:
+            raise ValueError("block kernel: a model shard's block ends in project")
         ptr = _ptr(p, i)
         with self._guard(src, p, dst=dst):
             _build.check(lb, "stage", lb.raie_stage_apply(

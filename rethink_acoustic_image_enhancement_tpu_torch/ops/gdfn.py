@@ -15,6 +15,11 @@ arithmetic in plain PyTorch: bf16 operands with float32 accumulation for
 the two products, the W_in output rounded to bf16 before its float32
 depthwise 3x3, two-pass LayerNorm and exact-erf GELU (the kernel's
 Abramowitz-Stegun erf is within 1.5e-7).
+
+``fused_ln_gdfn_part`` is the same kernel on a model shard's range of the
+hidden channels (tensor-parallel serving, ``ops/stage.py::
+fused_transformer_stage_shards``): float32 r in and out, the residual added
+by one shard only; ``gdfn_part_plain`` is its plain version.
 """
 
 from __future__ import annotations
@@ -62,19 +67,25 @@ def ffn_hidden(r: torch.Tensor, ln_w, ln_b, w_in, eps: float,
     return bf16_round(bf16_round(rn) @ bf16_round(w_in))
 
 
-def ffn_out(r: torch.Tensor, a: torch.Tensor, w_out) -> torch.Tensor:
-    """r + W_out (gelu(a1) * a2), ``a`` the depthwise output."""
+def ffn_out(r: torch.Tensor, a: torch.Tensor, w_out, residual: bool = True) -> torch.Tensor:
+    """r + W_out (gelu(a1) * a2), ``a`` the depthwise output; without
+    ``residual`` the product alone."""
     f = w_out.shape[0]
     x1, x2 = a[..., :f], a[..., f:]
     g = 0.5 * x1 * (1.0 + torch.erf(x1 * 2.0 ** -0.5)) * x2
-    return bf16_round(g) @ bf16_round(w_out) + r
+    y = bf16_round(g) @ bf16_round(w_out)
+    return y + r if residual else y
 
 
 def ffn_f32(r: torch.Tensor, ln_w, ln_b, w_in, w_dw, w_out, eps: float,
-            apply_ln: bool = True) -> torch.Tensor:
+            apply_ln: bool = True, residual: bool = True) -> torch.Tensor:
     """r + GDFN(LN(r)) on float32 NHWC r with float32 (C, 2F), (3, 3, 2F)
-    and (F, C) weights; ``ln_b is None`` is the BiasFree LayerNorm."""
-    return ffn_out(r, dw3x3(ffn_hidden(r, ln_w, ln_b, w_in, eps, apply_ln), w_dw), w_out)
+    and (F, C) weights; ``ln_b is None`` is the BiasFree LayerNorm. On a
+    model shard's range of F hidden channels (W_in's columns of both halves,
+    their taps, W_out's rows) it is that range's part of the GDFN, r added
+    only with ``residual``."""
+    return ffn_out(r, dw3x3(ffn_hidden(r, ln_w, ln_b, w_in, eps, apply_ln), w_dw), w_out,
+                   residual)
 
 
 def _ln_bias(ln_weight, ln_bias, bias_free: bool):
@@ -162,7 +173,7 @@ _SIGNATURES = {
     "raie_gdfn_smem_bytes": [_I] * 4,
     "raie_gdfn_blocks_per_sm": [_I] * 4,
     "raie_gdfn": [_P, _P, _I, _P, _P, _I, _P, _P, _P] + [_I] * 8
-    + [ctypes.c_float, _P],
+    + [ctypes.c_float, _I, _P],
 }
 
 
@@ -195,16 +206,37 @@ def _gdfn_cuda(x, ln_weight, ln_bias, w_in, w_dw, w_out, bias_free,
         lnw = f32(ln_weight)
         lnb = _ln_bias(ln_weight, ln_bias, bias_free)
         lnb = None if lnb is None or not apply_ln else f32(lnb)
-        lib = _build.bind("gdfn", _SIGNATURES)
-        fc, (th, tw), _ = plan_ffn(lib, c)
         y = torch.empty_like(x)
-        _build.check(lib, "gdfn", lib.raie_gdfn(
-            x.data_ptr(), y.data_ptr(), int(x.dtype == torch.bfloat16),
-            lnw.data_ptr(), None if lnb is None else lnb.data_ptr(),
-            int(apply_ln), p["win"].data_ptr(), p["wdw"].data_ptr(),
-            p["wout"].data_ptr(), b, h, w, c, p["fp"], fc, th, tw, ln_eps,
-            torch.cuda.current_stream(x.device).cuda_stream), "launch")
+        _launch(x, y, lnw, lnb, apply_ln, p["win"], p["wdw"], p["wout"], p["fp"], ln_eps, True)
     _build.count_launch(fused_ln_gdfn)
+    return y
+
+
+def _launch(x, y, lnw, lnb, apply_ln, win, wdw, wout, fp, eps, residual) -> None:
+    """One launch of csrc/gdfn.cu on x's device (under its guard)."""
+    b, h, w, c = x.shape
+    lib = _build.bind("gdfn", _SIGNATURES)
+    fc, (th, tw), _ = plan_ffn(lib, c)
+    _build.check(lib, "gdfn", lib.raie_gdfn(
+        x.data_ptr(), y.data_ptr(), int(x.dtype == torch.bfloat16),
+        lnw.data_ptr(), None if lnb is None else lnb.data_ptr(),
+        int(apply_ln), win.data_ptr(), wdw.data_ptr(), wout.data_ptr(), b, h, w, c, fp,
+        fc, th, tw, eps, int(residual), torch.cuda.current_stream(x.device).cuda_stream),
+        "launch")
+
+
+def launch_ffn_part(r, lnw, win, wdw, wout, fp: int, residual: bool,
+                    eps: float) -> torch.Tensor:
+    """The kernel on a model shard's packed hidden range (``pack_ffn``'s
+    layout for one block, on r's device): float32 r + [r +] its part of
+    GDFN(LN(r)), BiasFree LN; counted in ``fused_ln_gdfn_part.launches``."""
+    if r.dtype != torch.float32:
+        raise TypeError(f"GDFN part kernel takes float32 r, not {r.dtype}")
+    r = check_input(r, "GDFN part")
+    with _build.on_device(r, "GDFN part", ln_weight=lnw, w_in=win, w_dw=wdw, w_out=wout):
+        y = torch.empty_like(r)
+        _launch(r, y, lnw, None, True, win, wdw, wout, fp, eps, residual)
+    _build.count_launch(fused_ln_gdfn_part)
     return y
 
 
@@ -224,3 +256,38 @@ def fused_ln_gdfn(x, ln_weight, ln_bias, w_in, w_dw, w_out,
 
 
 fused_ln_gdfn.launches = 0  # kernel launches
+
+
+def gdfn_part_plain(r, ln_weight, w_in, w_dw, w_out, residual: bool = True,
+                    ln_eps: float = 1e-5) -> torch.Tensor:
+    """``fused_ln_gdfn_part`` in plain PyTorch (the kernel's arithmetic)."""
+    c = r.shape[-1]
+    return ffn_f32(r.float(), ln_weight.float(), None, w_in.reshape(c, -1).float(),
+                   w_dw.reshape(3, 3, -1).float(), w_out.reshape(-1, c).float(), ln_eps,
+                   residual=residual)
+
+
+def fused_ln_gdfn_part(r, ln_weight, w_in, w_dw, w_out, residual: bool = True,
+                       ln_eps: float = 1e-5) -> torch.Tensor:
+    """A model shard's part of r + GDFN(LN(r)) on float32 NHWC r, the
+    BiasFree LayerNorm over all C channels: ``w_in`` (C, 2Fs) holds the
+    shard's Fs channels of the gate's first half, then of its second (the
+    flax layouts as ``fused_ln_gdfn`` takes them), ``w_dw`` their (3, 3, 2Fs)
+    taps, ``w_out`` (Fs, C) their rows; r itself is added only with
+    ``residual``. Float32 out. A CUDA tensor launches the kernel (or
+    raises); a CPU tensor takes the plain version."""
+    if r.device.type == "cuda":
+        c = r.shape[-1]
+        with _build.on_device(r, "GDFN part", ln_weight=ln_weight, w_in=w_in, w_dw=w_dw,
+                              w_out=w_out):
+            p = pack_ffn(w_in.reshape(1, c, -1), w_dw.reshape(1, 9, -1),
+                         w_out.reshape(1, -1, c), c, r.device)
+            lnw = ln_weight.detach().float().contiguous()
+        return launch_ffn_part(r, lnw, p["win"][0], p["wdw"][0], p["wout"][0], p["fp"],
+                               residual, ln_eps)
+    if r.device.type == "cpu":
+        return gdfn_part_plain(r, ln_weight, w_in, w_dw, w_out, residual, ln_eps)
+    raise ValueError(f"no GDFN part implementation for device {r.device}")
+
+
+fused_ln_gdfn_part.launches = 0  # kernel launches (model shards)

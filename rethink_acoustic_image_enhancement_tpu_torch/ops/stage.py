@@ -24,6 +24,14 @@ dtype).
 bands over devices (spatially sharded serving, ``parallel/spatial.py``), the
 same three launches per block and band; ``stage_plain_bands`` is its plain
 version.
+
+``fused_transformer_stage_shards`` is the stage on model shards
+(tensor-parallel serving, ``parallel/tensor.py``): each shard holds the
+whole input and its heads' and hidden channels' weights
+(``models/shards.py::shard_teacher``); per block and shard kernel (A) on its
+heads, (B), and (C') up to its partial of the projection, a sum across
+shards, the GDFN kernel (``csrc/gdfn.cu``) on its hidden channels, and a
+second sum. ``stage_plain_shards`` is its plain version.
 """
 
 from __future__ import annotations
@@ -32,8 +40,9 @@ import numpy as np
 import torch
 
 from . import _build
-from .block import BlockRunner, BlockWeights, block_f32, block_f32_bands, pack_blocks
-from .gdfn import check_input
+from .block import (BlockRunner, BlockWeights, block_f32, block_f32_bands,
+                    block_f32_shards, pack_blocks)
+from .gdfn import check_input, launch_ffn_part
 
 
 def stack_block_params(params_list) -> dict[str, torch.Tensor]:
@@ -67,14 +76,17 @@ def stack_block_params(params_list) -> dict[str, torch.Tensor]:
 
 def _block_weights(i, c, ln1_w, w_qkv, dw_qkv, temperature, w_proj, ln2_w,
                    w_in, w_dw, w_out) -> BlockWeights:
-    """Block i of the stacked weights as ``block_f32`` takes them."""
+    """Block i of the stacked weights as ``block_f32`` takes them (a model
+    shard's: W_qkv (C, 3 cq), W_proj (cq, C), cq its heads' channels)."""
     temp = temperature.float().reshape(ln1_w.shape[0], -1)
-    if c % temp.shape[1]:
-        raise ValueError(f"{temp.shape[1]} heads do not divide {c} channels")
+    wqkv = w_qkv[i].reshape(c, -1)
+    cq = wqkv.shape[1] // 3
+    if cq % temp.shape[1]:
+        raise ValueError(f"{temp.shape[1]} heads do not divide {cq} channels")
     return BlockWeights(
-        ln1_w[i].float(), None, w_qkv[i].reshape(c, 3 * c).float(),
-        dw_qkv[i].reshape(3, 3, 3 * c).float(), temp[i],
-        w_proj[i].reshape(c, c).float(), ln2_w[i].float(), None,
+        ln1_w[i].float(), None, wqkv.float(),
+        dw_qkv[i].reshape(3, 3, -1).float(), temp[i],
+        w_proj[i].reshape(cq, c).float(), ln2_w[i].float(), None,
         w_in[i].reshape(c, -1).float(), w_dw[i].reshape(3, 3, -1).float(),
         w_out[i].reshape(-1, c).float())
 
@@ -100,6 +112,17 @@ def stage_plain_bands(xs, weights, bands, ln_eps: float = 1e-5) -> list[torch.Te
         ys = block_f32_bands(
             ys, [_block_weights(i, x.shape[-1], **w) for x, w in zip(xs, weights)],
             bands, ln_eps)
+    return [y.to(x.dtype) for x, y in zip(xs, ys)]
+
+
+def stage_plain_shards(xs, weights, shards, ln_eps: float = 1e-5) -> list[torch.Tensor]:
+    """``stage_plain`` on model shards, every block through ``ops/block.py::
+    block_f32_shards``; one shard gives ``stage_plain``'s bits."""
+    ys = list(xs)
+    for i in range(weights[0]["ln1_w"].shape[0]):
+        ys = block_f32_shards(
+            ys, [_block_weights(i, x.shape[-1], **w) for x, w in zip(xs, weights)],
+            shards, ln_eps)
     return [y.to(x.dtype) for x, y in zip(xs, ys)]
 
 
@@ -226,3 +249,78 @@ def fused_transformer_stage_bands(xs, weights, bands, ln_eps: float = 1e-5
 
 
 fused_transformer_stage_bands.launches = 0  # CUDA band-stage calls
+
+
+# ------------------------------------------------------------- shards ---
+
+def _stage_shards_cuda(xs, weights, shards, ln_eps) -> list[torch.Tensor]:
+    """Each block on every shard: (A) on the shard's heads (all of them
+    where the shards do not divide the heads), (B), (C') to r in float32
+    with x added by shard 0 alone where the heads are split (by every shard
+    where it holds them all); a sum across shards where split; the GDFN
+    kernel on the shard's hidden channels, r added by shard 0; a sum. The
+    shards lie on cards of their own, or share one."""
+    xs = [check_input(x, "stage") for x in xs]
+    if any(x.shape != xs[0].shape for x in xs):
+        raise ValueError(f"stage shards differ in shape: {[tuple(x.shape) for x in xs]}")
+    c = xs[0].shape[-1]
+    runners, packs = [], []
+    for x, wts in zip(xs, weights):
+        with _build.on_device(x, "stage", **wts):
+            p = pack_blocks(x.device, **wts)
+            n, heads = p["temp"].shape
+            if p["cq"] % heads or (p["cq"] // heads) % 16:
+                raise ValueError(f"stage kernel needs C/heads a multiple of 16 "
+                                 f"(C={p['cq']} on the shard, heads={heads})")
+            runners.append(BlockRunner(x, heads, p["fp"], cq=p["cq"]))
+            packs.append(p)
+    split = packs[0]["cq"] < c
+    first = [j == 0 for j in shards.held]
+    srcs = xs
+    for i in range(n):
+        rs = []
+        for run, p, src, own in zip(runners, packs, srcs, first):
+            run.gram(src, p, i, ln_eps)
+            run.softmax(run.part, p, i)
+            rs.append(torch.empty(src.shape, dtype=torch.float32, device=src.device))
+            run.project(src if own or not split else None, rs[-1], p, i)
+        if split:
+            rs = shards.sum_across(rs)
+        srcs = shards.sum_across([
+            launch_ffn_part(r, p["ln2"][i], p["win"][i], p["wdw"][i], p["wout"][i], p["fp"],
+                            own, ln_eps) for r, p, own in zip(rs, packs, first)])
+    _build.count_launch(fused_transformer_stage_shards)
+    return [y.to(x.dtype) for x, y in zip(xs, srcs)]
+
+
+def fused_transformer_stage_shards(xs, weights, shards, ln_eps: float = 1e-5
+                                   ) -> list[torch.Tensor]:
+    """N BiasFree TransformerBlocks on model shards (``parallel/tensor.py``;
+    ``shards`` the exchange, e.g. ``LocalShards``): xs[j] the whole NHWC
+    input (B, H, W, C) on shard j's device, weights[j] its stacked weights
+    there (the keyword arguments of ``fused_transformer_stage``, sliced as
+    ``models/shards.py::shard_teacher`` slices them: W_qkv (N, 1, 1, C,
+    3 cq) with the temperatures of its heads and W_proj (N, 1, 1, cq, C),
+    cq = C where every shard holds every head; W_in, W_dw and W_out on its
+    hidden channels). Returns the stage's output on every shard, the same
+    bits on each. The partials of W_proj o and of the GDFN are summed across
+    shards, so the shards compute the whole stage up to the order of those
+    sums.
+
+    CUDA shards run (A), (B) and (C') of ``csrc/stage.cu`` and the GDFN kernel
+    of ``csrc/gdfn.cu`` per shard and block (or raise) and count the call in
+    ``fused_transformer_stage_shards.launches`` (the GDFN kernel's launches
+    in ``ops/gdfn.py::fused_ln_gdfn_part.launches``); CPU shards take
+    ``stage_plain_shards``."""
+    kinds = {x.device.type for x in xs}
+    if len(xs) != len(weights) or len(xs) != len(shards.held):
+        raise ValueError(f"{len(xs)} shards, {len(weights)} weight sets, "
+                         f"{len(shards.held)} shards held")
+    if kinds == {"cuda"}:
+        return _stage_shards_cuda(xs, weights, shards, ln_eps)
+    if kinds == {"cpu"}:
+        return stage_plain_shards(xs, weights, shards, ln_eps)
+    raise ValueError(f"no shard stage implementation for devices {sorted(kinds)}")
+
+
+fused_transformer_stage_shards.launches = 0  # CUDA shard-stage calls

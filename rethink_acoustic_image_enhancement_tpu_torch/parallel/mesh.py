@@ -9,14 +9,20 @@ JAX package names them:
     (``parallel/spatial.py``, ``TeacherPredictor(mesh=...)``); in training
     one a rank (``train.spatial_shard``, ``parallel.init_grid``), not a
     mesh;
-  * ``model``: tensor parallelism, not ported yet (ROADMAP.md Queue A
-    item 5c).
+  * ``model``: tensor parallelism in serving, one model split over the
+    devices of the axis, shard j holding its heads and hidden channels of
+    every TransformerBlock (``parallel/tensor.py``, ``models/shards.py``,
+    ``TeacherPredictor(mesh=...)``); not in training yet
+    (``train.model_shard``, ROADMAP.md Queue A item 5c).
 
 The JAX module's ``batch_sharding``, ``replicated`` and
 ``shard_batch_pytree`` are XLA placements (shardings that ``jit`` reads) and
 have no counterpart: the port places its tensors itself, band by band or
-copy by copy. ``process_shard`` is ``parallel/collectives.py``'s;
-``model_param_specs`` waits for the model axis.
+copy by copy. ``process_shard`` is ``parallel/collectives.py``'s.
+``model_param_specs`` (every conv's output channels sharded, XLA inserting
+the collectives) has none either: the port splits each block's weights
+itself, by heads and by hidden channels (``models/shards.py::
+shard_teacher``), and adds the partial sums itself.
 """
 
 from __future__ import annotations
@@ -54,6 +60,11 @@ class Mesh:
     def data_devices(self) -> list[torch.device]:
         """The devices along the data axis (spatial and model index 0)."""
         return list(self.devices[:, 0, 0])
+
+    def model_devices(self) -> list[torch.device]:
+        """The devices along the model axis (data and spatial index 0): the
+        shards of one model."""
+        return list(self.devices[0, 0, :])
 
     def __repr__(self) -> str:
         return f"Mesh({self.shape})"

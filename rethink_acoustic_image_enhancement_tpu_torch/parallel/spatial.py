@@ -93,6 +93,25 @@ def _to(t: torch.Tensor, device: torch.device) -> torch.Tensor:
     return out
 
 
+def sum_in_order(parts: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+    """The parts added in their order on every part's device: every device
+    gets the same bits (the rule of ``LocalBands.sum_across`` and of
+    ``parallel/tensor.py::LocalShards.sum_across``)."""
+    out = []
+    for d in (p.device for p in parts):
+        acc = _to(parts[0], d)
+        for p in parts[1:]:
+            acc = acc + _to(p, d)
+        out.append(acc)
+    return out
+
+
+def partial_bytes(parts: Sequence[torch.Tensor]) -> int:
+    """The bytes ``sum_in_order`` hands between parts: each part reaches
+    every other part's device."""
+    return (len(parts) - 1) * sum(p.numel() * p.element_size() for p in parts)
+
+
 class LocalBands:
     """All N bands of an image in this process, band i on ``devices[i]``
     (devices may repeat: bands can share a card). Each method takes and
@@ -153,18 +172,8 @@ class LocalBands:
     def sum_across(self, parts: Sequence[torch.Tensor]) -> list[torch.Tensor]:
         """The bands' partial sums added in band order on every band's
         device: every band gets the same bits."""
-        self._count_partials(parts)
-        out = []
-        for d in (p.device for p in parts):
-            acc = _to(parts[0], d)
-            for p in parts[1:]:
-                acc = acc + _to(p, d)
-            out.append(acc)
-        return out
-
-    def _count_partials(self, parts: Sequence[torch.Tensor]) -> None:
-        self.moved["partials"] += (len(parts) - 1) * sum(
-            p.numel() * p.element_size() for p in parts)
+        self.moved["partials"] += partial_bytes(parts)
+        return sum_in_order(parts)
 
 
 class RankBands:

@@ -134,6 +134,40 @@ def test_wide_layout_only_where_no_whole_layout_fits():
     assert pblock._chunks(96, pblock._PROJ_CHUNKS) == []  # no chunk divides 96 below it
 
 
+class ShardStub(StubLibrary):
+    """As ``csrc/stage.cu``'s layout queries for a model shard's block:
+    records what it is asked; at C = 384 a shard's C x Cq weights held
+    whole fit no tile from Cq = 192 on."""
+
+    def __init__(self):
+        super().__init__()
+        self.asked = []
+
+    def raie_stage_shard_smem_bytes(self, kind, th, tw, c, cq, heads, fc, chunk=0):
+        self.asked.append((kind, c, cq, heads, fc))
+        if chunk == 0 and c == 384 and cq >= 192:
+            return LIMIT + 1
+        return super().raie_stage_smem_bytes(kind, th, tw, c, heads, fc) // 4
+
+    def raie_stage_shard_blocks_per_sm(self, kind, th, tw, c, cq, heads, fc, chunk=0):
+        n = self.raie_stage_shard_smem_bytes(kind, th, tw, c, cq, heads, fc, chunk)
+        return 0 if n > LIMIT else 1 if chunk else 2
+
+
+def test_shard_plan_asks_for_the_shard_kernels():
+    """With ``cq`` the planner asks the shard layouts of kernels (A) and
+    (C') (kind 2, at the smallest hidden chunk), never (C), with both widths;
+    the wide layout's chunks divide the shard's cq channels."""
+    lib = ShardStub()
+    plan = pblock.plan_tiles(lib, 384, 4, cq=192)
+    assert {a[0] for a in lib.asked} == {0, 2}
+    assert {a[1:4] for a in lib.asked} == {(384, 192, 4)}
+    assert {a[4] for a in lib.asked if a[0] == 2} == {32}
+    assert (plan.gram_chunk, plan.apply_chunk) == (64, 64)  # 128 does not divide 192
+    plan = pblock.plan_tiles(ShardStub(), 384, 2, cq=96)
+    assert (plan.gram_chunk, plan.apply_chunk) == (0, 0)
+
+
 def test_nothing_fits_raises():
     with pytest.raises(ValueError, match="no block-kernel tile fits 96"):
         pblock.plan_tiles(StubLibrary(scale=50.0), 96, 1)

@@ -382,17 +382,20 @@ def test_stage_kernel_route_takes_the_kernels_widths(shape, jax_admits):
 
 
 def test_mesh_refusals_as_jax(teachers):
-    """A model axis is not ported; spatial and model together, devices
-    beside a mesh, and tiled / student / scorer serving on a spatial or
-    model axis raise the JAX package's ValueErrors."""
+    """A model axis alone builds and serves; spatial and model together,
+    devices beside a mesh, and tiled / student / scorer serving on a spatial
+    or model axis raise the JAX package's ValueErrors."""
     params, model = teachers["train"]
     with pytest.raises(ValueError, match="cannot be combined"):
         TeacherPredictor(model, mesh=_cpu_mesh(n_spatial=2, n_model=2))
     with pytest.raises(ValueError, match="cannot be combined"):
         JaxTeacherPredictor(params=params, model=JaxTeacher(**TINY),
                             mesh=jmesh.make_mesh(n_data=1, n_spatial=2, n_model=4))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A item 5"):
-        TeacherPredictor(model, mesh=_cpu_mesh(n_model=2))
+    served = TeacherPredictor(model, mesh=_cpu_mesh(n_model=2))(
+        np.zeros((16, 24, 3), np.float32), 0.5)
+    assert served["hq"].shape == (16, 24, 3) and served["sr"].shape == (32, 48, 3)
+    with pytest.raises(ValueError, match="mesh= alone"):
+        TeacherPredictor(model, mesh=_cpu_mesh(n_model=2), device="cpu")
     for kw in (dict(devices=["cpu"]), dict(device="cpu")):
         with pytest.raises(ValueError, match="mesh= alone"):
             TeacherPredictor(model, mesh=_cpu_mesh(n_spatial=2), **kw)

@@ -242,14 +242,32 @@ fp32 predictors' own pinning is what runs:
      request against one device, the idle share at 512^2, sums and partial
      bytes a request, shard-stage and GDFN-part launches, weight bytes a
      shard.
+ 19. tensor-parallel training (train.model_shard: 2), two gloo ranks
+     sharing cuda:0, one model shard each (child processes of this script,
+     `--tp-rank`, torchrun's env; one card: the split's overhead, not
+     scaling), the teacher in its shift-add depthwise form (dwconv_shift):
+     (a) configs/KDLAET.yml at full width through the loop, two steps in
+     each curriculum stage (12), a checkpoint and a validation of the
+     gathered model on rank 0 at 12; (b) one teacher step and a second at
+     batch 1 on a 512^2 crop, phase 17's depth cut (blocks [2,3,3,4],
+     refinement 2: a shard keeps the whole residual stream, and two
+     full-depth shards do not fit one 80 GB card); (c) configs/KDLAES.yml's
+     student (whole on every shard) at 4x7@384, two steps. Gates: the
+     first step of (a), (b) and (c) against one process on the card on the
+     same batch and draws by phase 17's rule, every loss finite, the
+     ranks' whole leaves bit-equal after every step (sha256), rank 0's
+     checkpoint loading strictly into the whole-image teacher and serving
+     one 512^2 frame, no kernel launch in the ranks. Per step: ms against
+     one process's, sums and partial bytes, peak memory per rank, weight
+     bytes a shard.
 Each path runs with every launch count set to 0 just before it and read just
-after. Prints one JSON line per phase 6-18, a "kernels" JSON line, the card
+after. Prints one JSON line per phase 6-19, a "kernels" JSON line, the card
 line, and as its last line {"ok": true, "device": {...}}. Details go to
 chiprun_out/chip_smoke.json.
-`chip_smoke.py --dp-rank SPEC` and `--sp-rank SPEC` are ranks of phases 13
-and 17, not for use alone; `chip_smoke.py --phase 14` (or 15, 16, 17, 18)
-builds and runs that phase alone (its JSON line, no "kernels" or "ok"
-line).
+`chip_smoke.py --dp-rank SPEC`, `--sp-rank SPEC` and `--tp-rank SPEC` are
+ranks of phases 13, 17 and 19, not for use alone; `chip_smoke.py --phase 14`
+(or 15-19) builds and runs that phase alone (its JSON line, no "kernels" or
+"ok" line).
 """
 
 from __future__ import annotations
@@ -4145,8 +4163,10 @@ def sp_steps(opt, kind, device, steps=2, digest=False):
     state.step = max(int(opt["train"].get("warmup_iter", -1)), 0)  # past the warm-up
     lq, gt = sp_batch(kind, device)
     rows, first, grads = [], None, None
+    split = trainer.bands or trainer.shards  # the exchange that counts its bytes
     for k in range(steps):
-        before = dict(trainer.bands.moved) if trainer.bands is not None else None
+        before = dict(split.moved) if split is not None else None
+        sums = getattr(split, "sums", None)
         torch.cuda.synchronize(device)
         parallel.barrier()
         t0 = time.perf_counter()
@@ -4156,32 +4176,42 @@ def sp_steps(opt, kind, device, steps=2, digest=False):
         row = dict(ms=(time.perf_counter() - t0) * 1e3,
                    **{key: float(v) for key, v in m.items()})
         if before is not None:
-            row.update({f"{key}_bytes": trainer.bands.moved[key] - before[key]
+            row.update({f"{key}_bytes": split.moved[key] - before[key]
                         for key in before})
+        if sums is not None:
+            row["sums"] = split.sums - sums
         if digest:
-            row["digest"] = dp_digest(state.model.named_parameters())
+            row["digest"] = dp_digest(whole_leaves(trainer, state.model))
         rows.append(row)
-        if k == 0:
-            first, grads = first_step(state.model)
+        if k == 0:  # on model shards the gathered model (a collective)
+            first, grads = first_step(trainer.whole_state(state).model)
     del state, trainer, lq, gt
     torch.cuda.empty_cache()
     return rows, first, grads
 
 
+def whole_leaves(trainer, model):
+    """``model``'s (name, parameter) pairs that every model shard holds
+    whole: all of them without shards."""
+    return [(n, p) for n, p in model.named_parameters() if not trainer.is_split(n)]
+
+
 def first_step(model):
-    """(parameters, gradients) of ``model`` on the host, zeros for a
-    parameter without a gradient."""
+    """Copies of the (parameters, gradients) of ``model`` on the host (a
+    copy also where ``model`` lies there already), zeros for a parameter
+    without a gradient."""
     import torch
 
-    return ({n: p.detach().cpu() for n, p in model.named_parameters()},
-            {n: (torch.zeros_like(p) if p.grad is None else p.grad).detach().cpu()
+    return ({n: p.detach().to("cpu", copy=True) for n, p in model.named_parameters()},
+            {n: (torch.zeros_like(p) if p.grad is None else p.grad).detach().to("cpu", copy=True)
              for n, p in model.named_parameters()})
 
 
 def sp_loop_step(record, out=None):
     """``Trainer.step`` that also digests the parameters after every step
-    into ``record["digests"]`` and keeps the first step's metrics, and its
-    parameters and gradients (saved to ``out`` where given, else kept)."""
+    into ``record["digests"]`` (on model shards the whole leaves) and keeps
+    the first step's metrics, and its parameters (on model shards gathered)
+    and gradients (saved to ``out`` where given, else kept)."""
     import torch
 
     from rethink_acoustic_image_enhancement_tpu_torch.train import trainer as ttr
@@ -4190,10 +4220,10 @@ def sp_loop_step(record, out=None):
 
     def digested_step(self, state, *a, **kw):
         state, m = step(self, state, *a, **kw)
-        record["digests"].append(dp_digest(state.model.named_parameters()))
+        record["digests"].append(dp_digest(whole_leaves(self, state.model)))
         if len(record["digests"]) == 1:
             record["first_metrics"] = {k: float(v) for k, v in m.items()}
-            first = first_step(state.model)
+            first = first_step(self.whole_state(state).model)
             if out is None:
                 record["first"] = first
             else:
@@ -4795,13 +4825,286 @@ def phase_tensor(results, card):
     return rows, part_rows, launches
 
 
+# ------------------------------------------------------------ phase 19 ---
+
+TP_WORLD = 2  # ranks sharing the one card over gloo, one model shard each
+TP_ITERS = [2] * 6  # (a): two steps in each curriculum stage of KDLAET.yml
+# (b)'s depth: phase 17's cut. A shard holds the whole residual stream and,
+# at 512^2, the whole MDTA of every one-head stage (the largest activations:
+# level 1 and the 1024^2 SR head); only its GDFN hidden channels and the
+# split heads are halved. The full-depth fp32 step of one process holds
+# about twice the 38.36 GiB of a 2-band rank, so two full-depth shards do not
+# fit one 80 GB H100; the width stays and the blocks are halved
+TP_DEPTH = SP_DEPTH
+TP_DEVICE = "cuda"  # the one-process references' device
+
+
+def tp_child(spec_path):
+    """One rank of phase 19 (``chip_smoke.py --tp-rank SPEC``, started with
+    torchrun's env): joins the gloo group on the card, then (a) trains the
+    teacher through the loop on its model shard, the whole leaves digested
+    after every step, (b) and (c) the seeded steps on its shard. Writes what
+    it saw to ``<out>_rank{r}.json`` (rank 0 also the gathered parameters of
+    its first steps)."""
+    import torch
+
+    sys.path.insert(0, HERE)
+    from rethink_acoustic_image_enhancement_tpu_torch import parallel
+    from rethink_acoustic_image_enhancement_tpu_torch.eval.infer import resolve_device
+    from rethink_acoustic_image_enhancement_tpu_torch.train import config as tcfg
+    from rethink_acoustic_image_enhancement_tpu_torch.train import loop as tloop
+    from rethink_acoustic_image_enhancement_tpu_torch.train import trainer as ttr
+
+    with open(spec_path) as fh:
+        spec = json.load(fh)
+    assert parallel.init_distributed(backend="gloo")
+    rank = parallel.rank()
+    device = resolve_device(None)
+    torch.cuda.set_device(device)
+    torch.empty(1, device=device)
+    fns = reset_counts()
+    out = dict(rank=rank, world=parallel.world_size(), backend=parallel.backend_name())
+
+    # (a) the teacher through the loop; each step's whole leaves digested,
+    # rank 0's first step (gathered) saved
+    made, built, record = [], [], dict(digests=[])
+    shards_of, build = tloop.model_shards, tloop.build_everything
+
+    def keep_shards(opt, model):
+        made.append(shards_of(opt, model))
+        return made[-1]
+
+    def keep_built(opt, device=None):
+        model, trainer = build(opt, device)
+        built.append(dict(dwconv_shift=model.dwconv_shift, shards=type(trainer.shards).__name__,
+                          split_leaves=sum(map(trainer.is_split, dict(model.named_parameters())))))
+        return model, trainer
+
+    step, digested_step = sp_loop_step(
+        record, f"{spec['out']}_loop_first.pt" if rank == 0 else None)
+    tloop.model_shards, tloop.build_everything, ttr.Trainer.step = (
+        keep_shards, keep_built, digested_step)
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    opt = tcfg.parse(spec["teacher_yml"], is_train=True, root_path=spec["work"])
+    state = tloop.train_from_config(opt, device=device)
+    out["loop"] = dict(step=state.step, digests=record["digests"],
+                       first_metrics=record["first_metrics"], moved=dict(made[0].moved),
+                       sums=made[0].sums, train_s=time.perf_counter() - t0,
+                       n_model=made[0].n, shard=made[0].index, built=built[0],
+                       shard_bytes=sum(p.numel() * p.element_size()
+                                       for p in state.model.parameters()),
+                       peak_gib=torch.cuda.max_memory_allocated(device) / 2 ** 30)
+    tloop.model_shards, tloop.build_everything, ttr.Trainer.step = shards_of, build, step
+    del state
+    torch.cuda.empty_cache()
+
+    # (b) batch 1 at 512^2; (c) the student at 4x7@384: two seeded steps each
+    for kind, yml in (("teacher", spec["teacher512_yml"]), ("student", spec["student_yml"])):
+        torch.cuda.reset_peak_memory_stats(device)
+        rows, first, _ = sp_steps(tcfg.parse(yml, is_train=True, root_path=spec["work"]),
+                                  kind, device, digest=True)
+        out[kind] = dict(steps=rows,
+                         peak_gib=torch.cuda.max_memory_allocated(device) / 2 ** 30)
+        if rank == 0:
+            torch.save(first, f"{spec['out']}_{kind}_first.pt")
+        del first
+    out["launches"] = read_counts(fns)
+    with open(spec["out"] + f"_rank{rank}.json", "w") as fh:
+        json.dump(out, fh)
+    parallel.shutdown()
+    return 0
+
+
+def tp_ymls(work, roots, val_roots):
+    """phase 17's configs (``sp_ymls``) with ``train.model_shard`` in place
+    of ``spatial_shard``: (a) the teacher, (b) the teacher at ``TP_DEPTH``
+    (phase 17's cut), (c) the student, and (a) with ``model_shard: 1``."""
+    import yaml
+
+    out = []
+    for path in sp_ymls(work, roots, val_roots):
+        with open(path) as fh:
+            cfg = yaml.safe_load(fh)
+        shard = cfg["train"].pop("spatial_shard")
+        cfg["train"]["model_shard"] = shard
+        cfg["name"] = cfg["name"].replace("sp_", "tp_")
+        out.append(os.path.join(work, f"{cfg['name']}.yml"))
+        with open(out[-1], "w") as fh:
+            yaml.safe_dump(cfg, fh)
+    return out
+
+
+def phase_tensor_train(results, card, work):
+    """Phase 19: tensor-parallel training (``train.model_shard: 2``), two
+    gloo ranks sharing the one card, one model shard each (child processes
+    of this script, torchrun's env): (a) the flagship teacher through the
+    loop, (b) one teacher step at batch 1 on 512^2, (c) the student at
+    4x7@384; each against one process on the card ((a) through the same loop
+    with ``model_shard: 1``). Every shard on one card: the split's overhead,
+    not scaling."""
+    import torch
+
+    from rethink_acoustic_image_enhancement_tpu_torch.convert.weights import load_pth
+    from rethink_acoustic_image_enhancement_tpu_torch.eval.infer import TeacherPredictor
+    from rethink_acoustic_image_enhancement_tpu_torch.models import flagship_teacher
+    from rethink_acoustic_image_enhancement_tpu_torch.train import config as tcfg
+    from rethink_acoustic_image_enhancement_tpu_torch.train import loop as tloop
+    from rethink_acoustic_image_enhancement_tpu_torch.train import trainer as ttr
+    from rethink_acoustic_image_enhancement_tpu_torch.train.progressive import ProgressiveSchedule
+
+    t_phase = time.perf_counter()
+    counts = reset_counts()
+    row = dict(card=card, world=TP_WORLD,
+               backend="gloo, two ranks on cuda:0, one model shard each (one card: the "
+                       "split's overhead, not scaling)")
+    roots = write_train_corpus(os.path.join(work, "triples"), 12, seed=220)
+    val_roots = write_train_corpus(os.path.join(work, "val"), 2, seed=320)
+    teacher_yml, teacher512_yml, student_yml, teacher_one_yml = tp_ymls(work, roots, val_roots)
+    spec = dict(work=work, out=os.path.join(work, "tp"), teacher_yml=teacher_yml,
+                teacher512_yml=teacher512_yml, student_yml=student_yml)
+    spec_path = os.path.join(work, "tp_spec.json")
+    with open(spec_path, "w") as fh:
+        json.dump(spec, fh)
+    torch.cuda.empty_cache()
+    _, ranks_wall = dp_launch([sys.executable, os.path.abspath(__file__), "--tp-rank", spec_path],
+                              work, TP_WORLD, "tp_rank")
+    ranks = []
+    for r in range(TP_WORLD):
+        with open(f"{spec['out']}_rank{r}.json") as fh:
+            ranks.append(json.load(fh))
+    assert [(x["rank"], x["backend"]) for x in ranks] == [(r, "gloo") for r in range(TP_WORLD)]
+    assert [(x["loop"]["n_model"], x["loop"]["shard"]) for x in ranks] == [
+        (TP_WORLD, r) for r in range(TP_WORLD)], [x["loop"] for x in ranks]
+    assert all(x["loop"]["built"]["dwconv_shift"] is True
+               and x["loop"]["built"]["shards"] == "RankShards" for x in ranks), ranks
+    assert not any(v for x in ranks for v in x["launches"].values()), [x["launches"] for x in ranks]
+    # the ranks' whole leaves bit-equal after every step
+    assert len({tuple(x["loop"]["digests"]) for x in ranks}) == 1
+    for kind in ("teacher", "student"):
+        assert len({tuple(s["digest"] for s in x[kind]["steps"]) for x in ranks}) == 1, kind
+        assert ranks[0][kind]["steps"][0]["l_pix"] == ranks[1][kind]["steps"][0]["l_pix"]
+
+    # (a) rank 0's record: every step logged and finite, the checkpoint, a
+    # validation of the gathered model; the weights load strictly into the
+    # whole-image teacher and serve 512^2
+    exp, events, steps = train_events(work, "tp_teacher")
+    total = sum(TP_ITERS)
+    assert [e["iter"] for e in steps] == list(range(1, total + 1)), [e["iter"] for e in steps]
+    assert len(ranks[0]["loop"]["digests"]) == total
+    vals = [e for e in events if e["kind"] == "val"]
+    assert [e["iter"] for e in vals] == [total] and np.isfinite(vals[0]["psnr"]), vals
+    net = os.path.join(exp, "models", f"net_g_{total}.pth")
+    model = load_pth(flagship_teacher(static="train"), net)  # strict
+    whole_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    frame = sonar_frame(SP_SIZE, SP_SIZE, 420)
+    t0 = time.perf_counter()
+    served = TeacherPredictor(model)(frame, 0.7)
+    torch.cuda.synchronize()
+    serve_ms = (time.perf_counter() - t0) * 1e3
+    band_outputs_ok(frame, served, "phase 19 served checkpoint")
+    del model
+
+    # (a)'s one process: the same config with model_shard 1 through the same
+    # loop in this process, digested every step; its first step held to
+    # rank 0's gathered one
+    one = dict(digests=[])
+    step, digested_step = sp_loop_step(one)
+    ttr.Trainer.step = digested_step
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        state = tloop.train_from_config(tcfg.parse(teacher_one_yml, is_train=True,
+                                                   root_path=work),
+                                        device=torch.device(TP_DEVICE))
+        del state
+    finally:
+        ttr.Trainer.step = step
+    peak_one = torch.cuda.max_memory_allocated() / 2 ** 30
+    _, _, one_steps = train_events(work, "tp_teacher_one")
+    assert [e["iter"] for e in one_steps] == [e["iter"] for e in steps]
+    first = torch.load(f"{spec['out']}_loop_first.pt")
+    loop_parity = sp_parity(first[0], *one.pop("first"), ranks[0]["loop"]["first_metrics"],
+                            one["first_metrics"])
+    del first
+    torch.cuda.empty_cache()
+    opt = tcfg.parse(teacher_yml, is_train=True, root_path=work)
+    prog = ProgressiveSchedule.from_dataset_opt(opt["datasets"]["train"])
+    rank0 = ranks[0]["loop"]
+    row["loop"] = dict(
+        config="configs/KDLAET.yml full width (dim 48, [4,6,6,8], refinement 4, SR head), "
+               "train.model_shard 2 (dwconv_shift), iters [2]*6: 12 steps, a checkpoint and "
+               "a validation at 12; 12 training triples of 256^2 from the host loader",
+        steps=[dict(iter=e["iter"], stage=prog.stage(e["iter"]) + 1,
+                    batch=prog.at(e["iter"])[0], patch=prog.at(e["iter"])[1],
+                    ms=1e3 * e["iter_time"], one_process_ms=1e3 * o["iter_time"],
+                    data_ms=1e3 * e["data_time"], l_pix=e["l_pix"],
+                    one_process_l_pix=o["l_pix"]) for e, o in zip(steps, one_steps)],
+        parity=loop_parity, sums_per_step=rank0["sums"] / total,
+        partial_bytes_per_step=rank0["moved"]["partials"] / total,
+        shard_weight_bytes=[x["loop"]["shard_bytes"] for x in ranks],
+        whole_weight_bytes=whole_bytes,
+        peak_gib_per_rank=[x["loop"]["peak_gib"] for x in ranks],
+        one_process_peak_gib=peak_one,
+        train_s=rank0["train_s"], val_psnr=vals[0]["psnr"],
+        serve_512_ms=serve_ms, ranks_whole_leaves_bitwise_equal_every_step=True)
+
+    # (b), (c): one process on the card, the same batches and draws
+    for kind, yml, label in (("teacher", teacher512_yml,
+                              f"batch 1 at 512^2, dim 48, blocks {TP_DEPTH['num_blocks']}, "
+                              f"refinement {TP_DEPTH['num_refinement_blocks']}"),
+                             ("student", student_yml, "4x7@384")):
+        one_opt = tcfg.parse(yml, is_train=True, root_path=work)
+        one_opt["train"]["model_shard"] = 1
+        torch.cuda.reset_peak_memory_stats()
+        one_rows, one_first, one_grads = sp_steps(one_opt, kind, torch.device(TP_DEVICE))
+        peak_one = torch.cuda.max_memory_allocated() / 2 ** 30
+        first = torch.load(f"{spec['out']}_{kind}_first.pt")
+        rank_rows = ranks[0][kind]["steps"]
+        parity = sp_parity(first, one_first, one_grads, rank_rows[0], one_rows[0])
+        assert all(np.isfinite(s["l_pix"]) for s in rank_rows), rank_rows
+        del first, one_first, one_grads
+        torch.cuda.empty_cache()
+        row[kind] = dict(
+            shape=label, parity=parity,
+            steps=[dict(ms=a["ms"], one_process_ms=b["ms"], l_pix=a["l_pix"],
+                        one_process_l_pix=b["l_pix"], sums=a["sums"],
+                        partial_bytes=a["partials_bytes"]) for a, b in zip(rank_rows, one_rows)],
+            peak_gib_per_rank=[x[kind]["peak_gib"] for x in ranks],
+            one_process_peak_gib=peak_one)
+    launches = read_counts(counts)
+    assert not any(launches.values()), launches  # training and the fp32 serve reach no kernel
+    row["kernel_launches"] = dict(parent=launches, ranks=[x["launches"] for x in ranks])
+    row["ranks_wall_s"] = ranks_wall
+    row["phase_s"] = time.perf_counter() - t_phase
+    results["tensor_train"] = row
+    print(json.dumps({"tensor_train": row}), flush=True)
+    lp = row["loop"]
+    log("tensor-parallel training, 2 gloo ranks (one model shard each) on one card: loop "
+        + ", ".join(f"{s['batch']}@{s['patch']} {s['ms']:.1f} ms (one process "
+                    f"{s['one_process_ms']:.1f})" for s in lp["steps"])
+        + f"; {lp['sums_per_step']:.0f} sums, partials {lp['partial_bytes_per_step'] / 1e6:.2f} "
+        f"MB a step; parity {lp['parity']['rel']}; peak {lp['peak_gib_per_rank']} GiB, one "
+        f"process {lp['one_process_peak_gib']:.2f}; weights a shard {lp['shard_weight_bytes']} "
+        f"B of {lp['whole_weight_bytes']} [{card}]")
+    for kind in ("teacher", "student"):
+        r = row[kind]
+        log(f"tensor-parallel training, {kind} {r['shape']}: " + ", ".join(
+            f"{s['ms']:.1f} ms (one process {s['one_process_ms']:.1f}), {s['sums']} sums, "
+            f"partials {s['partial_bytes'] / 1e6:.2f} MB" for s in r["steps"])
+            + f"; parity {r['parity']['rel']}; peak per rank {r['peak_gib_per_rank']} GiB, one "
+            f"process {r['one_process_peak_gib']:.2f} [{card}]")
+    log(f"phase 19: {row['phase_s']:.1f} s")
+
+
 def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--dp-rank":  # a rank of phase 13
         return dp_child(sys.argv[2])
     if len(sys.argv) == 3 and sys.argv[1] == "--sp-rank":  # a rank of phase 17
         return sp_child(sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] == "--tp-rank":  # a rank of phase 19
+        return tp_child(sys.argv[2])
     only = sys.argv[2] if sys.argv[1:2] == ["--phase"] and len(sys.argv) == 3 else None
-    if sys.argv[1:] and only not in ("14", "15", "16", "17", "18"):  # one phase alone, after the build
+    if sys.argv[1:] and only not in ("14", "15", "16", "17", "18", "19"):  # one phase alone
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
         return 2
     import torch
@@ -4840,9 +5143,9 @@ def main() -> int:
                "cuda": torch.version.cuda, "build_s": build_s}
     if only:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32_defaults
-        if only == "17":
-            with tempfile.TemporaryDirectory(prefix="raie_sp_") as work:
-                phase_spatial_train(results, card, work)
+        if only in ("17", "19"):
+            with tempfile.TemporaryDirectory(prefix=f"raie_{only}_") as work:
+                (phase_spatial_train if only == "17" else phase_tensor_train)(results, card, work)
             return 0
         {"14": phase_dp_serving, "15": phase_remaining_datasets,
          "16": phase_spatial, "18": phase_tensor}[only](results, card)
@@ -4886,6 +5189,9 @@ def main() -> int:
         phase_spatial_train(results, card, work)
     torch.cuda.empty_cache()
     shard_rows, part_rows, shard_launches = phase_tensor(results, card)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="raie_tp_") as work:
+        phase_tensor_train(results, card, work)
     results["path_launches"] = dict(whole_image=whole_launches, tiled=tiled_launches,
                                     group=group_launches, zoo_cli=zoo_launches,
                                     distill=distill_launches, dp_serving=dp_launches,

@@ -7,6 +7,11 @@ Every layer computes in ``torch.promote_types(input, weight)``, as the flax
 modules do with ``dtype=None``: float32 weights take a bfloat16 input to
 float32, and bfloat16 weights compute in bfloat16 only with a bfloat16
 input. The weights' dtype is thus the model's compute dtype.
+
+``dwconv_shift`` (the JAX package's flag of the same name, which
+``train.model_shard`` sets) runs both depthwise 3x3 convs of a block as
+``DepthwiseConv3x3``: nine shifted multiply-adds with the grouped conv's
+parameter. ``set_dwconv_shift`` turns it on in a built model.
 """
 
 from __future__ import annotations
@@ -28,6 +33,33 @@ class Conv2d(nn.Conv2d):
         dtype = torch.promote_types(x.dtype, self.weight.dtype)
         bias = None if self.bias is None else self.bias.to(dtype)
         return self._conv_forward(x.to(dtype), self.weight.to(dtype), bias)
+
+
+class DepthwiseConv3x3(Conv2d):
+    """A 3x3 depthwise conv as nine shifted multiply-adds (the JAX
+    package's ``models/blocks.py::DepthwiseConv3x3``): zero-pad 1, then
+    ``sum over (di, dj) of x[.., di:di+H, dj:dj+W] * weight[:, 0, di, dj]``
+    added in that order, ``di`` outer, then the bias. Its parameter is the
+    grouped conv's ``weight`` (C, 1, 3, 3) (and ``bias`` (C,)), so a state
+    dict and ``flax_block_tree`` read it as they read the grouped conv."""
+
+    def __init__(self, channels: int, bias: bool = False, device=None, dtype=None):
+        super().__init__(channels, channels, 3, padding=1, groups=channels, bias=bias,
+                         device=device, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dtype = torch.promote_types(x.dtype, self.weight.dtype)
+        h, w = x.shape[-2:]
+        xp = F.pad(x.to(dtype), (1, 1, 1, 1))
+        k = self.weight.to(dtype)
+        acc = None
+        for di in range(3):
+            for dj in range(3):
+                t = xp[..., di:di + h, dj:dj + w] * k[:, 0, di, dj, None, None]
+                acc = t if acc is None else acc + t
+        if self.bias is not None:
+            acc = acc + self.bias.to(dtype)[:, None, None]
+        return acc
 
 
 class _LayerNormBody(nn.Module):
@@ -132,6 +164,25 @@ class TransformerBlock(nn.Module):
             return y.permute(0, 3, 1, 2).contiguous()
         x = x + self.attn(self.norm1(x))
         return x + self.ffn(self.norm2(x))
+
+
+def set_dwconv_shift(model: nn.Module) -> nn.Module:
+    """In place: every depthwise conv of ``model``'s MDTAs and GDFNs becomes
+    the shift-add form, holding the same parameters, and ``model`` sets its
+    ``dwconv_shift`` flag (the counterpart of the JAX package's
+    ``model.clone(dwconv_shift=True)``). Returns ``model``."""
+    for m in list(model.modules()):
+        name = "qkv_dwconv" if isinstance(m, MDTA) else "dwconv" if isinstance(m, GDFN) else None
+        if name is not None:
+            conv = getattr(m, name)
+            new = DepthwiseConv3x3(conv.out_channels, conv.bias is not None,
+                                   device=conv.weight.device, dtype=conv.weight.dtype)
+            new.weight = conv.weight
+            if conv.bias is not None:
+                new.bias = conv.bias
+            setattr(m, name, new)
+    model.dwconv_shift = True
+    return model
 
 
 def flax_block_tree(blk: TransformerBlock) -> dict:

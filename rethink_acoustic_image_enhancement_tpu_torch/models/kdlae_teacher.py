@@ -8,7 +8,10 @@ ctor advertises 'plus'/'mul' but its forward implements only 'cat'.
 ``fused_resample`` folds each conv + pixel-(un)shuffle resampler into one
 strided or transposed conv (``models/blocks.py``), with the same weights.
 The weights' dtype sets the compute dtype (``models/blocks.py``): cast the
-model to bfloat16 to compute in bfloat16.
+model to bfloat16 to compute in bfloat16. ``dwconv_shift`` says whether
+every block's depthwise convs run in the shift-add form
+(``models/blocks.py``); no config key sets it, ``train.model_shard`` does
+(``set_dwconv_shift``).
 """
 
 from __future__ import annotations
@@ -64,6 +67,8 @@ class KDLAETeacher(nn.Module):
     """KDLAE-T. Input {'img': (B, C, H, W) in [0,1], 'denoise_rate':
     (B, 1, H, W)}; output {'hq': (B, C, H, W), 'sr': (B, C, 2H, 2W) or
     None}. H and W must be multiples of 8."""
+
+    dwconv_shift = False  # set_dwconv_shift sets it on the instance
 
     def __init__(self, inp_channels: int = 3, out_channels: int = 3,
                  dim: int = 48, num_blocks: Sequence[int] = (4, 6, 6, 8),
@@ -209,6 +214,8 @@ def _unet(run, cat, inp_img):
 class Restormer(nn.Module):
     """Vanilla Restormer (Train/.../restormer_arch.py:471-562): (B, C, H, W)
     in, (B, C, H, W) out, global residual, no conditioning and no SR head."""
+
+    dwconv_shift = False  # set_dwconv_shift sets it on the instance
 
     def __init__(self, inp_channels: int = 3, out_channels: int = 3,
                  dim: int = 48, num_blocks: Sequence[int] = (4, 6, 6, 8),

@@ -38,13 +38,29 @@ j's module and ``imgs[j]``, ``rates[j]`` the whole input on its device. A
 stage that is ``fused`` and that ``ops/stage_gate.py::stage_worthwhile``
 admits on the image's shape (its whole C and heads) runs
 ``ops/stage.py::fused_transformer_stage_shards``; any other runs block by
-block in eager code on the shards' channel slices.
+block in eager code on the shards' channel slices. ``network_shards`` picks
+the teacher's, the Restormer's or (every layer whole) any other network's
+forward; ``shards`` is a ``LocalShards`` (serving, every shard in one
+process) or a ``parallel/tensor.py::RankShards`` (training, one shard a
+rank), on which these functions run unchanged.
+
+Training (``train.model_shard``) also needs the rule as data:
+``shard_layout(model, n)`` maps each entry of the whole model's state dict
+to a ``Split`` (where each shard's slice lies in the whole leaf) or None (a
+whole leaf, the same on every shard; ``leaf_kinds`` names them).
+``shard_module`` gives one rank its own shard, ``shard_state_dict`` slices
+a whole state dict (weights, an optimizer's moments) for a shard,
+``unshard`` puts the shards' state dicts back into the reference layout and
+``gather_shards`` does that on ranks. The student and the scorer's
+predictor have no split: every shard holds them whole (the JAX package
+also shards their divisible 1-D vectors over ``model``).
 """
 
 from __future__ import annotations
 
 import copy
-from typing import Sequence
+import dataclasses
+from typing import Callable, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -54,8 +70,11 @@ from ..ops import stage_gate
 from ..ops.attention import mdta_core
 from ..ops.stage import fused_transformer_stage_shards, stack_block_params
 from ..parallel.tensor import heads_split, shard_range
-from .blocks import GDFN, MDTA, Conv2d, TransformerBlock, flax_block_tree
-from .kdlae_teacher import KDLAETeacher, TransformerStage
+from .blocks import (GDFN, MDTA, Conv2d, DepthwiseConv3x3, TransformerBlock,
+                     flax_block_tree)
+from .kdlae_teacher import KDLAETeacher, Restormer, TransformerStage
+
+SHARDED_NETWORKS = (KDLAETeacher, Restormer)  # the networks with split blocks
 
 Shards = list[torch.Tensor]
 
@@ -64,9 +83,9 @@ Shards = list[torch.Tensor]
 
 def _sliced_conv(conv: Conv2d, out_idx=None, in_idx=None, bias: bool = True) -> Conv2d:
     """``conv`` on some of its output channels (``out_idx``; a depthwise
-    conv keeps one group a channel) or some of its input channels
-    (``in_idx``), the bias kept with the output channels (dropped where
-    ``bias`` is False)."""
+    conv keeps one group a channel, and the shift-add form its form) or
+    some of its input channels (``in_idx``), the bias kept with the output
+    channels (dropped where ``bias`` is False)."""
     w = conv.weight.detach()
     b = None if conv.bias is None or not bias else conv.bias.detach()
     groups = conv.groups
@@ -77,9 +96,12 @@ def _sliced_conv(conv: Conv2d, out_idx=None, in_idx=None, bias: bool = True) -> 
             groups = len(out_idx)
     if in_idx is not None:
         w = w[:, in_idx]
-    new = Conv2d(w.shape[1] * groups, w.shape[0], conv.kernel_size, stride=conv.stride,
-                 padding=conv.padding, dilation=conv.dilation, groups=groups,
-                 bias=b is not None, device=w.device, dtype=w.dtype)
+    if isinstance(conv, DepthwiseConv3x3):
+        new = DepthwiseConv3x3(w.shape[0], bias=b is not None, device=w.device, dtype=w.dtype)
+    else:
+        new = Conv2d(w.shape[1] * groups, w.shape[0], conv.kernel_size, stride=conv.stride,
+                     padding=conv.padding, dilation=conv.dilation, groups=groups,
+                     bias=b is not None, device=w.device, dtype=w.dtype)
     with torch.no_grad():
         new.weight.copy_(w)
         if b is not None:
@@ -100,52 +122,198 @@ def _halves(width: int, cols: range) -> torch.Tensor:
                       for h in range(2)])
 
 
-def _shard_block(blk: TransformerBlock, j: int, n: int) -> None:
-    """In place: ``blk`` becomes shard j's of n (the module docstring)."""
+def _span(r: range) -> torch.Tensor:
+    return torch.arange(r.start, r.stop)
+
+
+def _block_splits(blk: TransformerBlock, n: int) -> dict[str, tuple[int, list]]:
+    """The split leaves of ``blk`` over n shards (the module docstring's
+    rule), by their names in the block: (dim, shard j's indices along dim,
+    or None where shard j does not hold the leaf)."""
     attn, ffn = blk.attn, blk.ffn
     c, heads = blk.dim, attn.num_heads
+    out = {}
+
+    def conv(name, mod, dim, idx):
+        out[f"{name}.weight"] = (dim, idx)
+        if mod.bias is not None:  # a split input's bias stays on shard 0
+            out[f"{name}.bias"] = (0, idx if dim == 0 else
+                                   [_span(range(mod.out_channels))] + [None] * (n - 1))
+
     if heads_split(heads, n):
         hs = heads // n
-        cols = shard_range(c, n, j)  # n divides the heads, so C too: even ranges
-        attn.qkv = _sliced_conv(attn.qkv, out_idx=_thirds(c, cols))
-        attn.qkv_dwconv = _sliced_conv(attn.qkv_dwconv, out_idx=_thirds(c, cols))
-        attn.project_out = _sliced_conv(attn.project_out, in_idx=torch.arange(cols.start,
-                                                                             cols.stop),
-                                        bias=j == 0)
-        attn.temperature = nn.Parameter(attn.temperature.detach()[j * hs:(j + 1) * hs].clone(),
-                                        requires_grad=attn.temperature.requires_grad)
-        attn.num_heads = hs
+        cols = [shard_range(c, n, j) for j in range(n)]  # n divides C: even ranges
+        conv("attn.qkv", attn.qkv, 0, [_thirds(c, r) for r in cols])
+        conv("attn.qkv_dwconv", attn.qkv_dwconv, 0, [_thirds(c, r) for r in cols])
+        conv("attn.project_out", attn.project_out, 1, [_span(r) for r in cols])
+        out["attn.temperature"] = (0, [_span(range(j * hs, (j + 1) * hs)) for j in range(n)])
     f = ffn.project_out.in_channels
-    rng = shard_range(f, n, j)
-    ffn.project_in = _sliced_conv(ffn.project_in, out_idx=_halves(f, rng))
-    ffn.dwconv = _sliced_conv(ffn.dwconv, out_idx=_halves(f, rng))
+    rngs = [shard_range(f, n, j) for j in range(n)]
+    conv("ffn.project_in", ffn.project_in, 0, [_halves(f, r) for r in rngs])
+    conv("ffn.dwconv", ffn.dwconv, 0, [_halves(f, r) for r in rngs])
+    conv("ffn.project_out", ffn.project_out, 1, [_span(r) for r in rngs])
+    return out
+
+
+def _shard_block(blk: TransformerBlock, j: int, n: int) -> None:
+    """In place: ``blk`` becomes shard j's of n (the module docstring)."""
+    splits = _block_splits(blk, n)
+    attn, ffn = blk.attn, blk.ffn
+    if "attn.temperature" in splits:
+        q = splits["attn.qkv.weight"][1][j]
+        attn.qkv = _sliced_conv(attn.qkv, out_idx=q)
+        attn.qkv_dwconv = _sliced_conv(attn.qkv_dwconv, out_idx=q)
+        attn.project_out = _sliced_conv(attn.project_out,
+                                        in_idx=splits["attn.project_out.weight"][1][j],
+                                        bias=j == 0)
+        heads = splits["attn.temperature"][1][j]
+        attn.temperature = nn.Parameter(attn.temperature.detach()[heads].clone(),
+                                        requires_grad=attn.temperature.requires_grad)
+        attn.num_heads = len(heads)
+    hid = splits["ffn.project_in.weight"][1][j]
+    ffn.project_in = _sliced_conv(ffn.project_in, out_idx=hid)
+    ffn.dwconv = _sliced_conv(ffn.dwconv, out_idx=hid)
     ffn.project_out = _sliced_conv(ffn.project_out,
-                                   in_idx=torch.arange(rng.start, rng.stop), bias=j == 0)
+                                   in_idx=splits["ffn.project_out.weight"][1][j], bias=j == 0)
 
 
-def shard_teacher(model: KDLAETeacher, devices: Sequence[str | torch.device]
-                  ) -> list[KDLAETeacher]:
-    """One module per shard (the module docstring's rule), shard j on
-    ``devices[j]``: a copy of ``model`` whose TransformerBlocks hold only
-    shard j's slices, every other layer whole, with ``model``'s flags and
-    dtype. ``model`` itself is left as it was. Raises a ValueError naming
-    the first block whose hidden channels are fewer than the shards."""
-    devices = [torch.device(d) for d in devices]
-    n = len(devices)
+def _check_hidden(model: nn.Module, n: int) -> None:
+    """Raise a ValueError naming the first block whose hidden channels are
+    fewer than ``n`` shards."""
     if n < 1:
-        raise ValueError("shard_teacher needs at least one device")
+        raise ValueError("model shards need at least one shard")
     for name, blk in model.named_modules():
         if isinstance(blk, TransformerBlock) and blk.ffn.project_out.in_channels < n:
             raise ValueError(
                 f"{name}: {blk.ffn.project_out.in_channels} hidden channels leave some of "
                 f"{n} model shards none; use at most that many shards")
-    out = []
-    for j, d in enumerate(devices):
-        m = copy.deepcopy(model)
+
+
+def shard_module(model: nn.Module, j: int, n: int, device=None) -> nn.Module:
+    """Shard j's of n of ``model`` (the module docstring's rule) on
+    ``device`` (the model's own where None): a copy whose TransformerBlocks
+    hold only shard j's slices, every other layer whole, with ``model``'s
+    flags and dtype; a network without split blocks (``SHARDED_NETWORKS``)
+    is copied whole. ``model`` itself is left as it was."""
+    _check_hidden(model, n)
+    m = copy.deepcopy(model)
+    if isinstance(m, SHARDED_NETWORKS):
         for blk in m.modules():
             if isinstance(blk, TransformerBlock):
                 _shard_block(blk, j, n)
-        out.append(m.to(d))
+    return m if device is None else m.to(device)
+
+
+def shard_teacher(model: KDLAETeacher | Restormer, devices: Sequence[str | torch.device]
+                  ) -> list[nn.Module]:
+    """One module per shard (the module docstring's rule), shard j on
+    ``devices[j]`` (``shard_module``): the teacher or the Restormer. Raises
+    a ValueError naming the first block whose hidden channels are fewer
+    than the shards."""
+    devices = [torch.device(d) for d in devices]
+    if not devices:
+        raise ValueError("shard_teacher needs at least one device")
+    return [shard_module(model, j, len(devices), d) for j, d in enumerate(devices)]
+
+
+@dataclasses.dataclass(frozen=True)
+class Split:
+    """A split leaf of shape ``shape``: shard j holds ``index[j]`` of it
+    along ``dim`` (None where shard j does not hold the leaf: a split
+    projection's bias, which shard 0 alone holds)."""
+
+    shape: tuple
+    dtype: torch.dtype
+    dim: int
+    index: tuple
+
+    def take(self, t: torch.Tensor, j: int) -> torch.Tensor:
+        """Shard j's slice of the whole leaf ``t``."""
+        return t.index_select(self.dim, self.index[j].to(t.device))
+
+    def put(self, whole: torch.Tensor, t: torch.Tensor, j: int) -> None:
+        """In place: shard j's slice ``t`` into the whole leaf ``whole``."""
+        whole.index_copy_(self.dim, self.index[j].to(whole.device), t.to(whole.dtype))
+
+
+def shard_layout(model: nn.Module, n: int) -> dict[str, Split | None]:
+    """Each entry of ``model.state_dict()`` (the whole model), in its order:
+    a ``Split`` where n shards split it, None where every shard holds it
+    whole."""
+    _check_hidden(model, n)
+    splits = {}
+    if isinstance(model, SHARDED_NETWORKS) and n > 1:
+        for name, blk in model.named_modules():
+            if isinstance(blk, TransformerBlock):
+                splits.update({f"{name}.{k}": v for k, v in _block_splits(blk, n).items()})
+    out = {}
+    for name, t in model.state_dict().items():
+        rule = splits.get(name)
+        out[name] = None if rule is None else Split(tuple(t.shape), t.dtype, rule[0],
+                                                    tuple(rule[1]))
+    return out
+
+
+def leaf_kinds(model: nn.Module, n: int) -> dict[str, str]:
+    """'split' or 'whole' for each parameter of ``model`` over n shards."""
+    layout = shard_layout(model, n)
+    return {name: "whole" if layout[name] is None else "split"
+            for name, _ in model.named_parameters()}
+
+
+def held(layout: dict, j: int) -> list[str]:
+    """The entries shard j holds, in the whole model's order."""
+    return [k for k, r in layout.items() if r is None or r.index[j] is not None]
+
+
+def shard_state_dict(state: dict, layout: dict, j: int) -> dict:
+    """Shard j's entries of a whole state dict (or of any dict keyed as
+    ``layout``, an optimizer's moments): split leaves sliced, whole ones as
+    they are."""
+    return {k: state[k] if layout[k] is None else layout[k].take(state[k], j)
+            for k in held(layout, j) if k in state}
+
+
+def unshard(states: Sequence[dict], layout: dict) -> dict:
+    """The whole state dict from the shards' (``states[j]`` shard j's, as
+    ``shard_state_dict`` gives it), in the reference layout: each split
+    leaf's slices copied to their places, whole leaves from shard 0."""
+    out = {}
+    for k, rule in layout.items():
+        if k not in states[0]:
+            continue
+        if rule is None:
+            out[k] = states[0][k]
+            continue
+        whole = states[0][k].new_zeros(rule.shape, dtype=rule.dtype)
+        for j, st in enumerate(states):
+            if rule.index[j] is not None:
+                rule.put(whole, st[k], j)
+        out[k] = whole
+    return out
+
+
+def gather_shards(state: dict, layout: dict, j: int, reduce: Callable, device) -> dict:
+    """``unshard`` on ranks, from shard j's own ``state``: each split leaf
+    (of the entries of ``layout`` that ``state`` or another shard holds)
+    put at shard j's place in a zeroed whole leaf on ``device``, and
+    ``reduce`` (a list of tensors summed in place over the model subgroup,
+    ``parallel/collectives.py::sum_over_shards_``) adds the shards' leaves:
+    adding zeros is exact, so every shard gets the reference layout. Whole
+    leaves are shard j's own. Every shard must call it with the same
+    ``layout`` and entries."""
+    out, bufs = {}, []
+    for k, rule in layout.items():
+        if rule is None:
+            if k in state:
+                out[k] = state[k]
+            continue
+        whole = torch.zeros(rule.shape, dtype=rule.dtype, device=device)
+        if rule.index[j] is not None:
+            rule.put(whole, state[k], j)
+        out[k] = whole
+        bufs.append(whole)
+    reduce(bufs)
     return out
 
 
@@ -282,14 +450,36 @@ def _add(a, b):
     return [x + y for x, y in zip(a, b)]
 
 
+def _wire_runner(models: Sequence[nn.Module], shards):
+    def run(name, xs):
+        return layer_shards([getattr(m, name) for m in models], xs, shards)
+
+    return run
+
+
 def teacher_shards(models: Sequence[KDLAETeacher], imgs: Shards, rates: Shards,
                    shards) -> dict:
     """``KDLAETeacher.forward`` on model shards (the module docstring),
     through the teacher's own wiring (``KDLAETeacher.wire``): returns
     {'hq': one (B, C, H, W) a shard, 'sr': one (B, C, 2H, 2W) a shard or
     None}, the same bits on every shard."""
+    return models[0].wire(_wire_runner(models, shards), _cat, _add, imgs, rates)
 
-    def run(name, xs):
-        return layer_shards([getattr(m, name) for m in models], xs, shards)
 
-    return models[0].wire(run, _cat, _add, imgs, rates)
+def restormer_shards(models: Sequence[Restormer], imgs: Shards, shards) -> Shards:
+    """``Restormer.forward`` on model shards, through its own wiring: one
+    (B, C, H, W) output a shard, the same bits on every shard."""
+    return models[0].wire(_wire_runner(models, shards), _cat, _add, imgs)
+
+
+def network_shards(models: Sequence[nn.Module], lqs: Sequence, shards):
+    """``models[j](lqs[j])`` on model shards: the teacher's {'img',
+    'denoise_rate'} dicts give {'hq', 'sr'} of shard lists, the Restormer
+    a shard list; any other network runs whole on every shard."""
+    m = models[0]
+    if isinstance(m, KDLAETeacher):
+        return teacher_shards(models, [x["img"] for x in lqs],
+                              [x.get("denoise_rate") for x in lqs], shards)
+    if isinstance(m, Restormer):
+        return restormer_shards(models, list(lqs), shards)
+    return [mod(x) for mod, x in zip(models, lqs)]

@@ -21,14 +21,21 @@ training step needs of them.
     ``local_device``, ``barrier`` and ``shutdown``; a single process
     answers 0, 1, None, its one device, and ``barrier`` does nothing;
   * ``init_grid``: the ranks as an ``n_data x n_spatial`` grid
-    (``train.spatial_shard``): rank r is data index ``r // n_spatial`` and
-    band ``r % n_spatial`` of its data index's images. Each data index's
-    bands form a spatial subgroup (their halos, partial sums and the join
-    of their bands), and each band index across the data indices a data
-    subgroup (the global batch's rows). ``data_index``, ``n_data``,
-    ``band_index``, ``n_spatial``, ``spatial_group`` and ``data_group``
-    read it; without a grid (or with ``n_spatial`` 1) every rank is a data
-    index of its own and the data group is the world.
+    (``train.spatial_shard``) or an ``n_data x n_model`` grid
+    (``train.model_shard``), never both (as in the JAX package): rank r is
+    data index ``r // n_inner`` and band or model shard ``r % n_inner`` of
+    its data index, ``n_inner`` being ``n_spatial`` or ``n_model``. Each
+    data index's ranks form a spatial or a model subgroup (the halos,
+    partial sums and joins of its bands; the partial sums of its shards),
+    and each band or shard index across the data indices a data subgroup
+    (the global batch's rows). ``data_index``, ``n_data``, ``band_index``,
+    ``n_spatial``, ``spatial_group``, ``shard_index``, ``n_model``,
+    ``model_group`` and ``data_group`` read it; without a grid every rank
+    is a data index of its own and the data group is the world. On model
+    shards a gradient is reduced by the kind of its leaf
+    (``collectives.py::reduce_shard_gradients``): a leaf every shard holds
+    whole over the world, a split leaf over its data subgroup, both divided
+    by the world's size.
 """
 
 from __future__ import annotations
@@ -156,36 +163,50 @@ def init_distributed(coordinator_address: str | None = None,
     return True
 
 
-_GRID = {"n_spatial": 1, "spatial": None, "data": None}
+_GRID = {"n_spatial": 1, "n_model": 1, "inner": None, "data": None}
 
 
-def init_grid(n_spatial: int) -> None:
-    """Lay the ranks out as ``world_size() // n_spatial`` data indices of
-    ``n_spatial`` bands each (module docstring). Every rank calls it with
-    the same ``n_spatial``; a second call with the grid's own size keeps
-    its groups. Raises where ``n_spatial`` does not divide the world."""
-    n_spatial = int(n_spatial)
+def _reset_grid() -> None:
+    _GRID.update(n_spatial=1, n_model=1, inner=None, data=None)
+
+
+def init_grid(n_spatial: int = 1, n_model: int = 1) -> None:
+    """Lay the ranks out as ``world_size() // n`` data indices of ``n``
+    bands (``n_spatial``) or model shards (``n_model``) each (module
+    docstring). Every rank calls it with the same sizes; a second call with
+    the grid's own sizes keeps its groups. Raises where both axes are
+    split or where ``n`` does not divide the world."""
+    n_spatial, n_model = int(n_spatial), int(n_model)
+    if n_spatial > 1 and n_model > 1:
+        raise ValueError("a grid splits either bands or model shards, not both")
+    n = max(n_spatial, n_model)
     world = world_size()
-    if n_spatial < 1 or world % n_spatial:
-        raise ValueError(f"{n_spatial} bands do not divide a world of {world} rank(s)")
-    if n_spatial == _GRID["n_spatial"] and (n_spatial == 1 or _GRID["spatial"] is not None):
+    if min(n_spatial, n_model) < 1 or world % n:
+        what = "model shards" if n_model > 1 else "bands"
+        raise ValueError(f"{n} {what} do not divide a world of {world} rank(s)")
+    if (n_spatial, n_model) == (_GRID["n_spatial"], _GRID["n_model"]) and (
+            n == 1 or _GRID["inner"] is not None):
         return
-    _GRID.update(n_spatial=1, spatial=None, data=None)
-    if n_spatial == 1:
+    _reset_grid()
+    if n == 1:
         return
-    n_data, r = world // n_spatial, rank()
-    spatial = data = None
+    n_data, r = world // n, rank()
+    inner = data = None
     # new_group is entered by every rank for every group, in the same order
     for d in range(n_data):
-        g = dist.new_group(list(range(d * n_spatial, (d + 1) * n_spatial)))
-        if d == r // n_spatial:
-            spatial = g
-    for s in range(n_spatial):
-        g = dist.new_group(list(range(s, world, n_spatial)))
-        if s == r % n_spatial:
+        g = dist.new_group(list(range(d * n, (d + 1) * n)))
+        if d == r // n:
+            inner = g
+    for s in range(n):
+        g = dist.new_group(list(range(s, world, n)))
+        if s == r % n:
             data = g
-    _GRID.update(n_spatial=n_spatial, spatial=spatial,
+    _GRID.update(n_spatial=n_spatial, n_model=n_model, inner=inner,
                  data=None if n_data == 1 else data)
+
+
+def _n_inner() -> int:
+    return _GRID["n_spatial"] * _GRID["n_model"]
 
 
 def n_spatial() -> int:
@@ -198,24 +219,41 @@ def band_index() -> int:
     return rank() % n_spatial()
 
 
+def n_model() -> int:
+    """Model shards of the network: the grid's ``n_model`` (1 without a
+    grid)."""
+    return _GRID["n_model"]
+
+
+def shard_index() -> int:
+    """This rank's model shard."""
+    return rank() % n_model()
+
+
 def n_data() -> int:
     """Data indices of the grid: the ranks that hold different rows."""
-    return world_size() // n_spatial()
+    return world_size() // _n_inner()
 
 
 def data_index() -> int:
     """This rank's data index: which rows of the global batch it holds."""
-    return rank() // n_spatial()
+    return rank() // _n_inner()
 
 
 def spatial_group():
     """The process group of this data index's bands (None without bands)."""
-    return _GRID["spatial"]
+    return _GRID["inner"] if _GRID["n_spatial"] > 1 else None
+
+
+def model_group():
+    """The process group of this data index's model shards (None without
+    shards)."""
+    return _GRID["inner"] if _GRID["n_model"] > 1 else None
 
 
 def data_group():
-    """The process group of this band index across the data indices (None:
-    the world, as without bands)."""
+    """The process group of this band or shard index across the data
+    indices (None: the world, as without a grid)."""
     return _GRID["data"]
 
 
@@ -227,6 +265,6 @@ def barrier() -> None:
 
 def shutdown() -> None:
     """Leave the process group, if there is one."""
-    _GRID.update(n_spatial=1, spatial=None, data=None)
+    _reset_grid()
     if is_initialized():
         dist.destroy_process_group()

@@ -29,6 +29,27 @@ exchange of ``parallel/spatial.py::RankBands`` within a spatial subgroup
 divides by the world's size: each rank's gradient then carries
 n_spatial x n_data times its share, as above.
 
+On a grid of data indices and model shards (``train.model_shard``) the
+shards of one data index hold the same rows, as bands do, and their
+partial sums are ``placed_sum`` over the model subgroup
+(``parallel/tensor.py::RankShards``). That sum's backward is the same sum
+of the shards' upstream gradients, the exact adjoint of N copies of the
+loss, so after the backward:
+
+  * a split leaf (its slice on one shard: heads or hidden channels of a
+    block, a split ``temperature``, the bias shard 0 alone holds) carries
+    N times its slice's gradient;
+  * a whole leaf (every shard holds it: the LayerNorms, a whole MDTA, the
+    layers outside the blocks) carries a different piece on each shard,
+    the pieces adding up to N times its gradient.
+
+``reduce_shard_gradients`` therefore sums the whole leaves over the world
+and the split leaves over their data subgroup only (the ranks that hold the
+same slice), and divides both by the world's size: every rank then holds
+the one-process gradient, the whole leaves bit-equal on every rank.
+``sum_over_shards_`` adds tensors over the model subgroup: the clip's norm
+(each split leaf counted once) and ``models/shards.py::gather_shards``.
+
 Only ``all_reduce`` and ``broadcast`` are used: gloo moves CUDA tensors for
 those two alone, and two ranks that share one card must use gloo.
 """
@@ -40,7 +61,7 @@ from typing import Iterable, Sequence
 import torch
 import torch.distributed as dist
 
-from . import data_group, data_index, n_data, rank, world_size
+from . import data_group, data_index, model_group, n_data, n_model, rank, world_size
 
 BUCKET_BYTES = 32 * 2 ** 20
 
@@ -144,25 +165,62 @@ def _buckets(tensors: list[torch.Tensor], limit: int) -> list[list[torch.Tensor]
     return out
 
 
-def reduce_gradients(params: Iterable[torch.nn.Parameter]) -> None:
-    """Sum every parameter's gradient over the ranks and divide by the
-    number of ranks, in place (a missing gradient counts as zeros and is
-    set). Each bucket is flattened, reduced once and copied back."""
-    n = world_size()
-    if n == 1:
-        return
-
+def _zero_filled(params: Iterable[torch.nn.Parameter]) -> list[torch.Tensor]:
+    """The parameters' gradients, a missing one set to zeros."""
     grads = []
     for p in params:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
         grads.append(p.grad)
-    for bucket in _buckets(grads, BUCKET_BYTES):
+    return grads
+
+
+def _all_reduce_(tensors: list[torch.Tensor], group, divisor: int = 1) -> None:
+    """Each tensor summed over ``group`` (None: the world) and divided by
+    ``divisor``, in place, in flat buckets: each bucket flattened, reduced
+    once and copied back."""
+    for bucket in _buckets(tensors, BUCKET_BYTES):
         flat = torch.cat([g.reshape(-1) for g in bucket])
-        dist.all_reduce(flat)
-        flat.div_(n)
+        dist.all_reduce(flat, group=group)
+        if divisor != 1:
+            flat.div_(divisor)
         torch._foreach_copy_(bucket, [v.view_as(g) for v, g in zip(
             flat.split([g.numel() for g in bucket]), bucket)])
+
+
+def reduce_gradients(params: Iterable[torch.nn.Parameter]) -> None:
+    """Sum every parameter's gradient over the ranks and divide by the
+    number of ranks, in place (a missing gradient counts as zeros and is
+    set)."""
+    n = world_size()
+    if n == 1:
+        return
+    _all_reduce_(_zero_filled(params), None, n)
+
+
+def reduce_shard_gradients(whole: Iterable[torch.nn.Parameter],
+                           split: Iterable[torch.nn.Parameter]) -> None:
+    """On model shards (module docstring): the ``whole`` leaves' gradients
+    summed over the world, the ``split`` leaves' over the data subgroup,
+    both divided by the world's size, in place (a missing gradient counts
+    as zeros and is set). Every rank passes its leaves in the whole
+    model's order."""
+    n = world_size()
+    whole, split = _zero_filled(whole), _zero_filled(split)
+    if n == 1:
+        return
+    _all_reduce_(whole, None, n)
+    if n_data() > 1:
+        _all_reduce_(split, data_group(), n)
+    elif split:
+        torch._foreach_div_(split, n)
+
+
+def sum_over_shards_(tensors: list[torch.Tensor]) -> None:
+    """Each tensor summed over this data index's model shards, in place
+    (nothing without shards)."""
+    if n_model() > 1 and tensors:
+        _all_reduce_(tensors, model_group())
 
 
 def broadcast_module(*modules: torch.nn.Module | None) -> None:

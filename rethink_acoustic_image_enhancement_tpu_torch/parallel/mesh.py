@@ -9,11 +9,12 @@ JAX package names them:
     (``parallel/spatial.py``, ``TeacherPredictor(mesh=...)``); in training
     one a rank (``train.spatial_shard``, ``parallel.init_grid``), not a
     mesh;
-  * ``model``: tensor parallelism in serving, one model split over the
-    devices of the axis, shard j holding its heads and hidden channels of
-    every TransformerBlock (``parallel/tensor.py``, ``models/shards.py``,
-    ``TeacherPredictor(mesh=...)``); not in training yet
-    (``train.model_shard``, ROADMAP.md Queue A item 5c).
+  * ``model``: tensor parallelism, one model split over the devices of the
+    axis, shard j holding its heads and hidden channels of every
+    TransformerBlock (``parallel/tensor.py``, ``models/shards.py``): in
+    serving ``TeacherPredictor(mesh=...)``; in training one a rank
+    (``train.model_shard``, ``parallel.init_grid``, ``RankShards``), not a
+    mesh.
 
 The JAX module's ``batch_sharding``, ``replicated`` and
 ``shard_batch_pytree`` are XLA placements (shardings that ``jit`` reads) and
@@ -21,8 +22,12 @@ have no counterpart: the port places its tensors itself, band by band or
 copy by copy. ``process_shard`` is ``parallel/collectives.py``'s.
 ``model_param_specs`` (every conv's output channels sharded, XLA inserting
 the collectives) has none either: the port splits each block's weights
-itself, by heads and by hidden channels (``models/shards.py::
-shard_teacher``), and adds the partial sums itself.
+itself, by heads and by hidden channels (``models/shards.py``:
+``shard_teacher`` for serving, ``shard_module`` and ``shard_layout`` for
+training), and adds the partial sums itself. Its second defect (grouped-conv
+kernel gradients scaled on a ``model`` axis) is XLA's: the port's
+``train.model_shard`` still sets ``dwconv_shift``, so that it trains the
+model the JAX package trains.
 """
 
 from __future__ import annotations

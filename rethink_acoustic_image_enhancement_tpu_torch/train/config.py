@@ -6,8 +6,9 @@ and scale injected per dataset, the experiment (train) or results (test)
 paths laid out under ``root_path`` (the working directory by default), and
 the ``debug`` name shortcut. ``validate`` checks model, dataset, loss and
 scheduler names against the registries before anything runs, and refuses
-the options whose training path is not ported yet, naming the ROADMAP.md
-item.
+what the JAX package refuses (``train.model_shard`` beside
+``train.spatial_shard``) and what needs JAX itself (an orbax teacher for
+online distillation), naming the ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -85,15 +86,12 @@ def validate(opt: dict[str, Any]) -> None:
         distill = train.get("distill") or {}
         if distill.get("online"):
             validate_distill(distill)
-        if int(train.get("model_shard") or 1) > 1:
-            if int(train.get("spatial_shard") or 1) > 1:  # JAX loop.py:141-144
-                raise ValueError("train.model_shard and train.spatial_shard "
-                                 "cannot be combined (as in the JAX package, "
-                                 "whose SPMD partitioner mis-partitions "
-                                 "feature-sharded convs under halo exchange)")
-            raise NotImplementedError(
-                "train.model_shard is not ported yet (ROADMAP.md, Queue A: "
-                "item 5c, the model axis: tensor-parallel serving and training)")
+        if int(train.get("model_shard") or 1) > 1 \
+                and int(train.get("spatial_shard") or 1) > 1:  # JAX loop.py:141-144
+            raise ValueError("train.model_shard and train.spatial_shard "
+                             "cannot be combined (as in the JAX package, "
+                             "whose SPMD partitioner mis-partitions "
+                             "feature-sharded convs under halo exchange)")
         pix = train.get("pixel_opt", {})
         if pix.get("type") not in LOSSES:
             raise KeyError(f"train.pixel_opt.type {pix.get('type')!r} not in "

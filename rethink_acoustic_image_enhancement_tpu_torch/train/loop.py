@@ -48,6 +48,18 @@ lays the ranks out as data indices of N bands each (``spatial_bands``,
 bands of one data index read, cut and draw the same items, and the step
 takes each rank's band of them (``trainer.py``). Rank 0 still validates
 and writes whole-image checkpoints with the whole model.
+
+``train.model_shard: N`` (under ``--launcher``, N dividing the world; not
+beside ``spatial_shard``) lays the ranks out as data indices of N model
+shards each (``model_shards``): the teacher or the Restormer takes the
+shift-add depthwise form (``dwconv_shift``, as the JAX loop clones it) and
+each rank trains its shard of it (``trainer.py``); the N shards of one
+data index read the same items. Every checkpoint first gathers the
+shards' split leaves on every rank (``Trainer.whole_state``, a
+collective), and every validation the model and EMA alone
+(``Trainer.whole_modules``; a checkpoint's on the same iteration); rank 0
+then writes the reference layout and validates the whole model. A resume
+under any N, 1 included, splits it again.
 """
 
 from __future__ import annotations
@@ -69,12 +81,15 @@ from ..losses import build_loss
 from ..metrics import NO_REFERENCE, get_metric
 from ..models import build_network
 from ..models.bands import BAND_NETWORKS
+from ..models.blocks import set_dwconv_shift
 from ..models.kdlae_student import KDLAEStudent
+from ..models.shards import SHARDED_NETWORKS, shard_layout
 from ..ops.layout import crop_to, pad_to_multiple
 from ..parallel import (barrier, data_index, init_grid, is_master, n_data,
                         world_size)
 from ..parallel.collectives import agree, broadcast_module
 from ..parallel.spatial import RankBands
+from ..parallel.tensor import RankShards
 from ..utils.image_io import imwrite, to_ubyte
 from ..utils.logging import MessageLogger, get_logger
 from ..utils.profiling import aggregate_trace, trace
@@ -98,7 +113,9 @@ def build_everything(opt: dict, device=None):
     ``manual_seed`` with the reference's (PyTorch's) default initialisation,
     then takes ``path.pretrain_network_g`` where one is given. With
     ``train.spatial_shard`` N > 1 the ranks form a grid of N bands a data
-    index and the trainer gets this rank's band (``spatial_bands``)."""
+    index and the trainer gets this rank's band (``spatial_bands``); with
+    ``train.model_shard`` N > 1, of N model shards, and the trainer gets
+    this rank's shard (``model_shards``)."""
     validate(opt)
     train_opt = opt["train"]
     with torch.random.fork_rng(devices=[]):
@@ -110,8 +127,32 @@ def build_everything(opt: dict, device=None):
                         strict=opt["path"].get("strict_load_g", True))
     trainer = build_trainer_from_config(opt, model,
                                         build_loss(train_opt["pixel_opt"]),
-                                        device=device, bands=spatial_bands(opt, model))
+                                        device=device, bands=spatial_bands(opt, model),
+                                        shards=model_shards(opt, model))
     return model, trainer
+
+
+def model_shards(opt: dict, model: torch.nn.Module):
+    """This rank's ``RankShards`` for ``train.model_shard`` N > 1, else
+    None. Refuses, before any group is made: a block with fewer hidden
+    channels than N (``models/shards.py``); N > 1 without a launcher (one
+    process drives one shard; the JAX package's one controller drives every
+    device of its mesh). Then sets ``dwconv_shift`` on a model that has the
+    flag (the JAX loop's ``model.clone(dwconv_shift=True)``) and lays out
+    the rank grid (``parallel.init_grid``). ``validate`` has refused
+    ``spatial_shard`` beside it."""
+    n = int(opt["train"].get("model_shard") or 1)
+    if n <= 1:
+        return None
+    shard_layout(model, n)  # raises where a block's hidden channels are too few
+    if world_size() == 1:
+        raise ValueError(
+            f"train.model_shard={n} needs {n} ranks a data index: run under "
+            "torchrun or SLURM with --launcher (one process drives one model shard)")
+    if isinstance(model, SHARDED_NETWORKS):
+        set_dwconv_shift(model)
+    init_grid(n_model=n)
+    return RankShards()
 
 
 def spatial_bands(opt: dict, model: torch.nn.Module):
@@ -411,8 +452,12 @@ def _train(opt: dict, device, max_iters: int | None, log,
         agree(-1 if latest is None else latest, device, "the checkpoint to resume")
         if latest is not None:
             t0 = time.perf_counter()
-            state, epoch, pos = restore_checkpoint(states_dir, latest, state)
-            broadcast_module(state.model, state.ema)
+            # on shards: into the reference layout, then split again
+            whole, epoch, pos = restore_checkpoint(states_dir, latest,
+                                                   trainer.whole_state(state))
+            state = trainer.load_whole(state, whole)
+            if trainer.shards is None:
+                broadcast_module(state.model, state.ema)
             restore_s = time.perf_counter() - t0
             epoch_iter = int(pos.get("epoch_iter", 0))
             if "host_rng" in pos:
@@ -472,13 +517,15 @@ def _train(opt: dict, device, max_iters: int | None, log,
     def save():
         t0 = time.perf_counter()
         host_state = host_rng.bit_generator.state if corpus is None else epoch_state
-        save_checkpoint(states_dir, current_iter, state, epoch, loop={
+        whole = trainer.whole_state(state)  # on shards: gathered on every rank
+        save_checkpoint(states_dir, current_iter, whole, epoch, loop={
             "epoch_iter": epoch_iter, "host_rng": host_state,
             "prefetch_rng": prefetch_state})
-        save_weights(models_dir, current_iter, state.model, state.ema)
+        save_weights(models_dir, current_iter, whole.model, whole.ema)
         if msg_logger.jsonl is not None:
             msg_logger.jsonl.write("ckpt", current_iter,
                                    {"seconds": time.perf_counter() - t0})
+        return whole
 
     def host_batch(item):
         """The loader's batch, cut to the stage's on the host."""
@@ -563,8 +610,9 @@ def _train(opt: dict, device, max_iters: int | None, log,
                     if scalars is not None:
                         msg_logger(epoch, current_iter, scalars, iter_time,
                                    data_time)
+                    saved = None
                     if ckpt_freq and current_iter % ckpt_freq == 0 and states_dir:
-                        save()
+                        saved = save()
                         last_saved = current_iter
                         log(f"saved checkpoint @ {current_iter}")
                         keep = int(logger_cfg.get("keep_checkpoints", 0) or 0)
@@ -572,11 +620,15 @@ def _train(opt: dict, device, max_iters: int | None, log,
                             states_dir, models_dir, keep)
                         if gone:
                             log(f"rotated {len(gone)} old checkpoints")
-                    if val_loader is not None and current_iter % val_freq == 0:
+                    validating = val_freq and current_iter % val_freq == 0
+                    if validating:  # on shards every rank gathers the whole model, once
+                        net, ema = ((saved.model, saved.ema) if saved is not None
+                                    else trainer.whole_modules(state))
+                    if val_loader is not None and validating:
                         # rank 0 alone; the reference validates the EMA net
                         # when there is one (image_restoration_model.py:242-245)
                         t0 = time.perf_counter()
-                        scores = validate_model(state.ema or state.model,
+                        scores = validate_model(ema or net,
                                                 val_loader(), opt)
                         val_s = time.perf_counter() - t0
                         if not scores:
@@ -592,7 +644,8 @@ def _train(opt: dict, device, max_iters: int | None, log,
                                            step=current_iter)
                             log(f"validation @ {current_iter}: " + ", ".join(
                                 f"{k}={v:.4f}" for k, v in scores.items()))
-                    if val_freq and current_iter % val_freq == 0:
+                    if validating:
+                        del net, ema, saved
                         barrier()  # the other ranks wait for the validation
                         if watchdog is not None:  # validation is a legitimate gap
                             watchdog.beat()

@@ -47,6 +47,28 @@ their number. The port's leaves, NCHW images or (B, F, H, W) stacks, carry
 H at dim -2 either way, where the JAX package's batch carries it at 1
 (NHWC) or 2 (stacks): its trainer's ``spatial_axis`` has no counterpart.
 
+With ``shards`` (``train.model_shard``: a ``parallel/tensor.py::
+RankShards`` on a grid of data indices and model shards,
+``parallel.init_grid``) the rows above are a data index's, and every shard
+of one data index holds them whole. ``init_state`` broadcasts rank 0's
+whole model and gives each rank its own shard of it
+(``models/shards.py::shard_module``: its heads and hidden channels of every
+block, every other layer whole), so AdamW's moments and the EMA hold only
+the shard's part of a split leaf. The forward runs the network by its
+shard rules (``models/shards.py::network_shards``), the partial sums over
+the model subgroup. The gradients are reduced by their leaf's kind
+(``parallel/collectives.py::reduce_shard_gradients``: whole leaves over the
+world, split leaves over the data subgroup, both divided by the world's
+size), and the clip's global norm counts every split leaf once
+(``sum_over_shards_`` of the split leaves' squares). Loss, ``grad_norm``
+and ``lr`` are one process's; the whole leaves end bit-equal on every rank.
+``whole_state`` gathers a state into the reference layout (checkpoints),
+``whole_modules`` its model and EMA alone (validation), ``load_whole``
+splits one again. (The JAX package places every
+conv kernel's output channels and every divisible 1-D leaf over ``model``
+and lets XLA insert the collectives; the student and the scorer's predictor
+stay whole on every shard here.)
+
 A stage or block with ``fused=True`` is refused: on the GPU the stage and
 block kernels return tensors with no autograd graph, so the parameters
 upstream of them would get no gradient there while the CPU's plain version
@@ -68,8 +90,11 @@ from ..eval.infer import highest_precision, resolve_device
 from ..models.bands import network_bands
 from ..models.blocks import TransformerBlock
 from ..models.kdlae_teacher import TransformerStage
+from ..models.shards import (gather_shards, held, network_shards, shard_layout,
+                             shard_module, shard_state_dict)
 from ..parallel import n_data
-from ..parallel.collectives import broadcast_module, local_rows, reduce_gradients
+from ..parallel.collectives import (broadcast_module, local_rows, reduce_gradients,
+                                    reduce_shard_gradients, sum_over_shards_)
 from .mixup import mixing_augment
 from .progressive import stage_crop, stage_extra_mask
 from .schedules import Schedule, build_schedule
@@ -153,7 +178,10 @@ def refuse_fused(model: nn.Module) -> None:
 @dataclasses.dataclass
 class Trainer:
     """Owns the step and the state's construction. ``device=None`` is the
-    GPU, and raises where there is none."""
+    GPU, and raises where there is none. ``bands`` (a ``RankBands``) or
+    ``shards`` (a ``RankShards``), at most one, run the step on this
+    rank's row band or model shard (module docstring); ``model`` stays the
+    whole model either way."""
 
     model: nn.Module
     loss_fn: Callable  # (pred, gt[, rng=]) -> scalar
@@ -169,25 +197,135 @@ class Trainer:
     loss_takes_rng: bool = False
     compute_dtype: torch.dtype | None = None  # e.g. torch.bfloat16
     bands: Any = None  # a RankBands: this rank's band of each image
+    shards: Any = None  # a RankShards: this rank's model shard
 
     def __post_init__(self):
         refuse_fused(self.model)
+        if self.bands is not None and self.shards is not None:
+            raise ValueError("a Trainer takes row bands or model shards, not both")
         self.device = resolve_device(self.device)
+        # each state-dict entry of the whole model: split over the shards or whole
+        self.layout = (None if self.shards is None
+                       else shard_layout(self.model, self.shards.n))
 
     def init_state(self) -> TrainState:
         model = self.model.to(self.device).float().train()
         broadcast_module(model)
+        if self.shards is not None:
+            model = shard_module(model, self.shards.index, self.shards.n)
+        return self._state(0, model)
+
+    def _state(self, step: int, model: nn.Module, ema: nn.Module | None = None) -> TrainState:
+        """A new optimizer on ``model``; the EMA a copy of it unless given."""
         trainable = [p for n, p in model.named_parameters()
                      if self.optimizer.trainable(n)]
-        ema = None
-        if self.ema_decay > 0:
+        if ema is None and self.ema_decay > 0:
             ema = copy.deepcopy(model).requires_grad_(False)
-        return TrainState(step=0, model=model,
+        return TrainState(step=step, model=model,
                           optimizer=self.optimizer.build(trainable), ema=ema)
+
+    def is_split(self, name: str) -> bool:
+        """Whether the parameter ``name`` is split over the model shards."""
+        return self.layout is not None and self.layout[name] is not None
+
+    def _norm(self, named_grads) -> torch.Tensor:
+        """``global_norm`` of the gradients; on shards the split leaves'
+        squares summed over the shards, so each counts once."""
+        named_grads = list(named_grads)
+        if self.shards is None:
+            return global_norm(g for _, g in named_grads)
+        sq = sum(g.float().square().sum() for n, g in named_grads if not self.is_split(n))
+        if any(r is not None for r in self.layout.values()):  # the same on every rank
+            split = sum((g.float().square().sum() for n, g in named_grads if self.is_split(n)),
+                        torch.zeros((), device=named_grads[0][1].device))
+            sum_over_shards_([split])
+            sq = sq + split
+        return torch.sqrt(sq)
+
+    def whole_modules(self, state: TrainState) -> tuple[nn.Module, nn.Module | None]:
+        """``state``'s model and EMA in the reference layout (validation):
+        without shards the state's own; on shards new modules holding the
+        split leaves gathered from every shard. A collective over the model
+        subgroup: every rank calls it."""
+        if self.shards is None:
+            return state.model, state.ema
+
+        def gathered(module):
+            whole = copy.deepcopy(self.model).to(self.device)
+            whole.load_state_dict(gather_shards(module.state_dict(), self.layout,
+                                                self.shards.index, sum_over_shards_,
+                                                self.device))
+            return whole.train(module.training)
+
+        return (gathered(state.model),
+                None if state.ema is None else gathered(state.ema).requires_grad_(False))
+
+    def whole_state(self, state: TrainState) -> TrainState:
+        """``state`` in the reference layout: without shards ``state``
+        itself; on shards a new TrainState whose model, optimizer moments
+        and EMA hold the split leaves gathered from every shard. A
+        collective over the model subgroup: every rank calls it."""
+        if self.shards is None:
+            return state
+        j = self.shards.index
+        out = self._state(state.step, *self.whole_modules(state))
+        # AdamW's or Adam's moments, by parameter name
+        names = self._trainable_names(state.model)
+        opt_sd = state.optimizer.state_dict()
+        per = {names[i]: st for i, st in opt_sd["state"].items()}
+        whole_names = self._trainable_names(out.model)
+        layout = {n: self.layout[n] for n in whole_names}
+        moments = {}
+        if per:
+            keys = [k for k, v in next(iter(per.values())).items()
+                    if torch.is_tensor(v) and v.dim() > 0]
+            for key in keys:
+                moments[key] = gather_shards({n: st[key] for n, st in per.items()}, layout, j,
+                                             sum_over_shards_, self.device)
+        # the update counts, the same for every parameter (one copy each)
+        counts = {k: v for k, v in next(iter(per.values()), {}).items() if k not in moments}
+        whole_sd = out.optimizer.state_dict()
+        whole_sd["state"] = {i: {**{k: v.clone() if torch.is_tensor(v) else v
+                                    for k, v in counts.items()},
+                                 **{k: moments[k][n] for k in moments}}
+                             for i, n in enumerate(whole_names) if per}
+        whole_sd["param_groups"] = [{**g, "params": w["params"]} for g, w in zip(
+            opt_sd["param_groups"], whole_sd["param_groups"], strict=True)]
+        out.optimizer.load_state_dict(whole_sd)
+        return out
+
+    def load_whole(self, state: TrainState, whole: TrainState) -> TrainState:
+        """In place: ``state`` (this rank's) takes ``whole`` (the reference
+        layout, as ``whole_state`` or a checkpoint gives it), split by the
+        shard rule; without shards ``whole`` is ``state`` already."""
+        if self.shards is None:
+            return state
+        j = self.shards.index
+        state.model.load_state_dict(shard_state_dict(whole.model.state_dict(), self.layout, j))
+        if state.ema is not None:
+            state.ema.load_state_dict(shard_state_dict(whole.ema.state_dict(), self.layout, j))
+        whole_names = self._trainable_names(whole.model)
+        wsd = whole.optimizer.state_dict()
+        per = {whole_names[i]: st for i, st in wsd["state"].items()}
+        mine = held({n: self.layout[n] for n in whole_names}, j)
+        assert mine == self._trainable_names(state.model), "shard and layout disagree"
+        sd = state.optimizer.state_dict()
+        sd["state"] = {i: {k: self.layout[n].take(v, j)
+                           if self.layout[n] is not None and torch.is_tensor(v) and v.dim() > 0
+                           else v for k, v in per[n].items()}
+                       for i, n in enumerate(mine) if n in per}
+        state.optimizer.load_state_dict(sd)
+        state.step = whole.step
+        return state
+
+    def _trainable_names(self, model: nn.Module) -> list[str]:
+        return [n for n, _ in model.named_parameters() if self.optimizer.trainable(n)]
 
     def _forward_loss(self, model: nn.Module, lq, gt, rng) -> torch.Tensor:
         if self.bands is not None:
-            model = _OnBands(model, self.bands)
+            model = _OnRank(model, network_bands, self.bands)
+        if self.shards is not None:
+            model = _OnRank(model, network_shards, self.shards)
         if self.compute_dtype is None:
             pred = model(lq)
         else:
@@ -214,7 +352,9 @@ class Trainer:
         ranks, lq and gt are this rank's rows, as many on every rank, and
         ``rng`` and ``gen`` are in the same state on every rank; the metrics
         are the global batch's. With ``bands``, lq and gt are this data
-        index's whole images (module docstring)."""
+        index's whole images (module docstring); with ``shards`` too, and
+        ``state`` holds this rank's shard (its split leaves, their moments
+        and EMA), the metrics one process's."""
         rows = local_rows(leaves(lq)[0].shape[0]) if n_data() > 1 else None
         if self.gt_size and mini_gt_size and mini_gt_size < self.gt_size:
             lq, gt = stage_crop(lq, gt, rng, self.gt_size, mini_gt_size,
@@ -228,20 +368,26 @@ class Trainer:
             lq = self.bands.take(lq)
 
         model, opt = state.model, state.optimizer
-        params = list(model.parameters())
+        named = list(model.named_parameters())
+        params = [p for _, p in named]
         model.zero_grad(set_to_none=True)
         with highest_precision():
             loss = self._forward_loss(model, lq, gt, rng)
             loss.backward()
-        reduce_gradients(params)
-        grads = [torch.zeros_like(p) if p.grad is None else p.grad
-                 for p in params]
-        grad_norm = global_norm(grads)
+        if self.shards is None:
+            reduce_gradients(params)
+        else:
+            reduce_shard_gradients([p for n, p in named if not self.is_split(n)],
+                                   [p for n, p in named if self.is_split(n)])
+        grad_norm = self._norm((n, torch.zeros_like(p) if p.grad is None else p.grad)
+                               for n, p in named)
         trainable = [p for g in opt.param_groups for p in g["params"]]
         clip = self.optimizer.clip_norm
         if clip is not None:
             tgrads = [p.grad for p in trainable if p.grad is not None]
-            norm = global_norm(tgrads) if len(tgrads) < len(params) else grad_norm
+            norm = (self._norm((n, p.grad) for n, p in named
+                               if self.optimizer.trainable(n) and p.grad is not None)
+                    if len(tgrads) < len(params) else grad_norm)
             # optax: g unchanged below max_norm, else (g / norm) * max_norm
             # (no host sync: both factors are 1 below max_norm)
             below = norm < clip
@@ -262,17 +408,19 @@ class Trainer:
                        "grad_norm": grad_norm.detach()}
 
 
-class _OnBands(nn.Module):
-    """``model`` run on this rank's band by its band rules; returns the
-    output's bands as ``model`` returns its output (a tensor, or a dict of
-    them with None leaves)."""
+class _OnRank(nn.Module):
+    """``model`` run on this rank's band or model shard by ``network``
+    (``network_bands`` or ``network_shards``, over ``split``, a
+    ``RankBands`` or ``RankShards``); returns this rank's output as
+    ``model`` returns its output (a tensor, or a dict of them with None
+    leaves)."""
 
-    def __init__(self, model: nn.Module, bands):
+    def __init__(self, model: nn.Module, network: Callable, split):
         super().__init__()
-        self.model, self.bands = model, bands
+        self.model, self.network, self.split = model, network, split
 
     def forward(self, lq):
-        out = network_bands([self.model], [lq], self.bands)
+        out = self.network([self.model], [lq], self.split)
         if isinstance(out, dict):
             return {k: None if v is None else v[0] for k, v in out.items()}
         return out[0]

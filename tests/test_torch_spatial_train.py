@@ -157,7 +157,9 @@ def test_spatial_shard_refusals(tmp_path, net, n, gt, error, match):
 def test_model_shard_refusals(tmp_path):
     with pytest.raises(ValueError, match="cannot be combined"):
         tloop.build_everything(_opt(tmp_path, spatial_shard=2, model_shard=2), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue A: item 5c"):
+    # ported (tests/test_torch_model_train*.py): one process without a
+    # launcher cannot hold 4 model shards
+    with pytest.raises(ValueError, match=r"model_shard=4 needs 4 ranks.*--launcher"):
         tloop.build_everything(_opt(tmp_path, model_shard=4), device="cpu")
 
 

@@ -223,8 +223,11 @@ def test_cli_default_device_needs_a_gpu(corpus, tmp_path, monkeypatch):
     # ported with the spatial training (train.loop.spatial_bands holds
     # its rules): validate accepts it
     ("spatial_shard", 2, "spatial and tensor-parallel"),
-    # the model axis alone is left (Queue A item 5c); the id keeps its name
-    pytest.param("model_shard", 4, "item 5c",
+    # ported with the tensor-parallel training (train.loop.model_shards):
+    # validate accepts it, and one process without a launcher cannot hold 4
+    # shards; the id keeps its name
+    pytest.param("model_shard", 4, r"train.model_shard=4 needs 4 ranks a data index.*"
+                                   r"--launcher",
                  id="model_shard-4-spatial and tensor-parallel"),
     # ported with the device corpora: accepted on every phase, as in JAX
     ("device_resident", True, "device-resident corpora"),
@@ -239,6 +242,11 @@ def test_unported_options_name_the_roadmap(corpus, tmp_path, key, value, item):
                      root_path=str(tmp_path))
     if key in ("device_resident", "spatial_shard"):
         tcfg.validate(opt)
+        return
+    if key == "model_shard":
+        tcfg.validate(opt)
+        with pytest.raises(ValueError, match=item):
+            tloop.build_everything(opt, device="cpu")
         return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md, Queue A: {item}"):
         tcfg.validate(opt)

@@ -316,6 +316,103 @@ def halo_case(bands) -> dict:
             "grad": band.grad, "moved": dict(bands.moved)}
 
 
+# -------------------------------------------------------- model shards --
+
+# the model-shard cases (JAX tests/test_parallel.py:155 for the teacher,
+# tests/test_spatial_train.py:274 for the student): (world, the grid's
+# n_model, kind, global batch, side, steps) on the same batch every step
+MODEL_STEPS = {
+    "teacher_1x2": (2, 2, "teacher", 4, 16, 2),
+    "student_1x2": (2, 2, "student", 4, 32, 1),
+    "teacher_1x4": (4, 4, "teacher", 4, 16, 2),
+    "teacher_2x2": (4, 2, "teacher", 4, 16, 2),
+}
+# JAX test_parallel.py:181's optimizer and EMA for the teacher, JAX
+# test_spatial_train.py:29's for the student
+MODEL_TRAIN = {"teacher": {"optim_g": {"type": "AdamW", "lr": 3e-4, "weight_decay": 1e-4,
+                                       "betas": [0.9, 0.999]},
+                           "use_grad_clip": True,
+                           "scheduler": {"type": "CosineAnnealingRestartCyclicLR",
+                                         "periods": [100], "restart_weights": [1],
+                                         "eta_mins": [1e-6]}},
+               "student": {"optim_g": {"type": "AdamW", "lr": 1e-4, "weight_decay": 1e-4,
+                                       "betas": [0.9, 0.999]},
+                           "use_grad_clip": True,
+                           "scheduler": {"type": "CosineAnnealingRestartCyclicLR",
+                                         "periods": [100], "restart_weights": [1],
+                                         "eta_mins": [1e-6]}}}
+MODEL_EMA = {"teacher": 0.999, "student": 0.0}
+
+
+def model_batch(kind: str, b: int, side: int):
+    """The case's seeded batch: NHWC teacher dicts or (B, 7, H, W) stacks
+    (JAX test_spatial_train.py:302's clean and noisy frames)."""
+    if kind == "teacher":
+        return teacher_batches(seed=5, b=b, h=side, w=side, steps=1)[0]
+    rng = np.random.default_rng(0)
+    clean = rng.uniform(0.2, 0.8, size=(b, 7, side, side)).astype(np.float32)
+    noisy = np.clip(clean + rng.normal(scale=0.1, size=clean.shape), 0, 1).astype(np.float32)
+    return noisy, clean
+
+
+def run_model_case(name: str, rows: slice, device="cpu", shards=None) -> dict:
+    """``MODEL_STEPS[name]``'s steps on ``rows`` of its batch, on this
+    rank's model shard where ``shards`` is given (the teacher then in its
+    shift-add form, as ``train.model_shard`` builds it): per step the
+    metrics and the whole leaves this rank holds (and, in one process, the
+    clipped gradients), the final parameters and EMA in the reference
+    layout, the sums and bytes the shards moved."""
+    from rethink_acoustic_image_enhancement_tpu_torch.models.blocks import set_dwconv_shift
+
+    _, _, kind, b, side, steps = MODEL_STEPS[name]
+    net, loss = (TEACHER, L1_SR) if kind == "teacher" else (STUDENT, STUDENT_L1)
+    model = seeded_model(net)
+    if shards is not None and kind == "teacher":
+        set_dwconv_shift(model)
+    train = MODEL_TRAIN[kind]
+    trainer = ttr.Trainer(model=model, loss_fn=build_loss(loss),
+                          optimizer=ttr.build_optimizer(train),
+                          schedule=build_schedule(train["optim_g"]["lr"], train["scheduler"]),
+                          device=device, ema_decay=MODEL_EMA[kind], shards=shards)
+    state = trainer.init_state()
+    lq, gt = model_batch(kind, b, side)
+    metrics, whole_leaves, grads = [], [], []
+    for _ in range(steps):
+        state, m = trainer.step(state, nchw(rows_of(lq, rows), device),
+                                nchw(rows_of(gt, rows), device), np.random.default_rng(0))
+        metrics.append({k: float(v) for k, v in m.items()})
+        whole_leaves.append({n: p.detach().cpu().clone() for n, p in state.model.named_parameters()
+                             if not trainer.is_split(n)})
+        if shards is None:
+            grads.append({n: p.grad.cpu().numpy().copy()
+                          for n, p in state.model.named_parameters()})
+    whole = trainer.whole_state(state)
+
+    def host(module):
+        return None if module is None else {
+            n: p.detach().cpu().clone() for n, p in module.named_parameters()}
+
+    return {"metrics": metrics, "whole_leaves": whole_leaves, "params": host(whole.model),
+            "ema": host(whole.ema), "grads": grads or None,
+            "shard_params": {n: tuple(p.shape) for n, p in state.model.named_parameters()},
+            "moved": None if shards is None else dict(shards.moved),
+            "sums": None if shards is None else shards.sums}
+
+
+def run_model_shards() -> dict:
+    """This rank's results of each model-shard case of its world on the
+    case's grid (``init_grid``)."""
+    from rethink_acoustic_image_enhancement_tpu_torch.parallel.tensor import RankShards
+
+    out = {}
+    for name, (world, n_model, _, b, _, _) in MODEL_STEPS.items():
+        if world == parallel.world_size():
+            parallel.init_grid(n_model=n_model)
+            out[name] = run_model_case(name, my_rows(b), shards=RankShards())
+            out[name]["grid"] = (parallel.data_index(), parallel.shard_index())
+    return out
+
+
 # --------------------------------------------------------------- the loop --
 
 class _Recorder:
@@ -350,8 +447,8 @@ def run_loop(ymls: list[str], ports: list[str]) -> dict:
     from rethink_acoustic_image_enhancement_tpu_torch.utils.tracking import RemoteTracker
 
     recorder = _Recorder()
-    finals = []
-    train = tloop.train_from_config
+    finals, built = [], []
+    train, build = tloop.train_from_config, tloop.build_everything
 
     def keep_state(opt, **kw):
         state = train(opt, **kw)
@@ -359,7 +456,13 @@ def run_loop(ymls: list[str], ports: list[str]) -> dict:
                        for n, p in state.model.named_parameters()})
         return state
 
-    tloop.train_from_config = keep_state
+    def keep_built(opt, device=None):
+        model, trainer = build(opt, device)
+        built.append({"dwconv_shift": getattr(model, "dwconv_shift", None),
+                      "shards": type(trainer.shards).__name__})
+        return model, trainer
+
+    tloop.train_from_config, tloop.build_everything = keep_state, keep_built
     for yml, port in zip(ymls, ports):
         os.environ["MASTER_PORT"] = port
         assert cli.main(["train", "-opt", yml, "--launcher", "pytorch",
@@ -375,7 +478,8 @@ def run_loop(ymls: list[str], ports: list[str]) -> dict:
 
     RemoteTracker("wandb", "p", module=Fake())
     parallel.shutdown()
-    return {"finals": finals, "writes": recorder.writes, "tracker_calls": calls}
+    return {"finals": finals, "writes": recorder.writes, "tracker_calls": calls,
+            "built": built}
 
 
 # ------------------------------------------------------------------ main --
@@ -421,6 +525,8 @@ def main(argv) -> int:
                       for name in LOSS_CASES}
         elif case == "spatial":
             result = run_spatial()
+        elif case == "model":
+            result = run_model_shards()
         else:
             raise SystemExit(f"unknown case {case!r}")
         result["rank"], result["world"] = parallel.rank(), parallel.world_size()

@@ -14,12 +14,18 @@ Phases (any failure exits non-zero; nothing is caught):
      call's time (the stage also at (1,256,256,384), 8 heads: the latent of
      a 2048^2 frame, through the kernel's wide layout); the same stage call
      twice gives the same bits, and one
-     BiasFree block the bits of a one-block stage. A "stage_phases" JSON
-     line: from the instrumented build, the share of a tile's cycles in each
-     phase of the block's two tile kernels and the cycles per tile, at
+     BiasFree block the bits of a one-block stage. At C = 96 the block's
+     tile kernels (A) and (C) are csrc/stage_sm90.cu's Hopper kernels
+     (k_gram_wgmma, k_apply_wgmma): each alone against its plain version at
+     both stage shapes of a 512^2 request, (1,512,512,96) one head and
+     (1,256,256,96) two, with its time and bound. A "stage_phases" JSON
+     line: from the instrumented builds, the share of a tile's cycles in
+     each phase of the block's two tile kernels and the cycles per tile, at
      (1,512,512,96) and (8,256,256,96); the thread blocks resident per SM
-     (the device's occupancy answer), the grid's tail, and registers and
-     spill bytes from ptxas' report.
+     (the device's occupancy answer), the grid's tail, registers and spill
+     bytes from ptxas' report, and the HGMMA (wgmma), HMMA (mma.sync) and
+     TMA instructions in each kernel's SASS (cuobjdump), the C = 96 kernels
+     required to hold HGMMA.
   3. whole-image serving: the full-width flagship KDLAE-T (seeded random
      weights) through TeacherPredictor(fused=True, bf16) on synthetic sonar
      frames, with the stage-kernel call count checked against the gate and
@@ -442,16 +448,39 @@ def phase_kernels(results, card):
     return rows
 
 
+def sass_counts(name):
+    """{kernel: {"HGMMA": n, "HMMA": n, "UTMALDG": n, "UBLKCP": n}} of
+    library <name>'s SASS (cuobjdump -sass, most over a kernel's
+    instantiations); None where the toolkit has no cuobjdump."""
+    from rethink_acoustic_image_enhancement_tpu_torch.ops import _build
+
+    tool = "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", str(_build._lib_path(name))], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    out = {}
+    for fn in sass.split("Function : ")[1:]:
+        head = fn.split("\n", 1)[0]
+        kernel = next((k for k in ("k_gram_wgmma", "k_apply_wgmma", "k_gram", "k_softmax",
+                                   "k_apply", "k_project") if k in head), head[:60])
+        row = out.setdefault(kernel, {})
+        for op in ("HGMMA", "HMMA", "UTMALDG", "UBLKCP"):
+            row[op] = max(row.get(op, 0), fn.count(op))
+    return out
+
+
 def stage_phases(card):
     """Cycles per phase inside a tile of the block's kernels (the
-    instrumented build, which nothing else loads), with what the device and
-    ptxas say of the normal build's kernels."""
+    instrumented builds, which nothing else loads), with what the device,
+    ptxas and the SASS say of the normal build's kernels."""
     import torch
 
     from rethink_acoustic_image_enhancement_tpu_torch.ops import _build, block, phase_clocks, stage
 
-    out = {"card": card, "ptxas": _build.kernel_resources("stage"), "shapes": {}}
-    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {"card": card, "ptxas": {**_build.kernel_resources("stage"),
+                                   **_build.kernel_resources("stage_sm90")},
+           "sass": sass_counts("stage_sm90"), "shapes": {}}
     for shape in ((1, 512, 512, 96), (8, 256, 256, 96)):
         rng = np.random.default_rng(1)
         wts = seeded_stage_weights(rng, 1, 96, 1, 255, "cuda")
@@ -460,21 +489,28 @@ def stage_phases(card):
         b = stage.fused_transformer_stage(x, **wts)
         assert torch.equal(a, b), f"two stage calls at {shape} differ"
         row = phase_clocks.block_phase_shares(x, **wts)
-        plan = block.plan_tiles(block.lib(), 96, 1)
-        n_blocks = row["k_apply"]["thread_blocks"]
-        row["plan"] = plan._asdict()
-        # thread blocks of kernel (C) left for the last, partly filled wave
-        row["k_apply_grid_tail"] = n_blocks % (n_sm * plan.apply_blocks)
+        run = block.BlockRunner(x, 1, 256)
+        n_tiles = row["k_apply_wgmma"]["tiles"]
+        row["plan"] = run.plan._asdict()
+        row["k_gram_wgmma_grid"] = run.groups * shape[0]
+        row["k_apply_wgmma_grid"] = run.apply_grid
+        # tiles of the persistent kernel (C)'s last, partly filled round
+        row["k_apply_wgmma_grid_tail"] = n_tiles % run.apply_grid
         out["shapes"]["x".join(map(str, shape))] = row
-        for name in ("k_gram", "k_apply"):
+        for name in ("k_gram_wgmma", "k_apply_wgmma"):
             shares = ", ".join(f"{k} {v:.3f}" for k, v in row[name]["share"].items())
             log(f"phases {name} {shape}: {row[name]['cycles_per_tile']:.0f} cycles a tile "
                 f"({shares}) [{card}]")
-        log(f"  resident blocks per SM: k_gram {plan.gram_blocks}, k_apply "
-            f"{plan.apply_blocks}; k_apply grid {n_blocks}, tail {row['k_apply_grid_tail']}; "
-            f"bit-identical twice: yes")
+        log(f"  resident blocks per SM: k_gram_wgmma {run.plan.gram_blocks}, k_apply_wgmma "
+            f"{run.plan.apply_blocks} (512 threads); k_apply_wgmma grid {run.apply_grid} over "
+            f"{n_tiles} tiles, tail {row['k_apply_wgmma_grid_tail']}; bit-identical twice: yes")
+        assert run.route == "wgmma" and min(run.plan.gram_blocks, run.plan.apply_blocks) >= 1
     log(f"  ptxas: {out['ptxas']}")
-    assert plan.apply_blocks >= 2, "kernel (C) is not resident twice per SM at C = 96"
+    log(f"  SASS of stage_sm90: {out['sass']}")
+    if out["sass"] is not None:
+        for name in ("k_gram_wgmma", "k_apply_wgmma"):
+            assert out["sass"][name]["HGMMA"] > 0, f"{name} holds no HGMMA"
+        assert out["sass"]["k_apply_wgmma"]["HMMA"] == 0, "k_apply_wgmma holds mma.sync"
     return out
 
 
@@ -493,12 +529,118 @@ def profile_stage(pstage, card):
         torch.cuda.synchronize()
     per_kernel = {}
     for e in prof.key_averages():
-        for name in ("k_gram", "k_softmax", "k_apply"):
+        for name in ("k_gram_wgmma", "k_softmax", "k_apply_wgmma"):
             if name in e.key:
                 per_kernel[name] = per_kernel.get(name, 0.0) + e.device_time_total
     log(f"profile of one stage call (1,512,512,96) x4 blocks bf16, us per call: "
         f"{per_kernel} [{card}]")
     return per_kernel
+
+
+def hopper_work(b, h, w, c, heads, f, esize):
+    """(flops, bytes) of kernels (A) and (C) of one block: (A) the qkv
+    product, its depthwise 3x3 and the Gram per pixel, x read and v written;
+    (C) attn @ v, W_proj, W_in, W_out and the GDFN depthwise 3x3 per pixel,
+    x and v read and y written; weights once."""
+    hc, px = c // heads, b * h * w
+    a = (2 * c * 3 * c + 2 * 9 * 3 * c + 2 * c * hc) * px
+    a_bytes = px * c * (esize + 2) + 2 * 3 * c * c + 4 * 9 * 3 * c
+    cc = (2 * c * hc + 2 * c * c + 2 * c * 2 * f + 2 * f * c + 2 * 9 * 2 * f) * px
+    c_bytes = px * c * (2 * esize + 2) + 2 * (c * c + 3 * c * f) + 4 * 9 * 2 * f
+    return (a, a_bytes), (cc, c_bytes)
+
+
+def phase_hopper_kernels(results, card):
+    """Kernels (A) and (C) at C = 96 each alone against its plain version
+    on the same inputs (the plain (C) takes the kernels' v and attn^T), at
+    the two stage shapes of a 512^2 request, bf16: time, plain time, bound.
+    (A)'s error is v's; its Gram and norms are held within TOL_REL too."""
+    import torch
+
+    from rethink_acoustic_image_enhancement_tpu_torch.ops import block as pblock
+    from rethink_acoustic_image_enhancement_tpu_torch.ops.gdfn import dw3x3, ffn_f32
+
+    rows = {"k_gram_wgmma": [], "k_apply_wgmma": []}
+    eps = 1e-5
+    for shape, heads in (((1, 512, 512, 96), 1), ((1, 256, 256, 96), 2)):
+        rng = np.random.default_rng(300 + heads)
+        c, f = shape[-1], 255
+        wts = seeded_stage_weights(rng, 1, c, heads, f, "cuda")
+        x = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).cuda().bfloat16()
+        p = pblock.pack_blocks(x.device, **wts)
+        run = pblock.BlockRunner(x, heads, p["fp"])
+        assert run.route == "wgmma"
+        w32 = {k: v[0].float() for k, v in wts.items()}
+        wqkv, wproj = w32["w_qkv"].reshape(c, 3 * c), w32["w_proj"].reshape(c, c)
+        win, wout = w32["w_in"].reshape(c, 2 * f), w32["w_out"].reshape(f, c)
+        dwqkv, wdw = w32["dw_qkv"].reshape(3, 3, 3 * c), w32["w_dw"].reshape(3, 3, 2 * f)
+        x32 = x.float()
+
+        def gram_plain():
+            qkv = dw3x3(pblock.qkv_hidden(x32, w32["ln1_w"], None, wqkv, eps), dwqkv)
+            return qkv, pblock.gram_part(qkv, run.gram_heads)
+
+        run.gram(x, p, 0, eps)
+        torch.cuda.synchronize()
+        qkv, gp = gram_plain()
+        hc = c // run.gram_heads
+        part = run.part.sum(1)
+        gram = part[:, :run.gram_heads * hc * hc].reshape(gp[..., :hc].shape)
+        norms = part[:, run.gram_heads * hc * hc:].reshape(shape[0], 2, run.gram_heads, hc)
+        v_ref = qkv[..., 2 * c:].bfloat16().float()
+        dv = (run.v.float() - v_ref).abs().max().item()
+        rel = {"v": dv / v_ref.abs().max().item(),
+               "gram": ((gram - gp[..., :hc]).abs().max() / gp[..., :hc].abs().max()).item(),
+               "norms": ((norms - torch.stack([gp[..., hc], gp[..., hc + 1]], 1)).abs().max()
+                         / gp[..., hc:].abs().max()).item()}
+        assert max(rel.values()) <= TOL_REL, f"k_gram_wgmma disagrees with plain: {rel}"
+        run.softmax(run.part, p, 0)
+        y = torch.empty(shape, dtype=torch.float32, device="cuda")
+
+        def apply_plain():
+            # attn (C x C, block-diagonal over the Gram's heads) from (B)'s attn^T
+            at = run.attn_t[0].float()  # [head][d][c] = attn[c][d]
+            attn = torch.block_diag(*[at[h].t() for h in range(at.shape[0])])
+            oa = run.v.float() @ attn.t().bfloat16().float()
+            r = x32 + oa.bfloat16().float() @ wproj.bfloat16().float()
+            return ffn_f32(r, w32["ln2_w"], None, win, wdw, wout, eps)
+
+        run.apply(x, y, p, 0, eps)
+        torch.cuda.synchronize()
+        ref = apply_plain()
+        dy = (y - ref).abs().max().item()
+        rel["y"] = dy / ref.abs().max().item()
+        assert rel["y"] <= TOL_REL, f"k_apply_wgmma disagrees with plain: {rel['y']}"
+        (fa, ba), (fc_, bc) = hopper_work(*shape, heads, f, x.element_size())
+        for name, kern, plain, flops, nbytes, err in (
+                ("k_gram_wgmma", lambda: run.gram(x, p, 0, eps), gram_plain, fa, ba, dv),
+                ("k_apply_wgmma", lambda: run.apply(x, y, p, 0, eps), apply_plain, fc_, bc, dy)):
+            t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+            ms, timed_by = device_ms(kern, 5)
+            row = dict(shape=list(shape), heads=heads, dtype="bfloat16", max_abs_err=err,
+                       rel_err=rel, ms=ms, ms_by=timed_by, plain_ms=cuda_ms(plain, 2),
+                       bound_ms=max(t_ops, t_bytes),
+                       bound_by="operations" if t_ops >= t_bytes else "bytes",
+                       library_ms=None, flops=flops, bytes=nbytes)
+            rows[name].append(row)
+            log(f"{name} bf16 {tuple(shape)} heads={heads}: kernel {ms:.4f} ms ({timed_by}), "
+                f"plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+                f"({row['bound_by']}), max|d| {err:.3e}, rel {rel} [{card}]")
+        del qkv, gp, ref, y, x
+    results["hopper_cases"] = rows
+    return rows
+
+
+def hopper_counts(zero=False):
+    """The launches of kernels (A) and (C) at C = 96 (their wrappers'
+    counts), read or set to 0."""
+    from rethink_acoustic_image_enhancement_tpu_torch.ops import block as pblock
+
+    fns = {"k_gram_wgmma": pblock.gram_wgmma, "k_apply_wgmma": pblock.apply_wgmma}
+    if zero:
+        for fn in fns.values():
+            fn.launches = 0
+    return {k: fn.launches for k, fn in fns.items()}
 
 
 def reset_counts():
@@ -5151,9 +5293,12 @@ def main() -> int:
          "16": phase_spatial, "18": phase_tensor}[only](results, card)
         return 0
     stage_rows = phase_kernels(results, card)
+    hopper_rows = phase_hopper_kernels(results, card)
     ln_rows = phase_layernorm_kernel(results, card)
     gdfn_rows = phase_gdfn_kernel(results, card)
     block_rows = phase_block_kernel(results, card)
+    # kernels (A) and (C) at C = 96 on the driven paths: phases 3 to 15
+    hopper_counts(zero=True)
     whole_launches, lat_ms, pred = phase_slice(results, card)
     path_launches = phase_block_paths(results, card)
     tiled_launches = phase_tiled(results, card, pred)
@@ -5182,6 +5327,7 @@ def main() -> int:
     dp_launches = phase_dp_serving(results, card)
     torch.cuda.empty_cache()
     dual_pixel_launches = phase_remaining_datasets(results, card)
+    hopper_launches = hopper_counts()
     torch.cuda.empty_cache()
     band_rows, band_launches = phase_spatial(results, card)
     torch.cuda.empty_cache()
@@ -5192,6 +5338,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="raie_tp_") as work:
         phase_tensor_train(results, card, work)
+    results["hopper_launches"] = hopper_launches
     results["path_launches"] = dict(whole_image=whole_launches, tiled=tiled_launches,
                                     group=group_launches, zoo_cli=zoo_launches,
                                     distill=distill_launches, dp_serving=dp_launches,
@@ -5230,6 +5377,14 @@ def main() -> int:
               shard_launches["stage_shards"], shard_rows, shard_rows[2]),
         entry("fused_ln_gdfn_part", "gdfn.cu", "gdfn.py:277",
               shard_launches["gdfn_part"], part_rows, part_rows[0]),
+        # the Hopper kernels (A) and (C) of every C = 96 block launch of the
+        # stage and block paths (phases 3-15), each at (1, 512, 512, 96), one head
+        entry("k_gram_wgmma", "stage_sm90.cu", "stage.py:324",
+              hopper_launches["k_gram_wgmma"], hopper_rows["k_gram_wgmma"],
+              hopper_rows["k_gram_wgmma"][0]),
+        entry("k_apply_wgmma", "stage_sm90.cu", "stage.py:324",
+              hopper_launches["k_apply_wgmma"], hopper_rows["k_apply_wgmma"],
+              hopper_rows["k_apply_wgmma"][0]),
     ]}
     results["kernels"] = kernels["kernels"]
     results["total_s"] = time.perf_counter() - t_start

@@ -108,11 +108,20 @@
 // conflicts. Where a width does not fit twice on an SM (C > 96) the same
 // code runs one block per SM; the host asks the occupancy calculator.
 //
-// Against the bound: still ~15x. The halo costs (10*10)/(8*8) on the qkv,
-// attn@v, W_proj and W_in products; 16 warps an SM leave scheduler slots and
-// shared-memory cycles unused between barriers. A third resident block
-// needs under 76 KB and 85 registers a thread; wgmma needs 64-row operand
-// tiles that an 8x8 tile's 112 halo rows do not fill.
+// Against the bound: ~15x at C = 96 (PERF.md, PR 4's phase clocks). The
+// halo costs (10*10)/(8*8) on the qkv, attn@v, W_proj and W_in products
+// (1.75x with the padding to 112 rows); the mma.sync chains are bound by
+// latency; every phase ends in a barrier, so the depthwise steps never
+// overlap a product; a third resident block needs under 76 KB and 85
+// registers a thread; wgmma needs 64-row operand tiles that an 8x8 tile's
+// 112 halo rows do not fill. So at C = 96, the width of every stage of a
+// 512^2 teacher request, kernels (A) and (C) are stage_sm90.cu's Hopper
+// redesign (6x30 tiles on an 8x32 halo of four full m64 operands, wgmma
+// products overlapped with the depthwise steps, TMA and bulk copies under
+// mbarriers, a persistent (C); see its note), chosen by width alone
+// (ops/block.py::apply_route). The kernels here serve every other width (48,
+// 192, the wide 384) and every model shard ((A) on a head range, (C')),
+// with (B) for all.
 
 #include <climits>
 

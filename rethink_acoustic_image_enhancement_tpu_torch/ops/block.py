@@ -13,7 +13,11 @@ so a LayerNorm bias does not leak into the border ring.
 
 On a CUDA tensor it runs the three launches of ``csrc/stage.cu`` (Gram,
 softmax, apply; see the note there) on x's device, whose weights must lie
-there too, and counts the call in ``fused_transformer_block.launches``; on a CPU tensor it runs
+there too, and counts the call in ``fused_transformer_block.launches``; at
+C = 96 the Gram and apply launches are ``csrc/stage_sm90.cu``'s Hopper
+kernels (wgmma, TMA, one block an SM; ``apply_route``; ``wgmma_tiles``
+lists the persistent apply kernel's tiles), counted in
+``gram_wgmma.launches`` and ``apply_wgmma.launches``. On a CPU tensor it runs
 ``block_plain``, the same arithmetic in plain PyTorch: bf16 operands with
 float32 accumulation for the five products, the qkv and W_in outputs
 rounded to bf16 before their float32 depthwise 3x3, two-pass LayerNorm and
@@ -35,6 +39,7 @@ from __future__ import annotations
 import ctypes
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from . import _build
@@ -49,6 +54,13 @@ _GRAM_TILES = ((8, 16), (8, 8), (4, 8), (4, 4))
 # rows of W_proj held at once.
 _GRAM_CHUNKS = (64, 32)
 _PROJ_CHUNKS = (128, 64)
+# Kernels (A) and (C) at this width are csrc/stage_sm90.cu's (wgmma, TMA,
+# bulk copies under mbarriers; (C) persistent): 6 x 30 output tiles on an
+# 8 x 32 halo, hidden chunks of 32 channels.
+WGMMA_C = 96
+WGMMA_TILE = (6, 30)
+WGMMA_FC = 32
+WGMMA_QCH = 48  # kernel (A)'s chunk of q, k or v channels
 
 
 # ------------------------------------------------------------- plain ----
@@ -217,13 +229,111 @@ def pack_blocks(device, ln1_w, w_qkv, dw_qkv, temperature, w_proj, ln2_w,
             return None
         return t.detach().reshape(n, *shape).to(device=device, dtype=dtype).contiguous()
 
-    return dict(
+    p = dict(
         ln1=cont(ln1_w, f32, c), ln1b=cont(ln1_b, f32, c),
         wqkv=cont(w_qkv, bf, c, 3 * cq), dwqkv=cont(dw_qkv, f32, 9, 3 * cq),
         temp=cont(temperature, f32, -1), wproj=cont(w_proj, bf, cq, c), cq=cq,
         ln2=cont(ln2_w, f32, c), ln2b=cont(ln2_b, f32, c),
         **pack_ffn(w_in.reshape(n, c, -1), w_dw.reshape(n, 9, -1),
                    w_out.reshape(n, -1, c), c, device))
+    if apply_route(c, cq != c) == "wgmma":
+        p.update(pack_wgmma(p["wqkv"], p["dwqkv"], p["wproj"], p["win"], p["wdw"], p["wout"],
+                            p["fp"]))
+    return p
+
+
+def b_operand(w: torch.Tensor) -> torch.Tensor:
+    """B (..., K, N) of a wgmma product laid out as the Hopper kernel reads it
+    from shared memory (``csrc/hopper.cuh``): K-major without swizzle, planes
+    of 8 along K, each of N/8 core matrices of 8 n-rows by 8 k; flattened
+    over the last two dims (K and N multiples of 8)."""
+    *lead, k, n = w.shape
+    d = len(lead)
+    t = w.reshape(*lead, k // 8, 8, n // 8, 8)
+    return t.permute(*range(d), d, d + 2, d + 3, d + 1).reshape(*lead, k * n)
+
+
+def pack_wgmma(wqkv, dwqkv, wproj, win, wdw, wout, fp: int) -> dict:
+    """The Hopper kernels' operands at C = 96 (``csrc/stage_sm90.cu``) from
+    ``pack_blocks``' (n blocks leading), one copy each. Kernel (A): W_qkv
+    (n, C, 3C) in chunks of WGMMA_QCH columns, each a B operand (N = 48,
+    K = C), and their depthwise taps (n, chunks, 9, 48). Kernel (C): W_proj
+    (n, C, C) as one B operand; for each chunk of WGMMA_FC hidden channels,
+    the columns of both halves of W_in as a B operand (N = 2 fc, K = C), each
+    channel's GELU and gate columns side by side ([f][half]), and their taps
+    (n, chunks, 9, fc, 2); the chunk's rows of W_out as a B operand (N = C,
+    K = fc). A chunk's operand and taps are what the kernel copies into one
+    slot."""
+    n, c, _ = win.shape
+    fc, nch, qch = WGMMA_FC, fp // WGMMA_FC, WGMMA_QCH
+    nq = 3 * c // qch
+    # B element (k, n') at [k / 8][n' / 8][n' % 8][k % 8] of its chunk
+    qkv = wqkv.reshape(n, c // 8, 8, nq, qch // 8, 8).permute(0, 3, 1, 4, 5, 2)
+    qtaps = dwqkv.reshape(n, 9, nq, qch).transpose(1, 2)
+    # W_in's column half * fp + j * fc + 4 f1 + f0 is n' = 2 (4 f1 + f0) + half
+    # of chunk j
+    w_in = win.reshape(n, c // 8, 8, 2, nch, fc // 4, 4).permute(0, 4, 1, 5, 6, 3, 2)
+    wtaps = wdw.reshape(n, 9, 2, nch, fc).permute(0, 3, 1, 4, 2)
+    w_out = wout.reshape(n, nch, fc // 8, 8, c // 8, 8).permute(0, 1, 2, 4, 5, 3)
+    return dict(wqkv_wg=qkv.contiguous(), qtaps_wg=qtaps.contiguous(),
+                wproj_wg=b_operand(wproj).contiguous(), win_wg=w_in.contiguous(),
+                wtaps_wg=wtaps.contiguous(), wout_wg=w_out.contiguous())
+
+
+def apply_route(c: int, shard: bool = False) -> str:
+    """Which kernels (A) and (C) a block launch takes, by width alone:
+    ``"wgmma"`` (``csrc/stage_sm90.cu``) at C = 96, else (and on every model
+    shard, whose block runs (A) on its heads and ends in (C'))
+    ``"mma_sync"`` (``csrc/stage.cu``)."""
+    return "wgmma" if c == WGMMA_C and not shard else "mma_sync"
+
+
+def readable_rows(h: int, halo: int = 0, y_img: int = 0,
+                  h_img: int | None = None) -> tuple[int, int]:
+    """Rows [lo, hi) of a band (own rows 0..h-1, ``halo`` more held above
+    and below; ``y_img`` its first row in an image of ``h_img``) that lie in
+    the image: the rows the Hopper kernel's tensor map of v covers, so that
+    TMA's zero fill outside them is the image's zero padding."""
+    h_img = h if h_img is None else h_img
+    return max(-halo, -y_img), min(h + halo, h_img - y_img)
+
+
+def wgmma_grid(batch: int, h: int, w: int, n_sm: int) -> int:
+    """Persistent thread blocks of the Hopper kernel (C): one an SM, no more
+    than there are tiles."""
+    th, tw = WGMMA_TILE
+    return min(n_sm, batch * -(-h // th) * -(-w // tw))
+
+
+def wgmma_tiles(batch: int, h: int, w: int, grid: int, halo: int = 0, y_img: int = 0,
+                h_img: int | None = None) -> list[list[dict]]:
+    """The Hopper kernel (C)'s persistent schedule, as ``csrc/stage_sm90.cu``
+    walks it: for each of ``grid`` thread blocks its tiles in order (tile t
+    = block, + grid, ...; sample t // tiles, row-major within it). A tile is
+    a dict: sample ``b``, output origin ``y0``, ``x0``; the halo box it
+    loads, ``rows`` (own rows y0..y0+5, then the ring y0-1 and y0+6) and
+    ``cols`` (x0-1..x0+30); ``read`` (8 x 32, in halo order top to bottom)
+    where v is read, elsewhere TMA's zeros; ``out`` (6 x 30) the outputs it
+    writes, inside the band's own rows and the image's columns."""
+    th, tw = WGMMA_TILE
+    lo, hi = readable_rows(h, halo, y_img, h_img)
+    ntj, nti = -(-w // tw), -(-h // th)
+    per = nti * ntj
+    blocks = []
+    for blk in range(grid):
+        tiles = []
+        for t in range(blk, batch * per, grid):
+            b, tt = divmod(t, per)
+            y0, x0 = tt // ntj * th, tt % ntj * tw
+            hy = np.arange(y0 - 1, y0 + th + 1)[:, None]
+            hx = np.arange(x0 - 1, x0 + tw + 1)[None, :]
+            read = (hy >= lo) & (hy < hi) & (hx >= 0) & (hx < w)
+            out = ((hy >= 0) & (hy < h) & (hx >= 0) & (hx < w))[1:-1, 1:-1]
+            tiles.append(dict(b=b, y0=y0, x0=x0,
+                              rows=tuple(range(y0, y0 + th)) + (y0 - 1, y0 + th),
+                              cols=tuple(range(x0 - 1, x0 + tw + 1)), read=read, out=out))
+        blocks.append(tiles)
+    return blocks
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -240,10 +350,26 @@ _SIGNATURES = {
 }
 
 
+_WG_SIGNATURES = {
+    "raie_stage_sm90_blocks_per_sm": [],
+    "raie_stage_sm90_geometry": [ctypes.POINTER(ctypes.c_int)] * 4,
+    "raie_stage_apply_wgmma": [_P, _I, _P, _I, _P, _P, _I] + [_P] * 6 + [_I] * 7
+    + [ctypes.c_float, _I, _P],
+    "raie_stage_sm90_gram_blocks_per_sm": [],
+    "raie_stage_gram_wgmma": [_P, _I] + [_P] * 6 + [_I] * 8 + [ctypes.c_float, _P],
+}
+
+
 def lib(name: str = "stage") -> ctypes.CDLL:
     """The library of ``csrc/stage.cu``, or a variant of it built with
     other flags (``_build.VARIANTS``)."""
     return _build.bind(name, _SIGNATURES)
+
+
+def wg_lib(name: str = "stage_sm90") -> ctypes.CDLL:
+    """The library of ``csrc/stage_sm90.cu`` (kernel (C) at C = 96), or its
+    instrumented variant."""
+    return _build.bind(name, _WG_SIGNATURES)
 
 
 class TilePlan(NamedTuple):
@@ -298,6 +424,20 @@ def plan_tiles(library, c: int, gram_heads: int, cq: int | None = None) -> TileP
     return TilePlan((gth, gtw), gram_blocks, fc, (ath, atw), apply_blocks, gk, ak)
 
 
+def _wg_residency(library, device) -> tuple[int, int]:
+    """Thread blocks of the Hopper kernels (A) and (C) resident on an SM of
+    ``device``, asked once per card and kept on the library handle."""
+    known = library.__dict__.setdefault("_raie_residency", {})
+    if device not in known:
+        with torch.cuda.device(device):
+            blocks = (library.raie_stage_sm90_gram_blocks_per_sm(),
+                      library.raie_stage_sm90_blocks_per_sm())
+        if min(blocks) < 1:
+            raise ValueError("block kernels (A), (C) at C = 96 cannot be resident on an SM")
+        known[device] = blocks
+    return known[device]
+
+
 def gram_groups(n_tiles: int, n_sm: int, batch: int, blocks_per_sm: int = 1) -> int:
     """Tile groups per sample of kernel (A): groups * batch thread blocks
     must be resident at once (one wave), with at most one group per tile."""
@@ -322,10 +462,15 @@ class BlockRunner:
     channels of q, k and v (cq = C: the whole MDTA); it runs ``gram``,
     ``softmax`` and ``project`` (kernel (C'), r in fp32) in place of
     ``apply``, the GDFN being ``ops/gdfn.py``'s kernel on the shard's
-    hidden channels."""
+    hidden channels.
+
+    ``route`` (``apply_route``): at C = 96, off a model shard, ``apply`` is
+    ``csrc/stage_sm90.cu``'s kernel (``wg_library``, or its default) on
+    ``apply_grid`` persistent blocks; ``plan`` then holds its tile."""
 
     def __init__(self, x: torch.Tensor, heads: int, fp: int, library=None,
-                 band: tuple[int, int] | None = None, cq: int | None = None):
+                 band: tuple[int, int] | None = None, cq: int | None = None,
+                 wg_library=None):
         b, h, w, c = x.shape
         self.halo = 0 if band is None else 1
         h -= 2 * self.halo
@@ -339,15 +484,23 @@ class BlockRunner:
         self.heads, self.fp = heads, fp
         self.shard = cq is not None
         self.cq = c if cq is None else cq
+        self._checked = None
         # the Gram per head where fragments of 16 channels stay inside a
         # head; else the full C x C Gram with the softmax masked per head
         self.gram_heads = heads if (self.cq // heads) % 16 == 0 else 1
-        with torch.cuda.device(x.device):  # occupancy of x's card
-            self.plan = plan_tiles(self.lib, c, self.gram_heads, cq)
+        self.route = apply_route(c, self.shard)
+        n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
+        if self.route == "wgmma":
+            self.wg_lib = wg_lib() if wg_library is None else wg_library
+            gram_blocks, blocks = _wg_residency(self.wg_lib, x.device)
+            self.plan = TilePlan(WGMMA_TILE, gram_blocks, WGMMA_FC, WGMMA_TILE, blocks)
+            self.apply_grid = wgmma_grid(b, h, w, n_sm * blocks)
+        else:
+            with torch.cuda.device(x.device):  # occupancy of x's card
+                self.plan = plan_tiles(self.lib, c, self.gram_heads, cq)
         (self.gth, self.gtw), self.fc = self.plan.gram_tile, self.plan.fc
         self.ath, self.atw = self.plan.apply_tile
         n_tiles = -(-h // self.gth) * -(-w // self.gtw)
-        n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
         self.groups = gram_groups(n_tiles, n_sm, b, self.plan.gram_blocks)
         ghc = self.cq // self.gram_heads
         dev = x.device
@@ -362,14 +515,21 @@ class BlockRunner:
         if src.device != self.device:
             raise ValueError(f"block kernel: runner made for {self.device}, "
                              f"src on {src.device}")
-        tensors = {k: v for k, v in p.items() if isinstance(v, torch.Tensor)}
-        return _build.on_device(src, "block", **more, **tensors)
+        if p is not self._checked:  # a packed dict's weights checked once
+            tensors = {k: v for k, v in p.items() if isinstance(v, torch.Tensor)}
+            _build.on_device(src, "block", **tensors)
+            self._checked = p
+        return _build.on_device(src, "block", **more)
 
     def gram(self, src: torch.Tensor, p: dict, i: int, eps: float) -> None:
         """(A): v and this input's partial Gram and norms into ``part``."""
         b, h, w, c = self.shape
         lb = self.lib
         ptr = _ptr(p, i)
+        if self.route == "wgmma":
+            with self._guard(src, p):
+                gram_wgmma(self, src, ptr, eps)
+            return
         with self._guard(src, p):
             _build.check(lb, "stage", lb.raie_stage_gram(
                 src.data_ptr(), int(src.dtype == torch.bfloat16), ptr("ln1"),
@@ -419,6 +579,10 @@ class BlockRunner:
         if self.shard:
             raise ValueError("block kernel: a model shard's block ends in project")
         ptr = _ptr(p, i)
+        if self.route == "wgmma":
+            with self._guard(src, p, dst=dst):
+                apply_wgmma(self, src, dst, ptr, eps)
+            return
         with self._guard(src, p, dst=dst):
             _build.check(lb, "stage", lb.raie_stage_apply(
                 src.data_ptr(), int(src.dtype == torch.bfloat16), dst.data_ptr(),
@@ -438,9 +602,48 @@ class BlockRunner:
         self.apply(src, dst, p, i, eps)
 
 
+def gram_wgmma(run: BlockRunner, src: torch.Tensor, ptr, eps: float) -> None:
+    """Kernel (A) at C = 96 (``csrc/stage_sm90.cu::k_gram_wgmma``) for
+    runner ``run`` on src, its weights at ``ptr`` (``_ptr``); counts the
+    launch in ``gram_wgmma.launches``."""
+    b, h, w, _ = run.shape
+    lw = run.wg_lib
+    _build.check(lw, "stage_sm90", lw.raie_stage_gram_wgmma(
+        src.data_ptr(), int(src.dtype == torch.bfloat16), ptr("ln1"), ptr("ln1b"),
+        ptr("wqkv_wg"), ptr("qtaps_wg"), run.part.data_ptr(), run.v.data_ptr(), b, h, w,
+        run.gram_heads, run.groups, run.halo, run.y_img, run.h_img, eps, run.stream),
+        "A (Gram, wgmma)")
+    _build.count_launch(gram_wgmma)
+
+
+def apply_wgmma(run: BlockRunner, src: torch.Tensor, dst: torch.Tensor, ptr,
+                eps: float) -> None:
+    """Kernel (C) at C = 96 (``csrc/stage_sm90.cu::k_apply_wgmma``) from src
+    to dst; counts the launch in ``apply_wgmma.launches``."""
+    b, h, w, _ = run.shape
+    lw = run.wg_lib
+    _build.check(lw, "stage_sm90", lw.raie_stage_apply_wgmma(
+        src.data_ptr(), int(src.dtype == torch.bfloat16), dst.data_ptr(),
+        int(dst.dtype == torch.bfloat16), run.v.data_ptr(), run.attn_t.data_ptr(),
+        run.gram_heads, ptr("wproj_wg"), ptr("ln2"), ptr("ln2b"), ptr("win_wg"),
+        ptr("wtaps_wg"), ptr("wout_wg"), b, h, w, run.fp, run.halo, run.y_img, run.h_img,
+        eps, run.apply_grid, run.stream), "C (apply, wgmma)")
+    _build.count_launch(apply_wgmma)
+
+
+gram_wgmma.launches = 0  # kernel (A) launches at C = 96
+apply_wgmma.launches = 0  # kernel (C) launches at C = 96
+
+
 def _ptr(p: dict, i: int):
-    """Block i's pointer of a packed weight (None for an absent bias)."""
-    return lambda name: None if p[name] is None else p[name][i].data_ptr()
+    """Block i's pointer of a packed weight (None for an absent bias), by
+    arithmetic on the stacked tensor (no view made a launch)."""
+
+    def at(name):
+        t = p[name]
+        return None if t is None else t.data_ptr() + i * t.stride(0) * t.element_size()
+
+    return at
 
 
 def _block_cuda(x, ln1_w, ln1_b, w_qkv, dw_qkv, temperature, w_proj, ln2_w,

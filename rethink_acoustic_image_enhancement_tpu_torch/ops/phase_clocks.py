@@ -1,12 +1,14 @@
 """Cycles per phase inside the block kernels' tiles, from the instrumented
-build of ``csrc/stage.cu``.
+builds of ``csrc/stage.cu`` and ``csrc/stage_sm90.cu``.
 
-``_build.VARIANTS["stage_clocks"]`` is the same source compiled with
-``-DRAIE_PHASE_CLOCKS``: thread 0 of every thread block reads ``clock64()``
-at each phase boundary and the block writes its sums to a device buffer.
-``block_phase_shares`` runs one TransformerBlock through that library and
-reduces the buffers to, per kernel, the share of a tile's cycles in each
-phase and the cycles per tile. The clocks cost a few percent and serialise
+``_build.VARIANTS["stage_clocks"]`` (and ``"stage_sm90_clocks"``) is the
+same source compiled with ``-DRAIE_PHASE_CLOCKS``: thread 0 of every thread
+block reads ``clock64()`` at each phase boundary and the block writes its
+sums to a device buffer. ``block_phase_shares`` runs one TransformerBlock
+through those libraries and reduces the buffers to, per kernel, the share of
+a tile's cycles in each phase and the cycles per tile (at C = 96 kernels (A)
+and (C) are ``k_gram_wgmma`` and ``k_apply_wgmma``, whose thread 0 sees its
+own warpgroup's phases; the warpgroups run apart between barriers). The clocks cost a few percent and serialise
 nothing, but the build is for measurement only: every other path loads the
 normal library, which has none of it.
 """
@@ -18,7 +20,7 @@ import ctypes
 import torch
 
 from . import _build
-from .block import BlockRunner, lib, pack_blocks
+from .block import BlockRunner, apply_route, lib, pack_blocks, wg_lib
 from .gdfn import check_input
 
 PHASE_SLOTS = 16  # int64 per thread block; the last one counts tiles
@@ -27,6 +29,10 @@ GRAM_PHASES = ("x load + LN1", "qkv product", "depthwise + norms + v store",
 APPLY_PHASES = ("initial loads", "attn @ v", "W_proj", "LN2 + accumulator set-up",
                 "W_in product", "depthwise + GELU gate", "W_out product",
                 "final store")
+GRAM_WG_PHASES = ("x load + LN1", "first qkv product", "depthwise + norms + v store (products "
+                  "overlapped)", "Gram product", "partials")
+APPLY_WG_PHASES = ("wait for v", "attn @ v + W_proj", "LN2", "W_in product",
+                   "depthwise + GELU gate (W_out overlapped)", "last W_out + store")
 
 
 def _shares(rows: torch.Tensor, names) -> dict:
@@ -40,23 +46,35 @@ def _shares(rows: torch.Tensor, names) -> dict:
 
 
 def block_phase_shares(x: torch.Tensor, ln_eps: float = 1e-5, **weights) -> dict:
-    """{"k_gram": ..., "k_apply": ...} for block 0 of stacked stage weights
-    (the arguments of ``fused_transformer_stage``) on NHWC x on the card."""
+    """{"k_gram": ..., "k_apply": ...} (at C = 96 {"k_gram_wgmma": ...,
+    "k_apply_wgmma": ...}) for block 0 of
+    stacked stage weights (the arguments of ``fused_transformer_stage``) on
+    NHWC x on the card."""
     x = check_input(x, "stage")
     p = pack_blocks(x.device, **weights)
     library = lib("stage_clocks")
     set_buffers = library.raie_stage_phase_buffers
     set_buffers.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
     set_buffers.restype = ctypes.c_int
-    runner = BlockRunner(x, p["temp"].shape[1], p["fp"], library)
-    b, h, w, _ = x.shape
-    n_apply = b * -(-h // runner.ath) * -(-w // runner.atw)
+    b, h, w, c = x.shape
+    wg = apply_route(c) == "wgmma"
+    wg_library = wg_lib("stage_sm90_clocks") if wg else None
+    runner = BlockRunner(x, p["temp"].shape[1], p["fp"], library, wg_library=wg_library)
+    n_apply = runner.apply_grid if wg else b * -(-h // runner.ath) * -(-w // runner.atw)
     gram = torch.zeros(b * runner.groups, PHASE_SLOTS, dtype=torch.int64, device=x.device)
     apply = torch.zeros(n_apply, PHASE_SLOTS, dtype=torch.int64, device=x.device)
     y = torch.empty_like(x)
+
+    def set_all(gram_rows, apply_rows):
+        if wg:  # both tile kernels are stage_sm90.cu's
+            fn = wg_library.raie_stage_sm90_phase_buffers
+            fn.argtypes, fn.restype = [ctypes.c_void_p, ctypes.c_void_p], ctypes.c_int
+            _build.check(wg_library, "stage_sm90", fn(gram_rows, apply_rows), "phase buffers")
+            gram_rows = apply_rows = None
+        _build.check(library, "stage", set_buffers(gram_rows, apply_rows), "phase buffers")
+
     try:
-        _build.check(library, "stage", set_buffers(gram.data_ptr(), apply.data_ptr()),
-                     "phase buffers")
+        set_all(gram.data_ptr(), apply.data_ptr())
         runner.run(x, y, p, 0, ln_eps)  # warm-up: caches, clocks
         torch.cuda.synchronize(x.device)
         gram.zero_()
@@ -64,5 +82,8 @@ def block_phase_shares(x: torch.Tensor, ln_eps: float = 1e-5, **weights) -> dict
         runner.run(x, y, p, 0, ln_eps)
         torch.cuda.synchronize(x.device)
     finally:
-        set_buffers(None, None)
+        set_all(None, None)
+    if wg:
+        return dict(k_gram_wgmma=_shares(gram, GRAM_WG_PHASES),
+                    k_apply_wgmma=_shares(apply, APPLY_WG_PHASES))
     return dict(k_gram=_shares(gram, GRAM_PHASES), k_apply=_shares(apply, APPLY_PHASES))

@@ -12,7 +12,7 @@ Phases (any failure exits non-zero; nothing is caught):
      and fp32, with its time, the plain version's time, the bound for the
      same work and, where one PyTorch call computes the same function, that
      call's time (the stage also at (1,256,256,384), 8 heads: the latent of
-     a 2048^2 frame, through the kernel's wide layout); the same stage call
+     a 2048^2 frame, through csrc/stage_sm90_wide.cu); the same stage call
      twice gives the same bits, and one
      BiasFree block the bits of a one-block stage. At C = 96 the block's
      tile kernels (A) and (C) are csrc/stage_sm90.cu's Hopper kernels
@@ -25,11 +25,21 @@ Phases (any failure exits non-zero; nothing is caught):
      (the device's occupancy answer), the grid's tail, registers and spill
      bytes from ptxas' report, and the HGMMA (wgmma), HMMA (mma.sync) and
      TMA instructions in each kernel's SASS (cuobjdump), the C = 96 kernels
-     required to hold HGMMA.
+     required to hold HGMMA. At C = 192 and 384 (48 channels a head) the
+     tile kernels are csrc/stage_sm90_wide.cu's (k_gram_wide, and kernel (C)
+     as k_proj_wide and k_ffn_wide): the stage at the deeper stages of
+     1024^2 and 2048^2 frames, (1,256,256,192) x6 and (1,256,256,384) x8 in
+     bf16 and fp32 and (1,512,512,192) x6 in bf16, each kernel alone against
+     its plain version at (1,512,512,192) and (1,256,256,384), their phase
+     clocks, registers and SASS (HGMMA required in all three).
   3. whole-image serving: the full-width flagship KDLAE-T (seeded random
      weights) through TeacherPredictor(fused=True, bf16) on synthetic sonar
      frames, with the stage-kernel call count checked against the gate and
-     the uint8 outputs against the same predictor with the plain stage.
+     the uint8 outputs against the same predictor with the plain stage; then
+     one 1024^2 and one 2048^2 request, the wide kernels' launches checked
+     against the gate-admitted C = 192 and 384 blocks, the 2048^2 one timed
+     and profiled (wall, device busy, idle share, stage ms by width, top
+     kernels).
   4. the per-block paths at full width, on the flagship decoder_level1
      geometry (4 blocks of 96 channels at 512x512, BiasFree and WithBias):
      TransformerBlock(fused=True) through the block kernel, and the blocks
@@ -399,13 +409,17 @@ def phase_kernels(results, card):
 
     from rethink_acoustic_image_enhancement_tpu_torch.ops import stage as pstage
 
-    # the last two: a tile batch, and the latent of a 2048^2 request (the
-    # kernel's wide layout)
+    # then a tile batch, and the deeper stages of 1024^2 and 2048^2 requests
+    # (encoder_level3 and decoder_level3 at C = 192, the latent at 384, also
+    # at 2 of its 8 blocks): csrc/stage_sm90_wide.cu's kernels
     cases = [((1, 512, 512, 96), 4, 1), ((1, 256, 256, 96), 6, 2),
-             ((2, 256, 256, 96), 2, 2), ((8, 256, 256, 96), 4, 1), ((1, 256, 256, 384), 2, 8)]
+             ((2, 256, 256, 96), 2, 2), ((8, 256, 256, 96), 4, 1), ((1, 256, 256, 384), 2, 8),
+             ((1, 256, 256, 192), 6, 4), ((1, 512, 512, 192), 6, 4), ((1, 256, 256, 384), 8, 8)]
     rows = []
     for dtype in (torch.bfloat16, torch.float32):
         for shape, n, heads in cases:
+            if dtype == torch.float32 and shape == (1, 512, 512, 192):
+                continue  # bf16 only: the 2048^2 request's shape
             c = shape[-1]
             f = int(c * 2.66)
             rng = np.random.default_rng(len(rows))
@@ -434,11 +448,12 @@ def phase_kernels(results, card):
                        flops=flops, bytes=nbytes,
                        launches=pstage.fused_transformer_stage.launches - calls_before)
             rows.append(row)
+            per_block = 4 if c in (192, 384) else 3  # (C) is two kernels at the wide widths
             log(f"stage {row['dtype']} {tuple(shape)} blocks={n} heads={heads}: "
                 f"kernel {kern_ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
                 f"{row['bound_ms']:.4f} ms ({row['bound_by']}), "
                 f"max|d| {diff:.3e} rel {rel:.3e}, {row['launches']} stage calls "
-                f"({3 * n} kernel launches each) [{card}]")
+                f"({per_block * n} kernel launches each) [{card}]")
             assert rel <= TOL_REL, f"kernel disagrees with plain: {rel} > {TOL_REL}"
             del got, ref, x
     results["stage_cases"] = rows
@@ -462,7 +477,8 @@ def sass_counts(name):
     out = {}
     for fn in sass.split("Function : ")[1:]:
         head = fn.split("\n", 1)[0]
-        kernel = next((k for k in ("k_gram_wgmma", "k_apply_wgmma", "k_gram", "k_softmax",
+        kernel = next((k for k in ("k_gram_wgmma", "k_apply_wgmma", "k_gram_wide",
+                                   "k_proj_wide", "k_ffn_wide", "k_gram", "k_softmax",
                                    "k_apply", "k_project") if k in head), head[:60])
         row = out.setdefault(kernel, {})
         for op in ("HGMMA", "HMMA", "UTMALDG", "UBLKCP"):
@@ -479,8 +495,10 @@ def stage_phases(card):
     from rethink_acoustic_image_enhancement_tpu_torch.ops import _build, block, phase_clocks, stage
 
     out = {"card": card, "ptxas": {**_build.kernel_resources("stage"),
-                                   **_build.kernel_resources("stage_sm90")},
-           "sass": sass_counts("stage_sm90"), "shapes": {}}
+                                   **_build.kernel_resources("stage_sm90"),
+                                   **_build.kernel_resources("stage_sm90_wide")},
+           "sass": sass_counts("stage_sm90"), "sass_wide": sass_counts("stage_sm90_wide"),
+           "shapes": {}}
     for shape in ((1, 512, 512, 96), (8, 256, 256, 96)):
         rng = np.random.default_rng(1)
         wts = seeded_stage_weights(rng, 1, 96, 1, 255, "cuda")
@@ -505,12 +523,34 @@ def stage_phases(card):
             f"{run.plan.apply_blocks} (512 threads); k_apply_wgmma grid {run.apply_grid} over "
             f"{n_tiles} tiles, tail {row['k_apply_wgmma_grid_tail']}; bit-identical twice: yes")
         assert run.route == "wgmma" and min(run.plan.gram_blocks, run.plan.apply_blocks) >= 1
+    # the wide kernels at the 2048^2 request's C = 192 and 384 stage shapes
+    for shape, heads in (((1, 512, 512, 192), 4), ((1, 256, 256, 384), 8)):
+        rng = np.random.default_rng(2)
+        c = shape[-1]
+        wts = seeded_stage_weights(rng, 1, c, heads, int(2.66 * c), "cuda")
+        x = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).cuda().bfloat16()
+        row = phase_clocks.block_phase_shares(x, **wts)
+        run = block.BlockRunner(x, heads, -(-int(2.66 * c) // 64) * 64)
+        assert run.wide and min(block._wg_residency(run.wg_lib, x.device, c)) >= 1
+        row["plan"] = run.plan._asdict()
+        row["grids"] = dict(k_gram_wide=run.groups * shape[0], k_proj_wide=run.proj_grid,
+                            k_ffn_wide=run.apply_grid)
+        out["shapes"]["x".join(map(str, shape))] = row
+        for name in ("k_gram_wide", "k_proj_wide", "k_ffn_wide"):
+            shares = ", ".join(f"{k} {v:.3f}" for k, v in row[name]["share"].items())
+            log(f"phases {name} {shape} heads={heads}: {row[name]['cycles_per_tile']:.0f} cycles "
+                f"a tile of {row[name]['tiles']} ({shares}) [{card}]")
+        log(f"  grids {row['grids']}, tile {run.plan.gram_tile}, one block of 512 threads an SM")
     log(f"  ptxas: {out['ptxas']}")
-    log(f"  SASS of stage_sm90: {out['sass']}")
+    log(f"  SASS of stage_sm90: {out['sass']}; of stage_sm90_wide: {out['sass_wide']}")
     if out["sass"] is not None:
         for name in ("k_gram_wgmma", "k_apply_wgmma"):
             assert out["sass"][name]["HGMMA"] > 0, f"{name} holds no HGMMA"
         assert out["sass"]["k_apply_wgmma"]["HMMA"] == 0, "k_apply_wgmma holds mma.sync"
+        for name in ("k_gram_wide", "k_proj_wide", "k_ffn_wide"):
+            assert out["sass_wide"][name]["HGMMA"] > 0, f"{name} holds no HGMMA"
+        for name in ("k_proj_wide", "k_ffn_wide"):
+            assert out["sass_wide"][name]["HMMA"] == 0, f"{name} holds mma.sync"
     return out
 
 
@@ -631,12 +671,123 @@ def phase_hopper_kernels(results, card):
     return rows
 
 
+def wide_work(b, h, w, c, heads, f, esize):
+    """(flops, bytes) of the wide kernels (P) and (F) of one block: (P) attn
+    @ v and W_proj per pixel, x and v read, r (fp32) written; (F) W_in, W_out
+    and the GDFN depthwise 3x3 per pixel, r read and y written; weights once.
+    (A)'s are hopper_work's."""
+    hc, px = c // heads, b * h * w
+    p = (2 * c * hc + 2 * c * c) * px
+    p_bytes = px * c * (esize + 2 + 4) + 2 * c * c
+    ff = (2 * c * 2 * f + 2 * f * c + 2 * 9 * 2 * f) * px
+    f_bytes = px * c * (4 + esize) + 2 * 3 * c * f + 4 * 9 * 2 * f
+    return (p, p_bytes), (ff, f_bytes)
+
+
+def phase_hopper_wide(results, card):
+    """Kernels (A), (P) and (F) at C = 192 and 384 (csrc/stage_sm90_wide.cu)
+    each alone against its plain version on the same inputs ((P)'s plain
+    takes the kernels' v and attn^T, (F)'s the kernel's r), at the C = 192
+    stage shape of a 2048^2 request, (1,512,512,192) 4 heads, and its
+    latent's, (1,256,256,384) 8 heads, bf16: time, plain time, bound. (A)'s
+    error is v's; its Gram and norms are held within TOL_REL too."""
+    import torch
+
+    from rethink_acoustic_image_enhancement_tpu_torch.ops import block as pblock
+    from rethink_acoustic_image_enhancement_tpu_torch.ops.gdfn import dw3x3, ffn_f32
+
+    rows = {"k_gram_wide": [], "k_proj_wide": [], "k_ffn_wide": []}
+    eps = 1e-5
+    for shape, heads in (((1, 512, 512, 192), 4), ((1, 256, 256, 384), 8)):
+        rng = np.random.default_rng(400 + heads)
+        c = shape[-1]
+        f = int(2.66 * c)
+        wts = seeded_stage_weights(rng, 1, c, heads, f, "cuda")
+        x = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).cuda().bfloat16()
+        p = pblock.pack_blocks(x.device, **wts)
+        run = pblock.BlockRunner(x, heads, p["fp"])
+        assert run.route == "wgmma" and run.wide
+        w32 = {k: v[0].float() for k, v in wts.items()}
+        wqkv, wproj = w32["w_qkv"].reshape(c, 3 * c), w32["w_proj"].reshape(c, c)
+        win, wout = w32["w_in"].reshape(c, 2 * f), w32["w_out"].reshape(f, c)
+        dwqkv, wdw = w32["dw_qkv"].reshape(3, 3, 3 * c), w32["w_dw"].reshape(3, 3, 2 * f)
+        x32 = x.float()
+
+        def gram_plain():
+            qkv = dw3x3(pblock.qkv_hidden(x32, w32["ln1_w"], None, wqkv, eps), dwqkv)
+            return qkv, pblock.gram_part(qkv, heads)
+
+        run.gram(x, p, 0, eps)
+        torch.cuda.synchronize()
+        qkv, gp = gram_plain()
+        hc = c // heads
+        part = run.part.sum(1)
+        gram = part[:, :heads * hc * hc].reshape(gp[..., :hc].shape)
+        norms = part[:, heads * hc * hc:].reshape(shape[0], 2, heads, hc)
+        v_ref = qkv[..., 2 * c:].bfloat16().float()
+        dv = (run.v.float() - v_ref).abs().max().item()
+        rel = {"v": dv / v_ref.abs().max().item(),
+               "gram": ((gram - gp[..., :hc]).abs().max() / gp[..., :hc].abs().max()).item(),
+               "norms": ((norms - torch.stack([gp[..., hc], gp[..., hc + 1]], 1)).abs().max()
+                         / gp[..., hc:].abs().max()).item()}
+        assert max(rel.values()) <= TOL_REL, f"k_gram_wide disagrees with plain: {rel}"
+        run.softmax(run.part, p, 0)
+        y = torch.empty(shape, dtype=torch.float32, device="cuda")
+
+        def proj_plain():
+            at = run.attn_t[0].float()  # [head][d][c] = attn[c][d]
+            attn = torch.block_diag(*[at[h].t() for h in range(heads)])
+            oa = run.v.float() @ attn.t().bfloat16().float()
+            return x32 + oa.bfloat16().float() @ wproj.bfloat16().float()
+
+        def ffn_plain():
+            return ffn_f32(run.r, w32["ln2_w"], None, win, wdw, wout, eps)
+
+        run.apply(x, y, p, 0, eps)
+        torch.cuda.synchronize()
+        r_ref = proj_plain()
+        dr = (run.r - r_ref).abs().max().item()
+        rel["r"] = dr / r_ref.abs().max().item()
+        y_ref = ffn_plain()
+        dy = (y - y_ref).abs().max().item()
+        rel["y"] = dy / y_ref.abs().max().item()
+        assert rel["r"] <= TOL_REL, f"k_proj_wide disagrees with plain: {rel['r']}"
+        assert rel["y"] <= TOL_REL, f"k_ffn_wide disagrees with plain: {rel['y']}"
+        again = torch.empty_like(y)
+        run.apply(x, again, p, 0, eps)
+        assert torch.equal(again, y), "two launches of (P) and (F) differ"
+        (fa, ba), _ = hopper_work(*shape, heads, f, x.element_size())
+        (fp_, bp), (ff, bf) = wide_work(*shape, heads, f, x.element_size())
+        ptr = pblock._ptr(p, 0)
+        for name, kern, plain, flops, nbytes, err in (
+                ("k_gram_wide", lambda: run.gram(x, p, 0, eps), gram_plain, fa, ba, dv),
+                ("k_proj_wide", lambda: pblock.proj_wide(run, x, ptr), proj_plain, fp_, bp, dr),
+                ("k_ffn_wide", lambda: pblock.ffn_wide(run, y, ptr, eps), ffn_plain, ff, bf, dy)):
+            t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+            ms, timed_by = device_ms(kern, 5)
+            row = dict(shape=list(shape), heads=heads, dtype="bfloat16", max_abs_err=err,
+                       rel_err=rel, ms=ms, ms_by=timed_by, plain_ms=cuda_ms(plain, 2),
+                       bound_ms=max(t_ops, t_bytes),
+                       bound_by="operations" if t_ops >= t_bytes else "bytes",
+                       library_ms=None, flops=flops, bytes=nbytes)
+            rows[name].append(row)
+            log(f"{name} bf16 {tuple(shape)} heads={heads}: kernel {ms:.4f} ms ({timed_by}), "
+                f"plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+                f"({row['bound_by']}), max|d| {err:.3e}, rel {rel} [{card}]")
+        del qkv, gp, r_ref, y_ref, y, again, x
+    results["hopper_wide_cases"] = rows
+    return rows
+
+
 def hopper_counts(zero=False):
-    """The launches of kernels (A) and (C) at C = 96 (their wrappers'
-    counts), read or set to 0."""
+    """The launches of the Hopper tile kernels: (A) and (C) at C = 96, (A),
+    (P) and (F) at C = 192 and 384 (their wrappers' counts), read or set to
+    0."""
     from rethink_acoustic_image_enhancement_tpu_torch.ops import block as pblock
 
-    fns = {"k_gram_wgmma": pblock.gram_wgmma, "k_apply_wgmma": pblock.apply_wgmma}
+    fns = {"k_gram_wgmma": pblock.gram_wgmma, "k_apply_wgmma": pblock.apply_wgmma,
+           "k_gram_wide": pblock.gram_wide, "k_proj_wide": pblock.proj_wide,
+           "k_ffn_wide": pblock.ffn_wide}
     if zero:
         for fn in fns.values():
             fn.launches = 0
@@ -835,14 +986,96 @@ def profile_request(pred, img, rate, wall_ms, card):
                      key=lambda kv: -kv[1])
     busy_ms = sum(ms for _, ms in kernels)
     stage_ms = sum(ms for k, ms in kernels
-                   if any(n in k for n in ("k_gram", "k_softmax", "k_apply")))
+                   if any(n in k for n in ("k_gram", "k_softmax", "k_apply", "k_proj", "k_ffn")))
     out = dict(wall_ms=wall_ms, device_busy_ms=busy_ms, stage_kernels_ms=stage_ms,
                idle_share=1 - busy_ms / wall_ms,
                top=[dict(kernel=k[:120], ms=ms) for k, ms in kernels[:12]])
-    log(f"request profile 512x512: wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms "
-        f"(idle share {out['idle_share']:.3f}), stage kernels {stage_ms:.2f} ms [{card}]")
+    log(f"request profile {img.shape[0]}x{img.shape[1]}: wall {wall_ms:.2f} ms, device busy "
+        f"{busy_ms:.2f} ms (idle share {out['idle_share']:.3f}), stage kernels {stage_ms:.2f} ms "
+        f"[{card}]")
     for row in out["top"][:6]:
         log(f"  {row['ms']:8.3f} ms  {row['kernel'][:100]}")
+    return out
+
+
+def stage_calls(pred, img, rate):
+    """One request with CUDA events around each TransformerStage: [(stage
+    module, input NCHW shape, device ms)] in call order."""
+    import torch
+
+    from rethink_acoustic_image_enhancement_tpu_torch.models import TransformerStage
+
+    calls = []
+
+    def before(mod, args):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        calls.append([mod, tuple(args[0].shape), ev, None])
+
+    def after(mod, args, out):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        next(c for c in reversed(calls) if c[0] is mod)[3] = ev
+
+    stages = [m for m in pred.model.modules() if isinstance(m, TransformerStage)]
+    hooks = [m.register_forward_pre_hook(before) for m in stages]
+    hooks += [m.register_forward_hook(after) for m in stages]
+    try:
+        pred(img, rate)
+        torch.cuda.synchronize()
+    finally:
+        for h in hooks:
+            h.remove()
+    return [(m, shape, s.elapsed_time(e)) for m, shape, s, e in calls]
+
+
+LARGE_SIDES = (1024, 2048)  # phase 3's requests that reach the C = 192 and 384 stages
+
+
+def phase_large_requests(results, card, pred):
+    """One 1024^2 and one 2048^2 bf16 request of the phase-3 predictor: the
+    wide kernels (A), (P) and (F) launched once for every block of a
+    gate-admitted stage at C = 192 and 384 (encoder_level3, decoder_level3,
+    the latent), and none elsewhere; the 2048^2 one timed (wall of two
+    requests), its stages' device ms by width (CUDA events around each
+    stage) and profiled (busy, idle share, top kernels)."""
+    import torch
+
+    from rethink_acoustic_image_enhancement_tpu_torch.ops import stage_gate
+
+    out = {}
+    for side in LARGE_SIDES:
+        img = sonar_frame(side, side, side)
+        pred(img, 1.0)  # warm-up: the allocator at this size
+        torch.cuda.synchronize()
+        before = hopper_counts()
+        calls = stage_calls(pred, img, 1.0)
+        after = hopper_counts()
+        want = sum(len(m) for m, (b, _, h, w), _ in calls
+                   if m.dim in (192, 384) and stage_gate.stage_worthwhile(
+                       b, h, w, m.dim, m.num_heads, m.bias_free_ln, m.use_bias,
+                       m.ffn_expansion_factor))
+        got = {k: after[k] - before[k] for k in ("k_gram_wide", "k_proj_wide", "k_ffn_wide")}
+        log(f"{side}^2 request: wide kernels {got} for {want} gate-admitted blocks at C = 192 "
+            f"and 384 [{card}]")
+        assert want > 0 and set(got.values()) == {want}, (got, want)
+        by_width = {}
+        for m, _, ms in calls:
+            by_width[str(m.dim)] = by_width.get(str(m.dim), 0.0) + ms
+        row = dict(wide_launches=got, wide_blocks=want, stage_ms_by_width=by_width,
+                   stages=[dict(dim=m.dim, blocks=len(m), hw=list(shape[2:]), ms=ms)
+                           for m, shape, ms in calls])
+        if side == LARGE_SIDES[-1]:
+            wall = []
+            for _ in range(2):
+                t0 = time.perf_counter()
+                pred(img, 1.0)
+                torch.cuda.synchronize()
+                wall.append((time.perf_counter() - t0) * 1e3)
+            row.update(wall_ms=wall, profile=profile_request(pred, img, 1.0, min(wall), card))
+            log(f"  stage ms by width {by_width}; wall {wall} ms [{card}]")
+        out[str(side)] = row
+    results["large_requests"] = out
     return out
 
 
@@ -951,7 +1184,9 @@ def phase_slice(results, card):
                                                    min(lat_ms[:2]), card))
     for (img, rate), ms in zip(frames, lat_ms):
         log(f"request {img.shape[0]}x{img.shape[1]} rate {rate}: {ms:.2f} ms [{card}]")
-    return launches, lat_ms, pred
+    counts = reset_counts()
+    phase_large_requests(results, card, pred)
+    return launches + read_counts(counts)["stage"], lat_ms, pred
 
 
 # ------------------------------------------------------------ phase 4 ----
@@ -3960,8 +4195,8 @@ def phase_remaining_datasets(results, card):
 # (a): the 512^2 request's gate-admitted stage shapes (decoder_level1 and the
 # two refinements; encoder_level2 and decoder_level2), level 2 of a
 # 528x512 request on 2 bands (132 rows a band, 4 mod 8: a band's last
-# tile cut at its edge), and the latent of a 2048^2 frame (the kernel's wide
-# layout; 2 of its 8 blocks) on 1 and 2 bands
+# tile cut at its edge), and the latent of a 2048^2 frame (csrc/
+# stage_sm90_wide.cu's kernels; 2 of its 8 blocks) on 1 and 2 bands
 SPATIAL_CASES = [((1, 512, 512, 96), 4, 1, (1, 2, 4)), ((1, 256, 256, 96), 6, 2, (1, 2, 4)),
                  ((1, 264, 256, 96), 6, 2, (2,)), ((1, 256, 256, 384), 2, 8, (1, 2))]
 SPATIAL_SIZE = 512  # (b), (c): the request's side
@@ -3974,6 +4209,7 @@ def phase16_band_kernel(row, card):
     version, the bands on cuda:0; returns the rows."""
     import torch
 
+    from rethink_acoustic_image_enhancement_tpu_torch.ops import block as pblock
     from rethink_acoustic_image_enhancement_tpu_torch.ops import stage as pstage
     from rethink_acoustic_image_enhancement_tpu_torch.parallel.spatial import (
         LocalBands,
@@ -4000,8 +4236,12 @@ def phase16_band_kernel(row, card):
             def run():
                 return pstage.fused_transformer_stage_bands(xs, [wts] * nb, bands)
 
+            wide_before = pblock.ffn_wide.launches
             got = join_rows(run(), SPATIAL_DEVICE, dim=1)
             torch.cuda.synchronize()
+            wide = pblock.ffn_wide.launches - wide_before
+            # C = 384 bands take csrc/stage_sm90_wide.cu's kernels: one (F) a block and band
+            assert wide == (n * nb if shape[-1] == 384 else 0), (shape, nb, wide)
             moved = dict(bands.moved)
             plain = join_rows(pstage.stage_plain_bands(xs, [wts] * nb, bands), SPATIAL_DEVICE,
                               dim=1)
@@ -4019,7 +4259,8 @@ def phase16_band_kernel(row, card):
                      plain_ms=cuda_ms(lambda: pstage.stage_plain_bands(xs, [wts] * nb, bands), 1),
                      bound_ms=max(t_ops, t_bytes),
                      bound_by="operations" if t_ops >= t_bytes else "bytes",
-                     halo_bytes=moved["halo"], partial_bytes=moved["partials"])
+                     halo_bytes=moved["halo"], partial_bytes=moved["partials"],
+                     wide_ffn_launches=wide)
             rows.append(r)
             log(f"band stage {r['dtype']} {tuple(shape)} blocks={n} heads={heads} on {nb} bands "
                 f"of {r['band_rows']} rows: {r['ms']:.3f} ms (whole-image kernel "
@@ -5294,10 +5535,11 @@ def main() -> int:
         return 0
     stage_rows = phase_kernels(results, card)
     hopper_rows = phase_hopper_kernels(results, card)
+    hopper_rows.update(phase_hopper_wide(results, card))
     ln_rows = phase_layernorm_kernel(results, card)
     gdfn_rows = phase_gdfn_kernel(results, card)
     block_rows = phase_block_kernel(results, card)
-    # kernels (A) and (C) at C = 96 on the driven paths: phases 3 to 15
+    # the Hopper tile kernels on the driven paths: phases 3 to 15
     hopper_counts(zero=True)
     whole_launches, lat_ms, pred = phase_slice(results, card)
     path_launches = phase_block_paths(results, card)
@@ -5385,6 +5627,12 @@ def main() -> int:
         entry("k_apply_wgmma", "stage_sm90.cu", "stage.py:324",
               hopper_launches["k_apply_wgmma"], hopper_rows["k_apply_wgmma"],
               hopper_rows["k_apply_wgmma"][0]),
+        # the Hopper kernels (A), (P) and (F) of every C = 192 and 384 block
+        # launch of the stage and block paths (phases 3-15: the 1024^2 and
+        # 2048^2 requests of phase 3), each at (1, 512, 512, 192), 4 heads
+        *[entry(name, "stage_sm90_wide.cu", "stage.py:324", hopper_launches[name],
+                hopper_rows[name], hopper_rows[name][0])
+          for name in ("k_gram_wide", "k_proj_wide", "k_ffn_wide")],
     ]}
     results["kernels"] = kernels["kernels"]
     results["total_s"] = time.perf_counter() - t_start

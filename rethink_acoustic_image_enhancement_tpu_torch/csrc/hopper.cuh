@@ -1,8 +1,9 @@
 // Hopper's asynchronous building blocks for the tile kernels of
 // stage_sm90.cu: mbarriers, TMA copies (tensor boxes through a CUtensorMap,
 // and plain bulk copies), and warpgroup matrix products (wgmma) with their
-// shared-memory descriptors. Everything here is sm_90a PTX in inline asm; no
-// library is called.
+// shared-memory descriptors, all sm_90a PTX in inline asm; and, on the host,
+// the driver's tensor-map encoder for the TMA boxes, reached through the
+// runtime so that a library links cudart alone.
 //
 // Operand layout. Every wgmma operand that comes from shared memory is
 // K-major without swizzle: 8 rows of 16 bytes (8 bf16 along K) make a core
@@ -18,7 +19,9 @@
 
 #pragma once
 
+#include <cuda.h>  // CUtensorMap and its enums (types only: the encoder comes through cudart)
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 
 #include <cstdint>
 
@@ -210,6 +213,31 @@ __device__ __forceinline__ void wgmma_rs_n96(float (&d)[48], const unsigned (&a)
         "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
         "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// ---- host ---------------------------------------------------------------------
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// The driver's cuTensorMapEncodeTiled through the runtime.
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &q);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (err != cudaSuccess || q != cudaDriverEntryPointSuccess) return nullptr;
+    fn = (EncodeTiled)p;
+  }
+  return fn;
 }
 
 }  // namespace

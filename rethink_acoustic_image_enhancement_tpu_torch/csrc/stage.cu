@@ -86,7 +86,8 @@
 // the shards do not divide the heads, every shard runs (A) and (B) whole
 // (Cq = C) and (C') with the residual: r whole, no sum. Everything up to
 // (C') is the same code as the whole image's, whose bits it keeps.
-// The wide layout (C = 384, the latent of a 2048^2 frame): a C x C bf16
+// The wide layout (C = 384: the latent of a 2048^2 frame on a model shard,
+// or with heads of other than 48 channels): a C x C bf16
 // weight is 301 KB, more than a thread block's 227 KB of shared memory, so
 // (A) holds a third of W_qkv nq columns at a time (its product and depthwise
 // step run per chunk, the next chunk loading during the depthwise step) and
@@ -118,10 +119,11 @@
 // 512^2 teacher request, kernels (A) and (C) are stage_sm90.cu's Hopper
 // redesign (6x30 tiles on an 8x32 halo of four full m64 operands, wgmma
 // products overlapped with the depthwise steps, TMA and bulk copies under
-// mbarriers, a persistent (C); see its note), chosen by width alone
-// (ops/block.py::apply_route). The kernels here serve every other width (48,
-// 192, the wide 384) and every model shard ((A) on a head range, (C')),
-// with (B) for all.
+// mbarriers, a persistent (C); see its note), chosen by width
+// (ops/block.py::apply_route), and at C = 192 and 384 with 48 channels a
+// head stage_sm90_wide.cu's. The kernels here serve every other width (48,
+// and 192 or 384 with other heads: the wide layout at 384) and every model
+// shard ((A) on a head range, (C')), with (B) for all.
 
 #include <climits>
 

@@ -6,8 +6,9 @@
 // and squared norms as partials over groups of tiles), stage.cu's (B)
 // k_softmax (attn^T), and (C) k_apply_wgmma (attention apply, projection,
 // LN2, GDFN and both residuals). The host takes these two at C = 96 and
-// nowhere else (ops/block.py::apply_route): every other width, and every
-// launch on a model shard, keeps stage.cu's mma.sync kernels.
+// nowhere else (ops/block.py::apply_route): C = 192 and 384 take
+// stage_sm90_wide.cu's, every other width, and every launch on a model
+// shard, stage.cu's mma.sync kernels.
 //
 // Replaces, at C = 96 (the width of every stage of a 512^2 teacher request
 // that runs through the kernels: encoder_level2, decoder_level2,
@@ -91,8 +92,6 @@
 // fp32 or bf16 (a stage hands blocks over in fp32). Sums run in another
 // order than stage.cu's kernels, so the bits differ from theirs; a launch
 // gives the same bits every time (no atomics).
-
-#include <cuda.h>  // CUtensorMap and its enums (types only: the encoder comes through cudart)
 
 #include "tile_ops.cuh"
 #include "hopper.cuh"
@@ -209,19 +208,6 @@ __device__ __forceinline__ void prefetch_x(const Tin* x, const Geo& g, int b, in
   if (row >= WTH + 2 || !readable(g, yy, 0)) return;
   const int xa = x0 - 1 < 0 ? 0 : x0 - 1, xb = x0 + WTW + 1 > g.W ? g.W : x0 + WTW + 1;
   if (xb > xa) prefetch_l2(x + pix(g, b, yy, xa), (uint32_t)((xb - xa) * WC * sizeof(Tin)));
-}
-
-// The two rows' 96 channels of x (fp32 or bf16) into an accumulator layout,
-// 0 where not readable.
-template <class Tin>
-__device__ __forceinline__ void load_rows(float (&v)[48], const Tin* px0, const Tin* px1,
-                                          bool rd0, bool rd1) {
-#pragma unroll
-  for (int j = 0; j < 12; ++j) {
-    const float2 lo = rd0 ? ld2(px0 + 8 * j) : make_float2(0.f, 0.f);
-    const float2 hi = rd1 ? ld2(px1 + 8 * j) : make_float2(0.f, 0.f);
-    v[4 * j] = lo.x, v[4 * j + 1] = lo.y, v[4 * j + 2] = hi.x, v[4 * j + 3] = hi.y;
-  }
 }
 
 // One persistent block of WNT threads per SM walks the tiles of every sample
@@ -808,30 +794,6 @@ k_gram_wgmma(const Tin* __restrict__ x, const float* __restrict__ ln1,
 // ---- host -----------------------------------------------------------------
 
 constexpr int ERR_TMAP = 100003;  // the driver refused v's tensor map
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// The driver's cuTensorMapEncodeTiled through the runtime, so the library
-// links cudart alone.
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                       cudaEnableDefault, &q);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (err != cudaSuccess || q != cudaDriverEntryPointSuccess) return nullptr;
-    fn = (EncodeTiled)p;
-  }
-  return fn;
-}
 
 // v (B, Hs, W, C) bf16 as the 5-D view (8, C/8, W, rows, B), rows the
 // readable ones [rows_lo, rows_hi) of the band; a box of one plane of 8

@@ -160,6 +160,20 @@ __device__ __forceinline__ void fma2(float2& a, float2 u, float2 w) {
   a.y += u.y * w.y;
 }
 
+// Two rows' 96 channels of x (fp32 or bf16) at px0 and px1 (a row's first
+// channel of this thread) into an m64n96 accumulator layout (v[4j], v[4j+1]
+// of row 0 at channels 8j, + 1; v[4j+2], v[4j+3] of row 1), 0 where not rd.
+template <class Tin>
+__device__ __forceinline__ void load_rows(float (&v)[48], const Tin* px0, const Tin* px1,
+                                          bool rd0, bool rd1) {
+#pragma unroll
+  for (int j = 0; j < 12; ++j) {
+    const float2 lo = rd0 ? ld2(px0 + 8 * j) : make_float2(0.f, 0.f);
+    const float2 hi = rd1 ? ld2(px1 + 8 * j) : make_float2(0.f, 0.f);
+    v[4 * j] = lo.x, v[4 * j + 1] = lo.y, v[4 * j + 2] = hi.x, v[4 * j + 3] = hi.y;
+  }
+}
+
 // ldmatrix: four 8x8 bf16 matrices whose rows the lanes point at (lanes
 // 8i..8i+7 give matrix i's rows), transposed with _t.
 __device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const bf16* p) {

@@ -10,9 +10,11 @@ for each library at once. ptxas' register and spill report is kept beside
 each library as ``<lib>.log`` (``build_log``, ``kernel_resources``).
 
 ``VARIANTS`` names second libraries of a source built with extra flags:
-``stage_clocks`` is ``csrc/stage.cu`` and ``stage_sm90_clocks``
-``csrc/stage_sm90.cu`` with ``-DRAIE_PHASE_CLOCKS``, whose kernels count
-cycles per phase (``ops/phase_clocks.py``). No serving path loads them.
+``stage_clocks`` is ``csrc/stage.cu``, ``stage_sm90_clocks``
+``csrc/stage_sm90.cu`` and ``stage_sm90_wide_clocks``
+``csrc/stage_sm90_wide.cu`` with ``-DRAIE_PHASE_CLOCKS``, whose kernels
+count cycles per phase (``ops/phase_clocks.py``). No serving path loads
+them.
 
 Every wrapper launches under ``on_device`` (the tensor's card is the current
 device, so the C side's launches, occupancy queries and shared-memory
@@ -38,7 +40,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # library name -> (source stem, extra nvcc flags)
 VARIANTS = {"stage_clocks": ("stage", ("-DRAIE_PHASE_CLOCKS",)),
-            "stage_sm90_clocks": ("stage_sm90", ("-DRAIE_PHASE_CLOCKS",))}
+            "stage_sm90_clocks": ("stage_sm90", ("-DRAIE_PHASE_CLOCKS",)),
+            "stage_sm90_wide_clocks": ("stage_sm90_wide", ("-DRAIE_PHASE_CLOCKS",))}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 _load_lock = threading.Lock()  # one build and one load of a library per process

@@ -17,7 +17,11 @@ there too, and counts the call in ``fused_transformer_block.launches``; at
 C = 96 the Gram and apply launches are ``csrc/stage_sm90.cu``'s Hopper
 kernels (wgmma, TMA, one block an SM; ``apply_route``; ``wgmma_tiles``
 lists the persistent apply kernel's tiles), counted in
-``gram_wgmma.launches`` and ``apply_wgmma.launches``. On a CPU tensor it runs
+``gram_wgmma.launches`` and ``apply_wgmma.launches``; at C = 192 and 384
+(48 channels a head) ``csrc/stage_sm90_wide.cu``'s: the Gram kernel and
+the apply step as two kernels, r = x + W_p MDTA in fp32 and then LN2, the
+GDFN and the residual (``gram_wide``, ``proj_wide``, ``ffn_wide``; their
+schedules ``wgmma_tiles`` with ``WIDE_TILE`` and ``proj_tiles``). On a CPU tensor it runs
 ``block_plain``, the same arithmetic in plain PyTorch: bf16 operands with
 float32 accumulation for the five products, the qkv and W_in outputs
 rounded to bf16 before their float32 depthwise 3x3, two-pass LayerNorm and
@@ -61,6 +65,13 @@ WGMMA_C = 96
 WGMMA_TILE = (6, 30)
 WGMMA_FC = 32
 WGMMA_QCH = 48  # kernel (A)'s chunk of q, k or v channels
+# At these widths with 48 channels a head (the teacher's encoder_level3,
+# decoder_level3 and latent) kernels (A) and (C) are csrc/stage_sm90_wide.cu's:
+# output tiles of TH x 30 (on a (TH + 2) x 32 halo) for (A) and (F), TH x 32
+# pixels for (P), hidden chunks of 32 channels, (A)'s chunks one head's q, k
+# or v.
+WIDE_TILE = {192: (4, 30), 384: (2, 30)}
+WIDE_HC = 48
 
 
 # ------------------------------------------------------------- plain ----
@@ -236,7 +247,7 @@ def pack_blocks(device, ln1_w, w_qkv, dw_qkv, temperature, w_proj, ln2_w,
         ln2=cont(ln2_w, f32, c), ln2b=cont(ln2_b, f32, c),
         **pack_ffn(w_in.reshape(n, c, -1), w_dw.reshape(n, 9, -1),
                    w_out.reshape(n, -1, c), c, device))
-    if apply_route(c, cq != c) == "wgmma":
+    if apply_route(c, cq != c, p["temp"].shape[1]) == "wgmma":
         p.update(pack_wgmma(p["wqkv"], p["dwqkv"], p["wproj"], p["win"], p["wdw"], p["wout"],
                             p["fp"]))
     return p
@@ -253,23 +264,49 @@ def b_operand(w: torch.Tensor) -> torch.Tensor:
     return t.permute(*range(d), d, d + 2, d + 3, d + 1).reshape(*lead, k * n)
 
 
+def qkv_chunk_order(c: int) -> list[int]:
+    """The order in which the Hopper kernel (A) takes W_qkv's chunks of
+    WGMMA_QCH columns (chunk i = columns 48 i..48 i + 47): at C = 96 as they
+    lie (q, then k, then v); at the wide widths head by head, q_h and k_h
+    side by side (so that head h's Gram follows k_h), then every v_h."""
+    nq = 3 * c // WGMMA_QCH
+    if c == WGMMA_C:
+        return list(range(nq))
+    heads = c // WIDE_HC
+    return [t * heads + h for h in range(heads) for t in (0, 1)] + [2 * heads + h
+                                                                      for h in range(heads)]
+
+
+def _in_chunk_order(chunks: torch.Tensor, c: int) -> torch.Tensor:
+    """Chunks (n, 3C / 48, ...) of W_qkv (or its taps) as they lie, put in
+    ``qkv_chunk_order`` by reshapes (an index list would be a host-to-device
+    copy every call)."""
+    if c == WGMMA_C:
+        return chunks
+    n, heads, rest = chunks.shape[0], c // WIDE_HC, chunks.shape[2:]
+    qk = chunks[:, :2 * heads].reshape(n, 2, heads, *rest).transpose(1, 2)
+    return torch.cat([qk.reshape(n, 2 * heads, *rest), chunks[:, 2 * heads:]], 1)
+
+
 def pack_wgmma(wqkv, dwqkv, wproj, win, wdw, wout, fp: int) -> dict:
-    """The Hopper kernels' operands at C = 96 (``csrc/stage_sm90.cu``) from
-    ``pack_blocks``' (n blocks leading), one copy each. Kernel (A): W_qkv
-    (n, C, 3C) in chunks of WGMMA_QCH columns, each a B operand (N = 48,
-    K = C), and their depthwise taps (n, chunks, 9, 48). Kernel (C): W_proj
-    (n, C, C) as one B operand; for each chunk of WGMMA_FC hidden channels,
-    the columns of both halves of W_in as a B operand (N = 2 fc, K = C), each
-    channel's GELU and gate columns side by side ([f][half]), and their taps
-    (n, chunks, 9, fc, 2); the chunk's rows of W_out as a B operand (N = C,
-    K = fc). A chunk's operand and taps are what the kernel copies into one
-    slot."""
+    """The Hopper kernels' operands (``csrc/stage_sm90.cu`` at C = 96,
+    ``csrc/stage_sm90_wide.cu`` at 192 and 384) from ``pack_blocks``' (n
+    blocks leading), one copy each. Kernel (A): W_qkv (n, C, 3C) in chunks
+    of WGMMA_QCH columns in ``qkv_chunk_order``, each a B operand (N = 48,
+    K = C), and their depthwise taps (n, chunks, 9, 48). Kernel (C) (at the
+    wide widths (P) and (F)): W_proj (n, C, C) as one B operand, whose rows
+    48 h..48 h + 47 (a head's) lie together; for each chunk of WGMMA_FC
+    hidden channels, the columns of both halves of W_in as a B operand (N =
+    2 fc, K = C), each channel's GELU and gate columns side by side
+    ([f][half]), and their taps (n, chunks, 9, fc, 2); the chunk's rows of
+    W_out as a B operand (N = C, K = fc). A chunk's operand and taps are
+    what the kernel copies into one slot."""
     n, c, _ = win.shape
     fc, nch, qch = WGMMA_FC, fp // WGMMA_FC, WGMMA_QCH
     nq = 3 * c // qch
     # B element (k, n') at [k / 8][n' / 8][n' % 8][k % 8] of its chunk
-    qkv = wqkv.reshape(n, c // 8, 8, nq, qch // 8, 8).permute(0, 3, 1, 4, 5, 2)
-    qtaps = dwqkv.reshape(n, 9, nq, qch).transpose(1, 2)
+    qkv = _in_chunk_order(wqkv.reshape(n, c // 8, 8, nq, qch // 8, 8).permute(0, 3, 1, 4, 5, 2), c)
+    qtaps = _in_chunk_order(dwqkv.reshape(n, 9, nq, qch).transpose(1, 2), c)
     # W_in's column half * fp + j * fc + 4 f1 + f0 is n' = 2 (4 f1 + f0) + half
     # of chunk j
     w_in = win.reshape(n, c // 8, 8, 2, nch, fc // 4, 4).permute(0, 4, 1, 5, 6, 3, 2)
@@ -280,12 +317,18 @@ def pack_wgmma(wqkv, dwqkv, wproj, win, wdw, wout, fp: int) -> dict:
                 wtaps_wg=wtaps.contiguous(), wout_wg=w_out.contiguous())
 
 
-def apply_route(c: int, shard: bool = False) -> str:
-    """Which kernels (A) and (C) a block launch takes, by width alone:
-    ``"wgmma"`` (``csrc/stage_sm90.cu``) at C = 96, else (and on every model
-    shard, whose block runs (A) on its heads and ends in (C'))
-    ``"mma_sync"`` (``csrc/stage.cu``)."""
-    return "wgmma" if c == WGMMA_C and not shard else "mma_sync"
+def apply_route(c: int, shard: bool = False, heads: int | None = None) -> str:
+    """Which kernels (A) and (C) a block launch takes, by width: ``"wgmma"``
+    (Hopper: ``csrc/stage_sm90.cu`` at C = 96, ``csrc/stage_sm90_wide.cu``
+    at C = 192 and 384, where the heads, if given, are 48 channels each, as
+    every block of the teacher has them), else (and on every model shard,
+    whose block runs (A) on its heads and ends in (C')) ``"mma_sync"``
+    (``csrc/stage.cu``)."""
+    if shard:
+        return "mma_sync"
+    if c == WGMMA_C or (c in WIDE_TILE and (heads is None or c == heads * WIDE_HC)):
+        return "wgmma"
+    return "mma_sync"
 
 
 def readable_rows(h: int, halo: int = 0, y_img: int = 0,
@@ -298,24 +341,28 @@ def readable_rows(h: int, halo: int = 0, y_img: int = 0,
     return max(-halo, -y_img), min(h + halo, h_img - y_img)
 
 
-def wgmma_grid(batch: int, h: int, w: int, n_sm: int) -> int:
-    """Persistent thread blocks of the Hopper kernel (C): one an SM, no more
-    than there are tiles."""
-    th, tw = WGMMA_TILE
+def wgmma_grid(batch: int, h: int, w: int, n_sm: int, tile=WGMMA_TILE) -> int:
+    """Persistent thread blocks of a Hopper kernel over th x tw tiles (the
+    C = 96 kernel (C), or the wide (F) with ``WIDE_TILE``): one an SM, no
+    more than there are tiles."""
+    th, tw = tile
     return min(n_sm, batch * -(-h // th) * -(-w // tw))
 
 
 def wgmma_tiles(batch: int, h: int, w: int, grid: int, halo: int = 0, y_img: int = 0,
-                h_img: int | None = None) -> list[list[dict]]:
-    """The Hopper kernel (C)'s persistent schedule, as ``csrc/stage_sm90.cu``
-    walks it: for each of ``grid`` thread blocks its tiles in order (tile t
-    = block, + grid, ...; sample t // tiles, row-major within it). A tile is
-    a dict: sample ``b``, output origin ``y0``, ``x0``; the halo box it
-    loads, ``rows`` (own rows y0..y0+5, then the ring y0-1 and y0+6) and
-    ``cols`` (x0-1..x0+30); ``read`` (8 x 32, in halo order top to bottom)
-    where v is read, elsewhere TMA's zeros; ``out`` (6 x 30) the outputs it
-    writes, inside the band's own rows and the image's columns."""
-    th, tw = WGMMA_TILE
+                h_img: int | None = None, tile=WGMMA_TILE) -> list[list[dict]]:
+    """The persistent schedule of the Hopper kernel (C) at C = 96
+    (``csrc/stage_sm90.cu``), or with ``tile=WIDE_TILE[c]`` of kernel (F)
+    at the wide widths (``csrc/stage_sm90_wide.cu``; kernel (A) walks the
+    same tiles in groups), as the kernel walks it: for each of ``grid``
+    thread blocks its tiles in order (tile t = block, + grid, ...; sample t
+    // tiles, row-major within it). A tile is a dict: sample ``b``, output
+    origin ``y0``, ``x0``; the halo box it reads, ``rows`` (own rows
+    y0..y0+th-1, then the ring y0-1 and y0+th) and ``cols`` (x0-1..x0+tw);
+    ``read`` ((th + 2) x (tw + 2), in halo order top to bottom) where its
+    input is read, elsewhere zeros; ``out`` (th x tw) the outputs it writes,
+    inside the band's own rows and the image's columns."""
+    th, tw = tile
     lo, hi = readable_rows(h, halo, y_img, h_img)
     ntj, nti = -(-w // tw), -(-h // th)
     per = nti * ntj
@@ -334,6 +381,38 @@ def wgmma_tiles(batch: int, h: int, w: int, grid: int, halo: int = 0, y_img: int
                               cols=tuple(range(x0 - 1, x0 + tw + 1)), read=read, out=out))
         blocks.append(tiles)
     return blocks
+
+
+def proj_tiles(batch: int, h: int, w: int, grid: int, th: int, halo: int = 0, y_img: int = 0,
+               h_img: int | None = None) -> list[list[dict]]:
+    """The persistent schedule of the wide kernel (P) (``csrc/stage_sm90_wide.cu``
+    ``k_proj_wide``): th x 32 pixels a tile over the band's readable rows
+    ``readable_rows`` (its halo rows too, where kernel (F) reads r), for each
+    of ``grid`` thread blocks its tiles in order. A tile is a dict: sample
+    ``b``, origin ``y0`` (a readable row), ``x0``; ``out`` (th x 32) the
+    pixels whose r it writes: readable rows, the image's columns."""
+    lo, hi = readable_rows(h, halo, y_img, h_img)
+    ntj, nti = -(-w // 32), -(-(hi - lo) // th)
+    per = nti * ntj
+    blocks = []
+    for blk in range(grid):
+        tiles = []
+        for t in range(blk, batch * per, grid):
+            b, tt = divmod(t, per)
+            y0, x0 = lo + tt // ntj * th, tt % ntj * 32
+            ys = np.arange(y0, y0 + th)[:, None]
+            xs = np.arange(x0, x0 + 32)[None, :]
+            tiles.append(dict(b=b, y0=y0, x0=x0, out=(ys < hi) & (xs < w)))
+        blocks.append(tiles)
+    return blocks
+
+
+def proj_grid(batch: int, h: int, w: int, n_sm: int, th: int, halo: int = 0, y_img: int = 0,
+              h_img: int | None = None) -> int:
+    """Persistent thread blocks of kernel (P): one an SM, no more than its
+    tiles."""
+    lo, hi = readable_rows(h, halo, y_img, h_img)
+    return min(n_sm, batch * -(-(hi - lo) // th) * -(-w // 32))
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -360,6 +439,15 @@ _WG_SIGNATURES = {
 }
 
 
+_WIDE_SIGNATURES = {
+    "raie_stage_wide_blocks_per_sm": [_I, _I],
+    "raie_stage_wide_geometry": [_I] + [ctypes.POINTER(ctypes.c_int)] * 4,
+    "raie_stage_wide_gram": [_P, _I] + [_P] * 6 + [_I] * 9 + [ctypes.c_float, _P],
+    "raie_stage_wide_project": [_P, _I, _P, _P, _P, _I, _P] + [_I] * 8 + [_P],
+    "raie_stage_wide_ffn": [_P, _P, _I] + [_P] * 5 + [_I] * 8 + [ctypes.c_float, _I, _P],
+}
+
+
 def lib(name: str = "stage") -> ctypes.CDLL:
     """The library of ``csrc/stage.cu``, or a variant of it built with
     other flags (``_build.VARIANTS``)."""
@@ -370,6 +458,12 @@ def wg_lib(name: str = "stage_sm90") -> ctypes.CDLL:
     """The library of ``csrc/stage_sm90.cu`` (kernel (C) at C = 96), or its
     instrumented variant."""
     return _build.bind(name, _WG_SIGNATURES)
+
+
+def wide_lib(name: str = "stage_sm90_wide") -> ctypes.CDLL:
+    """The library of ``csrc/stage_sm90_wide.cu`` (kernels (A), (P) and (F)
+    at C = 192 and 384), or its instrumented variant."""
+    return _build.bind(name, _WIDE_SIGNATURES)
 
 
 class TilePlan(NamedTuple):
@@ -424,18 +518,22 @@ def plan_tiles(library, c: int, gram_heads: int, cq: int | None = None) -> TileP
     return TilePlan((gth, gtw), gram_blocks, fc, (ath, atw), apply_blocks, gk, ak)
 
 
-def _wg_residency(library, device) -> tuple[int, int]:
-    """Thread blocks of the Hopper kernels (A) and (C) resident on an SM of
-    ``device``, asked once per card and kept on the library handle."""
+def _wg_residency(library, device, c: int = WGMMA_C) -> tuple[int, ...]:
+    """Thread blocks of the Hopper kernels resident on an SM of ``device``:
+    (A) and (C) at C = 96; (A), (P) and (F) at the wide widths; asked once
+    per card and width and kept on the library handle."""
     known = library.__dict__.setdefault("_raie_residency", {})
-    if device not in known:
+    if (device, c) not in known:
         with torch.cuda.device(device):
-            blocks = (library.raie_stage_sm90_gram_blocks_per_sm(),
-                      library.raie_stage_sm90_blocks_per_sm())
+            if c == WGMMA_C:
+                blocks = (library.raie_stage_sm90_gram_blocks_per_sm(),
+                          library.raie_stage_sm90_blocks_per_sm())
+            else:
+                blocks = tuple(library.raie_stage_wide_blocks_per_sm(k, c) for k in range(3))
         if min(blocks) < 1:
-            raise ValueError("block kernels (A), (C) at C = 96 cannot be resident on an SM")
-        known[device] = blocks
-    return known[device]
+            raise ValueError(f"the Hopper block kernels at C = {c} cannot be resident on an SM")
+        known[(device, c)] = blocks
+    return known[(device, c)]
 
 
 def gram_groups(n_tiles: int, n_sm: int, batch: int, blocks_per_sm: int = 1) -> int:
@@ -466,7 +564,11 @@ class BlockRunner:
 
     ``route`` (``apply_route``): at C = 96, off a model shard, ``apply`` is
     ``csrc/stage_sm90.cu``'s kernel (``wg_library``, or its default) on
-    ``apply_grid`` persistent blocks; ``plan`` then holds its tile."""
+    ``apply_grid`` persistent blocks; ``plan`` then holds its tile. At C =
+    192 and 384 (48 channels a head) ``gram`` and ``apply`` are
+    ``csrc/stage_sm90_wide.cu``'s (``wg_library`` that library): ``apply``
+    writes r (``self.r``, float32, the held shape) by kernel (P) on
+    ``proj_grid`` blocks, then the output by kernel (F) on ``apply_grid``."""
 
     def __init__(self, x: torch.Tensor, heads: int, fp: int, library=None,
                  band: tuple[int, int] | None = None, cq: int | None = None,
@@ -488,9 +590,19 @@ class BlockRunner:
         # the Gram per head where fragments of 16 channels stay inside a
         # head; else the full C x C Gram with the softmax masked per head
         self.gram_heads = heads if (self.cq // heads) % 16 == 0 else 1
-        self.route = apply_route(c, self.shard)
+        self.route = apply_route(c, self.shard, heads)
+        self.wide = self.route == "wgmma" and c != WGMMA_C
         n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
-        if self.route == "wgmma":
+        if self.wide:
+            self.wg_lib = wide_lib() if wg_library is None else wg_library
+            gram_blocks, proj_blocks, blocks = _wg_residency(self.wg_lib, x.device, c)
+            tile = WIDE_TILE[c]
+            self.plan = TilePlan(tile, gram_blocks, WGMMA_FC, tile, blocks)
+            self.apply_grid = wgmma_grid(b, h, w, n_sm * blocks, tile)
+            self.proj_grid = proj_grid(b, h, w, n_sm * proj_blocks, tile[0], self.halo,
+                                       self.y_img, self.h_img)
+            self.r = torch.empty(*x.shape[:3], c, dtype=torch.float32, device=x.device)
+        elif self.route == "wgmma":
             self.wg_lib = wg_lib() if wg_library is None else wg_library
             gram_blocks, blocks = _wg_residency(self.wg_lib, x.device)
             self.plan = TilePlan(WGMMA_TILE, gram_blocks, WGMMA_FC, WGMMA_TILE, blocks)
@@ -528,7 +640,7 @@ class BlockRunner:
         ptr = _ptr(p, i)
         if self.route == "wgmma":
             with self._guard(src, p):
-                gram_wgmma(self, src, ptr, eps)
+                (gram_wide if self.wide else gram_wgmma)(self, src, ptr, eps)
             return
         with self._guard(src, p):
             _build.check(lb, "stage", lb.raie_stage_gram(
@@ -579,6 +691,11 @@ class BlockRunner:
         if self.shard:
             raise ValueError("block kernel: a model shard's block ends in project")
         ptr = _ptr(p, i)
+        if self.wide:
+            with self._guard(src, p, dst=dst):
+                proj_wide(self, src, ptr)
+                ffn_wide(self, dst, ptr, eps)
+            return
         if self.route == "wgmma":
             with self._guard(src, p, dst=dst):
                 apply_wgmma(self, src, dst, ptr, eps)
@@ -633,6 +750,49 @@ def apply_wgmma(run: BlockRunner, src: torch.Tensor, dst: torch.Tensor, ptr,
 
 gram_wgmma.launches = 0  # kernel (A) launches at C = 96
 apply_wgmma.launches = 0  # kernel (C) launches at C = 96
+
+
+def gram_wide(run: BlockRunner, src: torch.Tensor, ptr, eps: float) -> None:
+    """Kernel (A) at C = 192 or 384 (``csrc/stage_sm90_wide.cu::k_gram_wide``)
+    for runner ``run`` on src; counts the launch in ``gram_wide.launches``."""
+    b, h, w, c = run.shape
+    lw = run.wg_lib
+    _build.check(lw, "stage_sm90_wide", lw.raie_stage_wide_gram(
+        src.data_ptr(), int(src.dtype == torch.bfloat16), ptr("ln1"), ptr("ln1b"),
+        ptr("wqkv_wg"), ptr("qtaps_wg"), run.part.data_ptr(), run.v.data_ptr(), b, h, w, c,
+        run.gram_heads, run.groups, run.halo, run.y_img, run.h_img, eps, run.stream),
+        "A (Gram, wide)")
+    _build.count_launch(gram_wide)
+
+
+def proj_wide(run: BlockRunner, src: torch.Tensor, ptr) -> None:
+    """Kernel (P) at C = 192 or 384 (``k_proj_wide``): ``run.r`` = src +
+    bf16(attn @ v) @ W_proj in float32 on every readable row the band holds;
+    counts the launch in ``proj_wide.launches``."""
+    b, h, w, c = run.shape
+    lw = run.wg_lib
+    _build.check(lw, "stage_sm90_wide", lw.raie_stage_wide_project(
+        src.data_ptr(), int(src.dtype == torch.bfloat16), run.r.data_ptr(), run.v.data_ptr(),
+        run.attn_t.data_ptr(), run.gram_heads, ptr("wproj_wg"), b, h, w, c, run.halo,
+        run.y_img, run.h_img, run.proj_grid, run.stream), "P (projection, wide)")
+    _build.count_launch(proj_wide)
+
+
+def ffn_wide(run: BlockRunner, dst: torch.Tensor, ptr, eps: float) -> None:
+    """Kernel (F) at C = 192 or 384 (``k_ffn_wide``): dst = r + GDFN(LN2(r))
+    from ``run.r``; counts the launch in ``ffn_wide.launches``."""
+    b, h, w, c = run.shape
+    lw = run.wg_lib
+    _build.check(lw, "stage_sm90_wide", lw.raie_stage_wide_ffn(
+        run.r.data_ptr(), dst.data_ptr(), int(dst.dtype == torch.bfloat16), ptr("ln2"),
+        ptr("ln2b"), ptr("win_wg"), ptr("wtaps_wg"), ptr("wout_wg"), b, h, w, c, run.fp,
+        run.halo, run.y_img, run.h_img, eps, run.apply_grid, run.stream), "F (GDFN, wide)")
+    _build.count_launch(ffn_wide)
+
+
+gram_wide.launches = 0  # kernel (A) launches at C = 192 and 384
+proj_wide.launches = 0  # kernel (P) launches at C = 192 and 384
+ffn_wide.launches = 0  # kernel (F) launches at C = 192 and 384
 
 
 def _ptr(p: dict, i: int):

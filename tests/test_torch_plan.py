@@ -208,8 +208,11 @@ def test_gram_groups_never_exceed_the_tiles_nor_fall_to_zero():
 def test_instrumented_library_is_a_variant_of_the_stage_source():
     assert _build.VARIANTS["stage_clocks"] == ("stage", ("-DRAIE_PHASE_CLOCKS",))
     assert _build.VARIANTS["stage_sm90_clocks"] == ("stage_sm90", ("-DRAIE_PHASE_CLOCKS",))
+    assert _build.VARIANTS["stage_sm90_wide_clocks"] == ("stage_sm90_wide",
+                                                         ("-DRAIE_PHASE_CLOCKS",))
     assert set(_build.sources()) == {"gdfn", "layernorm", "stage", "stage_clocks",
-                                     "stage_sm90", "stage_sm90_clocks"}
+                                     "stage_sm90", "stage_sm90_clocks", "stage_sm90_wide",
+                                     "stage_sm90_wide_clocks"}
     assert _build._lib_path("stage") != _build._lib_path("stage_clocks")
     assert _build._lib_path("stage_clocks").name.startswith("libstage_clocks-")
 

@@ -18,26 +18,27 @@ from rethink_acoustic_image_enhancement_tpu_torch.ops import block as pblock
 
 @pytest.mark.parametrize("c,shard,route", [
     (96, False, "wgmma"), (96, True, "mma_sync"), (48, False, "mma_sync"),
-    (192, False, "mma_sync"), (384, False, "mma_sync"), (384, True, "mma_sync")])
+    (192, False, "wgmma"), (384, False, "wgmma"), (384, True, "mma_sync")])
 def test_route_is_by_width_and_never_on_a_shard(c, shard, route):
     assert pblock.apply_route(c, shard) == route
 
 
-def _weights(n, c, cq, f, seed=0):
+def _weights(n, c, cq, f, seed=0, heads=1):
     g = torch.Generator().manual_seed(seed)
 
     def t(*shape):
         return torch.randn(*shape, generator=g)
 
     return dict(ln1_w=t(n, c), w_qkv=t(n, 1, 1, c, 3 * cq), dw_qkv=t(n, 3, 3, 1, 3 * cq),
-                temperature=t(n, 1), w_proj=t(n, 1, 1, cq, c), ln2_w=t(n, c),
+                temperature=t(n, heads), w_proj=t(n, 1, 1, cq, c), ln2_w=t(n, c),
                 w_in=t(n, 1, 1, c, 2 * f), w_dw=t(n, 3, 3, 1, 2 * f), w_out=t(n, 1, 1, f, c))
 
 
-@pytest.mark.parametrize("c,cq,packed", [(96, 96, True), (96, 48, False), (192, 192, False),
+@pytest.mark.parametrize("c,cq,packed", [(96, 96, True), (96, 48, False), (192, 192, True),
                                          (48, 48, False)])
 def test_only_the_hopper_route_packs_its_operands(c, cq, packed):
-    p = pblock.pack_blocks("cpu", **_weights(2, c, cq, int(2.66 * c)))
+    heads = c // 48 if c > 96 else 1  # the teacher's 48 channels a head at C = 192
+    p = pblock.pack_blocks("cpu", **_weights(2, c, cq, int(2.66 * c), heads=heads))
     assert all((k in p) == packed for k in ("wqkv_wg", "qtaps_wg", "wproj_wg", "win_wg",
                                             "wtaps_wg", "wout_wg"))
 
@@ -180,17 +181,21 @@ def no_card(monkeypatch):
     (96, None, 1, "wgmma", ["raie_stage_gram_wgmma", "raie_stage_apply_wgmma"]),
     (96, None, 6, "wgmma", ["raie_stage_gram_wgmma", "raie_stage_apply_wgmma"]),
     (96, None, 4, "wgmma", ["raie_stage_gram_wgmma", "raie_stage_apply_wgmma"]),
-    (192, None, 4, "mma_sync", ["raie_stage_gram", "raie_stage_apply"]),
+    (192, None, 4, "wgmma", ["raie_stage_wide_gram", "raie_stage_wide_project",
+                             "raie_stage_wide_ffn"]),
     (48, None, 3, "mma_sync", ["raie_stage_gram", "raie_stage_apply"]),
     (96, 48, 1, "mma_sync", ["raie_stage_gram", "raie_stage_project"]),
     (96, 96, 2, "mma_sync", ["raie_stage_gram", "raie_stage_project"])])
 def test_runner_launches_the_route_of_its_width(no_card, c, cq, heads, route, entries):
     stage, wg = _Stage(), _Stage()
     x = torch.zeros(1, 20, 28, c)
-    p = pblock.pack_blocks("cpu", **_weights(1, c, c if cq is None else cq, int(2.66 * c)))
+    p = pblock.pack_blocks("cpu", **_weights(1, c, c if cq is None else cq, int(2.66 * c),
+                                             heads=heads))
     run = pblock.BlockRunner(x, heads, p["fp"], stage, cq=cq, wg_library=wg)
     assert run.route == route
-    counts = (pblock.gram_wgmma.launches, pblock.apply_wgmma.launches)
+    fns = (pblock.gram_wgmma, pblock.apply_wgmma, pblock.gram_wide, pblock.proj_wide,
+           pblock.ffn_wide)
+    counts = [fn.launches for fn in fns]
     run.gram(x, p, 0, 1e-5)
     if cq is None:
         run.apply(x, torch.empty_like(x), p, 0, 1e-5)
@@ -198,11 +203,13 @@ def test_runner_launches_the_route_of_its_width(no_card, c, cq, heads, route, en
         run.project(x, torch.empty_like(x), p, 0)
     assert (stage.calls if route == "mma_sync" else wg.calls) == entries
     assert (wg.calls if route == "mma_sync" else stage.calls) == []
-    counted = (pblock.gram_wgmma.launches - counts[0], pblock.apply_wgmma.launches - counts[1])
-    assert counted == ((1, 1) if route == "wgmma" else (0, 0))
+    counted = [fn.launches - n for fn, n in zip(fns, counts)]
+    assert counted == ([0] * 5 if route == "mma_sync" else
+                       [1, 1, 0, 0, 0] if c == pblock.WGMMA_C else [0, 0, 1, 1, 1])
     if route == "wgmma":
-        plan = run.plan
-        assert plan.apply_tile == plan.gram_tile == pblock.WGMMA_TILE
-        assert plan.fc == pblock.WGMMA_FC and run.groups == 4  # 4 x 1 tiles of 20 x 28
-        assert run.apply_grid == pblock.wgmma_grid(1, 20, 28, 132 * 2)
+        plan, tile = run.plan, pblock.WIDE_TILE.get(c, pblock.WGMMA_TILE)
+        assert plan.apply_tile == plan.gram_tile == tile
+        # 4 x 1 tiles of 20 x 28 at C = 96, 5 x 1 at 192
+        assert plan.fc == pblock.WGMMA_FC and run.groups == -(-20 // tile[0])
+        assert run.apply_grid == pblock.wgmma_grid(1, 20, 28, 132 * 2, tile)
         assert run.part.shape[1] == run.groups

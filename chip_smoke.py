@@ -31,7 +31,11 @@ Phases (any failure exits non-zero; nothing is caught):
      1024^2 and 2048^2 frames, (1,256,256,192) x6 and (1,256,256,384) x8 in
      bf16 and fp32 and (1,512,512,192) x6 in bf16, each kernel alone against
      its plain version at (1,512,512,192) and (1,256,256,384), their phase
-     clocks, registers and SASS (HGMMA required in all three).
+     clocks, registers and SASS (HGMMA required in all three). The LN+GDFN
+     rows (C = 96, 192, 384: the Hopper kernel k_ffn_wide; C =
+     48: csrc/gdfn.cu) name the kernel each launched and hold a second
+     launch to the first one's bits; k_ffn_wide's registers, spills and
+     HGMMA (required).
   3. whole-image serving: the full-width flagship KDLAE-T (seeded random
      weights) through TeacherPredictor(fused=True, bf16) on synthetic sonar
      frames, with the stage-kernel call count checked against the gate and
@@ -247,8 +251,13 @@ fp32 predictors' own pinning is what runs:
      8 heads (the wide layout), bf16, against its plain version and the
      whole-image kernel (within 1e-2), every shard the same bits, with its
      time, the whole-image kernel's, the plain version's, sums and partial
-     bytes; the GDFN kernel on 128 and 127 of 255 hidden channels (fp32 r,
-     with and without the residual) against its plain version; (b) the
+     bytes, the route (48 channels a head at C = 96, 192 and 384: the
+     Hopper kernels k_gram_wide / k_gram_wgmma and k_proj_wide, else
+     csrc/stage.cu's) and the launches of each kernel; the GDFN kernel on
+     128 and 127 of 255 hidden channels (fp32 r, with and without the
+     residual) against its plain version, the same bits twice; k_gram_wide
+     on a shard's head and k_proj_wide with and without x alone at
+     (1,512,512,96) (Cq = 48) against their plain versions; (b) the
      trained bf16 teacher (fused) on 2 and 4 shards of a 512^2 frame, the
      shard stage called exactly where one device's gate admits the stage,
      held to phase 9's fp32 rule, and the seeded flagship of phase 3 on 2
@@ -256,8 +265,9 @@ fp32 predictors' own pinning is what runs:
      flagship on 2 shards of a 2048^2 frame (the latent's 8 heads split in
      the wide layout), within 1 level of one device. Each case: ms a
      request against one device, the idle share at 512^2, sums and partial
-     bytes a request, shard-stage and GDFN-part launches, weight bytes a
-     shard.
+     bytes a request, shard-stage and GDFN-part launches and the Hopper
+     kernels' (every GDFN part on k_ffn_wide, (C') on k_proj_wide), weight
+     bytes a shard.
  19. tensor-parallel training (train.model_shard: 2), two gloo ranks
      sharing cuda:0, one model shard each (child processes of this script,
      `--tp-rank`, torchrun's env; one card: the split's overhead, not
@@ -899,15 +909,32 @@ def gdfn_work(b, h, w, c, f, esize):
             2 * b * h * w * c * esize + 2 * (2 * c * f + f * c) + 4 * (18 * f + 2 * c))
 
 
+def gdfn_kernel_of(fn):
+    """Which LN+GDFN kernel the call fn() launched (``ops/gdfn.py::
+    ffn_route``), read off the Hopper kernel's launch count."""
+    from rethink_acoustic_image_enhancement_tpu_torch.ops import gdfn as pgdfn
+
+    before = pgdfn.gdfn_sm90.launches
+    out = fn()
+    sm90 = pgdfn.gdfn_sm90.launches > before
+    return out, ("k_ffn_wide (stage_sm90_wide.cu)" if sm90 else "k_gdfn (gdfn.cu)")
+
+
 def phase_gdfn_kernel(results, card):
+    """The LN+GDFN kernel against gdfn_plain: at C = 96, 192 and 384 the
+    Hopper kernel, at C = 48 csrc/gdfn.cu (the widths it keeps);
+    each row names the kernel it launched and holds a second launch to the
+    first one's bits. The Hopper kernel's ptxas registers and spills and its
+    HGMMA count (required) go to ``gdfn_kernel_build``."""
     import torch
 
+    from rethink_acoustic_image_enhancement_tpu_torch.ops import _build, phase_clocks
     from rethink_acoustic_image_enhancement_tpu_torch.ops import gdfn as pgdfn
 
     rows = []
     for dtype in (torch.bfloat16, torch.float32):
         for shape in ((1, 512, 512, 96), (2, 256, 256, 192), (1, 64, 64, 384),
-                      (1, 52, 44, 96)):
+                      (1, 52, 44, 96), (1, 256, 256, 48)):
             for bias_free in (True, False):
                 rng = np.random.default_rng(100 + len(rows))
                 c = shape[-1]
@@ -919,11 +946,38 @@ def phase_gdfn_kernel(results, card):
                         seeded(rng, 3, 3, 1, 2 * f, scale=1 / 3),
                         seeded(rng, 1, 1, f, c, scale=f ** -0.5))
                 flops, nbytes = gdfn_work(*shape, f, x.element_size())
+                first, kernel = gdfn_kernel_of(
+                    lambda: pgdfn.fused_ln_gdfn(x, *args, bias_free=bias_free))
+                assert torch.equal(first, pgdfn.fused_ln_gdfn(x, *args, bias_free=bias_free)), \
+                    f"LN+GDFN {shape}: a second launch gave other bits"
+                assert (kernel.startswith("k_ffn_wide")) == (pgdfn.ffn_route(c) == "wgmma")
                 rows.append(held_to_plain(
                     "ln_gdfn", lambda: pgdfn.fused_ln_gdfn(x, *args, bias_free=bias_free),
                     lambda: pgdfn.gdfn_plain(x, *args, bias_free=bias_free), x,
-                    flops, nbytes, PEAK_BF16_FLOPS, card, dict(bias_free=bias_free)))
+                    flops, nbytes, PEAK_BF16_FLOPS, card,
+                    dict(bias_free=bias_free, kernel=kernel, same_bits_twice=True)))
     results["gdfn_cases"] = rows
+    # cycles per phase of the Hopper tile at (1, 512, 512, 96): bf16 BiasFree,
+    # and a model shard's part (fp32, 128 of 255 hidden channels)
+    rng, f = np.random.default_rng(19), 255
+    x = seeded(rng, 1, 512, 512, 96)
+    lnw = seeded(rng, 96, scale=0.1, shift=1.0)
+    w = [seeded(rng, 1, 1, 96, 2 * f, scale=96 ** -0.5), seeded(rng, 3, 3, 1, 2 * f, scale=1 / 3),
+         seeded(rng, 1, 1, f, 96, scale=f ** -0.5)]
+    keep = list(range(128)) + list(range(f, f + 128))  # shard 0's channels in both halves
+    part = [w[0][..., keep], w[1][..., keep], w[2][:, :, :128]]
+    build = dict(ptxas=_build.kernel_resources("stage_sm90_wide").get("k_ffn_wide"),
+                 sass=(sass_counts("stage_sm90_wide") or {}).get("k_ffn_wide"),
+                 phases={"bf16 (1,512,512,96)": phase_clocks.gdfn_phase_shares(
+                             x.bfloat16(), lnw, None, *w)["k_ffn_wide"],
+                         "fp32 part, 128 hidden": phase_clocks.gdfn_phase_shares(
+                             x, lnw, None, *part, residual=False)["k_ffn_wide"]})
+    results["gdfn_kernel_build"] = build
+    log(f"LN+GDFN Hopper kernel (k_ffn_wide): ptxas {build['ptxas']}, SASS {build['sass']}, "
+        f"cycles a tile {[round(v['cycles_per_tile']) for v in build['phases'].values()]}, "
+        f"shares {[{k: round(c, 3) for k, c in v['share'].items()} for v in build['phases'].values()]} "
+        f"[{card}]")
+    assert build["sass"] is None or build["sass"]["HGMMA"] > 0, "no HGMMA in k_ffn_wide"
     return rows
 
 
@@ -1234,6 +1288,8 @@ def phase_block_paths(results, card):
     (fused=False) in float32."""
     import torch
 
+    from rethink_acoustic_image_enhancement_tpu_torch.ops import gdfn as pgdfn
+
     paths, totals = [], dict(block=0, layernorm=0, gdfn=0)
     for bias_free in (True, False):
         fused = level1_blocks(bias_free, True, seed=3)
@@ -1255,11 +1311,13 @@ def phase_block_paths(results, card):
             n_block = read_counts(counts)
 
             counts = reset_counts()
+            sm90_before = pgdfn.gdfn_sm90.launches
             y = x.permute(0, 2, 3, 1).contiguous()
             for blk in eager:
                 y = ops_path_block(blk, y)
             torch.cuda.synchronize()
             n_ops = read_counts(counts)
+            n_sm90 = pgdfn.gdfn_sm90.launches - sm90_before
             via_ops = y.permute(0, 3, 1, 2)
             eager_ms = cuda_ms(lambda: eager(x), 2)
         scale = ref.float().abs().max().item()
@@ -1274,6 +1332,8 @@ def phase_block_paths(results, card):
         none = dict(stage_bands=0, stage_shards=0, gdfn_part=0)
         assert n_block == dict(stage=0, layernorm=0, gdfn=0, block=4, **none), n_block
         assert n_ops == dict(stage=0, layernorm=4, gdfn=4, block=0, **none), n_ops
+        assert n_sm90 == n_ops["gdfn"], ("the LN+GDFN launches at C = 96 are the Hopper "
+                                         f"kernel's: {n_sm90} of {n_ops['gdfn']}")
         assert torch.isfinite(got).all().item() and torch.isfinite(via_ops).all().item()
         assert rel_block <= TOL_PATH and rel_ops <= TOL_PATH, (rel_block, rel_ops)
         totals["block"] += n_block["block"]
@@ -4986,6 +5046,10 @@ def phase18_shard_kernel(row, card):
 
     row["ptxas"] = {k: v for k, v in _build.kernel_resources("stage").items()
                     if k in ("k_gram", "k_project")}
+    # the Hopper forms a shard takes at C = 96, 192 and 384 with 48 channels a head
+    wide_sass = sass_counts("stage_sm90_wide") or {}
+    row["ptxas"].update({k: dict(v, sass=wide_sass.get(k))
+                         for k, v in _build.kernel_resources("stage_sm90_wide").items()})
     rows = []
     for shape, n, heads in TENSOR_CASES:
         c = shape[-1]
@@ -5007,9 +5071,15 @@ def phase18_shard_kernel(row, card):
                 return pstage.fused_transformer_stage_shards(xs, sw, shards)
 
             counts = reset_counts()
+            hopper = hopper_counts()
+            sm90 = pgdfn.gdfn_sm90.launches
             got = run()
             torch.cuda.synchronize()
             launches = read_counts(counts)
+            kernels = {k: v - hopper[k] for k, v in hopper_counts().items() if v > hopper[k]}
+            kernels["gdfn_sm90"] = pgdfn.gdfn_sm90.launches - sm90
+            hs = heads // ns if heads % ns == 0 else heads
+            route = block.apply_route(c, True, hs, sw[0]["w_proj"].shape[-2])
             moved, sums = shards.moved["partials"], shards.sums
             plain = pstage.stage_plain_shards(xs, sw, shards)
             torch.cuda.synchronize()
@@ -5027,21 +5097,27 @@ def phase18_shard_kernel(row, card):
                      plain_ms=cuda_ms(lambda: pstage.stage_plain_shards(xs, sw, shards), 1),
                      bound_ms=max(t_ops, t_bytes),
                      bound_by="operations" if t_ops >= t_bytes else "bytes",
-                     sums=sums, partial_bytes=moved, launches=launches,
-                     # (A)'s and (C')'s layouts and resident blocks per SM on a shard
-                     plan=block.plan_tiles(block.lib(), c, heads // ns if heads % ns == 0
-                                           else heads, sw[0]["w_proj"].shape[-2])._asdict(),
+                     sums=sums, partial_bytes=moved, launches=launches, route=route,
+                     kernels=kernels,
+                     # csrc/stage.cu's (A) and (C') layouts and resident blocks per SM
+                     # on a shard (the other head widths' route)
+                     plan=(block.plan_tiles(block.lib(), c, hs, sw[0]["w_proj"].shape[-2])
+                           ._asdict() if route == "mma_sync" else None),
                      weight_bytes_per_shard=[sum(t.numel() * t.element_size()
                                                  for t in w.values()) for w in sw])
             rows.append(r)
             log(f"shard stage bf16 {tuple(shape)} blocks={n} heads={heads} on {ns} shards "
-                f"({'heads split' if r['heads_split'] else 'MDTA whole on each'}; "
-                f"plan {r['plan']}): "
+                f"({'heads split' if r['heads_split'] else 'MDTA whole on each'}; route "
+                f"{route}, kernels {kernels}, plan {r['plan']}): "
                 f"{r['ms']:.3f} ms (whole-image kernel {whole_ms:.3f} ms), plain "
                 f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}); rel "
                 f"to plain {r['rel_err']:.3e}, to whole {r['rel_to_whole']:.3e}; {sums} sums, "
                 f"{moved} B of partials; launches {launches} [{card}]")
             assert launches["stage_shards"] == 1 and launches["gdfn_part"] == n * ns, launches
+            assert kernels["gdfn_sm90"] == n * ns, kernels
+            if route == "wgmma":  # the Hopper shard kernels, every block on every shard
+                assert (kernels.get("k_gram_wide", 0) + kernels.get("k_gram_wgmma", 0)
+                        == kernels.get("k_proj_wide", 0) == n * ns), kernels
             assert r["rel_err"] <= TOL_REL and r["rel_to_whole"] <= TOL_REL, r
             del got, plain
         del x, whole
@@ -5059,12 +5135,90 @@ def phase18_shard_kernel(row, card):
         args = (sw["ln2_w"][0], sw["w_in"][0], sw["w_dw"][0], sw["w_out"][0])
         fs = sw["w_out"].shape[-2]
         flops, nbytes = gdfn_work(1, TENSOR_SIZE, TENSOR_SIZE, c, fs, 4)
+        first, kernel = gdfn_kernel_of(
+            lambda: pgdfn.fused_ln_gdfn_part(r_in, *args, residual=j == 0))
+        assert torch.equal(first, pgdfn.fused_ln_gdfn_part(r_in, *args, residual=j == 0)), \
+            "GDFN part: a second launch gave other bits"
         part_rows.append(held_to_plain(
             "gdfn_part", lambda: pgdfn.fused_ln_gdfn_part(r_in, *args, residual=j == 0),
             lambda: pgdfn.gdfn_part_plain(r_in, *args, residual=j == 0), r_in, flops, nbytes,
-            PEAK_BF16_FLOPS, card, dict(hidden=fs, residual=j == 0)))
+            PEAK_BF16_FLOPS, card, dict(hidden=fs, residual=j == 0, kernel=kernel,
+                                        same_bits_twice=True)))
     row["gdfn_part_kernel"] = part_rows
+    row["shard_kernels_alone"] = shard_kernels_alone(card)
     return rows, part_rows
+
+
+def shard_kernels_alone(card):
+    """The Hopper shard kernels alone at (1, 512, 512, 96) bf16, 2 heads of 48
+    split over 2 shards (shard 0: Cq = 48): k_gram_wide on the shard's head
+    (its Gram and norms summed over the groups, and v, against the plain
+    version's), then k_proj_wide with and without x (r against ``attend``'s).
+    Returns {kernel: [rows]}."""
+    import torch
+
+    from rethink_acoustic_image_enhancement_tpu_torch.models.shards import shard_stage_weights
+    from rethink_acoustic_image_enhancement_tpu_torch.ops import block, gdfn
+    from rethink_acoustic_image_enhancement_tpu_torch.ops import stage as pstage
+
+    shape, heads, ns, eps = (1, TENSOR_SIZE, TENSOR_SIZE, 96), 2, 2, 1e-5
+    c, cq, px = shape[-1], shape[-1] // ns, shape[1] * shape[2]
+    rng = np.random.default_rng(19)
+    wts = seeded_stage_weights(rng, 1, c, heads, int(c * 2.66), TENSOR_DEVICE)
+    sw = shard_stage_weights(wts, ns, 0)
+    x = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(TENSOR_DEVICE,
+                                                                         torch.bfloat16)
+    p = block.pack_blocks(x.device, **sw, shard=True)
+    run = block.BlockRunner(x, heads // ns, p["fp"], cq=cq)
+    assert run.route == "wgmma" and run.wide_gram, (run.route, run.wide_gram)
+    bw = pstage._block_weights(0, c, **sw)
+    x32 = x.float()
+    qkv = gdfn.dw3x3(block.qkv_hidden(x32, bw.ln1, bw.ln1b, bw.wqkv, eps), bw.dwqkv)
+    part = block.gram_part(qkv, heads // ns)
+    r = torch.empty(shape, dtype=torch.float32, device=x.device)
+
+    def rel(got, ref):
+        return ((got.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
+
+    def row(name, fn, errs, flops, nbytes, plain):
+        t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+        ms, by = device_ms(fn, 5)
+        out = dict(kernel=name, shape=list(shape), cq=cq, rel_err=errs,
+                   max_abs_err=max(errs.values()), ms=ms, ms_by=by, plain_ms=cuda_ms(plain, 2),
+                   bound_ms=max(t_ops, t_bytes),
+                   bound_by="operations" if t_ops >= t_bytes else "bytes")
+        log(f"shard kernel {name} {tuple(shape)} on a head range (Cq = {cq}): {ms:.4f} ms "
+            f"({by}), plain {out['plain_ms']:.4f} ms, bound {out['bound_ms']:.4f} ms "
+            f"({out['bound_by']}); rel {errs} [{card}]")
+        assert max(errs.values()) <= TOL_REL, (name, errs)
+        return out
+
+    run.gram(x, p, 0, eps)
+    torch.cuda.synchronize()
+    got = run.part.sum(1)[0]
+    ng = cq * 48
+    errs = dict(gram=rel(got[:ng].reshape(-1, 48, 48), part[0, ..., :48]),
+                q_norms=rel(got[ng:ng + cq], part[0, :, :, 48].reshape(-1)),
+                k_norms=rel(got[ng + cq:], part[0, :, :, 49].reshape(-1)),
+                v=rel(run.v, qkv[..., 2 * cq:]))
+    rows = {"k_gram_wide": [row(
+        "k_gram_wide", lambda: run.gram(x, p, 0, eps), errs,
+        px * (2 * c * 3 * cq + 2 * 9 * 3 * cq + 2 * cq * 48),
+        px * (c + cq) * 2,
+        lambda: block.gram_part(gdfn.dw3x3(block.qkv_hidden(
+            x32, bw.ln1, bw.ln1b, bw.wqkv, eps), bw.dwqkv), heads // ns))]}
+    run.softmax(run.part, p, 0)
+    rows["k_proj_wide"] = []
+    for own in (True, False):
+        run.project(x if own else None, r, p, 0)
+        torch.cuda.synchronize()
+        ref = block.attend(x32, qkv, part, bw.temp, bw.wproj, residual=own)
+        rows["k_proj_wide"].append(dict(row(
+            "k_proj_wide", lambda: run.project(x if own else None, r, p, 0), dict(r=rel(r, ref)),
+            px * (2 * cq * 48 + 2 * cq * c), px * (cq * 2 + c * 4 + (c * 2 if own else 0)),
+            lambda: block.attend(x32, qkv, part, bw.temp, bw.wproj, residual=own)),
+            residual=own))
+    return rows
 
 
 def request_profile(pred, img, rate, top=8):
@@ -5131,7 +5285,10 @@ def phase18_teacher(row, card):
                              idle_share=None if busy is None else 1 - busy / min(one_ms))
     log(f"one device trained bf16 at {TENSOR_SIZE}^2: {min(one_ms):.2f} ms, device busy "
         f"{busy} ms; top kernels {top} [{card}]")
-    totals = {"stage_shards": 0, "gdfn_part": 0}
+    from rethink_acoustic_image_enhancement_tpu_torch.ops import gdfn as pgdfn
+
+    totals = {"stage_shards": 0, "gdfn_part": 0, "k_gram_wide": 0, "k_gram_wgmma": 0,
+              "k_proj_wide": 0, "gdfn_sm90": 0}
     cases, seeded, s_refs = [], None, {}
     for what, ns, size in (("trained", 2, TENSOR_SIZE), ("trained", 4, TENSOR_SIZE),
                            ("seeded", 2, TENSOR_SIZE), ("seeded", 4, TENSOR_SIZE),
@@ -5149,10 +5306,20 @@ def phase18_teacher(row, card):
                 s_refs[size] = spatial_request(s_one, x, rate, reps)
             model, (x_ref, x_one_ms, x_calls) = seeded, s_refs[size]
         pred = on_shards(model, ns)
+        hopper, sm90 = hopper_counts(), pgdfn.gdfn_sm90.launches
         out, walls, launches, per = shard_request(pred, x, rate, reps)
+        # the Hopper shard kernels a request (the warm-up request counted too)
+        hopper = {k: (v - hopper[k]) // (reps + 1) for k, v in hopper_counts().items()
+                  if k in ("k_gram_wide", "k_gram_wgmma", "k_proj_wide")}
+        hopper["gdfn_sm90"] = (pgdfn.gdfn_sm90.launches - sm90) // (reps + 1)
+        launches = dict(launches, **hopper)
         # the shard stage exactly where one device's gate admits the image
         assert launches["stage_shards"] == x_calls["stage"] > 0, (launches, x_calls)
         assert launches["stage"] == 0 and launches["gdfn_part"] > 0, launches
+        # every admitted stage of the teacher has 48 channels a head at C = 96,
+        # 192 and 384: its GDFN parts and (A) and (C') are the Hopper kernels
+        assert launches["gdfn_sm90"] == launches["gdfn_part"], launches
+        assert launches["k_proj_wide"] > 0, launches
         for k in totals:
             totals[k] += launches[k] * reps
         label = f"{what} bf16 on {ns} shards at {size}^2"
@@ -5577,6 +5744,7 @@ def main() -> int:
         phase_spatial_train(results, card, work)
     torch.cuda.empty_cache()
     shard_rows, part_rows, shard_launches = phase_tensor(results, card)
+    alone_rows = results["tensor"]["shard_kernels_alone"]
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="raie_tp_") as work:
         phase_tensor_train(results, card, work)
@@ -5605,7 +5773,10 @@ def main() -> int:
               stage_rows, stage_rows[0]),
         entry("fused_channel_layernorm", "layernorm.cu", "layernorm.py:58",
               path_launches["layernorm"], ln_rows, ln_rows[1]),
-        entry("fused_ln_gdfn", "gdfn.cu", "gdfn.py:277",
+        # at C = 96, 192 and 384 the Hopper LN+GDFN kernel (csrc/gdfn.cu
+        # keeps the other widths, held to its plain version in phase 2 at
+        # C = 48 and on no driven path)
+        entry("fused_ln_gdfn", "stage_sm90_wide.cu", "gdfn.py:277",
               path_launches["gdfn"], gdfn_rows, gdfn_rows[0]),
         entry("fused_transformer_block", "stage.cu", "block.py:338",
               path_launches["block"], block_rows, block_rows[0]),
@@ -5614,10 +5785,13 @@ def main() -> int:
               band_launches, band_rows, band_rows[1]),
         # the stage on model shards: (1, 512, 512, 96) bf16, 4 blocks, 2 heads
         # split over 2 shards; the GDFN kernel on shard 0's 128 of 255 hidden
-        # channels, the residual added
-        entry("fused_transformer_stage_shards", "stage.cu", "stage.py:324",
+        # channels, the residual added. At C = 96, 192 and 384 with 48
+        # channels a head both take the Hopper kernels (csrc/stage.cu's
+        # (A) and (C') keep the other head widths: phase 18 (a)'s one-head
+        # case, on no request's path)
+        entry("fused_transformer_stage_shards", "stage_sm90_wide.cu", "stage.py:324",
               shard_launches["stage_shards"], shard_rows, shard_rows[2]),
-        entry("fused_ln_gdfn_part", "gdfn.cu", "gdfn.py:277",
+        entry("fused_ln_gdfn_part", "stage_sm90_wide.cu", "gdfn.py:277",
               shard_launches["gdfn_part"], part_rows, part_rows[0]),
         # the Hopper kernels (A) and (C) of every C = 96 block launch of the
         # stage and block paths (phases 3-15), each at (1, 512, 512, 96), one head
@@ -5633,6 +5807,12 @@ def main() -> int:
         *[entry(name, "stage_sm90_wide.cu", "stage.py:324", hopper_launches[name],
                 hopper_rows[name], hopper_rows[name][0])
           for name in ("k_gram_wide", "k_proj_wide", "k_ffn_wide")],
+        # the Hopper kernels (A) and (C') on a model shard's heads: their
+        # launches on phase 18's requests, each alone at (1, 512, 512, 96), a
+        # head of 48 channels (Cq = 48), (C') with x
+        *[entry(f"{name}_shards", "stage_sm90_wide.cu", "stage.py:324", shard_launches[name],
+                alone_rows[name], alone_rows[name][0])
+          for name in ("k_gram_wide", "k_proj_wide")],
     ]}
     results["kernels"] = kernels["kernels"]
     results["total_s"] = time.perf_counter() - t_start

@@ -9,12 +9,37 @@
 // (attn^T), and kernel (C) split in two: (P) k_proj_wide (r = x + bf16(attn
 // @ v) @ W_proj, written in fp32) and (F) k_ffn_wide (LN2, the GDFN and the
 // second residual). The host takes these at C = 192 and 384 with 48
-// channels a head, off a model shard (ops/block.py::apply_route); model
-// shards keep stage.cu's kernels, and C = 96 keeps stage_sm90.cu's.
+// channels a head (ops/block.py::apply_route); off a model shard C = 96
+// keeps stage_sm90.cu's.
+//
+// Model shards (ops/stage.py::fused_transformer_stage_shards), at C = 96,
+// 192 and 384 with 48 channels a head: (A) runs on the shard's 1, 2 or 4
+// heads (Geo's heads, Cq = 48 heads; LN1 over all C channels of x; q, k, v,
+// the Gram and the norms of those heads alone), (P) on their v, attn^T and rows of
+// W_proj, x added only where it is given (else the partial alone); a shard
+// that holds every head at C = 96 takes stage_sm90.cu's (A), which ran in
+// 0.94x the time of this file's instance with both heads. The C = 96
+// instances (tiles of 6 x 30 on an 8 x 32 halo, (P)'s of 8 x 32) exist for
+// the shards and for the GDFN kernel.
+//
+// The LN+GDFN kernel (ops/gdfn.py::ffn_route) is (F) itself at C = 96, 192
+// and 384: x and y both fp32 or both bf16, BiasFree, WithBias
+// or no LayerNorm (W_in reads x itself, zero outside the image), the
+// residual on or off (a model shard's part of the hidden channels), any
+// batch and any hidden width padded to a multiple of 32. At C = 96 its
+// LayerNorm puts two pixels on a warp's lanes at once (12 groups of 8
+// channels fill half of them). W_in keeps its A operand in shared memory:
+// held in registers (wgmma's RS form, 24 more a thread beside y's 48) the
+// tile spilled 64-80 B and ran 12% slower; and W_in is not overlapped with
+// the depthwise step: the ring's warpgroup, which holds no y at C = 96,
+// taking the next chunk's W_in into its idle y registers during the step
+// (a second W_in slot, the taps on barriers of their own) spilled 4 B and
+// ran 5-7% slower (PERF.md §6).
 //
 // Replaces, at these widths: rethink_acoustic_image_enhancement_tpu/ops/
-// pallas/stage.py::fused_transformer_stage (its pallas_call at stage.py:324)
-// and ops/pallas/block.py::fused_transformer_block (block.py:338).
+// pallas/stage.py::fused_transformer_stage (its pallas_call at stage.py:324),
+// ops/pallas/block.py::fused_transformer_block (block.py:338) and
+// ops/pallas/gdfn.py::fused_ln_gdfn (gdfn.py:277).
 //
 // Bound on an H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s). Per pixel and
 // block at C = 384, F = 1021: the qkv product 2 C 3C, the Gram and attn @ v
@@ -81,6 +106,10 @@
 //       W_out chunks, 2 slots                         24,576 / 49,152
 //       t2, gg (2 slots)                              44,288 / 26,880
 //       total                                        172,192 / 228,896
+//   C = 96 (model shards and the LN+GDFN kernel): TH = 6, tiles of 6 x 30
+//   on an 8 x 32 halo as stage_sm90.cu's, three own operands whose y
+//   warpgroups 0-2 hold (the ring's warpgroup only its W_in), (P)'s tiles
+//   8 x 32 (one operand a warpgroup): (A) 140,064, (P) 125,984, (F) 140,320.
 // What bounds the tiles (PERF.md, PR 18: the phase clocks give the same
 // cycles a tile on all, half and a quarter of the SMs, so it is not L2's
 // weight traffic): inside the SM, W_in's products read A (LN2 of the halo)
@@ -114,16 +143,20 @@ constexpr int NDW = HC * NDP;  // (A)'s depthwise threads
 
 template <int C>
 struct WideGeo {
-  static constexpr int TH = C == 192 ? 4 : 2;  // output rows a tile
+  static constexpr int TH = C == 96 ? 6 : C == 192 ? 4 : 2;  // output rows a tile
   static constexpr int NOWN = TH / 2;          // m64 operands of the own rows (TH x 32)
   static constexpr int NOP = NOWN + 1;         // and the ring's
   static constexpr int ROWS = NOP * 64;        // halo pixels
   static constexpr int OWN = NOWN * 64;
-  static constexpr int NSPLIT = 4 / NOWN;      // warpgroups sharing an own operand's columns
-  static constexpr int H = C / HC;             // heads
+  static constexpr int NSPLIT = C / NSUB;      // warpgroups sharing an own operand's columns
+  static constexpr int NHOLD = NOWN * NSPLIT;  // warpgroups holding (F)'s y (3 of 4 at C = 96)
+  static constexpr int PTH = C == 96 ? 8 : TH;  // (P)'s tile rows: one own operand a warpgroup
+  static constexpr int PNOWN = PTH / 2;
+  static constexpr int H = C / HC;             // heads (a model shard holds 1..H of them)
   static constexpr int NG = C / 8;             // planes of 8 channels
-  static_assert(C == 192 || C == 384, "the wide kernels take 192 or 384 channels");
-  static_assert(C / NSPLIT == NSUB, "a warpgroup holds 96 columns");
+  static_assert(C == 96 || C == 192 || C == 384, "the wide kernels take 96, 192 or 384 channels");
+  static_assert(C % NSUB == 0 && NHOLD <= 4 && PNOWN * NSPLIT == 4,
+                "a warpgroup holds 96 columns of one own operand");
 };
 
 // Halo row and column of operand row p: the own rows (halo rows 1..TH)
@@ -150,24 +183,36 @@ __device__ __forceinline__ void load8(float (&v)[8], const bf16* p) {
   }
 }
 
-// LayerNorm of NP pixels' C channels at src[i] (fp32 or bf16; null: a
-// pixel that is not readable, written as zeros, where torch zero-pads the
-// depthwise input) by one warp, their loads in flight together; lane l
-// takes the 8-channel groups l, l + 32; two-pass variance over the warp;
-// bf16 into rows row0..row0+NP-1 of an operand of planes of 8 channels
-// `plane` bytes apart. BiasFree where lnb is null: v / sqrt(var + eps) * w.
+// LayerNorm of a warp's pixels (C channels, fp32 or bf16) into bf16 rows of
+// an operand of planes of 8 channels `plane` bytes apart, their loads in
+// flight together. A pixel takes LPP lanes (16 where its C / 8 groups of 8
+// channels fit them, C = 96: two pixels side by side; else the warp), lane l
+// its groups l % LPP, + LPP; so the warp holds S = 32 / LPP pixels a slot,
+// NP slots: src[i] is this lane's pixel of slot i (null: a pixel that is not
+// readable, written as zeros, where torch zero-pads the depthwise input),
+// written to row row0 + i S + lane / LPP. Two-pass variance over the pixel's
+// lanes. BiasFree where lnb is null: v / sqrt(var + eps) * w; without `norm`
+// the pixels themselves, rounded to bf16.
+template <int C>
+struct LnLanes {
+  static constexpr int NG = C / 8, LPP = NG <= 16 ? 16 : 32, S = 32 / LPP;
+  static constexpr int PER = (NG + LPP - 1) / LPP;
+};
+
 template <int C, int NP, class T>
 __device__ __forceinline__ void ln_pixels(const T* const (&src)[NP],
                                           const float* __restrict__ lnw,
-                                          const float* __restrict__ lnb, float eps,
+                                          const float* __restrict__ lnb, float eps, bool norm,
                                           unsigned char* op, int plane, int row0, int lane) {
-  constexpr int NG = C / 8, PER = (NG + 31) / 32;
+  using LL = LnLanes<C>;
+  constexpr int NG = LL::NG, LPP = LL::LPP, PER = LL::PER;
+  const int gl = lane % LPP, row1 = row0 + lane / LPP;
   float v[NP][PER][8];
 #pragma unroll
   for (int i = 0; i < NP; ++i)
 #pragma unroll
     for (int k = 0; k < PER; ++k) {
-      const int gi = lane + 32 * k;
+      const int gi = gl + LPP * k;
       if (src[i] != nullptr && gi < NG) {
         load8(v[i][k], src[i] + 8 * gi);
       } else {
@@ -185,7 +230,7 @@ __device__ __forceinline__ void ln_pixels(const T* const (&src)[NP],
       for (int e = 0; e < 8; ++e) mean[i] += v[i][k][e];
   }
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
+  for (int o = LPP / 2; o > 0; o >>= 1)
 #pragma unroll
     for (int i = 0; i < NP; ++i) mean[i] += __shfl_xor_sync(0xffffffffu, mean[i], o);
 #pragma unroll
@@ -194,21 +239,26 @@ __device__ __forceinline__ void ln_pixels(const T* const (&src)[NP],
     inv[i] = 0.f;
 #pragma unroll
     for (int k = 0; k < PER; ++k)
-      if (lane + 32 * k < NG)
+      if (gl + LPP * k < NG)
 #pragma unroll
         for (int e = 0; e < 8; ++e) inv[i] += (v[i][k][e] - mean[i]) * (v[i][k][e] - mean[i]);
   }
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
+  for (int o = LPP / 2; o > 0; o >>= 1)
 #pragma unroll
     for (int i = 0; i < NP; ++i) inv[i] += __shfl_xor_sync(0xffffffffu, inv[i], o);
 #pragma unroll
   for (int k = 0; k < PER; ++k) {
-    const int gi = lane + 32 * k;
+    const int gi = gl + LPP * k;
     if (gi >= NG) continue;
     float w[8], bb[8];
-    load8(w, lnw + 8 * gi);
-    if (lnb != nullptr) {
+    if (norm) {
+      load8(w, lnw + 8 * gi);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) w[e] = 1.f;
+    }
+    if (norm && lnb != nullptr) {
       load8(bb, lnb + 8 * gi);
     } else {
 #pragma unroll
@@ -220,11 +270,11 @@ __device__ __forceinline__ void ln_pixels(const T* const (&src)[NP],
       unsigned o[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        o[e] = src[i] != nullptr
-                   ? pack_bf16((v[i][k][2 * e] - m) * is * w[2 * e] + bb[2 * e],
-                               (v[i][k][2 * e + 1] - m) * is * w[2 * e + 1] + bb[2 * e + 1])
-                   : 0u;
-      *reinterpret_cast<uint4*>(op + gi * plane + (row0 + i) * 16) =
+        o[e] = src[i] == nullptr ? 0u
+               : norm ? pack_bf16((v[i][k][2 * e] - m) * is * w[2 * e] + bb[2 * e],
+                                  (v[i][k][2 * e + 1] - m) * is * w[2 * e + 1] + bb[2 * e + 1])
+                      : pack_bf16(v[i][k][2 * e], v[i][k][2 * e + 1]);
+      *reinterpret_cast<uint4*>(op + gi * plane + (row1 + i * LL::S) * 16) =
           make_uint4(o[0], o[1], o[2], o[3]);
     }
   }
@@ -232,32 +282,35 @@ __device__ __forceinline__ void ln_pixels(const T* const (&src)[NP],
 
 // LN of the halo's ROWS pixels around the tile at (y0, x0) of sample b (x
 // of C channels) into operand rows (own rows first, then the ring), a warp
-// NP consecutive pixels at a time (8 NP C / 256 registers of loads).
+// NP slots of LnLanes<C>::S consecutive pixels at a time (8 NP C / 256
+// registers of loads a lane at S = 1).
 template <int C, int TH, int NP, class T>
 __device__ __forceinline__ void ln_halo(const T* x, const Geo& g, int b, int y0, int x0,
-                                        const float* lnw, const float* lnb, float eps,
+                                        const float* lnw, const float* lnb, float eps, bool norm,
                                         unsigned char* op, int plane, int warp, int lane) {
-  constexpr int ROWS = (TH + 2) * XHW;
-  for (int p0 = warp * NP; p0 < ROWS; p0 += NWW * NP) {
+  constexpr int ROWS = (TH + 2) * XHW, S = LnLanes<C>::S;
+  static_assert(ROWS % (S * NP) == 0, "a warp's slots stay inside the halo");
+  for (int p0 = warp * NP * S; p0 < ROWS; p0 += NWW * NP * S) {
     const T* src[NP];
 #pragma unroll
     for (int i = 0; i < NP; ++i) {
       int hy, hx;
-      halo_of<TH>(p0 + i, hy, hx);
+      halo_of<TH>(p0 + i * S + lane / LnLanes<C>::LPP, hy, hx);
       const int yy = y0 - 1 + hy, xx = x0 - 1 + hx;
       src[i] = readable(g, yy, xx) ? x + pix(g, b, yy, xx) : nullptr;
     }
-    ln_pixels<C, NP>(src, lnw, lnb, eps, op, plane, p0, lane);
+    ln_pixels<C, NP>(src, lnw, lnb, eps, norm, op, plane, p0, lane);
   }
 }
 
-// Threads 0..nrows-1: the readable part of rows y0 - 1 + i, columns x0 - 1
-// .. x0 - 2 + ncols of x (C channels) into L2, so that the next tile's loads
-// of x (straight into registers) find it there.
+// Threads first..first+nrows-1: the readable part of rows y0 - 1 + i,
+// columns x0 - 1 .. x0 - 2 + ncols of x (C channels) into L2, so that the
+// next tile's loads of x (straight into registers) find it there.
 template <class T>
 __device__ __forceinline__ void prefetch_rows(const T* x, const Geo& g, int b, int y0, int x0,
-                                              int nrows, int ncols) {
-  const int row = threadIdx.x, yy = y0 - 1 + row;
+                                              int nrows, int ncols, int first = 0) {
+  const int row = (int)threadIdx.x - first, yy = y0 - 1 + row;
+  if (row < 0) return;
   if (row >= nrows || !readable(g, yy, 0)) return;
   const int xa = x0 - 1 < 0 ? 0 : x0 - 1, xb = x0 - 1 + ncols > g.W ? g.W : x0 - 1 + ncols;
   if (xb > xa) prefetch_l2(x + pix(g, b, yy, xa), (uint32_t)((xb - xa) * g.C * sizeof(T)));
@@ -307,10 +360,14 @@ __device__ long long* phase_buf_ffn_wide = nullptr;
 #endif
 
 // Block (grp, b) walks tiles grp, grp + groups, ... of sample b (one wave)
-// and writes part[b][grp] = (Gram [H][48][48], squared norms [2C]) once,
-// as stage.cu's kernel (A). Warpgroup w < NOP takes operand w's products
-// (64 halo rows); every thread the LayerNorm and the depthwise steps.
-template <int C, class Tin>
+// and writes part[b][grp] = (Gram [HS][48][48], squared norms [2 Cq]) once,
+// as stage.cu's kernel (A), for the HS heads it holds (all H off a model
+// shard; a shard's 1, 2 or 4; Cq = 48 HS). Warpgroup w < NOP takes operand
+// w's products (64 halo rows); every thread the LayerNorm and the depthwise
+// steps. The head count is a constant (a runtime one spilled and slowed the
+// whole image's tile at C = 384 by 32%), and a shard's Gram fragments and
+// norms take only its heads' registers.
+template <int C, class Tin, int HS>
 __global__ void __launch_bounds__(NTW, 1)
 k_gram_wide(const Tin* __restrict__ x, const float* __restrict__ ln1,
             const float* __restrict__ ln1b, const bf16* __restrict__ wq_p,
@@ -318,7 +375,8 @@ k_gram_wide(const Tin* __restrict__ x, const float* __restrict__ ln1,
             bf16* __restrict__ vout, Geo g, int groups, float eps) {
   using G = WideGeo<C>;
   using L = GramWide<C>;
-  constexpr int TH = G::TH, H = G::H, NQC = 3 * H, NF = 9 * H;
+  constexpr int TH = G::TH, NF = 9 * HS;
+  static_assert(HS >= 1 && HS <= G::H, "the heads held are some of the tile's");
   constexpr int NGW = NWW - 1;                // warps holding the Gram (all but the issuer)
   constexpr int GMAX = (NF + NGW - 1) / NGW;  // Gram fragments a warp holds
   extern __shared__ __align__(1024) unsigned char smem[];
@@ -330,7 +388,8 @@ k_gram_wide(const Tin* __restrict__ x, const float* __restrict__ ln1,
   const int lane = tid & 31, gq = lane >> 2, q2 = (lane & 3) * 2;
   const int b = blockIdx.y, grp = blockIdx.x;
   const int my_tiles = grp < g.ntiles ? (g.ntiles - grp + groups - 1) / groups : 0;
-  const int my_chunks = my_tiles * NQC;
+  constexpr int hs = HS, nqc = 3 * hs, cq = HS * HC;  // heads held, q, k, v chunks, channels
+  const int my_chunks = my_tiles * nqc;
   const bool prod = wg < G::NOP;
   PHASE_CLOCK(pc);
 
@@ -338,9 +397,9 @@ k_gram_wide(const Tin* __restrict__ x, const float* __restrict__ ln1,
   auto issue_w = [&](int gc) {
     const int s = gc & 1;
     mbar_expect_tx(wbar + s, L::WQB + L::TAPB);
-    bulk_load(smem + L::S_W + s * L::SLOT, wq_p + (size_t)(gc % NQC) * (L::WQB / 2), L::WQB,
+    bulk_load(smem + L::S_W + s * L::SLOT, wq_p + (size_t)(gc % nqc) * (L::WQB / 2), L::WQB,
               wbar + s);
-    bulk_load(smem + L::S_W + s * L::SLOT + L::WQB, qtaps_p + (size_t)(gc % NQC) * 9 * HC,
+    bulk_load(smem + L::S_W + s * L::SLOT + L::WQB, qtaps_p + (size_t)(gc % nqc) * 9 * HC,
               L::TAPB, wbar + s);
   };
   if (tid == 0) {
@@ -372,9 +431,9 @@ k_gram_wide(const Tin* __restrict__ x, const float* __restrict__ ln1,
   for (int i = 0; i < GMAX; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) gacc[i][0][e] = gacc[i][1][e] = 0.f;
-  float nq[2 * H];
+  float nq[2 * HS];
 #pragma unroll
-  for (int k = 0; k < 2 * H; ++k) nq[k] = 0.f;
+  for (int k = 0; k < 2 * HS; ++k) nq[k] = 0.f;
   // acc += q_h^T k_h of fragment f (rows f / 3, columns f % 3 of 16) over
   // the tile's own rows
   auto gram_frag = [&](float (&acc)[2][4], int f) {
@@ -424,11 +483,12 @@ k_gram_wide(const Tin* __restrict__ x, const float* __restrict__ ln1,
     // LN1(x) on the halo, zero where x is not readable
     // two pixels at a time at C = 192, one at 384: the Gram's and the norms'
     // registers stay live across the tile
-    ln_halo<C, TH, 384 / C>(x, g, b, y0, x0, ln1, ln1b, eps, smem + L::S_LN, L::LNP, warp, lane);
+    ln_halo<C, TH, 384 / C>(x, g, b, y0, x0, ln1, ln1b, eps, true, smem + L::S_LN, L::LNP, warp,
+                            lane);
     fence_proxy_async();
     __syncthreads();  // LN1(x) is complete
     pc.mark(PA_LN1);
-    const int gc0 = it * NQC;
+    const int gc0 = it * nqc;
     {
       float acc[24];
       product(gc0, acc);
@@ -441,13 +501,13 @@ k_gram_wide(const Tin* __restrict__ x, const float* __restrict__ ln1,
     __syncthreads();  // t of chunk 0 is complete
     pc.mark(PA_PROD);
 #pragma unroll 1
-    for (int c = 0; c < NQC; ++c) {
+    for (int c = 0; c < nqc; ++c) {
       const int gc = gc0 + c;
-      // chunk c: q_h (c = 2h), k_h (2h + 1) for c < 2H, then v_(c - 2H)
-      const bool is_v = c >= 2 * H;
-      const int kind = is_v ? 2 : c & 1, head = is_v ? c - 2 * H : c >> 1;
+      // chunk c: q_h (c = 2h), k_h (2h + 1) for c < 2 hs, then v_(c - 2 hs)
+      const bool is_v = c >= 2 * hs;
+      const int kind = is_v ? 2 : c & 1, head = is_v ? c - 2 * hs : c >> 1;
       float nx[24];
-      if (c + 1 < NQC) product(gc + 1, nx);
+      if (c + 1 < nqc) product(gc + 1, nx);
       // depthwise 3x3 (fp32 taps) of the chunk's channel df on output
       // columns dj..dj+2, three halo rows by five columns in registers
       if (tid < NDW) {
@@ -481,16 +541,16 @@ k_gram_wide(const Tin* __restrict__ x, const float* __restrict__ ln1,
               qk[(i * XHW + dj + o + 1) * L::LQK + kind * HC + df] = __float2bfloat16(q);
               nacc += q * q;
             } else if (in) {
-              vout[pix(g, b, yo, xo, C) + head * HC + df] = __float2bfloat16(a[o]);
+              vout[pix(g, b, yo, xo, cq) + head * HC + df] = __float2bfloat16(a[o]);
             }
           }
         }
 #pragma unroll
-        for (int k = 0; k < 2 * H; ++k) nq[k] += c == k ? nacc : 0.f;
+        for (int k = 0; k < 2 * HS; ++k) nq[k] += c == k ? nacc : 0.f;
       }
       __syncwarp();
       pc.mark(PA_DW);
-      if (c + 1 < NQC && prod) {
+      if (c + 1 < nqc && prod) {
         wg_wait<0>();
         reg_fence(nx);
       }
@@ -500,7 +560,7 @@ k_gram_wide(const Tin* __restrict__ x, const float* __restrict__ ln1,
       __syncthreads();
       pc.mark(PA_DW);
       if (tid == ISSUER && gc + 2 < my_chunks) issue_w(gc + 2);
-      if (c + 1 < NQC && prod) store_t(nx);
+      if (c + 1 < nqc && prod) store_t(nx);
       if (kind == 1) {  // q_h and k_h are complete: head h's Gram
 #pragma unroll
         for (int i = 0; i < GMAX; ++i) {
@@ -509,13 +569,13 @@ k_gram_wide(const Tin* __restrict__ x, const float* __restrict__ ln1,
         }
         pc.mark(PA_GRAM);
       }
-      if (c + 1 < NQC) __syncthreads();  // t of chunk c + 1 is complete, the Gram done with q | k
+      if (c + 1 < nqc) __syncthreads();  // t of chunk c + 1 is complete, the Gram done with q | k
     }
     pc.tile();
   }
-  // part[b][grp] = (Gram [H][48][48], norms [2C]) unpadded
-  constexpr int GOUT = H * HC * HC;
-  float* out = part + ((size_t)b * groups + grp) * (GOUT + 2 * C);
+  // part[b][grp] = (Gram [hs][48][48], norms [2 Cq]) unpadded
+  const int gout = hs * HC * HC;
+  float* out = part + ((size_t)b * groups + grp) * (gout + 2 * cq);
 #pragma unroll
   for (int i = 0; i < GMAX; ++i) {
     const int f = warp + i * NGW;
@@ -534,13 +594,13 @@ k_gram_wide(const Tin* __restrict__ x, const float* __restrict__ ln1,
   float* nrm = (float*)(smem + L::S_LN);
   if (tid < NDW) {
 #pragma unroll
-    for (int k = 0; k < 2 * H; ++k) nrm[((k & 1) * C + (k >> 1) * HC + df) * NDP + dg] = nq[k];
+    for (int k = 0; k < 2 * HS; ++k) nrm[((k & 1) * cq + (k >> 1) * HC + df) * NDP + dg] = nq[k];
   }
   __syncthreads();
-  for (int i = tid; i < 2 * C; i += NTW) {
+  for (int i = tid; i < 2 * cq; i += NTW) {
     float sq = 0.f;
     for (int j = 0; j < NDP; ++j) sq += nrm[i * NDP + j];
-    out[GOUT + i] = sq;
+    out[gout + i] = sq;
   }
   pc.mark(PA_REST);
   pc.flush(PHASE_BUF_WIDE(phase_buf_gram_wide));
@@ -551,7 +611,7 @@ k_gram_wide(const Tin* __restrict__ x, const float* __restrict__ ln1,
 template <int C>
 struct ProjWide {
   using G = WideGeo<C>;
-  static constexpr int VP = G::OWN * 16;  // a plane of the tile's v or o (TH x 32 rows)
+  static constexpr int VP = G::PNOWN * 64 * 16;  // a plane of the tile's v or o (PTH x 32 rows)
   static constexpr int AT_B = HC * HC * 2;  // a head's attn^T as a B operand
   static constexpr int AT_LBO = (HC / 8) * 128;
   static constexpr int WP_B = HC * C * 2;   // W_proj's rows of a head (K = 48, N = C)
@@ -567,10 +627,12 @@ struct ProjWide {
 };
 
 // One persistent block of NTW threads per SM walks the tiles of every sample
-// (tile t = blockIdx.x + k gridDim.x): TH x 32 pixels of the band's readable
+// (tile t = blockIdx.x + k gridDim.x): PTH x 32 pixels of the band's readable
 // rows [rows_lo, rows_hi), halo rows included. Warpgroup w holds own operand
 // w / NSPLIT's columns (w % NSPLIT) * 96 of r; the heads' attn @ v are
-// shared out over the warpgroups.
+// shared out over the warpgroups. On a model shard v, attn^T and W_proj's
+// rows are those of its hs = g.heads heads (Cq = 48 hs channels of v), and a
+// null x leaves the partial alone in r.
 template <int C, class Tin>
 __global__ void __launch_bounds__(NTW, 1)
 k_proj_wide(const Tin* __restrict__ x, float* __restrict__ r,
@@ -579,7 +641,7 @@ k_proj_wide(const Tin* __restrict__ x, float* __restrict__ r,
             int ntiles1) {
   using G = WideGeo<C>;
   using L = ProjWide<C>;
-  constexpr int TH = G::TH, H = G::H;
+  constexpr int TH = G::PTH;
   extern __shared__ __align__(1024) unsigned char smem[];
   uint64_t* bars = (uint64_t*)(smem + L::S_BARS);
   uint64_t* vbar = bars;      // v's box, once a tile
@@ -589,7 +651,8 @@ k_proj_wide(const Tin* __restrict__ x, float* __restrict__ r,
   const int gq = lane >> 2, q2 = (lane & 3) * 2;
   const int total = g.B * ntiles1, first = blockIdx.x, step = gridDim.x;
   const int my_tiles = first < total ? (total - first + step - 1) / step : 0;
-  const int my_chunks = my_tiles * H;
+  const int hs = g.heads, nv = g.Cq / 8;  // heads held, planes of v
+  const int my_chunks = my_tiles * hs;
   PHASE_CLOCK(pc);
 
   auto origin = [&](int t, int& b, int& y0, int& x0) {
@@ -602,14 +665,14 @@ k_proj_wide(const Tin* __restrict__ x, float* __restrict__ r,
   auto issue_v = [&](int t) {
     int b, y0, x0;
     origin(t, b, y0, x0);
-    mbar_expect_tx(vbar, G::NG * L::VP);
-    for (int c = 0; c < G::NG; ++c)
+    mbar_expect_tx(vbar, nv * L::VP);
+    for (int c = 0; c < nv; ++c)
       tma_load_5d(smem + L::S_V + c * L::VP, &vmap, vbar, 0, c, x0, y0 - rows_lo, b);
   };
   auto issue_w = [&](int gc) {
     const int s = gc & 1;
     mbar_expect_tx(wbar + s, L::WP_B);
-    bulk_load(smem + L::S_W + s * L::WP_B, wproj_p + (size_t)(gc % H) * (L::WP_B / 2), L::WP_B,
+    bulk_load(smem + L::S_W + s * L::WP_B, wproj_p + (size_t)(gc % hs) * (L::WP_B / 2), L::WP_B,
               wbar + s);
   };
   if (tid == 0) {
@@ -636,9 +699,9 @@ k_proj_wide(const Tin* __restrict__ x, float* __restrict__ r,
       // attn^T of sample b as each head's B operand: B_h[k = d][n = c] =
       // attn_h[c][d] = attn_t[b][h][d][c]
       __syncthreads();  // every warpgroup is past the last sample's attn @ v
-      const bf16* at = attn_t + (size_t)b * H * HC * HC;
+      const bf16* at = attn_t + (size_t)b * hs * HC * HC;
       bf16* as = (bf16*)(smem + L::S_AT);
-      for (int e = tid; e < H * HC * HC; e += NTW) {
+      for (int e = tid; e < hs * HC * HC; e += NTW) {
         const int h = e / (HC * HC), k = e / HC % HC, n = e % HC;
         as[h * (L::AT_B / 2) + (k / 8) * (HC * 8) + (n / 8) * 64 + (n % 8) * 8 + k % 8] = at[e];
       }
@@ -646,22 +709,23 @@ k_proj_wide(const Tin* __restrict__ x, float* __restrict__ r,
       __syncthreads();
       prev_b = b;
     }
-    if (it + 1 < my_tiles) {
+    if (x != nullptr && it + 1 < my_tiles) {
       int nb, ny0, nx0;
       origin(first + (it + 1) * step, nb, ny0, nx0);
       prefetch_rows(x, g, nb, ny0 + 1, nx0 + 1, TH, XHW);
     }
     const int yy = y0 + i, xx0 = x0 + j0, xx1 = xx0 + 8;
     const bool ok0 = yy < rows_hi && xx0 < g.W, ok1 = yy < rows_hi && xx1 < g.W;
-    // x into r's accumulator before the products are issued
+    // x (or zeros) into r's accumulator before the products are issued
+    const bool has_x = x != nullptr;
     load_rows(acc, x + pix(g, b, ok0 ? yy : 0, ok0 ? xx0 : 0) + n0 + q2,
-              x + pix(g, b, ok1 ? yy : 0, ok1 ? xx1 : 0) + n0 + q2, ok0, ok1);
+              x + pix(g, b, ok1 ? yy : 0, ok1 ? xx1 : 0) + n0 + q2, has_x && ok0, has_x && ok1);
     mbar_wait(vbar, it & 1);
     pc.mark(PP_WAIT);
     // o = bf16(v_h @ attn_h^T) of each (own operand, head), into o's planes
 #pragma unroll 1
-    for (int q = wg; q < G::NOWN * H; q += 4) {
-      const int m = q / H, h = q % H;
+    for (int q = wg; q < G::PNOWN * hs; q += 4) {
+      const int m = q / hs, h = q % hs;
       float o[24];
       wg_fence();
 #pragma unroll
@@ -685,8 +749,8 @@ k_proj_wide(const Tin* __restrict__ x, float* __restrict__ r,
     if (tid == ISSUER && it + 1 < my_tiles) issue_v(first + (it + 1) * step);
     // r += o @ W_proj, W_proj's rows streamed a head at a time
 #pragma unroll 1
-    for (int h = 0; h < H; ++h) {
-      const int gc = it * H + h, s = gc & 1;
+    for (int h = 0; h < hs; ++h) {
+      const int gc = it * hs + h, s = gc & 1;
       mbar_wait(wbar + s, (gc >> 1) & 1);
       const unsigned char* wb = smem + L::S_W + s * L::WP_B + n0 * 16;
       wg_fence();
@@ -741,19 +805,24 @@ struct FfnWide {
                 "copy targets 128-byte aligned");
 };
 
+enum { FFN_LN = 1, FFN_RESIDUAL = 2 };  // (F)'s flags
+
 // One persistent block of NTW threads per SM walks the tiles of every
-// sample. Per tile: LN2(r) on the halo (ln_halo, r in fp32 from
-// device memory, zero where not readable), y's accumulator seeded with r;
-// then per hidden chunk: W_in on the halo by warpgroups w < NOP (operand w),
-// the depthwise step and GELU gate by every thread, and W_out onto y by
-// every warpgroup (own operand w / NSPLIT, columns (w % NSPLIT) * 96),
-// issued and left running through the next chunk's depthwise step.
-template <int C, class Tout>
+// sample. Per tile: LN2(r) on the halo (ln_halo, r from device memory, zero
+// where not readable; r itself without FFN_LN), y's accumulator seeded with
+// r (zeros without FFN_RESIDUAL); then per hidden chunk: W_in on the halo by
+// warpgroups w < NOP (operand w; its A from registers at C = 96), the
+// depthwise step and GELU gate by every thread, and W_out onto y by the
+// warpgroups w < NHOLD (own operand w / NSPLIT, columns (w % NSPLIT) * 96),
+// issued and left running through the next chunk's depthwise step. In a
+// stage r is (P)'s fp32 output; as the LN+GDFN kernel (GDFN true) r is its
+// input x and `flags` are read; the stage's instance has them as constants.
+template <int C, class Tin, class Tout, bool GDFN>
 __global__ void __launch_bounds__(NTW, 1)
-k_ffn_wide(const float* __restrict__ r, Tout* __restrict__ y, const float* __restrict__ ln2,
+k_ffn_wide(const Tin* __restrict__ r, Tout* __restrict__ y, const float* __restrict__ ln2,
            const float* __restrict__ ln2b, const bf16* __restrict__ win_p,
            const float* __restrict__ wtaps_p, const bf16* __restrict__ wout_p, Geo g,
-           float eps) {
+           float eps, int flags) {
   using G = WideGeo<C>;
   using L = FfnWide<C>;
   constexpr int TH = G::TH;
@@ -769,7 +838,8 @@ k_ffn_wide(const float* __restrict__ r, Tout* __restrict__ y, const float* __res
   const int first = blockIdx.x, step = gridDim.x;
   const int my_tiles = first < total ? (total - first + step - 1) / step : 0;
   const int my_chunks = my_tiles * nch;
-  const bool prod = wg < G::NOP;
+  const bool prod = wg < G::NOP, yown = G::NHOLD == 4 || wg < G::NHOLD;
+  const bool norm = !GDFN || (flags & FFN_LN), residual = !GDFN || (flags & FFN_RESIDUAL);
   PHASE_CLOCK(pc);
 
   // (by the issuing thread) W_in chunk gc into its one slot, its taps into
@@ -836,6 +906,7 @@ k_ffn_wide(const float* __restrict__ r, Tout* __restrict__ y, const float* __res
   float yacc[48];  // y = r + W_out(...) on this warpgroup's own rows and columns
   // yacc += gg(gc) @ W_out[chunk gc, n0..n0+95], issued and left running
   auto w_out = [&](int gc) {
+    if (!yown) return;
     const int s = gc & 1;
     pc.mark(PF_ISSUE);
     mbar_wait(woutbar + s, (gc >> 1) & 1);
@@ -888,18 +959,20 @@ k_ffn_wide(const float* __restrict__ r, Tout* __restrict__ y, const float* __res
   for (int it = 0; it < my_tiles; ++it) {
     const int t = first + it * step, tt = t % g.ntiles, b = t / g.ntiles;
     const int y0 = (tt / g.ntj) * TH, x0 = (tt % g.ntj) * XTW;
-    if (it + 1 < my_tiles) {
+    if (!GDFN && it + 1 < my_tiles) {
       const int nt = (t + step) % g.ntiles;
       prefetch_rows(r, g, (t + step) / g.ntiles, (nt / g.ntj) * TH, (nt % g.ntj) * XTW, TH + 2,
                     XHW);
     }
     // LN2(r) on the halo, zero where r is not readable
-    ln_halo<C, TH, 768 / C>(r, g, b, y0, x0, ln2, ln2b, eps, smem + L::S_LN, L::LNP, warp, lane);
-    // y's accumulator seeded with r
+    ln_halo<C, TH, C == 96 ? 4 : 768 / C>(r, g, b, y0, x0, ln2, ln2b, eps, norm, smem + L::S_LN,
+                                          L::LNP, warp, lane);
+    // y's accumulator seeded with r (or zeros)
     const int yy = y0 - 1 + yhy, xx0 = x0 - 1 + yhx0, xx1 = x0 - 1 + yhx1;
-    const bool rd0 = readable(g, yy, xx0), rd1 = readable(g, yy, xx1);
-    load_rows(yacc, r + pix(g, b, rd0 ? yy : 0, rd0 ? xx0 : 0) + n0 + q2,
-              r + pix(g, b, rd1 ? yy : 0, rd1 ? xx1 : 0) + n0 + q2, rd0, rd1);
+    const bool rd0 = residual && readable(g, yy, xx0), rd1 = residual && readable(g, yy, xx1);
+    if (yown)
+      load_rows(yacc, r + pix(g, b, rd0 ? yy : 0, rd0 ? xx0 : 0) + n0 + q2,
+                r + pix(g, b, rd1 ? yy : 0, rd1 ? xx1 : 0) + n0 + q2, rd0, rd1);
     fence_proxy_async();
     __syncthreads();  // LN2(r) is complete
     pc.mark(PF_LN2);
@@ -911,6 +984,13 @@ k_ffn_wide(const float* __restrict__ r, Tout* __restrict__ y, const float* __res
       __syncthreads();  // t2 of chunk gc is complete, the W_in slot free
       pc.mark(PF_W_IN);
       if (tid == ISSUER && gc + 1 < my_chunks) issue_win(gc + 1);
+      if (GDFN && j == 0 && it + 1 < my_tiles && warp == NWW - 1) {
+        // the next tile's rows into L2 by lanes 1.. of the warp that takes
+        // no depthwise work, off the LayerNorm's path
+        const int nt = (t + step) % g.ntiles;
+        prefetch_rows(r, g, (t + step) / g.ntiles, (nt / g.ntj) * TH, (nt % g.ntj) * XTW, TH + 2,
+                      XHW, ISSUER + 1);
+      }
       if (j > 0) w_out(gc - 1);
       dw_gate(gc);
       __syncwarp();
@@ -929,8 +1009,8 @@ k_ffn_wide(const float* __restrict__ r, Tout* __restrict__ y, const float* __res
     wg_wait<0>();
     reg_fence(yacc);
     // y on the tile's own pixels: halo columns 1..30, inside the band
-    const bool out0 = yhx0 >= 1 && yhx0 <= XTW && inside(g, yy, xx0);
-    const bool out1 = yhx1 >= 1 && yhx1 <= XTW && inside(g, yy, xx1);
+    const bool out0 = yown && yhx0 >= 1 && yhx0 <= XTW && inside(g, yy, xx0);
+    const bool out1 = yown && yhx1 >= 1 && yhx1 <= XTW && inside(g, yy, xx1);
     Tout* py0 = y + pix(g, b, out0 ? yy : 0, out0 ? xx0 : 0) + n0 + q2;
     Tout* py1 = y + pix(g, b, out1 ? yy : 0, out1 ? xx1 : 0) + n0 + q2;
 #pragma unroll
@@ -948,19 +1028,19 @@ k_ffn_wide(const float* __restrict__ r, Tout* __restrict__ y, const float* __res
 
 constexpr int ERR_TMAP = 100003;  // the driver refused v's tensor map
 
-// v (B, Hs, W, C) bf16 as the 5-D view (8, C/8, W, rows, B), rows the
+// v (B, Hs, W, Cq) bf16 as the 5-D view (8, Cq/8, W, rows, B), rows the
 // readable ones [rows_lo, rows_hi) of the band; a box of one plane of 8
-// channels, 32 columns and TH rows.
+// channels, 32 columns and (P)'s PTH rows.
 template <int C>
 int v_map(CUtensorMap* map, const void* v, const Geo& g, int rows_lo, int rows_hi) {
   EncodeTiled enc = encoder();
   if (enc == nullptr) return ERR_TMAP;
-  const size_t row = (size_t)g.W * C;
-  const cuuint64_t dims[5] = {8, (cuuint64_t)(C / 8), (cuuint64_t)g.W,
+  const size_t row = (size_t)g.W * g.Cq;
+  const cuuint64_t dims[5] = {8, (cuuint64_t)(g.Cq / 8), (cuuint64_t)g.W,
                               (cuuint64_t)(rows_hi - rows_lo), (cuuint64_t)g.B};
-  const cuuint64_t strides[4] = {16, (cuuint64_t)C * 2, (cuuint64_t)row * 2,
+  const cuuint64_t strides[4] = {16, (cuuint64_t)g.Cq * 2, (cuuint64_t)row * 2,
                                  (cuuint64_t)g.Hs * row * 2};
-  const cuuint32_t box[5] = {8, 1, (cuuint32_t)XHW, (cuuint32_t)WideGeo<C>::TH, 1};
+  const cuuint32_t box[5] = {8, 1, (cuuint32_t)XHW, (cuuint32_t)WideGeo<C>::PTH, 1};
   const cuuint32_t es[5] = {1, 1, 1, 1, 1};
   void* base = (void*)((const bf16*)v + (size_t)(rows_lo + g.halo) * row);
   const CUresult res = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, base, dims, strides, box, es,
@@ -975,46 +1055,76 @@ int n_sms(int* n) {
   return err;
 }
 
-// a whole band (halo 0 or 1) and 48 channels a head, as the wide kernels take it
-bool wide_geo(Geo& g, int C, int B, int H, int W, int gram_heads, int Fp, int tw, int halo,
-              int y_img, int H_img) {
-  if ((C != 192 && C != 384) || gram_heads * HC != C || B <= 0 || H <= 0 || W <= 0 ||
-      Fp < 0 || Fp % FCH)
+bool wide_width(int C) { return C == 96 || C == 192 || C == 384; }
+
+// A whole band (halo 0 or 1) and the `heads` of 48 channels the kernels
+// hold: all C / 48 of them, or a model shard's 1..C / 48 (Geo's heads, Cq).
+bool wide_geo(Geo& g, int C, int B, int H, int W, int heads, int Fp, int tw, int halo, int y_img,
+              int H_img) {
+  if (!wide_width(C) || heads < 1 || heads * HC > C || B <= 0 || H <= 0 || W <= 0 || Fp < 0 ||
+      Fp % FCH)
     return false;
-  g = make_geo(B, H, W, C, gram_heads, Fp, FCH, C == 192 ? 4 : 2, tw);
+  const int th = C == 96 ? WideGeo<96>::TH : C == 192 ? WideGeo<192>::TH : WideGeo<384>::TH;
+  g = make_geo(B, H, W, C, C / HC, Fp, FCH, th, tw);
+  g.heads = heads, g.Cq = heads * HC;
   return set_band(g, halo, y_img, H_img);
 }
 
+// f<96>(...), f<192>(...) or f<384>(...) by C (a width wide_geo took)
+#define BY_WIDTH(C, f, ...) \
+  ((C) == 96 ? f<96>(__VA_ARGS__) : (C) == 192 ? f<192>(__VA_ARGS__) : f<384>(__VA_ARGS__))
+
+template <int C, class Tin, int HS>
+int gram_launch(const void* x, const void* ln1, const void* ln1b, const void* wq_p,
+                const void* qtaps_p, void* part, void* vout, const Geo& g, int groups, float eps,
+                cudaStream_t s) {
+  const int bytes = GramWide<C>::TOTAL;
+  auto k = k_gram_wide<C, Tin, HS>;
+  const int err = opt_in(k, bytes);
+  if (err) return err;
+  k<<<dim3(groups, g.B), NTW, bytes, s>>>((const Tin*)x, (const float*)ln1, (const float*)ln1b,
+                                          (const bf16*)wq_p, (const float*)qtaps_p, (float*)part,
+                                          (bf16*)vout, g, groups, eps);
+  return (int)cudaGetLastError();
+}
+
+template <int C, int HS>
+int gram_heads(const void* x, int x_is_bf16, const void* ln1, const void* ln1b, const void* wq_p,
+               const void* qtaps_p, void* part, void* vout, const Geo& g, int groups, float eps,
+               cudaStream_t s) {
+  return x_is_bf16 ? gram_launch<C, bf16, HS>(x, ln1, ln1b, wq_p, qtaps_p, part, vout, g, groups,
+                                              eps, s)
+                   : gram_launch<C, float, HS>(x, ln1, ln1b, wq_p, qtaps_p, part, vout, g,
+                                               groups, eps, s);
+}
+
+// (A) on every head (the whole image), or on a model shard's 1, 2 or 4
 template <int C>
 int gram_c(const void* x, int x_is_bf16, const void* ln1, const void* ln1b, const void* wq_p,
            const void* qtaps_p, void* part, void* vout, const Geo& g, int groups, float eps,
            cudaStream_t s) {
-  const int bytes = GramWide<C>::TOTAL;
-  const dim3 grid(groups, g.B);
-  int err;
-  if (x_is_bf16) {
-    auto k = k_gram_wide<C, bf16>;
-    if ((err = opt_in(k, bytes))) return err;
-    k<<<grid, NTW, bytes, s>>>((const bf16*)x, (const float*)ln1, (const float*)ln1b,
-                               (const bf16*)wq_p, (const float*)qtaps_p, (float*)part,
-                               (bf16*)vout, g, groups, eps);
-  } else {
-    auto k = k_gram_wide<C, float>;
-    if ((err = opt_in(k, bytes))) return err;
-    k<<<grid, NTW, bytes, s>>>((const float*)x, (const float*)ln1, (const float*)ln1b,
-                               (const bf16*)wq_p, (const float*)qtaps_p, (float*)part,
-                               (bf16*)vout, g, groups, eps);
+  constexpr int H = C / HC;
+  switch (g.heads) {
+    case 1: return gram_heads<C, 1>(x, x_is_bf16, ln1, ln1b, wq_p, qtaps_p, part, vout, g, groups,
+                                    eps, s);
+    case 2: return gram_heads<C, 2>(x, x_is_bf16, ln1, ln1b, wq_p, qtaps_p, part, vout, g, groups,
+                                    eps, s);
+    case 4: return gram_heads<C, H < 4 ? H : 4>(x, x_is_bf16, ln1, ln1b, wq_p, qtaps_p, part, vout,
+                                                g, groups, eps, s);
+    case 8: return gram_heads<C, H>(x, x_is_bf16, ln1, ln1b, wq_p, qtaps_p, part, vout, g, groups,
+                                    eps, s);
   }
-  return (int)cudaGetLastError();
+  return ERR_SHAPE;
 }
 
 template <int C>
 int proj_c(const void* x, int x_is_bf16, void* r, const void* vin, const void* attn_t,
            const void* wproj_p, const Geo& g, int grid, cudaStream_t s) {
+  constexpr int PTH = WideGeo<C>::PTH;
   const int rows_lo = -g.halo > -g.y_img ? -g.halo : -g.y_img;
   const int rows_hi = g.H + g.halo < g.H_img - g.y_img ? g.H + g.halo : g.H_img - g.y_img;
   const int ntj1 = (g.W + XHW - 1) / XHW;
-  const int ntiles1 = (rows_hi - rows_lo + WideGeo<C>::TH - 1) / WideGeo<C>::TH * ntj1;
+  const int ntiles1 = (rows_hi - rows_lo + PTH - 1) / PTH * ntj1;
   CUtensorMap vm;
   int err = v_map<C>(&vm, vin, g, rows_lo, rows_hi);
   if (err) return err;
@@ -1035,35 +1145,46 @@ int proj_c(const void* x, int x_is_bf16, void* r, const void* vin, const void* a
   return (int)cudaGetLastError();
 }
 
+template <int C, class Tin, class Tout, bool GDFN>
+int ffn_launch(const void* r, void* y, const void* ln2, const void* ln2b, const void* win_p,
+               const void* wtaps_p, const void* wout_p, const Geo& g, float eps, int flags,
+               int grid, cudaStream_t s) {
+  const int bytes = FfnWide<C>::TOTAL;
+  auto k = k_ffn_wide<C, Tin, Tout, GDFN>;
+  const int err = opt_in(k, bytes);
+  if (err) return err;
+  k<<<grid, NTW, bytes, s>>>((const Tin*)r, (Tout*)y, (const float*)ln2, (const float*)ln2b,
+                             (const bf16*)win_p, (const float*)wtaps_p, (const bf16*)wout_p, g,
+                             eps, flags);
+  return (int)cudaGetLastError();
+}
+
+// (F) in a stage (r fp32, y fp32 or bf16), or as the LN+GDFN kernel (gdfn:
+// x and y both fp32 or both bf16, `flags` read)
 template <int C>
-int ffn_c(const void* r, void* y, int y_is_bf16, const void* ln2, const void* ln2b,
-          const void* win_p, const void* wtaps_p, const void* wout_p, const Geo& g, float eps,
-          int grid, cudaStream_t s) {
+int ffn_c(const void* r, int r_is_bf16, void* y, int y_is_bf16, const void* ln2,
+          const void* ln2b, const void* win_p, const void* wtaps_p, const void* wout_p,
+          const Geo& g, float eps, int flags, bool gdfn, int grid, cudaStream_t s) {
   int err;
   if (grid <= 0 && (err = n_sms(&grid))) return err;
   if (grid > g.B * g.ntiles) grid = g.B * g.ntiles;
-  const int bytes = FfnWide<C>::TOTAL;
-  if (y_is_bf16) {
-    auto k = k_ffn_wide<C, bf16>;
-    if ((err = opt_in(k, bytes))) return err;
-    k<<<grid, NTW, bytes, s>>>((const float*)r, (bf16*)y, (const float*)ln2, (const float*)ln2b,
-                               (const bf16*)win_p, (const float*)wtaps_p, (const bf16*)wout_p, g,
-                               eps);
-  } else {
-    auto k = k_ffn_wide<C, float>;
-    if ((err = opt_in(k, bytes))) return err;
-    k<<<grid, NTW, bytes, s>>>((const float*)r, (float*)y, (const float*)ln2, (const float*)ln2b,
-                               (const bf16*)win_p, (const float*)wtaps_p, (const bf16*)wout_p, g,
-                               eps);
-  }
-  return (int)cudaGetLastError();
+  if (!gdfn)
+    return y_is_bf16 ? ffn_launch<C, float, bf16, false>(r, y, ln2, ln2b, win_p, wtaps_p, wout_p,
+                                                         g, eps, flags, grid, s)
+                     : ffn_launch<C, float, float, false>(r, y, ln2, ln2b, win_p, wtaps_p,
+                                                          wout_p, g, eps, flags, grid, s);
+  if (r_is_bf16 != y_is_bf16) return ERR_SHAPE;
+  return r_is_bf16 ? ffn_launch<C, bf16, bf16, true>(r, y, ln2, ln2b, win_p, wtaps_p, wout_p, g,
+                                                     eps, flags, grid, s)
+                   : ffn_launch<C, float, float, true>(r, y, ln2, ln2b, win_p, wtaps_p, wout_p,
+                                                       g, eps, flags, grid, s);
 }
 
 template <int C>
 int blocks_c(int kind) {
-  if (kind == 0) return resident_blocks(k_gram_wide<C, float>, NTW, GramWide<C>::TOTAL);
+  if (kind == 0) return resident_blocks(k_gram_wide<C, float, C / HC>, NTW, GramWide<C>::TOTAL);
   if (kind == 1) return resident_blocks(k_proj_wide<C, float>, NTW, ProjWide<C>::TOTAL);
-  return resident_blocks(k_ffn_wide<C, float>, NTW, FfnWide<C>::TOTAL);
+  return resident_blocks(k_ffn_wide<C, float, float, false>, NTW, FfnWide<C>::TOTAL);
 }
 
 }  // namespace
@@ -1072,19 +1193,18 @@ int blocks_c(int kind) {
 
 extern "C" {
 
-// Thread blocks of kernel (A) (kind 0), (P) (1) or (F) (2) at C (192 or 384)
-// the device keeps resident on one SM (one, by design); 0 for another C.
+// Thread blocks of kernel (A) (kind 0), (P) (1) or (F) (2) at C (96, 192 or
+// 384) the device keeps resident on one SM (one, by design); 0 for another C.
 int raie_stage_wide_blocks_per_sm(int kind, int C) {
-  if (C == 192) return blocks_c<192>(kind);
-  if (C == 384) return blocks_c<384>(kind);
-  return 0;
+  return wide_width(C) ? BY_WIDTH(C, blocks_c, kind) : 0;
 }
 
 // The tile at C: rows and columns of outputs of (A) and (F) ((P)'s tiles are
-// th x 32 pixels), (F)'s hidden channels a chunk, threads a block.
+// th x 32 pixels, 8 x 32 at C = 96), (F)'s hidden channels a chunk, threads
+// a block.
 int raie_stage_wide_geometry(int C, int* th, int* tw, int* fc, int* threads) {
-  if (C != 192 && C != 384) return ERR_SHAPE;
-  *th = C == 192 ? WideGeo<192>::TH : WideGeo<384>::TH;
+  if (!wide_width(C)) return ERR_SHAPE;
+  *th = C == 96 ? WideGeo<96>::TH : C == 192 ? WideGeo<192>::TH : WideGeo<384>::TH;
   *tw = XTW, *fc = FCH, *threads = NTW;
   return 0;
 }
@@ -1092,8 +1212,9 @@ int raie_stage_wide_geometry(int C, int* th, int* tw, int* fc, int* threads) {
 const char* raie_stage_sm90_wide_error_string(int code) {
   if (code == ERR_TMAP) return "the driver refused the TMA descriptor of v";
   if (code == ERR_SHAPE)
-    return "the wide kernels take C = 192 or 384 with 48 channels a head, Fp a multiple of 32, "
-           "and a band inside its image with a halo of 0 (the whole image) or 1 row";
+    return "the wide kernels take C = 96, 192 or 384 with 1, 2, 4 or 8 (at most C/48) heads of "
+           "48 channels, Fp a multiple of 32, x and y of one dtype for the LN+GDFN kernel, and "
+           "a band inside its image with a halo of 0 (the whole image) or 1 row";
   return tile_error_string(code);
 }
 
@@ -1107,37 +1228,35 @@ int raie_stage_sm90_wide_phase_buffers(void* gram_rows, void* proj_rows, void* f
 }
 #endif
 
-// Kernel (A): v (B, Hs, W, C) bf16 on the band's own pixels and part (B,
-// groups, H 48 48 + 2C) fp32 from x (B, Hs, W, C), LN1's weight and bias
-// (null: BiasFree), W_qkv and its taps packed in head chunks
-// (ops/block.py::pack_wgmma); gram_heads = C / 48.
+// Kernel (A): v (B, Hs, W, Cq) bf16 on the band's own pixels and part (B,
+// groups, heads 48 48 + 2 Cq) fp32 from x (B, Hs, W, C), LN1's weight and
+// bias (null: BiasFree), W_qkv (C, 3 Cq) and its taps packed in head chunks
+// (ops/block.py::pack_wgmma); Cq = 48 heads: C / 48 heads, or a model
+// shard's.
 int raie_stage_wide_gram(const void* x, int x_is_bf16, const void* ln1, const void* ln1b,
                          const void* wq_p, const void* qtaps_p, void* part, void* vout, int B,
-                         int H, int W, int C, int gram_heads, int groups, int halo, int y_img,
+                         int H, int W, int C, int heads, int groups, int halo, int y_img,
                          int H_img, float eps, void* stream) {
   Geo g;
-  if (groups <= 0 || !wide_geo(g, C, B, H, W, gram_heads, 0, XTW, halo, y_img, H_img))
+  if (groups <= 0 || !wide_geo(g, C, B, H, W, heads, 0, XTW, halo, y_img, H_img))
     return ERR_SHAPE;
-  cudaStream_t s = (cudaStream_t)stream;
-  return C == 192 ? gram_c<192>(x, x_is_bf16, ln1, ln1b, wq_p, qtaps_p, part, vout, g, groups,
-                                eps, s)
-                  : gram_c<384>(x, x_is_bf16, ln1, ln1b, wq_p, qtaps_p, part, vout, g, groups,
-                                eps, s);
+  return BY_WIDTH(C, gram_c, x, x_is_bf16, ln1, ln1b, wq_p, qtaps_p, part, vout, g, groups, eps,
+                  (cudaStream_t)stream);
 }
 
 // Kernel (P): r (B, Hs, W, C) fp32 = x + bf16(attn @ v) @ W_proj on every
-// readable row the band holds (its halo rows too), from x and v (B, Hs, W,
-// C) and attn_t (B, gram_heads, 48, 48) of kernel (B); W_proj packed as a B
-// operand; `grid` persistent blocks (0: one an SM).
+// readable row the band holds (its halo rows too), from x (B, Hs, W, C; null:
+// the product alone) and v (B, Hs, W, Cq), attn_t (B, heads, 48, 48) of
+// kernel (B); W_proj (Cq, C) packed as a B operand; `grid` persistent blocks
+// (0: one an SM).
 int raie_stage_wide_project(const void* x, int x_is_bf16, void* r, const void* vin,
-                            const void* attn_t, int gram_heads, const void* wproj_p, int B, int H,
+                            const void* attn_t, int heads, const void* wproj_p, int B, int H,
                             int W, int C, int halo, int y_img, int H_img, int grid,
                             void* stream) {
   Geo g;
-  if (!wide_geo(g, C, B, H, W, gram_heads, 0, XHW, halo, y_img, H_img)) return ERR_SHAPE;
-  cudaStream_t s = (cudaStream_t)stream;
-  return C == 192 ? proj_c<192>(x, x_is_bf16, r, vin, attn_t, wproj_p, g, grid, s)
-                  : proj_c<384>(x, x_is_bf16, r, vin, attn_t, wproj_p, g, grid, s);
+  if (!wide_geo(g, C, B, H, W, heads, 0, XHW, halo, y_img, H_img)) return ERR_SHAPE;
+  return BY_WIDTH(C, proj_c, x, x_is_bf16, r, vin, attn_t, wproj_p, g, grid,
+                  (cudaStream_t)stream);
 }
 
 // Kernel (F): y (B, Hs, W, C) = r + GDFN(LN2(r)) on the band's own pixels,
@@ -1149,10 +1268,26 @@ int raie_stage_wide_ffn(const void* r, void* y, int y_is_bf16, const void* ln2, 
                         void* stream) {
   Geo g;
   if (Fp <= 0 || !wide_geo(g, C, B, H, W, C / HC, Fp, XTW, halo, y_img, H_img)) return ERR_SHAPE;
-  cudaStream_t s = (cudaStream_t)stream;
-  return C == 192 ? ffn_c<192>(r, y, y_is_bf16, ln2, ln2b, win_p, wtaps_p, wout_p, g, eps, grid, s)
-                  : ffn_c<384>(r, y, y_is_bf16, ln2, ln2b, win_p, wtaps_p, wout_p, g, eps, grid,
-                               s);
+  return BY_WIDTH(C, ffn_c, r, 0, y, y_is_bf16, ln2, ln2b, win_p, wtaps_p, wout_p, g, eps,
+                  FFN_LN | FFN_RESIDUAL, false, grid, (cudaStream_t)stream);
+}
+
+// The LN+GDFN kernel (ops/gdfn.py): y (B, H, W, C) = [x +] W_out (gelu(t1) *
+// t2), t = dwconv3x3(W_in LN(x)), on a whole image; x and y both fp32 or
+// both bf16, LN's weight and bias (null: BiasFree; apply_ln
+// 0: none), W_in, its taps and W_out packed as for (F) over Fp hidden
+// channels (a multiple of 32: all of them, or a model shard's range),
+// residual 0: the product alone; `grid` as (P)'s.
+int raie_gdfn_sm90(const void* x, int x_is_bf16, void* y, int y_is_bf16, const void* ln_w,
+                   const void* ln_b, int apply_ln, const void* win_p, const void* wtaps_p,
+                   const void* wout_p, int B, int H, int W, int C, int Fp, int residual,
+                   float eps, int grid, void* stream) {
+  Geo g;
+  if (Fp <= 0 || x_is_bf16 != y_is_bf16 || !wide_geo(g, C, B, H, W, C / HC, Fp, XTW, 0, 0, H))
+    return ERR_SHAPE;
+  const int flags = (apply_ln ? FFN_LN : 0) | (residual ? FFN_RESIDUAL : 0);
+  return BY_WIDTH(C, ffn_c, x, x_is_bf16, y, y_is_bf16, ln_w, ln_b, win_p, wtaps_p, wout_p, g,
+                  eps, flags, true, grid, (cudaStream_t)stream);
 }
 
 }  // extern "C"

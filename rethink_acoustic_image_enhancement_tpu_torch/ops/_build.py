@@ -46,6 +46,7 @@ VARIANTS = {"stage_clocks": ("stage", ("-DRAIE_PHASE_CLOCKS",)),
 _loaded: dict[str, ctypes.CDLL] = {}
 _load_lock = threading.Lock()  # one build and one load of a library per process
 _launch_lock = threading.Lock()  # the wrappers' ``launches`` counts
+_bound: set[tuple[str, int]] = set()  # (library, id of a signature table) typed
 
 
 def _source(name: str) -> tuple[str, tuple[str, ...]]:
@@ -122,18 +123,22 @@ def load(name: str) -> ctypes.CDLL:
 def bind(name: str, signatures: dict[str, list]) -> ctypes.CDLL:
     """``load(name)`` with the argument types of its int-returning entry
     points set (a pointer passed untyped would be cut to 32 bits) and its
-    ``raie_<source>_error_string`` typed."""
+    ``raie_<source>_error_string`` typed. Modules that bind one library
+    with different entry points each type their own; a signature table
+    already bound returns at once (every launch calls this)."""
+    key = (name, id(signatures))
+    if key in _bound:
+        return _loaded[name]
     lib = load(name)
     with _load_lock:
-        if not getattr(lib, "_raie_typed", False):
-            for fn_name, args in signatures.items():
-                fn = getattr(lib, fn_name)
-                fn.argtypes = args
-                fn.restype = ctypes.c_int
-            err = getattr(lib, f"raie_{_source(name)[0]}_error_string")
-            err.argtypes = [ctypes.c_int]
-            err.restype = ctypes.c_char_p
-            lib._raie_typed = True
+        err = getattr(lib, f"raie_{_source(name)[0]}_error_string")
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+        for fn_name, args in signatures.items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes = args
+            fn.restype = ctypes.c_int
+        _bound.add(key)
     return lib
 
 

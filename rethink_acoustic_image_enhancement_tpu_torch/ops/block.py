@@ -48,7 +48,8 @@ import torch
 
 from . import _build
 from .gdfn import (FFN_CHUNKS, FFN_TILES, bf16_round, check_input, dw3x3,
-                   ffn_candidates, ffn_f32, ffn_hidden, ffn_out, pack_ffn, pick_layout)
+                   ffn_candidates, ffn_chunks, ffn_f32, ffn_hidden, ffn_out, ffn_route,
+                   pack_ffn, pick_layout)
 from .norm import channel_layernorm
 
 _L2_EPS = 1e-12
@@ -67,10 +68,12 @@ WGMMA_FC = 32
 WGMMA_QCH = 48  # kernel (A)'s chunk of q, k or v channels
 # At these widths with 48 channels a head (the teacher's encoder_level3,
 # decoder_level3 and latent) kernels (A) and (C) are csrc/stage_sm90_wide.cu's:
-# output tiles of TH x 30 (on a (TH + 2) x 32 halo) for (A) and (F), TH x 32
-# pixels for (P), hidden chunks of 32 channels, (A)'s chunks one head's q, k
-# or v.
-WIDE_TILE = {192: (4, 30), 384: (2, 30)}
+# output tiles of TH x 30 (on a (TH + 2) x 32 halo) for (A) and (F), PROJ_TH x
+# 32 pixels for (P), hidden chunks of 32 channels, (A)'s chunks one head's q,
+# k or v. On model shards they (and C = 96's instance) run (A) on the shard's
+# heads and (P) on their rows of W_proj.
+WIDE_TILE = {96: (6, 30), 192: (4, 30), 384: (2, 30)}
+PROJ_TH = {96: 8, 192: 4, 384: 2}
 WIDE_HC = 48
 
 
@@ -225,12 +228,14 @@ def _check_heads(c: int, num_heads: int, temp: torch.Tensor) -> None:
 # ------------------------------------------------------------- CUDA -----
 
 def pack_blocks(device, ln1_w, w_qkv, dw_qkv, temperature, w_proj, ln2_w,
-                w_in, w_dw, w_out, ln1_b=None, ln2_b=None) -> dict:
+                w_in, w_dw, w_out, ln1_b=None, ln2_b=None, shard: bool = False) -> dict:
     """Kernel operands of n blocks (every weight with a leading ``n`` dim):
-    bf16 matrices, fp32 taps, norms and temperatures, and the GDFN's as
-    ``ops/gdfn.py::pack_ffn`` lays them out. ``ln1_b``/``ln2_b`` stay None
-    for the BiasFree LayerNorm. A model shard's weights hold cq channels of
-    q, k and v (W_qkv (C, 3 cq), W_proj (cq, C)): ``cq`` in the result."""
+    bf16 matrices, fp32 taps, norms and temperatures, and the GDFN's in the
+    layout its kernel reads (``ops/gdfn.py::pack_ffn``'s, or on the Hopper
+    route its chunks alone). ``ln1_b``/``ln2_b`` stay None for the BiasFree
+    LayerNorm. ``shard``: a model shard's block, whose weights hold cq
+    channels of q, k and v (W_qkv (C, 3 cq), W_proj (cq, C); ``cq`` in the
+    result) and whose GDFN part ``ops/gdfn.py::ffn_route`` routes."""
     n, c = ln1_w.shape
     cq = w_qkv.reshape(n, c, -1).shape[-1] // 3
     bf, f32 = torch.bfloat16, torch.float32
@@ -244,12 +249,17 @@ def pack_blocks(device, ln1_w, w_qkv, dw_qkv, temperature, w_proj, ln2_w,
         ln1=cont(ln1_w, f32, c), ln1b=cont(ln1_b, f32, c),
         wqkv=cont(w_qkv, bf, c, 3 * cq), dwqkv=cont(dw_qkv, f32, 9, 3 * cq),
         temp=cont(temperature, f32, -1), wproj=cont(w_proj, bf, cq, c), cq=cq,
-        ln2=cont(ln2_w, f32, c), ln2b=cont(ln2_b, f32, c),
-        **pack_ffn(w_in.reshape(n, c, -1), w_dw.reshape(n, 9, -1),
-                   w_out.reshape(n, -1, c), c, device))
-    if apply_route(c, cq != c, p["temp"].shape[1]) == "wgmma":
-        p.update(pack_wgmma(p["wqkv"], p["dwqkv"], p["wproj"], p["win"], p["wdw"], p["wout"],
-                            p["fp"]))
+        ln2=cont(ln2_w, f32, c), ln2b=cont(ln2_b, f32, c))
+    ffn = pack_ffn(w_in.reshape(n, c, -1), w_dw.reshape(n, 9, -1), w_out.reshape(n, -1, c), c,
+                   device)
+    p["fp"] = ffn["fp"]
+    route = apply_route(c, shard, p["temp"].shape[1], cq)
+    if route == "wgmma":
+        p.update(pack_wgmma(p["wqkv"], p["dwqkv"], p["wproj"]))
+    if route == "wgmma" or (shard and ffn_route(c) == "wgmma"):  # the GDFN on a Hopper kernel
+        p.update(ffn_chunks(ffn["win"], ffn["wdw"], ffn["wout"], ffn["fp"]))
+    else:
+        p.update(ffn)
     return p
 
 
@@ -264,68 +274,70 @@ def b_operand(w: torch.Tensor) -> torch.Tensor:
     return t.permute(*range(d), d, d + 2, d + 3, d + 1).reshape(*lead, k * n)
 
 
-def qkv_chunk_order(c: int) -> list[int]:
+def qkv_chunk_order(c: int, cq: int | None = None) -> list[int]:
     """The order in which the Hopper kernel (A) takes W_qkv's chunks of
-    WGMMA_QCH columns (chunk i = columns 48 i..48 i + 47): at C = 96 as they
-    lie (q, then k, then v); at the wide widths head by head, q_h and k_h
-    side by side (so that head h's Gram follows k_h), then every v_h."""
-    nq = 3 * c // WGMMA_QCH
-    if c == WGMMA_C:
+    WGMMA_QCH columns (chunk i = columns 48 i..48 i + 47 of W_qkv (C, 3 cq),
+    cq = C, or a model shard's heads' channels): at C = 96 with every head
+    as they lie (q, then k, then v; ``csrc/stage_sm90.cu``); else head by
+    head, q_h and k_h side by side (so that head h's Gram follows k_h), then
+    every v_h (``csrc/stage_sm90_wide.cu``)."""
+    cq = c if cq is None else cq
+    nq = 3 * cq // WGMMA_QCH
+    if c == WGMMA_C and cq == c:
         return list(range(nq))
-    heads = c // WIDE_HC
+    heads = cq // WIDE_HC
     return [t * heads + h for h in range(heads) for t in (0, 1)] + [2 * heads + h
                                                                       for h in range(heads)]
 
 
-def _in_chunk_order(chunks: torch.Tensor, c: int) -> torch.Tensor:
-    """Chunks (n, 3C / 48, ...) of W_qkv (or its taps) as they lie, put in
+def _in_chunk_order(chunks: torch.Tensor, c: int, cq: int) -> torch.Tensor:
+    """Chunks (n, 3 cq / 48, ...) of W_qkv (or its taps) as they lie, put in
     ``qkv_chunk_order`` by reshapes (an index list would be a host-to-device
     copy every call)."""
-    if c == WGMMA_C:
+    if c == WGMMA_C and cq == c:
         return chunks
-    n, heads, rest = chunks.shape[0], c // WIDE_HC, chunks.shape[2:]
+    n, heads, rest = chunks.shape[0], cq // WIDE_HC, chunks.shape[2:]
     qk = chunks[:, :2 * heads].reshape(n, 2, heads, *rest).transpose(1, 2)
     return torch.cat([qk.reshape(n, 2 * heads, *rest), chunks[:, 2 * heads:]], 1)
 
 
-def pack_wgmma(wqkv, dwqkv, wproj, win, wdw, wout, fp: int) -> dict:
-    """The Hopper kernels' operands (``csrc/stage_sm90.cu`` at C = 96,
-    ``csrc/stage_sm90_wide.cu`` at 192 and 384) from ``pack_blocks``' (n
-    blocks leading), one copy each. Kernel (A): W_qkv (n, C, 3C) in chunks
-    of WGMMA_QCH columns in ``qkv_chunk_order``, each a B operand (N = 48,
-    K = C), and their depthwise taps (n, chunks, 9, 48). Kernel (C) (at the
-    wide widths (P) and (F)): W_proj (n, C, C) as one B operand, whose rows
-    48 h..48 h + 47 (a head's) lie together; for each chunk of WGMMA_FC
-    hidden channels, the columns of both halves of W_in as a B operand (N =
-    2 fc, K = C), each channel's GELU and gate columns side by side
-    ([f][half]), and their taps (n, chunks, 9, fc, 2); the chunk's rows of
-    W_out as a B operand (N = C, K = fc). A chunk's operand and taps are
-    what the kernel copies into one slot."""
-    n, c, _ = win.shape
-    fc, nch, qch = WGMMA_FC, fp // WGMMA_FC, WGMMA_QCH
-    nq = 3 * c // qch
+def pack_wgmma(wqkv, dwqkv, wproj) -> dict:
+    """Kernels (A) and (C)'s (on a model shard (A) and (C')'s) Hopper
+    operands (``csrc/stage_sm90.cu`` at C = 96, ``csrc/stage_sm90_wide.cu``
+    at 192 and 384 and on model shards) from ``pack_blocks``' (n blocks
+    leading), one copy each: W_qkv (n, C, 3 cq) in chunks of WGMMA_QCH
+    columns in ``qkv_chunk_order``, each a B operand (N = 48, K = C), and
+    their depthwise taps (n, chunks, 9, 48); W_proj (n, cq, C) as one B
+    operand, whose rows 48 h..48 h + 47 (a head's) lie together. The GDFN's
+    are ``ops/gdfn.py::ffn_chunks``."""
+    n, c, _ = wqkv.shape
+    cq, qch = wqkv.shape[-1] // 3, WGMMA_QCH
+    nq = 3 * cq // qch
     # B element (k, n') at [k / 8][n' / 8][n' % 8][k % 8] of its chunk
-    qkv = _in_chunk_order(wqkv.reshape(n, c // 8, 8, nq, qch // 8, 8).permute(0, 3, 1, 4, 5, 2), c)
-    qtaps = _in_chunk_order(dwqkv.reshape(n, 9, nq, qch).transpose(1, 2), c)
-    # W_in's column half * fp + j * fc + 4 f1 + f0 is n' = 2 (4 f1 + f0) + half
-    # of chunk j
-    w_in = win.reshape(n, c // 8, 8, 2, nch, fc // 4, 4).permute(0, 4, 1, 5, 6, 3, 2)
-    wtaps = wdw.reshape(n, 9, 2, nch, fc).permute(0, 3, 1, 4, 2)
-    w_out = wout.reshape(n, nch, fc // 8, 8, c // 8, 8).permute(0, 1, 2, 4, 5, 3)
+    qkv = _in_chunk_order(wqkv.reshape(n, c // 8, 8, nq, qch // 8, 8).permute(0, 3, 1, 4, 5, 2),
+                          c, cq)
+    qtaps = _in_chunk_order(dwqkv.reshape(n, 9, nq, qch).transpose(1, 2), c, cq)
     return dict(wqkv_wg=qkv.contiguous(), qtaps_wg=qtaps.contiguous(),
-                wproj_wg=b_operand(wproj).contiguous(), win_wg=w_in.contiguous(),
-                wtaps_wg=wtaps.contiguous(), wout_wg=w_out.contiguous())
+                wproj_wg=b_operand(wproj).contiguous())
 
 
-def apply_route(c: int, shard: bool = False, heads: int | None = None) -> str:
+def apply_route(c: int, shard: bool = False, heads: int | None = None,
+                cq: int | None = None) -> str:
     """Which kernels (A) and (C) a block launch takes, by width: ``"wgmma"``
     (Hopper: ``csrc/stage_sm90.cu`` at C = 96, ``csrc/stage_sm90_wide.cu``
     at C = 192 and 384, where the heads, if given, are 48 channels each, as
-    every block of the teacher has them), else (and on every model shard,
-    whose block runs (A) on its heads and ends in (C')) ``"mma_sync"``
-    (``csrc/stage.cu``)."""
+    every block of the teacher has them), else ``"mma_sync"``
+    (``csrc/stage.cu``). On a model shard (``heads`` of them holding cq
+    channels of q, k and v; cq = C: every head) the block runs (A) on its
+    heads and ends in (C'): at C = 96, 192 and 384 with 48 channels a head
+    ``"wgmma"`` (``k_gram_wide`` on the heads, or at C = 96 with every head
+    ``k_gram_wgmma``; ``k_proj_wide``), else ``"mma_sync"``. The GDFN that
+    follows on a shard is routed by ``ops/gdfn.py::ffn_route``."""
     if shard:
-        return "mma_sync"
+        cq = c if cq is None else cq
+        hc = cq // heads if heads else WIDE_HC
+        ok = c in WIDE_TILE and cq % WIDE_HC == 0 and hc == WIDE_HC
+        return "wgmma" if ok else "mma_sync"
     if c == WGMMA_C or (c in WIDE_TILE and (heads is None or c == heads * WIDE_HC)):
         return "wgmma"
     return "mma_sync"
@@ -518,20 +530,22 @@ def plan_tiles(library, c: int, gram_heads: int, cq: int | None = None) -> TileP
     return TilePlan((gth, gtw), gram_blocks, fc, (ath, atw), apply_blocks, gk, ak)
 
 
-def _wg_residency(library, device, c: int = WGMMA_C) -> tuple[int, ...]:
+def _wg_residency(library, device, c: int | None = None) -> tuple[int, ...]:
     """Thread blocks of the Hopper kernels resident on an SM of ``device``:
-    (A) and (C) at C = 96; (A), (P) and (F) at the wide widths; asked once
-    per card and width and kept on the library handle."""
+    (A) and (C) of ``csrc/stage_sm90.cu`` (``c`` None); (A), (P) and (F) of
+    ``csrc/stage_sm90_wide.cu`` at C = ``c``; asked once per card and width
+    and kept on the library handle."""
     known = library.__dict__.setdefault("_raie_residency", {})
     if (device, c) not in known:
         with torch.cuda.device(device):
-            if c == WGMMA_C:
+            if c is None:
                 blocks = (library.raie_stage_sm90_gram_blocks_per_sm(),
                           library.raie_stage_sm90_blocks_per_sm())
             else:
                 blocks = tuple(library.raie_stage_wide_blocks_per_sm(k, c) for k in range(3))
         if min(blocks) < 1:
-            raise ValueError(f"the Hopper block kernels at C = {c} cannot be resident on an SM")
+            raise ValueError(f"the Hopper block kernels at C = {c or WGMMA_C} cannot be "
+                             "resident on an SM")
         known[(device, c)] = blocks
     return known[(device, c)]
 
@@ -560,7 +574,10 @@ class BlockRunner:
     channels of q, k and v (cq = C: the whole MDTA); it runs ``gram``,
     ``softmax`` and ``project`` (kernel (C'), r in fp32) in place of
     ``apply``, the GDFN being ``ops/gdfn.py``'s kernel on the shard's
-    hidden channels.
+    hidden channels. Its ``route`` ``"wgmma"`` (C = 96, 192, 384, 48
+    channels a head): ``gram`` is ``csrc/stage_sm90_wide.cu``'s (A) on the
+    shard's heads (``csrc/stage_sm90.cu``'s at C = 96 where it holds every
+    head: ``gram_lib``), ``project`` its (P) on ``proj_grid`` blocks.
 
     ``route`` (``apply_route``): at C = 96, off a model shard, ``apply`` is
     ``csrc/stage_sm90.cu``'s kernel (``wg_library``, or its default) on
@@ -590,20 +607,30 @@ class BlockRunner:
         # the Gram per head where fragments of 16 channels stay inside a
         # head; else the full C x C Gram with the softmax masked per head
         self.gram_heads = heads if (self.cq // heads) % 16 == 0 else 1
-        self.route = apply_route(c, self.shard, heads)
-        self.wide = self.route == "wgmma" and c != WGMMA_C
+        self.route = apply_route(c, self.shard, heads, self.cq)
+        self.wide = self.route == "wgmma" and (c != WGMMA_C or self.shard)
         n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
         if self.wide:
             self.wg_lib = wide_lib() if wg_library is None else wg_library
             gram_blocks, proj_blocks, blocks = _wg_residency(self.wg_lib, x.device, c)
             tile = WIDE_TILE[c]
-            self.plan = TilePlan(tile, gram_blocks, WGMMA_FC, tile, blocks)
+            # a model shard holding every head at C = 96 runs stage_sm90.cu's
+            # (A): k_gram_wide with both heads took 1.07x its time (PERF.md §6)
+            self.wide_gram = not (self.shard and c == WGMMA_C and self.cq == c)
+            self.gram_lib = self.wg_lib
+            if not self.wide_gram:
+                self.gram_lib = wg_lib() if wg_library is None else wg_library
+                gram_blocks = _wg_residency(self.gram_lib, x.device)[0]
+            self.plan = TilePlan(tile if self.wide_gram else WGMMA_TILE, gram_blocks, WGMMA_FC,
+                                 tile, blocks)
             self.apply_grid = wgmma_grid(b, h, w, n_sm * blocks, tile)
-            self.proj_grid = proj_grid(b, h, w, n_sm * proj_blocks, tile[0], self.halo,
+            self.proj_grid = proj_grid(b, h, w, n_sm * proj_blocks, PROJ_TH[c], self.halo,
                                        self.y_img, self.h_img)
-            self.r = torch.empty(*x.shape[:3], c, dtype=torch.float32, device=x.device)
+            if not self.shard:  # (P)'s r; a shard's (C') writes the r it is given
+                self.r = torch.empty(*x.shape[:3], c, dtype=torch.float32, device=x.device)
         elif self.route == "wgmma":
-            self.wg_lib = wg_lib() if wg_library is None else wg_library
+            self.wg_lib = self.gram_lib = wg_lib() if wg_library is None else wg_library
+            self.wide_gram = False
             gram_blocks, blocks = _wg_residency(self.wg_lib, x.device)
             self.plan = TilePlan(WGMMA_TILE, gram_blocks, WGMMA_FC, WGMMA_TILE, blocks)
             self.apply_grid = wgmma_grid(b, h, w, n_sm * blocks)
@@ -640,7 +667,7 @@ class BlockRunner:
         ptr = _ptr(p, i)
         if self.route == "wgmma":
             with self._guard(src, p):
-                (gram_wide if self.wide else gram_wgmma)(self, src, ptr, eps)
+                (gram_wide if self.wide_gram else gram_wgmma)(self, src, ptr, eps)
             return
         with self._guard(src, p):
             _build.check(lb, "stage", lb.raie_stage_gram(
@@ -675,6 +702,10 @@ class BlockRunner:
         if r.dtype != torch.float32 or r.shape[:3] != self.v.shape[:3] or r.shape[3] != c:
             raise ValueError(f"block kernel: r must be float32 {(*self.v.shape[:3], c)}, "
                              f"got {r.dtype} {tuple(r.shape)}")
+        if self.route == "wgmma":
+            with self._guard(r if src is None else src, p, r=r):
+                proj_wide(self, src, _ptr(p, i), r)
+            return
         with self._guard(r if src is None else src, p, r=r):
             _build.check(lb, "stage", lb.raie_stage_project(
                 None if src is None else src.data_ptr(),
@@ -693,7 +724,7 @@ class BlockRunner:
         ptr = _ptr(p, i)
         if self.wide:
             with self._guard(src, p, dst=dst):
-                proj_wide(self, src, ptr)
+                proj_wide(self, src, ptr, self.r)
                 ffn_wide(self, dst, ptr, eps)
             return
         if self.route == "wgmma":
@@ -724,7 +755,7 @@ def gram_wgmma(run: BlockRunner, src: torch.Tensor, ptr, eps: float) -> None:
     runner ``run`` on src, its weights at ``ptr`` (``_ptr``); counts the
     launch in ``gram_wgmma.launches``."""
     b, h, w, _ = run.shape
-    lw = run.wg_lib
+    lw = run.gram_lib
     _build.check(lw, "stage_sm90", lw.raie_stage_gram_wgmma(
         src.data_ptr(), int(src.dtype == torch.bfloat16), ptr("ln1"), ptr("ln1b"),
         ptr("wqkv_wg"), ptr("qtaps_wg"), run.part.data_ptr(), run.v.data_ptr(), b, h, w,
@@ -753,8 +784,9 @@ apply_wgmma.launches = 0  # kernel (C) launches at C = 96
 
 
 def gram_wide(run: BlockRunner, src: torch.Tensor, ptr, eps: float) -> None:
-    """Kernel (A) at C = 192 or 384 (``csrc/stage_sm90_wide.cu::k_gram_wide``)
-    for runner ``run`` on src; counts the launch in ``gram_wide.launches``."""
+    """Kernel (A) at C = 192 or 384 (``csrc/stage_sm90_wide.cu::k_gram_wide``),
+    or on a model shard's heads at C = 96, 192 or 384, for runner ``run`` on
+    src; counts the launch in ``gram_wide.launches``."""
     b, h, w, c = run.shape
     lw = run.wg_lib
     _build.check(lw, "stage_sm90_wide", lw.raie_stage_wide_gram(
@@ -765,14 +797,19 @@ def gram_wide(run: BlockRunner, src: torch.Tensor, ptr, eps: float) -> None:
     _build.count_launch(gram_wide)
 
 
-def proj_wide(run: BlockRunner, src: torch.Tensor, ptr) -> None:
-    """Kernel (P) at C = 192 or 384 (``k_proj_wide``): ``run.r`` = src +
-    bf16(attn @ v) @ W_proj in float32 on every readable row the band holds;
-    counts the launch in ``proj_wide.launches``."""
+def proj_wide(run: BlockRunner, src: torch.Tensor | None, ptr,
+              r: torch.Tensor | None = None) -> None:
+    """Kernel (P) at C = 192 or 384 (``k_proj_wide``), or a model shard's (C')
+    at C = 96, 192 or 384 on its heads: r (``run.r`` by default) = src +
+    bf16(attn @ v) @ W_proj in float32 on every readable row the band holds,
+    ``src`` None: the product alone; counts the launch in
+    ``proj_wide.launches``."""
     b, h, w, c = run.shape
     lw = run.wg_lib
+    r = run.r if r is None else r
     _build.check(lw, "stage_sm90_wide", lw.raie_stage_wide_project(
-        src.data_ptr(), int(src.dtype == torch.bfloat16), run.r.data_ptr(), run.v.data_ptr(),
+        None if src is None else src.data_ptr(),
+        int(src is not None and src.dtype == torch.bfloat16), r.data_ptr(), run.v.data_ptr(),
         run.attn_t.data_ptr(), run.gram_heads, ptr("wproj_wg"), b, h, w, c, run.halo,
         run.y_img, run.h_img, run.proj_grid, run.stream), "P (projection, wide)")
     _build.count_launch(proj_wide)
@@ -790,8 +827,8 @@ def ffn_wide(run: BlockRunner, dst: torch.Tensor, ptr, eps: float) -> None:
     _build.count_launch(ffn_wide)
 
 
-gram_wide.launches = 0  # kernel (A) launches at C = 192 and 384
-proj_wide.launches = 0  # kernel (P) launches at C = 192 and 384
+gram_wide.launches = 0  # kernel (A) launches at C = 192 and 384, and on model shards
+proj_wide.launches = 0  # kernel (P) launches at C = 192 and 384, and on model shards
 ffn_wide.launches = 0  # kernel (F) launches at C = 192 and 384
 
 

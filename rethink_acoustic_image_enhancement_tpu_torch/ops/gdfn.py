@@ -9,12 +9,17 @@ and ``apply_ln=False`` skips it. The depthwise conv sees zeros outside the
 image, as torch's ``padding=1`` gives it: LN(x) is masked after the
 LayerNorm, so a LayerNorm bias does not leak into the border ring.
 
-On a CUDA tensor it launches ``csrc/gdfn.cu`` on x's device, whose weights
-must lie there too, and counts the launch in ``fused_ln_gdfn.launches``; on a CPU tensor it runs ``gdfn_plain``, the same
-arithmetic in plain PyTorch: bf16 operands with float32 accumulation for
-the two products, the W_in output rounded to bf16 before its float32
-depthwise 3x3, two-pass LayerNorm and exact-erf GELU (the kernel's
-Abramowitz-Stegun erf is within 1.5e-7).
+On a CUDA tensor it launches a kernel on x's device, whose weights must lie
+there too, and counts the launch in ``fused_ln_gdfn.launches``: which one
+``ffn_route`` says by width. At C = 96, 192 and 384 it is the Hopper LN+GDFN
+kernel (``csrc/stage_sm90_wide.cu``'s ``k_ffn_wide`` through
+``raie_gdfn_sm90``: wgmma, weights streamed in chunks of 32 hidden channels
+by bulk copies, one persistent block an SM; its launches also counted in
+``gdfn_sm90.launches``), at every other width ``csrc/gdfn.cu``. On a CPU
+tensor it runs ``gdfn_plain``, the same arithmetic in plain PyTorch: bf16
+operands with float32 accumulation for the two products, the W_in output
+rounded to bf16 before its float32 depthwise 3x3, two-pass LayerNorm and
+exact-erf GELU (the kernels' Abramowitz-Stegun erf is within 1.5e-7).
 
 ``fused_ln_gdfn_part`` is the same kernel on a model shard's range of the
 hidden channels (tensor-parallel serving, ``ops/stage.py::
@@ -32,10 +37,13 @@ import torch.nn.functional as F
 from . import _build
 from .norm import channel_layernorm
 
-HIDDEN_PAD = 64  # the kernels' hidden width is padded to a multiple of this
+HIDDEN_PAD = 64  # the hidden width is padded to a multiple of this (both kernels)
 SMEM_LIMIT = 232448
 FFN_TILES = ((8, 8), (4, 8), (4, 4))
 FFN_CHUNKS = (64, 32)  # hidden channels per chunk
+# The Hopper LN+GDFN kernel's widths and its chunk of hidden channels.
+SM90_WIDTHS = (96, 192, 384)
+SM90_FC = 32
 
 
 # ------------------------------------------------------------- plain ----
@@ -109,25 +117,71 @@ def gdfn_plain(x, ln_weight, ln_bias, w_in, w_dw, w_out,
 
 # ------------------------------------------------------------- CUDA -----
 
+def ffn_route(c: int) -> str:
+    """Which kernel an LN+GDFN launch (whole, or a model shard's part) takes,
+    by width, as ``ops/block.py::apply_route`` picks a block's: ``"wgmma"``
+    (Hopper: ``csrc/stage_sm90_wide.cu``'s ``k_ffn_wide``) at C = 96, 192
+    and 384, else ``"mma_sync"`` (``csrc/gdfn.cu``)."""
+    return "wgmma" if c in SM90_WIDTHS else "mma_sync"
+
+
+def _padded(t, dtype, device, dim: int, fp: int) -> torch.Tensor:
+    """t (detached) in dtype on device, contiguous, with dim zero-padded to
+    fp: one copy where it needs padding (the cast inside it), else a cast
+    alone (t itself where it has that dtype and device already)."""
+    t = t.detach()
+    if t.shape[dim] == fp:
+        return t.to(device=device, dtype=dtype).contiguous()
+    out = torch.zeros(*t.shape[:dim], fp, *t.shape[dim + 1:], dtype=dtype, device=device)
+    out.narrow(dim, 0, t.shape[dim]).copy_(t)
+    return out
+
+
 def pack_ffn(w_in, w_dw, w_out, c: int, device) -> dict:
     """The kernels' GDFN operands from weights with a leading ``n`` dim:
     bf16 W_in (n, C, 2Fp) and W_out (n, Fp, C), fp32 taps (n, 9, 2Fp); the
-    hidden width F is padded with zeros to Fp (a multiple of 64), the
-    gate's halves at [0, F) and [Fp, Fp + F)."""
+    hidden width F is padded with zeros to Fp (a multiple of HIDDEN_PAD, and
+    so of SM90_FC), the gate's halves at [0, F) and [Fp, Fp + F). This is
+    ``csrc/gdfn.cu``'s layout; ``ffn_chunks`` permutes it into the Hopper
+    kernel's (it may share memory with weights that need no padding)."""
     n = w_in.shape[0]
     f = w_out.reshape(n, -1, c).shape[1]
     fp = -(-f // HIDDEN_PAD) * HIDDEN_PAD
-    w_in = w_in.detach().reshape(n, c, 2 * f)
-    w_dw = w_dw.detach().reshape(n, 9, 2 * f)
-    win = torch.zeros(n, c, 2 * fp, dtype=torch.bfloat16, device=device)
-    win[:, :, :f] = w_in[:, :, :f]
-    win[:, :, fp:fp + f] = w_in[:, :, f:]
-    wdw = torch.zeros(n, 9, 2 * fp, dtype=torch.float32, device=device)
-    wdw[:, :, :f] = w_dw[:, :, :f]
-    wdw[:, :, fp:fp + f] = w_dw[:, :, f:]
-    wout = torch.zeros(n, fp, c, dtype=torch.bfloat16, device=device)
-    wout[:, :f] = w_out.detach().reshape(n, f, c)
-    return dict(win=win, wdw=wdw, wout=wout, fp=fp)
+    bf = torch.bfloat16
+    return dict(win=_padded(w_in.reshape(n, c, 2, f), bf, device, 3, fp).reshape(n, c, 2 * fp),
+                wdw=_padded(w_dw.reshape(n, 9, 2, f), torch.float32, device, 3,
+                            fp).reshape(n, 9, 2 * fp),
+                wout=_padded(w_out.reshape(n, f, c), bf, device, 1, fp), fp=fp)
+
+
+def ffn_chunks(win, wdw, wout, fp: int) -> dict:
+    """The Hopper kernel's GDFN operands from ``pack_ffn``'s (n blocks
+    leading), one copy each: for each chunk of fc = SM90_FC hidden channels,
+    the columns of both halves of W_in as a wgmma B operand (N = 2 fc, K =
+    C; ``ops/block.py::b_operand``'s layout), each channel's GELU and gate
+    columns side by side ([f][half]), and their taps (n, chunks, 9, fc, 2);
+    the chunk's rows of W_out as a B operand (N = C, K = fc). A chunk's
+    operand and taps are what the kernel copies into one slot."""
+    n, c, _ = win.shape
+    fc = SM90_FC
+    nch = fp // fc
+    # W_in's column half * fp + j * fc + 4 f1 + f0 is n' = 2 (4 f1 + f0) + half
+    # of chunk j; B element (k, n') at [k / 8][n' / 8][n' % 8][k % 8]
+    w_in = win.reshape(n, c // 8, 8, 2, nch, fc // 4, 4).permute(0, 4, 1, 5, 6, 3, 2)
+    wtaps = wdw.reshape(n, 9, 2, nch, fc).permute(0, 3, 1, 4, 2)
+    w_out = wout.reshape(n, nch, fc // 8, 8, c // 8, 8).permute(0, 1, 2, 4, 5, 3)
+    return dict(win_wg=w_in.contiguous(), wtaps_wg=wtaps.contiguous(),
+                wout_wg=w_out.contiguous())
+
+
+def pack_ffn_route(w_in, w_dw, w_out, c: int, device) -> dict:
+    """The GDFN operands (weights as ``pack_ffn`` takes them) of the kernel
+    of ``ffn_route(c)`` alone: ``pack_ffn``'s, or only their Hopper chunks
+    (``ffn_chunks``); ``fp`` in both."""
+    p = pack_ffn(w_in, w_dw, w_out, c, device)
+    if ffn_route(c) == "wgmma":
+        return dict(fp=p["fp"], **ffn_chunks(p["win"], p["wdw"], p["wout"], p["fp"]))
+    return p
 
 
 def pick_layout(candidates, smem_bytes, blocks_per_sm):
@@ -175,6 +229,10 @@ _SIGNATURES = {
     "raie_gdfn": [_P, _P, _I, _P, _P, _I, _P, _P, _P] + [_I] * 8
     + [ctypes.c_float, _I, _P],
 }
+_SM90_SIGNATURES = {
+    "raie_gdfn_sm90": [_P, _I, _P, _I, _P, _P, _I, _P, _P, _P] + [_I] * 6
+    + [ctypes.c_float, _I, _P],
+}
 
 
 def check_input(x: torch.Tensor, what: str) -> torch.Tensor:
@@ -197,8 +255,8 @@ def _gdfn_cuda(x, ln_weight, ln_bias, w_in, w_dw, w_out, bias_free,
     guard = _build.on_device(x, "GDFN", ln_weight=ln_weight, ln_bias=ln_bias,
                              w_in=w_in, w_dw=w_dw, w_out=w_out)
     with guard:
-        p = pack_ffn(w_in.reshape(1, c, -1), w_dw.reshape(1, 9, -1),
-                     w_out.reshape(1, -1, c), c, x.device)
+        p = pack_ffn_route(w_in.reshape(1, c, -1), w_dw.reshape(1, 9, -1),
+                           w_out.reshape(1, -1, c), c, x.device)
 
         def f32(t):
             return t.detach().to(dtype=torch.float32).contiguous()
@@ -207,9 +265,40 @@ def _gdfn_cuda(x, ln_weight, ln_bias, w_in, w_dw, w_out, bias_free,
         lnb = _ln_bias(ln_weight, ln_bias, bias_free)
         lnb = None if lnb is None or not apply_ln else f32(lnb)
         y = torch.empty_like(x)
-        _launch(x, y, lnw, lnb, apply_ln, p["win"], p["wdw"], p["wout"], p["fp"], ln_eps, True)
+        _launch_route(x, y, lnw, lnb, apply_ln, p, 0, ln_eps, True)
     _build.count_launch(fused_ln_gdfn)
     return y
+
+
+def _launch_route(x, y, lnw, lnb, apply_ln, p, i, eps, residual) -> None:
+    """Block i's GDFN of packed operands p (``pack_ffn_route``'s) on x's
+    device (under its guard), by the kernel of ``ffn_route``."""
+    if ffn_route(x.shape[-1]) == "wgmma":
+        gdfn_sm90(x, y, lnw, lnb, apply_ln, p["win_wg"][i], p["wtaps_wg"][i], p["wout_wg"][i],
+                  p["fp"], eps, residual)
+    else:
+        _launch(x, y, lnw, lnb, apply_ln, p["win"][i], p["wdw"][i], p["wout"][i], p["fp"], eps,
+                residual)
+
+
+def gdfn_sm90(x, y, lnw, lnb, apply_ln, win, wtaps, wout, fp, eps, residual,
+              library: str = "stage_sm90_wide") -> None:
+    """One launch of the Hopper LN+GDFN kernel (``csrc/stage_sm90_wide.cu``
+    ``raie_gdfn_sm90``, from ``library``: its build, or the phase-clock
+    variant) on x's device (under its guard), one persistent block an SM;
+    counted in ``gdfn_sm90.launches``."""
+    b, h, w, c = x.shape
+    lib = _build.bind(library, _SM90_SIGNATURES)
+    _build.check(lib, "stage_sm90_wide", lib.raie_gdfn_sm90(
+        x.data_ptr(), int(x.dtype == torch.bfloat16), y.data_ptr(),
+        int(y.dtype == torch.bfloat16), lnw.data_ptr(), None if lnb is None else lnb.data_ptr(),
+        int(apply_ln), win.data_ptr(), wtaps.data_ptr(), wout.data_ptr(), b, h, w, c, fp,
+        int(residual), eps, 0, torch.cuda.current_stream(x.device).cuda_stream),
+        "launch (LN+GDFN, wgmma)")
+    _build.count_launch(gdfn_sm90)
+
+
+gdfn_sm90.launches = 0  # Hopper LN+GDFN launches (whole and parts)
 
 
 def _launch(x, y, lnw, lnb, apply_ln, win, wdw, wout, fp, eps, residual) -> None:
@@ -225,17 +314,20 @@ def _launch(x, y, lnw, lnb, apply_ln, win, wdw, wout, fp, eps, residual) -> None
         "launch")
 
 
-def launch_ffn_part(r, lnw, win, wdw, wout, fp: int, residual: bool,
-                    eps: float) -> torch.Tensor:
-    """The kernel on a model shard's packed hidden range (``pack_ffn``'s
-    layout for one block, on r's device): float32 r + [r +] its part of
-    GDFN(LN(r)), BiasFree LN; counted in ``fused_ln_gdfn_part.launches``."""
+def launch_ffn_part(r, p: dict, i: int, residual: bool, eps: float) -> torch.Tensor:
+    """The kernel of ``ffn_route`` on a model shard's packed hidden range
+    (block i of ``ops/block.py::pack_blocks``' operands, or of
+    ``pack_ffn_route``'s, with LN2's weight as ``ln2``, on r's device): float32
+    [r +] its part of GDFN(LN(r)), BiasFree LN; counted in
+    ``fused_ln_gdfn_part.launches``."""
     if r.dtype != torch.float32:
         raise TypeError(f"GDFN part kernel takes float32 r, not {r.dtype}")
     r = check_input(r, "GDFN part")
-    with _build.on_device(r, "GDFN part", ln_weight=lnw, w_in=win, w_dw=wdw, w_out=wout):
+    keys = ("win_wg", "wtaps_wg", "wout_wg") if ffn_route(r.shape[-1]) == "wgmma" else (
+        "win", "wdw", "wout")
+    with _build.on_device(r, "GDFN part", ln_weight=p["ln2"], **{k: p[k] for k in keys}):
         y = torch.empty_like(r)
-        _launch(r, y, lnw, None, True, win, wdw, wout, fp, eps, residual)
+        _launch_route(r, y, p["ln2"][i], None, True, p, i, eps, residual)
     _build.count_launch(fused_ln_gdfn_part)
     return y
 
@@ -280,11 +372,10 @@ def fused_ln_gdfn_part(r, ln_weight, w_in, w_dw, w_out, residual: bool = True,
         c = r.shape[-1]
         with _build.on_device(r, "GDFN part", ln_weight=ln_weight, w_in=w_in, w_dw=w_dw,
                               w_out=w_out):
-            p = pack_ffn(w_in.reshape(1, c, -1), w_dw.reshape(1, 9, -1),
-                         w_out.reshape(1, -1, c), c, r.device)
-            lnw = ln_weight.detach().float().contiguous()
-        return launch_ffn_part(r, lnw, p["win"][0], p["wdw"][0], p["wout"][0], p["fp"],
-                               residual, ln_eps)
+            p = pack_ffn_route(w_in.reshape(1, c, -1), w_dw.reshape(1, 9, -1),
+                               w_out.reshape(1, -1, c), c, r.device)
+            p["ln2"] = ln_weight.detach().float().reshape(1, c).contiguous()
+        return launch_ffn_part(r, p, 0, residual, ln_eps)
     if r.device.type == "cpu":
         return gdfn_part_plain(r, ln_weight, w_in, w_dw, w_out, residual, ln_eps)
     raise ValueError(f"no GDFN part implementation for device {r.device}")

@@ -11,7 +11,9 @@ and reduces the buffers to, per kernel, the share of a tile's cycles in each
 phase and the cycles per tile (at C = 96 kernels (A) and (C) are
 ``k_gram_wgmma`` and ``k_apply_wgmma``, at C = 192 and 384 (A), (P) and (F)
 ``k_gram_wide``, ``k_proj_wide`` and ``k_ffn_wide``, whose thread 0 sees its
-own warpgroup's phases; the warpgroups run apart between barriers). The
+own warpgroup's phases; the warpgroups run apart between barriers).
+``gdfn_phase_shares`` does the same for the Hopper LN+GDFN kernel (its
+``k_ffn_wide`` at C = 96, 192 and 384, ``ops/gdfn.py::gdfn_sm90``). The
 clocks cost a few percent and serialise nothing, but the build is for
 measurement only: every other path loads the normal library, which has none
 of it.
@@ -24,7 +26,8 @@ import ctypes
 import torch
 
 from . import _build
-from .block import BlockRunner, apply_route, lib, pack_blocks, wg_lib, wide_lib
+from . import gdfn as pgdfn
+from .block import WIDE_TILE, BlockRunner, apply_route, lib, pack_blocks, wg_lib, wide_lib
 from .gdfn import check_input
 
 PHASE_SLOTS = 16  # int64 per thread block; the last one counts tiles
@@ -115,3 +118,39 @@ def block_phase_shares(x: torch.Tensor, ln_eps: float = 1e-5, **weights) -> dict
         return dict(k_gram_wgmma=_shares(gram, GRAM_WG_PHASES),
                     k_apply_wgmma=_shares(apply, APPLY_WG_PHASES))
     return dict(k_gram=_shares(gram, GRAM_PHASES), k_apply=_shares(apply, APPLY_PHASES))
+
+
+def gdfn_phase_shares(x: torch.Tensor, ln_weight, ln_bias, w_in, w_dw, w_out,
+                      bias_free: bool = True, apply_ln: bool = True, residual: bool = True,
+                      ln_eps: float = 1e-5) -> dict:
+    """{"k_ffn_wide": ...} of the Hopper LN+GDFN kernel on NHWC x on the card
+    (C = 96, 192 or 384; the arguments of ``ops/gdfn.py::fused_ln_gdfn``,
+    ``residual=False`` a model shard's part)."""
+    x = check_input(x, "GDFN")
+    b, h, w, c = x.shape
+    with _build.on_device(x, "GDFN"):
+        p = pgdfn.pack_ffn_route(w_in.reshape(1, c, -1), w_dw.reshape(1, 9, -1),
+                                 w_out.reshape(1, -1, c), c, x.device)
+        lnw = ln_weight.detach().float().contiguous()
+        lnb = pgdfn._ln_bias(ln_weight, ln_bias, bias_free)
+        lnb = None if lnb is None or not apply_ln else lnb.detach().float().contiguous()
+        library = _build.bind("stage_sm90_wide_clocks", pgdfn._SM90_SIGNATURES)
+        n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
+        th, tw = WIDE_TILE[c]
+        rows = torch.zeros(min(n_sm, b * -(-h // th) * -(-w // tw)), PHASE_SLOTS,
+                           dtype=torch.int64, device=x.device)
+        y = torch.empty_like(x)
+        fn = library.raie_stage_sm90_wide_phase_buffers
+        fn.argtypes, fn.restype = [ctypes.c_void_p] * 3, ctypes.c_int
+        try:
+            _build.check(library, "stage_sm90_wide", fn(None, None, rows.data_ptr()),
+                         "phase buffers")
+            for _ in range(2):  # a warm-up, then the one read
+                rows.zero_()
+                pgdfn.gdfn_sm90(x, y, lnw, lnb, apply_ln, p["win_wg"][0], p["wtaps_wg"][0],
+                                p["wout_wg"][0], p["fp"], ln_eps, residual,
+                                library="stage_sm90_wide_clocks")
+                torch.cuda.synchronize(x.device)
+        finally:
+            fn(None, None, None)
+    return dict(k_ffn_wide=_shares(rows, FFN_WIDE_PHASES))

@@ -30,8 +30,13 @@ version.
 whole input and its heads' and hidden channels' weights
 (``models/shards.py::shard_teacher``); per block and shard kernel (A) on its
 heads, (B), and (C') up to its partial of the projection, a sum across
-shards, the GDFN kernel (``csrc/gdfn.cu``) on its hidden channels, and a
-second sum. ``stage_plain_shards`` is its plain version.
+shards, the GDFN kernel on its hidden channels, and a second sum. At C =
+96, 192 and 384 with 48 channels a head (A) and (C') are Hopper kernels
+(``csrc/stage_sm90_wide.cu``'s ``k_gram_wide`` on the shard's heads, or
+``csrc/stage_sm90.cu``'s ``k_gram_wgmma`` at C = 96 where a shard holds
+every head; ``k_proj_wide``; ``ops/block.py::apply_route``) and so is the
+GDFN (``ops/gdfn.py::ffn_route``); other widths keep ``csrc/stage.cu`` and
+``csrc/gdfn.cu``. ``stage_plain_shards`` is its plain version.
 """
 
 from __future__ import annotations
@@ -267,7 +272,7 @@ def _stage_shards_cuda(xs, weights, shards, ln_eps) -> list[torch.Tensor]:
     runners, packs = [], []
     for x, wts in zip(xs, weights):
         with _build.on_device(x, "stage", **wts):
-            p = pack_blocks(x.device, **wts)
+            p = pack_blocks(x.device, **wts, shard=True)
             n, heads = p["temp"].shape
             if p["cq"] % heads or (p["cq"] // heads) % 16:
                 raise ValueError(f"stage kernel needs C/heads a multiple of 16 "
@@ -286,9 +291,8 @@ def _stage_shards_cuda(xs, weights, shards, ln_eps) -> list[torch.Tensor]:
             run.project(src if own or not split else None, rs[-1], p, i)
         if split:
             rs = shards.sum_across(rs)
-        srcs = shards.sum_across([
-            launch_ffn_part(r, p["ln2"][i], p["win"][i], p["wdw"][i], p["wout"][i], p["fp"],
-                            own, ln_eps) for r, p, own in zip(rs, packs, first)])
+        srcs = shards.sum_across([launch_ffn_part(r, p, i, own, ln_eps)
+                                  for r, p, own in zip(rs, packs, first)])
     _build.count_launch(fused_transformer_stage_shards)
     return [y.to(x.dtype) for x, y in zip(xs, srcs)]
 
@@ -307,8 +311,8 @@ def fused_transformer_stage_shards(xs, weights, shards, ln_eps: float = 1e-5
     shards, so the shards compute the whole stage up to the order of those
     sums.
 
-    CUDA shards run (A), (B) and (C') of ``csrc/stage.cu`` and the GDFN kernel
-    of ``csrc/gdfn.cu`` per shard and block (or raise) and count the call in
+    CUDA shards run (A), (B), (C') and the GDFN kernel per shard and block
+    (the kernels of the module docstring; or raise) and count the call in
     ``fused_transformer_stage_shards.launches`` (the GDFN kernel's launches
     in ``ops/gdfn.py::fused_ln_gdfn_part.launches``); CPU shards take
     ``stage_plain_shards``."""

@@ -2,8 +2,8 @@
 (``ops/block.py::plan_tiles``, ``gram_groups``; ``ops/gdfn.py::pick_layout``,
 ``plan_ffn``) are plain Python over a library handle: here that handle is a
 stub that answers with byte counts and resident-block counts, so the tests
-need neither a GPU nor a compiler. Also the build module's variants and its
-reader of ptxas' report."""
+need neither a GPU nor a compiler. Also the build module's variants, its
+binding of entry points and its reader of ptxas' report."""
 
 import pytest
 
@@ -234,3 +234,34 @@ ptxas info    : Used 48 registers
     assert _build.kernel_resources("stage") == {
         "k_apply": {"registers": 128, "spill_bytes": 40},
         "k_softmax": {"registers": 48, "spill_bytes": 0}}
+
+
+def test_bind_types_each_table_once_and_then_returns_at_once(monkeypatch):
+    """Two modules bind one library with tables of their own: each table's
+    entry points are typed on its first bind; a bound table returns the
+    loaded handle without loading or typing again (every launch binds)."""
+    from types import SimpleNamespace
+
+    def fn():
+        return SimpleNamespace(argtypes=None, restype=None)
+
+    handle = SimpleNamespace(raie_stub_error_string=fn(), raie_a=fn(), raie_b=fn())
+    loads = []
+
+    def load(name):
+        loads.append(name)
+        _build._loaded[name] = handle
+        return handle
+
+    monkeypatch.setattr(_build, "load", load)
+    monkeypatch.setattr(_build, "_loaded", {})
+    monkeypatch.setattr(_build, "_bound", set())
+    first, second = {"raie_a": [int]}, {"raie_b": [float, int]}
+    assert _build.bind("stub", first) is handle and loads == ["stub"]
+    assert handle.raie_a.argtypes == [int] and handle.raie_b.argtypes is None
+    assert handle.raie_stub_error_string.restype is not None
+    handle.raie_a.argtypes = "untouched"
+    assert _build.bind("stub", first) is handle and loads == ["stub"]
+    assert handle.raie_a.argtypes == "untouched"
+    assert _build.bind("stub", second) is handle and loads == ["stub", "stub"]
+    assert handle.raie_b.argtypes == [float, int] and handle.raie_a.argtypes == "untouched"

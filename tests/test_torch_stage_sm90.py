@@ -1,6 +1,8 @@
 """The Hopper kernel (C) at C = 96 (``csrc/stage_sm90.cu``) from the host's
 side, on the CPU: which launches take it (by width alone: never another
-width, never a model shard), the operand layout its weights are packed in,
+width; a model shard's block at C = 96 takes stage_sm90_wide.cu's shard
+kernels, tests/test_torch_gdfn_sm90.py), the operand layout its weights are
+packed in,
 and its persistent schedule: every output pixel written exactly once, each
 by a tile whose 8 x 32 halo box holds the pixel's 3 x 3 neighbourhood and
 reads v exactly where the image (not a band's edge) has it. Pure Python over
@@ -14,11 +16,12 @@ import pytest
 import torch
 
 from rethink_acoustic_image_enhancement_tpu_torch.ops import block as pblock
+from rethink_acoustic_image_enhancement_tpu_torch.ops import gdfn as pgdfn
 
 
 @pytest.mark.parametrize("c,shard,route", [
-    (96, False, "wgmma"), (96, True, "mma_sync"), (48, False, "mma_sync"),
-    (192, False, "wgmma"), (384, False, "wgmma"), (384, True, "mma_sync")])
+    (96, False, "wgmma"), (96, True, "wgmma"), (48, False, "mma_sync"),
+    (192, False, "wgmma"), (384, False, "wgmma"), (384, True, "wgmma")])
 def test_route_is_by_width_and_never_on_a_shard(c, shard, route):
     assert pblock.apply_route(c, shard) == route
 
@@ -34,11 +37,12 @@ def _weights(n, c, cq, f, seed=0, heads=1):
                 w_in=t(n, 1, 1, c, 2 * f), w_dw=t(n, 3, 3, 1, 2 * f), w_out=t(n, 1, 1, f, c))
 
 
-@pytest.mark.parametrize("c,cq,packed", [(96, 96, True), (96, 48, False), (192, 192, True),
+@pytest.mark.parametrize("c,cq,packed", [(96, 96, True), (96, 48, True), (192, 192, True),
                                          (48, 48, False)])
 def test_only_the_hopper_route_packs_its_operands(c, cq, packed):
     heads = c // 48 if c > 96 else 1  # the teacher's 48 channels a head at C = 192
-    p = pblock.pack_blocks("cpu", **_weights(2, c, cq, int(2.66 * c), heads=heads))
+    p = pblock.pack_blocks("cpu", **_weights(2, c, cq, int(2.66 * c), heads=heads),
+                           shard=cq < c)
     assert all((k in p) == packed for k in ("wqkv_wg", "qtaps_wg", "wproj_wg", "win_wg",
                                             "wtaps_wg", "wout_wg"))
 
@@ -60,8 +64,13 @@ def test_hopper_operands_hold_every_chunk_of_the_weights():
     each channel's two side by side, and their taps [tap][f][half] in fp32;
     W_out's rows of the chunk; W_proj."""
     c, f = 96, 255
-    p = pblock.pack_blocks("cpu", **_weights(3, c, c, f, seed=1))
+    w = _weights(3, c, c, f, seed=1)
+    p = pblock.pack_blocks("cpu", **w)
+    # csrc/gdfn.cu's layout of the same weights (the hidden width padded)
+    ffn = pgdfn.pack_ffn(w["w_in"].reshape(3, c, -1), w["w_dw"].reshape(3, 9, -1),
+                         w["w_out"].reshape(3, -1, c), c, "cpu")
     fp, fc = p["fp"], pblock.WGMMA_FC
+    assert fp == ffn["fp"] and "win" not in p
     nch = fp // fc
     assert p["win_wg"].shape[:2] == p["wtaps_wg"].shape[:2] == p["wout_wg"].shape[:2] == (3, nch)
     kk, nn = np.meshgrid(np.arange(c), np.arange(2 * fc), indexing="ij")
@@ -72,10 +81,10 @@ def test_hopper_operands_hold_every_chunk_of_the_weights():
         for j in range(nch):
             ch = torch.arange(j * fc, (j + 1) * fc)
             cols = torch.stack([ch, fp + ch], 1).reshape(-1)  # [f][half]
-            assert torch.equal(p["win_wg"][i, j].reshape(-1)[at], p["win"][i][:, cols])
-            assert torch.equal(p["wtaps_wg"][i, j].reshape(9, 2 * fc), p["wdw"][i][:, cols])
+            assert torch.equal(p["win_wg"][i, j].reshape(-1)[at], ffn["win"][i][:, cols])
+            assert torch.equal(p["wtaps_wg"][i, j].reshape(9, 2 * fc), ffn["wdw"][i][:, cols])
             assert torch.equal(p["wout_wg"][i, j].reshape(-1)[at_out],
-                               p["wout"][i, j * fc:(j + 1) * fc])
+                               ffn["wout"][i, j * fc:(j + 1) * fc])
         assert torch.equal(pblock.b_operand(p["wproj"][i][None])[0], p["wproj_wg"][i])
 
 
@@ -184,13 +193,13 @@ def no_card(monkeypatch):
     (192, None, 4, "wgmma", ["raie_stage_wide_gram", "raie_stage_wide_project",
                              "raie_stage_wide_ffn"]),
     (48, None, 3, "mma_sync", ["raie_stage_gram", "raie_stage_apply"]),
-    (96, 48, 1, "mma_sync", ["raie_stage_gram", "raie_stage_project"]),
-    (96, 96, 2, "mma_sync", ["raie_stage_gram", "raie_stage_project"])])
+    (96, 48, 1, "wgmma", ["raie_stage_wide_gram", "raie_stage_wide_project"]),
+    (96, 96, 2, "wgmma", ["raie_stage_gram_wgmma", "raie_stage_wide_project"])])
 def test_runner_launches_the_route_of_its_width(no_card, c, cq, heads, route, entries):
     stage, wg = _Stage(), _Stage()
     x = torch.zeros(1, 20, 28, c)
     p = pblock.pack_blocks("cpu", **_weights(1, c, c if cq is None else cq, int(2.66 * c),
-                                             heads=heads))
+                                             heads=heads), shard=cq is not None)
     run = pblock.BlockRunner(x, heads, p["fp"], stage, cq=cq, wg_library=wg)
     assert run.route == route
     fns = (pblock.gram_wgmma, pblock.apply_wgmma, pblock.gram_wide, pblock.proj_wide,
@@ -204,8 +213,10 @@ def test_runner_launches_the_route_of_its_width(no_card, c, cq, heads, route, en
     assert (stage.calls if route == "mma_sync" else wg.calls) == entries
     assert (wg.calls if route == "mma_sync" else stage.calls) == []
     counted = [fn.launches - n for fn, n in zip(fns, counts)]
+    by_entry = ["raie_stage_gram_wgmma", "raie_stage_apply_wgmma", "raie_stage_wide_gram",
+                "raie_stage_wide_project", "raie_stage_wide_ffn"]
     assert counted == ([0] * 5 if route == "mma_sync" else
-                       [1, 1, 0, 0, 0] if c == pblock.WGMMA_C else [0, 0, 1, 1, 1])
+                       [int(name in entries) for name in by_entry])
     if route == "wgmma":
         plan, tile = run.plan, pblock.WIDE_TILE.get(c, pblock.WGMMA_TILE)
         assert plan.apply_tile == plan.gram_tile == tile

@@ -1,6 +1,7 @@
 """The Hopper kernels (A), (P) and (F) at C = 192 and 384
 (``csrc/stage_sm90_wide.cu``) from the host's side, on the CPU: which
-launches take them (by width, 48 channels a head, never on a model shard),
+launches take them (by width, 48 channels a head; on a model shard see
+tests/test_torch_gdfn_sm90.py),
 the chunked operand layout their weights are packed in (every weight and tap
 exactly once), and their schedules (every output pixel written exactly once,
 whole-image and on row bands; kernel (P)'s r on every readable row). Pure
@@ -18,6 +19,7 @@ import jax.numpy as jnp
 
 from rethink_acoustic_image_enhancement_tpu.ops.pallas import stage as jstage
 from rethink_acoustic_image_enhancement_tpu_torch.ops import block as pblock
+from rethink_acoustic_image_enhancement_tpu_torch.ops import gdfn as pgdfn
 from rethink_acoustic_image_enhancement_tpu_torch.ops import stage as pstage
 
 from test_torch_stage import _block_params, _rel
@@ -26,8 +28,8 @@ torch.set_num_threads(2)
 
 
 @pytest.mark.parametrize("c,shard,heads,route", [
-    (192, False, None, "wgmma"), (192, False, 4, "wgmma"), (192, True, 4, "mma_sync"),
-    (384, False, None, "wgmma"), (384, False, 8, "wgmma"), (384, True, 8, "mma_sync"),
+    (192, False, None, "wgmma"), (192, False, 4, "wgmma"), (192, True, 4, "wgmma"),
+    (384, False, None, "wgmma"), (384, False, 8, "wgmma"), (384, True, 8, "wgmma"),
     (192, False, 2, "mma_sync"), (384, False, 4, "mma_sync"), (96, False, 2, "wgmma"),
     (48, False, 1, "mma_sync"), (128, False, None, "mma_sync")])
 def test_route_by_width_and_head_width_never_on_a_shard(c, shard, heads, route):
@@ -56,7 +58,8 @@ def _b_at(k, n):
 def test_chunked_operands_hold_every_weight_and_tap_exactly_once(c):
     n, fp, fc, hc = 2, 64 * -(-int(2.66 * c) // 64), pblock.WGMMA_FC, pblock.WIDE_HC
     w = _packed_operands(n, c, fp)
-    p = pblock.pack_wgmma(w["wqkv"], w["dwqkv"], w["wproj"], w["win"], w["wdw"], w["wout"], fp)
+    p = dict(pblock.pack_wgmma(w["wqkv"], w["dwqkv"], w["wproj"]),
+             **pgdfn.ffn_chunks(w["win"], w["wdw"], w["wout"], fp))
     packed = torch.cat([p[k].reshape(-1) for k in ("wqkv_wg", "qtaps_wg", "wproj_wg", "win_wg",
                                                     "wtaps_wg", "wout_wg")])
     every = torch.cat([t.reshape(-1) for t in w.values()])
@@ -193,10 +196,11 @@ def test_runner_launches_the_wide_kernels(no_card, c, heads, band):
 
 
 def test_runner_on_a_model_shard_keeps_stage_cu(no_card):
+    """A shard whose heads are not 48 channels wide (2 of 96 here)."""
     stage, wide = _Lib(), _Lib()
     x = torch.zeros(1, 16, 16, 384)
-    p = pblock.pack_blocks("cpu", **_weights(1, 384, 192, 4, 64))
-    run = pblock.BlockRunner(x, 4, p["fp"], stage, cq=192, wg_library=wide)
+    p = pblock.pack_blocks("cpu", **_weights(1, 384, 192, 2, 64), shard=True)
+    run = pblock.BlockRunner(x, 2, p["fp"], stage, cq=192, wg_library=wide)
     assert run.route == "mma_sync" and not run.wide and "wqkv_wg" not in p
     run.gram(x, p, 0, 1e-5)
     assert stage.calls == ["raie_stage_gram"] and wide.calls == []

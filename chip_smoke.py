@@ -286,13 +286,28 @@ fp32 predictors' own pinning is what runs:
      one 512^2 frame, no kernel launch in the ranks. Per step: ms against
      one process's, sums and partial bytes, peak memory per rank, weight
      bytes a shard.
+ 20. orbax checkpoints without JAX, orbax, tensorstore or a zstd package
+     (convert/orbax.py, convert/ocdbt.py, utils/zstd.py and its g++-built
+     csrc/zstd_decode.cpp): (a) every orbax directory under artifacts/
+     read twice (host s, MB/s of files and of arrays, leaves, dtypes; the
+     page cache warm both times), the four that
+     artifacts/torch_zoo/manifest.json names as sources bit-equal, tensor
+     for tensor, to their .pth; (b) the teacher-l2dice alias, whose .pth is
+     not in the checkout, read from its orbax directory and serving one
+     512^2 sonar frame at its preset rate 0.6 through
+     TeacherPredictor(fused=True, bf16): 5 stage calls and the Hopper
+     kernels launched, zero-mask pixels 0, held to phase 9's rule against
+     the same model in fp32 (share more than 1 level off at most 1.1x +
+     0.002 of the plain stage's); (c) `convert --reverse` of
+     artifacts/kdlaes_flsft5k (the zoo's student-fls.pth, byte for byte),
+     then forward: every leaf bit-equal to the source.
 Each path runs with every launch count set to 0 just before it and read just
-after. Prints one JSON line per phase 6-19, a "kernels" JSON line, the card
+after. Prints one JSON line per phase 6-20, a "kernels" JSON line, the card
 line, and as its last line {"ok": true, "device": {...}}. Details go to
 chiprun_out/chip_smoke.json.
 `chip_smoke.py --dp-rank SPEC`, `--sp-rank SPEC` and `--tp-rank SPEC` are
 ranks of phases 13, 17 and 19, not for use alone; `chip_smoke.py --phase 14`
-(or 15-19) builds and runs that phase alone (its JSON line, no "kernels" or
+(or 15-20) builds and runs that phase alone (its JSON line, no "kernels" or
 "ok" line).
 """
 
@@ -5646,6 +5661,186 @@ def phase_tensor_train(results, card, work):
     log(f"phase 19: {row['phase_s']:.1f} s")
 
 
+# ------------------------------------------------------------ phase 20 ---
+
+ORBAX_SOURCES = "artifacts/torch_zoo/manifest.json"  # each zoo .pth's orbax source
+ORBAX_SIZE = 512  # the L2-Dice teacher's request
+
+
+def orbax_dirs():
+    """Every orbax checkpoint directory under artifacts/ (it holds _METADATA)."""
+    found = []
+    for root, dirs, files in os.walk(os.path.join(HERE, "artifacts")):
+        if "_METADATA" in files:
+            found.append(os.path.relpath(root, HERE))
+            dirs[:] = []
+    return sorted(found)
+
+
+def dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(path) for f in fs)
+
+
+def phase_orbax(results, card, work):
+    """Orbax checkpoints read and written on this machine, which has no JAX,
+    orbax, tensorstore or zstd package: (a) every orbax directory under
+    artifacts/ read (host s, MB/s, leaves), the zoo's four sources bit-equal
+    to their .pth; (b) the teacher-l2dice alias, read from its orbax
+    directory, serving one 512^2 bf16 fused request at rate 0.6, held to
+    phase 9's rule against its fp32 self; (c) convert --reverse, then
+    forward, of kdlaes_flsft5k bit for bit. Returns the stage and Hopper
+    kernel launches of (b)'s request."""
+    import hashlib
+    from types import SimpleNamespace
+
+    import torch
+
+    from rethink_acoustic_image_enhancement_tpu_torch import cli
+    from rethink_acoustic_image_enhancement_tpu_torch.convert import orbax
+    from rethink_acoustic_image_enhancement_tpu_torch.convert.weights import (
+        reference_state_dict,
+    )
+    from rethink_acoustic_image_enhancement_tpu_torch.eval.infer import TeacherPredictor
+    from rethink_acoustic_image_enhancement_tpu_torch.models import kdlae_teacher
+    from rethink_acoustic_image_enhancement_tpu_torch.ops import stage as pstage
+    from rethink_acoustic_image_enhancement_tpu_torch.utils import zstd
+
+    t_phase = time.perf_counter()
+    row = {}
+    t0 = time.perf_counter()
+    zstd.load()  # the decoder's g++ build, apart from the reads
+    row["decoder_build_s"] = time.perf_counter() - t0
+
+    # (a) every directory, read twice (the files were just copied here: the
+    # page cache is warm both times; a cold read is not measured)
+    reads = []
+    for rel in orbax_dirs():
+        path = os.path.join(HERE, rel)
+        disk = dir_bytes(path)
+        secs = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            tree = orbax.read_checkpoint(path)
+            secs.append(time.perf_counter() - t0)
+        leaves = list(flat_leaves(tree))
+        decoded = sum(a.nbytes for a in leaves if isinstance(a, np.ndarray))
+        reads.append(dict(dir=rel, leaves=len(leaves), disk_bytes=disk,
+                          array_bytes=decoded, s=secs, disk_mb_per_s=[disk / 1e6 / t for t in secs],
+                          array_mb_per_s=[decoded / 1e6 / t for t in secs],
+                          dtypes=sorted({"bfloat16" if a.dtype == orbax.BF16 else a.dtype.name
+                                         for a in leaves if isinstance(a, np.ndarray)})))
+        log(f"orbax read {rel}: {len(leaves)} leaves, {disk / 1e6:.1f} MB on disk, "
+            f"{decoded / 1e6:.1f} MB of arrays in {secs[0]:.3f} s then {secs[1]:.3f} s "
+            f"({disk / 1e6 / secs[1]:.0f} MB/s of files, host) [{card}]")
+    assert len(reads) >= 6, reads
+    row["reads"] = reads
+    with open(os.path.join(HERE, ORBAX_SOURCES)) as fh:
+        manifest = json.load(fh)
+    zoo_equal = {}
+    for name, entry in sorted(manifest.items()):
+        source = os.path.join(HERE, entry["source"])
+        if entry["arch"] == "DenoiseRatePredictor":
+            params, stats = orbax.load_asdqe_weights(source)
+            ours = reference_state_dict(params, entry["arch"], stats)
+        else:
+            ours = reference_state_dict(orbax.load_weights(source), entry["arch"])
+        pth = torch.load(os.path.join(HERE, "artifacts", "torch_zoo", entry["file"]),
+                         map_location="cpu", weights_only=True)["params"]
+        assert sorted(ours) == sorted(pth), name
+        for k, v in pth.items():
+            assert ours[k].dtype == v.dtype and torch.equal(ours[k], v), (name, k)
+        zoo_equal[name] = dict(source=entry["source"], tensors=len(pth),
+                               dtypes=sorted({str(v.dtype) for v in pth.values()}))
+    row["zoo_sources_bit_equal"] = zoo_equal
+
+    # (b) the L2-Dice teacher from its orbax directory: its .pth is not in
+    # the checkout, so the alias reads the directory the JAX CLI names
+    assert not os.path.exists(os.path.join(HERE, cli._ZOO["teacher-l2dice"][0]))
+    t0 = time.perf_counter()
+    model, rate = cli._load_teacher(SimpleNamespace(
+        weights="teacher-l2dice", denoise_rate=None, param_key="params", sr=False,
+        layernorm_type="BiasFree"))
+    load_s = time.perf_counter() - t0
+    assert rate == 0.6, rate
+    img = sonar_frame(ORBAX_SIZE, ORBAX_SIZE, 2020)
+    fp32 = TeacherPredictor(model)
+    fused = TeacherPredictor(model.to(torch.bfloat16), fused=True, dtype=torch.bfloat16)
+    fused(img, rate)  # warm-up
+    torch.cuda.synchronize()
+    counts = reset_counts()
+    hopper_counts(zero=True)
+    t0 = time.perf_counter()
+    out = fused(img, rate)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = read_counts(counts)
+    hopper = hopper_counts()
+    assert launches == dict(stage=5, layernorm=0, gdfn=0, block=0, stage_bands=0,
+                            stage_shards=0, gdfn_part=0), launches
+    assert hopper["k_gram_wgmma"] > 0 and hopper["k_apply_wgmma"] > 0, hopper
+    plain_model_stage = kdlae_teacher.fused_transformer_stage
+    kdlae_teacher.fused_transformer_stage = pstage.stage_plain
+    try:
+        plain = fused(img, rate)
+    finally:
+        kdlae_teacher.fused_transformer_stage = plain_model_stage
+    ref32 = fp32(img, rate)
+    mask = np.all(img == 0, axis=-1)
+    assert out["hq"].shape == img.shape and not out["hq"][mask].any()
+    fused_off = 1 - within_levels(out["hq"], ref32["hq"])[0]
+    plain_off = 1 - within_levels(plain["hq"], ref32["hq"])[0]
+    assert fused_off <= 1.1 * plain_off + 0.002, (fused_off, plain_off)
+    row["l2dice"] = dict(alias="teacher-l2dice", source=cli._ZOO["teacher-l2dice"][1],
+                         rate=rate, load_s=load_s, request_ms=wall_ms,
+                         stage_calls=launches["stage"], hopper_launches=hopper,
+                         fused_vs_fp32_over_1_level=fused_off,
+                         plain_stage_vs_fp32_over_1_level=plain_off,
+                         vs_plain_stage_within_1_level=within_levels(out["hq"], plain["hq"])[0])
+    del fp32, fused
+    torch.cuda.empty_cache()
+
+    # (c) convert --reverse, then forward, through the CLI
+    src = os.path.join(HERE, "artifacts", "kdlaes_flsft5k", "weights", "net_g_5000")
+    pth, back = os.path.join(work, "fls.pth"), os.path.join(work, "fls")
+    t0 = time.perf_counter()
+    assert cli.main(["convert", "--arch", "KDLAE_student", "--out", src, "--reverse",
+                     "--pth", pth]) == 0
+    assert cli.main(["convert", "--arch", "KDLAE_student", "--pth", pth, "--out", back]) == 0
+    convert_s = time.perf_counter() - t0
+    with open(pth, "rb") as fh:
+        sha = hashlib.sha256(fh.read()).hexdigest()
+    assert sha == manifest["student-fls"]["sha256"], sha
+    a, b = orbax.read_checkpoint(src), orbax.read_checkpoint(back)
+    la, lb = list(flat_leaves(a, keys=True)), list(flat_leaves(b, keys=True))
+    assert [k for k, _ in la] == [k for k, _ in lb]
+    assert all(x.dtype == y.dtype and x.shape == y.shape and x.tobytes() == y.tobytes()
+               for (_, x), (_, y) in zip(la, lb))
+    row["round_trip"] = dict(dir=os.path.relpath(src, HERE), leaves=len(la), s=convert_s,
+                             pth_sha256_is_the_zoo_file=True)
+    assert not any(m == "jax" or m.startswith(("jax.", "orbax", "tensorstore", "zstandard",
+                                               "ml_dtypes")) for m in sys.modules)
+    row["phase_s"] = time.perf_counter() - t_phase
+    results["orbax"] = row
+    print(json.dumps({"orbax": row}), flush=True)
+    log(f"orbax: {len(reads)} directories read, zoo sources bit-equal {sorted(zoo_equal)}; "
+        f"teacher-l2dice from {row['l2dice']['source']}: load {load_s:.2f} s, one 512^2 bf16 "
+        f"fused request at 0.6 {wall_ms:.1f} ms, {launches['stage']} stage calls, over 1 level "
+        f"from fp32 {fused_off:.4f} (plain stage {plain_off:.4f}); round trip "
+        f"{convert_s:.2f} s; phase 20: {row['phase_s']:.1f} s [{card}]")
+    return launches["stage"], hopper
+
+
+def flat_leaves(tree, keys=False, prefix=()):
+    """The leaves of a nested dict/list tree in order (with their key paths)."""
+    items = (tree.items() if isinstance(tree, dict) else
+             enumerate(tree) if isinstance(tree, list) else None)
+    if items is None:
+        yield (prefix, tree) if keys else tree
+        return
+    for k, v in items:
+        yield from flat_leaves(v, keys, prefix + (k,))
+
+
 def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--dp-rank":  # a rank of phase 13
         return dp_child(sys.argv[2])
@@ -5654,7 +5849,7 @@ def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--tp-rank":  # a rank of phase 19
         return tp_child(sys.argv[2])
     only = sys.argv[2] if sys.argv[1:2] == ["--phase"] and len(sys.argv) == 3 else None
-    if sys.argv[1:] and only not in ("14", "15", "16", "17", "18", "19"):  # one phase alone
+    if sys.argv[1:] and only not in ("14", "15", "16", "17", "18", "19", "20"):  # one phase alone
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
         return 2
     import torch
@@ -5693,9 +5888,10 @@ def main() -> int:
                "cuda": torch.version.cuda, "build_s": build_s}
     if only:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32_defaults
-        if only in ("17", "19"):
+        if only in ("17", "19", "20"):
             with tempfile.TemporaryDirectory(prefix=f"raie_{only}_") as work:
-                (phase_spatial_train if only == "17" else phase_tensor_train)(results, card, work)
+                {"17": phase_spatial_train, "19": phase_tensor_train,
+                 "20": phase_orbax}[only](results, card, work)
             return 0
         {"14": phase_dp_serving, "15": phase_remaining_datasets,
          "16": phase_spatial, "18": phase_tensor}[only](results, card)
@@ -5748,11 +5944,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="raie_tp_") as work:
         phase_tensor_train(results, card, work)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="raie_orbax_") as work:
+        orbax_launches, orbax_hopper = phase_orbax(results, card, work)
+    hopper_launches = {k: v + orbax_hopper[k] for k, v in hopper_launches.items()}
     results["hopper_launches"] = hopper_launches
     results["path_launches"] = dict(whole_image=whole_launches, tiled=tiled_launches,
                                     group=group_launches, zoo_cli=zoo_launches,
                                     distill=distill_launches, dp_serving=dp_launches,
-                                    dual_pixel=dual_pixel_launches, **path_launches)
+                                    dual_pixel=dual_pixel_launches, orbax=orbax_launches,
+                                    **path_launches)
 
     def entry(name, source, replaces, launches, rows, main_row):
         assert launches > 0, f"{name}: no launch on a driven path"
@@ -5769,7 +5970,7 @@ def main() -> int:
     kernels = {"kernels": [
         entry("fused_transformer_stage", "stage.cu", "stage.py:324",
               whole_launches + tiled_launches + group_launches + zoo_launches
-              + distill_launches + dp_launches + dual_pixel_launches,
+              + distill_launches + dp_launches + dual_pixel_launches + orbax_launches,
               stage_rows, stage_rows[0]),
         entry("fused_channel_layernorm", "layernorm.cu", "layernorm.py:58",
               path_launches["layernorm"], ln_rows, ln_rows[1]),
@@ -5794,7 +5995,7 @@ def main() -> int:
         entry("fused_ln_gdfn_part", "stage_sm90_wide.cu", "gdfn.py:277",
               shard_launches["gdfn_part"], part_rows, part_rows[0]),
         # the Hopper kernels (A) and (C) of every C = 96 block launch of the
-        # stage and block paths (phases 3-15), each at (1, 512, 512, 96), one head
+        # stage and block paths (phases 3-15 and 20), each at (1, 512, 512, 96), one head
         entry("k_gram_wgmma", "stage_sm90.cu", "stage.py:324",
               hopper_launches["k_gram_wgmma"], hopper_rows["k_gram_wgmma"],
               hopper_rows["k_gram_wgmma"][0]),
@@ -5802,8 +6003,8 @@ def main() -> int:
               hopper_launches["k_apply_wgmma"], hopper_rows["k_apply_wgmma"],
               hopper_rows["k_apply_wgmma"][0]),
         # the Hopper kernels (A), (P) and (F) of every C = 192 and 384 block
-        # launch of the stage and block paths (phases 3-15: the 1024^2 and
-        # 2048^2 requests of phase 3), each at (1, 512, 512, 192), 4 heads
+        # launch of the stage and block paths (phases 3-15 and 20: the 1024^2
+        # and 2048^2 requests of phase 3), each at (1, 512, 512, 192), 4 heads
         *[entry(name, "stage_sm90_wide.cu", "stage.py:324", hopper_launches[name],
                 hopper_rows[name], hopper_rows[name][0])
           for name in ("k_gram_wide", "k_proj_wide", "k_ffn_wide")],

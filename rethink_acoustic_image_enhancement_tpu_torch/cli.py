@@ -9,6 +9,7 @@
   raie-torch serve ...           watch-folder serving daemon
   raie-torch infer-student ...   KDLAE-S multi-frame denoise
   raie-torch score ...           ASDQE method-vs-origin protocol (CSV)
+  raie-torch convert ...         reference .pth <-> orbax checkpoint
   raie-torch doctor              device diagnostics (bounded child probe)
 
 (or ``python -m rethink_acoustic_image_enhancement_tpu_torch.cli``). Flags,
@@ -17,8 +18,10 @@ by default, ``cpu`` to run on the CPU) takes the place of its
 ``JAX_PLATFORMS``, and without a GPU the default exits with an error rather
 than fall back to the CPU. Serving is the JAX CLI's: float32 with TF32 off,
 no stage kernel, no folded resamplers. ``--weights`` takes a reference-layout
-``.pth`` or a zoo alias of ``artifacts/torch_zoo/`` (written from the orbax
-zoo by ``scripts/export_torch_zoo.py``).
+``.pth``, an orbax checkpoint directory (read by ``convert/orbax.py``, no JAX
+needed) or a zoo alias: its ``.pth`` in ``artifacts/torch_zoo/`` (written by
+``scripts/export_torch_zoo.py``), else the orbax directory the JAX CLI's alias
+names.
 """
 
 from __future__ import annotations
@@ -32,14 +35,21 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 EXPORT_SCRIPT = "scripts/export_torch_zoo.py"
 
 # Zoo aliases for --weights (the JAX CLI's, with its serving presets):
-# (repo-relative .pth, default denoise_rate or None)
+# (repo-relative .pth, the JAX CLI's orbax directory read where the .pth is
+# absent, default denoise_rate or None)
 _ZOO = {
-    "teacher": ("artifacts/torch_zoo/teacher.pth", 1.0),
+    "teacher": ("artifacts/torch_zoo/teacher.pth",
+                "artifacts/kdlaet_full50k/weights/net_g_50000_bf16", 1.0),
     # the L2-Dice teacher is served at denoise_rate 0.6 (KDLAE_T.ipynb cell 5)
-    "teacher-l2dice": ("artifacts/torch_zoo/teacher-l2dice.pth", 0.6),
-    "student-us": ("artifacts/torch_zoo/student-us.pth", None),
-    "student-fls": ("artifacts/torch_zoo/student-fls.pth", None),
+    "teacher-l2dice": ("artifacts/torch_zoo/teacher-l2dice.pth",
+                       "artifacts/kdlaet_l2dice50k/weights/net_g_50000_bf16", 0.6),
+    "student-us": ("artifacts/torch_zoo/student-us.pth",
+                   "artifacts/kdlaes_full100k/weights/net_g_100000", None),
+    "student-fls": ("artifacts/torch_zoo/student-fls.pth",
+                    "artifacts/kdlaes_flsft5k/weights/net_g_5000", None),
 }
+ARCHS = ["KDLAE_teacher", "RestormerSuperResolutionParam2", "Restormer",
+         "KDLAE_student", "DenoiseRatePredictor"]  # convert --arch
 _SCORER = "artifacts/torch_zoo/asdqe.pth"  # score's default --weights
 
 
@@ -175,23 +185,31 @@ def _tile_spec(s: str):
 
 
 def _resolve_weights(spec: str) -> tuple[str, float | None]:
-    """A zoo alias -> its .pth (and serving preset); a path passes through.
-    Orbax directories and aliases whose file is absent exit with the name of
-    the script that writes the .pth."""
+    """A zoo alias -> its .pth, else its orbax directory (and its serving
+    preset); a path passes through. An alias with neither, and a directory
+    that is no orbax checkpoint, exit."""
+    from .convert.orbax import METADATA, is_checkpoint
+
     rate = None
     path = spec
     if spec in _ZOO:
-        rel, rate = _ZOO[spec]
+        rel, orbax_rel, rate = _ZOO[spec]
         path = os.path.join(REPO, rel)
         if not os.path.isfile(path):
-            raise SystemExit(
-                f"zoo alias '{spec}' resolves to {path}, which is absent in this "
-                f"checkout: write it with `python {EXPORT_SCRIPT} --only {spec}` "
-                "or pass an explicit --weights .pth")
-    if os.path.isdir(path):
+            orbax_dir = os.path.join(REPO, orbax_rel)
+            if not is_checkpoint(orbax_dir):
+                raise SystemExit(
+                    f"zoo alias '{spec}' resolves to {path} and {orbax_dir}, both "
+                    f"absent in this checkout: write the .pth with `python "
+                    f"{EXPORT_SCRIPT} --only {spec}` or pass an explicit --weights")
+            print(f"[zoo] '{spec}': {rel} is absent; reading the orbax "
+                  f"checkpoint {orbax_rel}")
+            path = orbax_dir
+    if os.path.isdir(path) and not is_checkpoint(path):
         raise SystemExit(
-            f"{path} is a directory (an orbax checkpoint?): the port reads "
-            f"reference-layout .pth files; convert it with {EXPORT_SCRIPT}")
+            f"{path} is a directory without {METADATA}, not an orbax checkpoint: "
+            "--weights takes a reference-layout .pth, an orbax checkpoint "
+            f"directory or a zoo alias ({EXPORT_SCRIPT} writes the zoo's .pth)")
     return path, rate
 
 
@@ -199,7 +217,7 @@ def _load_teacher(args):
     """The teacher of --weights as float32 (a bf16 checkpoint is upcast, as
     the JAX CLI's bf16 params promote against its float32 input), with the
     2x head only under --sr; returns (model, denoise rate)."""
-    from .convert.weights import read_pth
+    from .convert.weights import read_state_dict
     from .models import KDLAETeacher
 
     path, preset_rate = _resolve_weights(args.weights)
@@ -209,7 +227,7 @@ def _load_teacher(args):
         if preset_rate is not None and preset_rate != 1.0:
             print(f"[zoo] '{args.weights}' preset denoise_rate {preset_rate} "
                   "(override with --denoise-rate)")
-    sd = read_pth(path, args.param_key)
+    sd = read_state_dict(path, "KDLAE_teacher", args.param_key)
     has_sr = "cen.weight" in sd
     if args.sr and not has_sr:
         raise SystemExit(f"{path} has no 2x head: --sr needs one")
@@ -472,15 +490,15 @@ def _cmd_serve(args) -> int:
 
 
 def _cmd_infer_student(args) -> int:
-    from .convert.weights import load_pth
+    from .convert.weights import load_checkpoint
     from .eval.infer import StudentPredictor
     from .models import KDLAEStudent
     from .utils.image_io import imwrite
 
     device = _device(args.device)
     path, _ = _resolve_weights(args.weights)
-    model = load_pth(KDLAEStudent(residual=True, hidden_channels=(16, 32, 64)),
-                     path, args.param_key)
+    model = load_checkpoint(KDLAEStudent(residual=True, hidden_channels=(16, 32, 64)),
+                            path, args.param_key)
     pred = StudentPredictor(model, num_frames=args.frames, device=device)
     if args.all:
         out = pred.denoise_all_frames(args.input)
@@ -497,7 +515,7 @@ def _cmd_infer_student(args) -> int:
 
 
 def _cmd_score(args) -> int:
-    from .convert.weights import load_pth
+    from .convert.weights import load_checkpoint
     from .eval.asdqe_eval import default_methods, run_asdqe_eval
     from .eval.infer import ASDQEScorer
     from .models import DenoiseRatePredictor
@@ -509,13 +527,59 @@ def _cmd_score(args) -> int:
         print(f"error: checkpoint not found: {missing}", file=sys.stderr)
         return 2
     path, _ = _resolve_weights(path)
-    scorer = ASDQEScorer(load_pth(DenoiseRatePredictor(), path), device=device)
+    scorer = ASDQEScorer(load_checkpoint(DenoiseRatePredictor(), path), device=device)
     if args.methods:
         methods = dict(m.split("=", 1) for m in args.methods)
         base = args.lq_dir
     else:
         base, methods = default_methods(args.sample_root, args.dataset)
     run_asdqe_eval(scorer, base, methods, csv_path=args.csv)
+    return 0
+
+
+def _cmd_convert(args) -> int:
+    """Forward: a reference .pth -> an orbax directory in the flax layout of
+    the JAX package's converters ({'params'} or, for the scorer, {'params',
+    'batch_stats'}). --reverse: an orbax directory -> a reference-layout
+    .pth ({'params'[, 'params_ema']}, keys sorted, dtypes kept: a bf16
+    teacher stays bf16)."""
+    import io
+
+    import torch
+
+    from .convert import orbax
+    from .convert.weights import FLAX_TREES, read_pth, reference_state_dict
+
+    if args.reverse:
+        if not orbax.is_checkpoint(args.out):
+            print(f"error: {args.out} is not an orbax checkpoint", file=sys.stderr)
+            return 2
+        restored = orbax.read_checkpoint(args.out)
+        if args.arch == "DenoiseRatePredictor":
+            # train-asdqe nests {'params', 'batch_stats'} under 'params'
+            params, stats = orbax.asdqe_variables(restored)
+            payload = {"params": reference_state_dict(params, args.arch, stats)}
+        else:
+            payload = {"params": reference_state_dict(
+                restored.get("params", restored), args.arch)}
+            if "params_ema" in restored:
+                payload["params_ema"] = reference_state_dict(
+                    restored["params_ema"], args.arch)
+        buf = io.BytesIO()  # the bytes scripts/export_torch_zoo.py writes
+        torch.save({k: {n: sd[n] for n in sorted(sd)} for k, sd in payload.items()},
+                   buf)
+        with open(args.pth, "wb") as fh:
+            fh.write(buf.getvalue())
+        print(f"exported {args.out} [{args.arch}] -> {args.pth}")
+        return 0
+    converted = FLAX_TREES[args.arch](read_pth(args.pth, args.param_key))
+    if args.arch == "DenoiseRatePredictor":
+        params, stats = converted
+        payload = {"params": params, "batch_stats": stats}
+    else:
+        payload = {"params": converted}
+    out = orbax.write_checkpoint(args.out, payload)
+    print(f"converted {args.pth} [{args.arch}] -> {out}")
     return 0
 
 
@@ -605,13 +669,14 @@ def main(argv=None) -> int:
     p = sub.add_parser("test", help="config-driven offline eval")
     p.add_argument("-opt", required=True)
     p.add_argument("--weights", default=None,
-                   help="net_g_*.pth (default: path.pretrain_network_g)")
+                   help="net_g_*.pth or an orbax directory (default: "
+                        "path.pretrain_network_g)")
     _add_device(p)
     p.set_defaults(fn=_cmd_test)
 
     p = sub.add_parser("infer-teacher", help="KDLAE-T whole-image denoise")
     p.add_argument("--weights", required=True,
-                   help="reference-layout .pth, or a zoo alias: "
+                   help="reference-layout .pth, orbax directory, or a zoo alias: "
                         + " / ".join(k for k in _ZOO if "teacher" in k))
     p.add_argument("--input", required=True, help="image file or folder")
     p.add_argument("--output", required=True)
@@ -638,7 +703,7 @@ def main(argv=None) -> int:
 
     p = sub.add_parser("serve", help="watch-folder serving daemon")
     p.add_argument("--weights", required=True,
-                   help="reference-layout .pth, or a zoo alias: "
+                   help="reference-layout .pth, orbax directory, or a zoo alias: "
                         + " / ".join(k for k in _ZOO if "teacher" in k))
     p.add_argument("--watch", required=True, help="input folder to poll")
     p.add_argument("--output", required=True)
@@ -664,7 +729,7 @@ def main(argv=None) -> int:
 
     p = sub.add_parser("infer-student", help="KDLAE-S multi-frame denoise")
     p.add_argument("--weights", required=True,
-                   help="reference-layout .pth, or a zoo alias: "
+                   help="reference-layout .pth, orbax directory, or a zoo alias: "
                         + " / ".join(k for k in _ZOO if "student" in k))
     p.add_argument("--input", required=True, help="frame folder")
     p.add_argument("--output", required=True)
@@ -680,7 +745,8 @@ def main(argv=None) -> int:
 
     p = sub.add_parser("score", help="ASDQE scoring protocol")
     p.add_argument("--weights", default=None,
-                   help=f"scorer .pth; default: the trained scorer {_SCORER}")
+                   help=f"scorer .pth or orbax directory; default: the trained "
+                        f"scorer {_SCORER}")
     p.add_argument("--sample-root", default="Sample")
     p.add_argument("--dataset", default="MDD")
     p.add_argument("--lq-dir", default=None)
@@ -689,6 +755,18 @@ def main(argv=None) -> int:
     p.add_argument("--csv", default="stats_transposed.csv")
     _add_device(p)
     p.set_defaults(fn=_cmd_score)
+
+    p = sub.add_parser("convert", help="reference .pth <-> orbax checkpoint")
+    p.add_argument("--pth", required=True,
+                   help="the .pth side (input, or output with --reverse)")
+    p.add_argument("--arch", required=True, choices=ARCHS)
+    p.add_argument("--out", required=True,
+                   help="the orbax side (output, or input with --reverse)")
+    p.add_argument("--param-key", default="params")
+    p.add_argument("--reverse", action="store_true",
+                   help="export: orbax checkpoint dir -> reference-layout "
+                        ".pth (params + params_ema when present)")
+    p.set_defaults(fn=_cmd_convert)
 
     p = sub.add_parser("doctor", help="device diagnostics: health, dispatch "
                        "time, transfer rates (bounded child-process probe)")

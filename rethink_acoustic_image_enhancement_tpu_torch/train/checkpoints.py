@@ -14,7 +14,8 @@ writes, and every rank leaves a save together (a barrier); every rank
 restores the same file onto its own device. ``find_latest_checkpoint``
 scans for the highest iteration (train.py:171-192). ``load_pretrained``
 reads a reference-layout ``.pth`` (a port ``net_g_*.pth`` or a reference
-one) strictly, or merges it non-strictly (``strict_load_g: false``,
+one) or an orbax checkpoint directory (the JAX package's ``net_g_*``)
+strictly, or merges it non-strictly (``strict_load_g: false``,
 base_model.py:246-279).
 """
 
@@ -28,7 +29,8 @@ from typing import Any
 import torch
 from torch import nn
 
-from ..convert.weights import read_pth
+from ..convert.orbax import payload_keys
+from ..convert.weights import arch_of, read_state_dict
 from ..parallel import barrier, is_master
 
 
@@ -166,23 +168,22 @@ def merge_params_nonstrict(target: dict, source: dict, verbose: bool = True,
 
 def load_pretrained(model: nn.Module, path: str, param_key: str = "params",
                     strict: bool = True) -> nn.Module:
-    """Load a reference-layout ``.pth`` into ``model``: strictly, or
-    merged non-strictly (matching at least a tenth of the entries). A
-    payload holding only the other of 'params' / 'params_ema' is used
-    with a note. An orbax directory raises, naming the converter."""
+    """Load a reference-layout ``.pth`` or an orbax checkpoint directory
+    (``path.pretrain_network_g``, ``train.distill.teacher_weights``) into
+    ``model``: strictly, or merged non-strictly (matching at least a tenth
+    of the entries). A payload holding only the other of 'params' /
+    'params_ema' is used with a note (JAX ``train/loop.py:83-90``)."""
     if osp.isdir(path):
-        raise ValueError(
-            f"{path} is a directory (an orbax checkpoint?): the port reads "
-            "reference-layout .pth files; convert it with "
-            "scripts/export_torch_zoo.py")
-    obj = torch.load(path, map_location="cpu", weights_only=True)
-    if isinstance(obj, dict) and param_key not in obj and len(obj) == 1 \
-            and next(iter(obj)) in ("params", "params_ema"):
-        only = next(iter(obj))
-        print(f"[load] pretrain payload has only {only!r} (asked for "
+        keys = payload_keys(path)
+    else:
+        obj = torch.load(path, map_location="cpu", weights_only=True)
+        keys = list(obj) if isinstance(obj, dict) else []
+    if param_key not in keys and len(keys) == 1 \
+            and keys[0] in ("params", "params_ema"):
+        print(f"[load] pretrain payload has only {keys[0]!r} (asked for "
               f"{param_key!r}); using it")
-        param_key = only
-    sd = read_pth(path, param_key)
+        param_key = keys[0]
+    sd = read_state_dict(path, arch_of(model), param_key)
     if strict:
         model.load_state_dict(sd, strict=True)
         return model

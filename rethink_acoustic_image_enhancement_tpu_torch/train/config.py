@@ -7,8 +7,8 @@ paths laid out under ``root_path`` (the working directory by default), and
 the ``debug`` name shortcut. ``validate`` checks model, dataset, loss and
 scheduler names against the registries before anything runs, and refuses
 what the JAX package refuses (``train.model_shard`` beside
-``train.spatial_shard``) and what needs JAX itself (an orbax teacher for
-online distillation), naming the ROADMAP.md item.
+``train.spatial_shard``) and online-distillation teacher weights that are
+neither a ``.pth`` nor an orbax checkpoint directory.
 """
 
 from __future__ import annotations
@@ -104,7 +104,8 @@ def validate(opt: dict[str, Any]) -> None:
 
 def validate_distill(distill: dict[str, Any]) -> None:
     """``train.distill`` with ``online: true``: a registered teacher and
-    ``.pth`` weights (an orbax directory needs the JAX package)."""
+    weights that are a ``.pth`` or an orbax checkpoint directory."""
+    from ..convert.orbax import is_checkpoint
     from ..models import REGISTRY as MODELS
 
     teacher = distill.get("teacher") or {}
@@ -112,12 +113,10 @@ def validate_distill(distill: dict[str, Any]) -> None:
         raise KeyError(f"train.distill.teacher.type {teacher.get('type')!r} "
                        f"not in {sorted(MODELS)}")
     weights = str(distill.get("teacher_weights") or "")
-    if not weights.endswith(".pth"):
-        raise NotImplementedError(
-            f"train.distill.teacher_weights {weights!r} is not a .pth: the "
-            "port reads reference-layout .pth teachers; an orbax directory "
-            "needs JAX (ROADMAP.md, Queue A: online distillation, orbax "
-            "teacher weights); write a .pth with scripts/export_torch_zoo.py")
+    if not weights.endswith(".pth") and not is_checkpoint(weights):
+        raise ValueError(
+            f"train.distill.teacher_weights {weights!r} is neither a "
+            "reference-layout .pth nor an orbax checkpoint directory")
 
 
 def make_exp_dirs(opt: dict[str, Any]) -> None:

@@ -15,8 +15,9 @@ frame stack (the student's) is scored frame by frame, the mean over its
 frames being the item's score.
 
 ``train.distill: {online: true, teacher: <network_g>, teacher_weights:
-<.pth>, denoise_rate: 1.0}`` makes the student's targets in the loop with a
-frozen teacher (``train/distill.py``), after the stage's subsample.
+<.pth or orbax directory>, denoise_rate: 1.0}`` makes the student's targets
+in the loop with a frozen teacher (``train/distill.py``), after the stage's
+subsample.
 
 ``datasets.train.device_resident: true`` holds the corpus in device memory
 (``train/device_corpus.py``): each epoch's permutation of its groups or

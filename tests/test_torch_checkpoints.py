@@ -71,7 +71,8 @@ def test_pretrained_load_from_a_port_weights_file(tmp_path):
 
 def test_pretrained_load_of_a_reference_layout_pth(tmp_path, capsys):
     """A bare {'params_ema': sd} reference file asked for 'params' uses the
-    one key it has, with a note; an orbax directory is refused."""
+    one key it has, with a note; a directory that is no orbax checkpoint is
+    refused (orbax directories load: tests/test_torch_orbax.py)."""
     src = _teacher(4)
     path = str(tmp_path / "ref.pth")
     torch.save({"params_ema": {f"module.{k}": v for k, v in
@@ -81,5 +82,5 @@ def test_pretrained_load_of_a_reference_layout_pth(tmp_path, capsys):
     for a, b in zip(got.state_dict().values(), src.state_dict().values()):
         assert torch.equal(a, b)
     (tmp_path / "orbax").mkdir()
-    with pytest.raises(ValueError, match="export_torch_zoo"):
+    with pytest.raises(ValueError, match="not an orbax checkpoint"):
         ckpt.load_pretrained(_teacher(5), str(tmp_path / "orbax"))

@@ -79,7 +79,11 @@ def test_score_without_a_checkpoint_exits_2(tmp_path, capsys):
     assert "checkpoint not found" in capsys.readouterr().err
 
 
-def test_uncommitted_zoo_alias_names_the_export_script(tmp_path):
+def test_uncommitted_zoo_alias_names_the_export_script(tmp_path, monkeypatch):
+    """An alias whose .pth and orbax directory are both absent exits; with
+    its orbax directory present it loads (tests/test_torch_orbax.py)."""
+    pth, _, rate = cli._ZOO["teacher-l2dice"]
+    monkeypatch.setitem(cli._ZOO, "teacher-l2dice", (pth, str(tmp_path / "none"), rate))
     with pytest.raises(SystemExit) as err:
         cli.main(["infer-teacher", "--weights", "teacher-l2dice", "--input",
                   str(tmp_path), "--output", str(tmp_path / "o"), "--device", "cpu"])

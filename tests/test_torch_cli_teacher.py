@@ -116,9 +116,11 @@ def test_default_device_without_a_gpu_exits(frames, tmp_path, monkeypatch):
 
 
 def test_orbax_directory_names_the_export_script(frames, tmp_path):
-    orbax = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                         "artifacts", "kdlaet_full50k", "weights", "net_g_50000_bf16")
+    """A directory without _METADATA is no orbax checkpoint: the exit names
+    what --weights takes (orbax directories load: tests/test_torch_orbax.py)."""
+    (tmp_path / "weights").mkdir()
     with pytest.raises(SystemExit) as err:
-        cli.main(["infer-teacher", "--weights", orbax, "--input", frames,
-                  "--output", str(tmp_path / "o"), "--device", "cpu"])
+        cli.main(["infer-teacher", "--weights", str(tmp_path / "weights"), "--input",
+                  frames, "--output", str(tmp_path / "o"), "--device", "cpu"])
+    assert "not an orbax checkpoint" in str(err.value.code)
     assert "scripts/export_torch_zoo.py" in str(err.value.code)

@@ -170,7 +170,8 @@ def test_online_refusals(teacher_pth, tmp_path):
         tloop.online_targets(distill.make_online_target_fn(port), torch.zeros(2, 8, 8))
     cfg = _online_cfg({"dataroot_lq": "a", "dataroot_gt": "b"}, "artifacts/kdlaet_full50k", 1)
     opt = tcfg.parse(write_yml(cfg, tmp_path / "o.yml"), True, root_path=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="scripts/export_torch_zoo.py"):
+    with pytest.raises(ValueError, match="neither a reference-layout .pth nor an "
+                                         "orbax checkpoint directory"):
         tcfg.validate(opt)
     cfg["train"]["distill"]["teacher"] = {"type": "Nope"}
     opt = tcfg.parse(write_yml(cfg, tmp_path / "o.yml"), True, root_path=str(tmp_path))

@@ -11,7 +11,9 @@ import pytest
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = "rethink_acoustic_image_enhancement_tpu_torch"
 JAX_PACKAGE = "rethink_acoustic_image_enhancement_tpu"
-FORBIDDEN_ROOTS = {"jax", "flax", "jaxlib", "optax", "orbax", JAX_PACKAGE}
+# the port reads orbax checkpoints with its own OCDBT, zarr and zstd code
+FORBIDDEN_ROOTS = {"jax", "flax", "jaxlib", "optax", "orbax", "tensorstore",
+                   "zstandard", "ml_dtypes", JAX_PACKAGE}
 
 
 def _port_modules():
@@ -40,7 +42,8 @@ def test_every_port_module_imports_without_jax():
                  "data.lmdb_codec", "data.lmdb_util", "data.video_datasets",
                  "eval.bundle_submissions", "models.arch_utils", "models.embeds",
                  "ops.warp", "utils.download_weights", "utils.face_restoration",
-                 "utils.flow", "utils.matlab"):
+                 "utils.flow", "utils.matlab", "utils.zstd", "convert.ocdbt",
+                 "convert.orbax"):
         assert f"{PORT}.{name}" in modules, name
     code = "\n".join([
         "import importlib, sys",

@@ -216,9 +216,12 @@ def test_cli_default_device_needs_a_gpu(corpus, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("key,value,item", [
-    # online distillation is ported; its orbax teacher weights are not
+    # online distillation is ported, its orbax teacher weights too:
+    # validate accepts them
     ("distill", {"online": True, "teacher": {"type": "KDLAE_teacher"},
-                 "teacher_weights": "artifacts/kdlaet_full50k"},
+                 "teacher_weights": os.path.join(
+                     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                     "artifacts", "kdlaet_full50k", "weights", "net_g_50000_bf16")},
      "online distillation"),
     # ported with the spatial training (train.loop.spatial_bands holds
     # its rules): validate accepts it
@@ -240,7 +243,7 @@ def test_unported_options_name_the_roadmap(corpus, tmp_path, key, value, item):
         cfg["train"][key] = value
     opt = tcfg.parse(write_yml(cfg, tmp_path / "opt.yml"), True,
                      root_path=str(tmp_path))
-    if key in ("device_resident", "spatial_shard"):
+    if key in ("device_resident", "spatial_shard", "distill"):
         tcfg.validate(opt)
         return
     if key == "model_shard":

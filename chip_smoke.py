@@ -301,13 +301,23 @@ fp32 predictors' own pinning is what runs:
      0.002 of the plain stage's); (c) `convert --reverse` of
      artifacts/kdlaes_flsft5k (the zoo's student-fls.pth, byte for byte),
      then forward: every leaf bit-equal to the source.
+ 21. resume a JAX training state: artifacts/kdlaes_jax_state's
+     training_states/ckpt_4 (the JAX loop's orbax state of the full-width
+     KDLAE-S of configs/KDLAES.yml after 4 iterations, AdamW's moments
+     included; scripts/export_jax_training_state.py on the CPU) restored
+     into the student on cuda:0 through train_from_config (convert/orbax.py,
+     train/jax_state.py) and trained to 6, the end of JAX's own resume, in
+     fp32 under highest_precision. Per iteration l_pix and grad_norm within
+     1e-4 of JAX's recorded values, lr within 1e-7; the restore's host s
+     (read, convert, load onto the card) and the first resumed step's ms.
+     No kernel is launched: training reaches none.
 Each path runs with every launch count set to 0 just before it and read just
-after. Prints one JSON line per phase 6-20, a "kernels" JSON line, the card
+after. Prints one JSON line per phase 6-21, a "kernels" JSON line, the card
 line, and as its last line {"ok": true, "device": {...}}. Details go to
 chiprun_out/chip_smoke.json.
 `chip_smoke.py --dp-rank SPEC`, `--sp-rank SPEC` and `--tp-rank SPEC` are
 ranks of phases 13, 17 and 19, not for use alone; `chip_smoke.py --phase 14`
-(or 15-20) builds and runs that phase alone (its JSON line, no "kernels" or
+(or 15-21) builds and runs that phase alone (its JSON line, no "kernels" or
 "ok" line).
 """
 
@@ -5830,6 +5840,91 @@ def phase_orbax(results, card, work):
     return launches["stage"], hopper
 
 
+JAX_STATE = os.path.join("artifacts", "kdlaes_jax_state")  # scripts/export_jax_training_state.py
+JAX_STATE_REL = 1e-4  # l_pix, grad_norm: the card's step against the CPU's (phases 10, 11)
+JAX_STATE_LR_REL = 1e-7
+
+
+def phase_jax_state(results, card, work):
+    """Resume a JAX training state: the committed full-width student state
+    (training_states/ckpt_4, written by the JAX loop on the CPU) restored
+    into the full-width KDLAE-S on cuda:0 through train_from_config, then
+    trained to the end of JAX's own resume of it (jax_resumed.json), fp32
+    under highest_precision. Gates: l_pix and grad_norm within 1e-4 of
+    JAX's, lr within 1e-7, the parameters and moments on the card, no
+    kernel launched (the slice reaches none)."""
+    import shutil
+
+    import torch
+
+    from rethink_acoustic_image_enhancement_tpu_torch.train import config as tcfg
+    from rethink_acoustic_image_enhancement_tpu_torch.train import loop as tloop
+    from rethink_acoustic_image_enhancement_tpu_torch.train import trainer as ttr
+    from rethink_acoustic_image_enhancement_tpu_torch.utils import zstd
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    zstd.load()  # the decoder's g++ build (phase 20's, where it ran), apart from the restore
+    decoder_s = time.perf_counter() - t0
+    fixture = os.path.join(HERE, JAX_STATE)
+    with open(os.path.join(fixture, "jax_resumed.json")) as fh:
+        want = json.load(fh)
+    opt = tcfg.parse(os.path.join(fixture, want["config"]), True, root_path=work)
+    for k in ("dataroot_lq", "dataroot_gt"):
+        opt["datasets"]["train"][k] = os.path.join(HERE, opt["datasets"]["train"][k])
+    shutil.copytree(os.path.join(fixture, "training_states"), opt["path"]["training_states"])
+    step_ms, step = [], ttr.Trainer.step
+
+    def timed_step(self, state, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(self, state, *a, **kw)
+        float(out[1]["l_pix"])  # waits for the step
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    counts = reset_counts()
+    ttr.Trainer.step = timed_step
+    try:
+        state = tloop.train_from_config(opt)
+    finally:
+        ttr.Trainer.step = step
+    launches = read_counts(counts)
+    assert not any(launches.values()), launches
+    assert state.step == want["resumed_to"], state.step
+    assert all(p.is_cuda for p in state.model.parameters())
+    assert all(st["exp_avg"].is_cuda and st["exp_avg_sq"].is_cuda
+               for st in state.optimizer.state.values())
+    events = jsonl_events(os.path.join(opt["path"]["log"], "metrics.jsonl"))
+    resume = [e for e in events if e["kind"] == "resume"]
+    assert [(e["iter"], e["form"]) for e in resume] == [(4, "jax")], resume
+    got = [e for e in events if e["kind"] == "train"]
+    assert [e["iter"] for e in got] == [e["iter"] for e in want["train"]], got
+    iters = []
+    for a, b in zip(got, want["train"]):
+        rel = {k: abs(a[k] - b[k]) / abs(b[k]) for k in ("l_pix", "lr", "grad_norm")}
+        iters.append({"iter": a["iter"], **{k: a[k] for k in rel},
+                      **{f"jax_{k}": b[k] for k in rel}, **{f"rel_{k}": v for k, v in rel.items()}})
+        assert rel["lr"] <= JAX_STATE_LR_REL and rel["l_pix"] <= JAX_STATE_REL \
+            and rel["grad_norm"] <= JAX_STATE_REL, iters[-1]
+    row = dict(state=os.path.join(JAX_STATE, want["state"]), resumed_at=resume[0]["iter"],
+               resumed_to=state.step, decoder_build_s=decoder_s, restore_s=resume[0]["seconds"],
+               first_step_ms=step_ms[0], step_ms=step_ms, iters=iters,
+               limits=dict(l_pix=JAX_STATE_REL, grad_norm=JAX_STATE_REL, lr=JAX_STATE_LR_REL),
+               kernel_launches=sum(launches.values()), card=card)
+    del state
+    torch.cuda.empty_cache()
+    row["phase_s"] = time.perf_counter() - t_phase
+    results["jax_state"] = row
+    print(json.dumps({"jax_state": row}), flush=True)
+    log(f"jax_state: resumed the JAX state at iteration {row['resumed_at']} in "
+        f"{row['restore_s']:.3f} s (host: read, convert, load onto the card), first step "
+        f"{row['first_step_ms']:.1f} ms; " + "; ".join(
+            f"iter {r['iter']}: l_pix {r['l_pix']:.6g} (JAX {r['jax_l_pix']:.6g}), grad_norm "
+            f"{r['grad_norm']:.6g} (JAX {r['jax_grad_norm']:.6g}), lr {r['lr']:.6g}"
+            for r in iters) + f"; phase 21: {row['phase_s']:.1f} s [{card}]")
+
+
 def flat_leaves(tree, keys=False, prefix=()):
     """The leaves of a nested dict/list tree in order (with their key paths)."""
     items = (tree.items() if isinstance(tree, dict) else
@@ -5849,7 +5944,7 @@ def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--tp-rank":  # a rank of phase 19
         return tp_child(sys.argv[2])
     only = sys.argv[2] if sys.argv[1:2] == ["--phase"] and len(sys.argv) == 3 else None
-    if sys.argv[1:] and only not in ("14", "15", "16", "17", "18", "19", "20"):  # one phase alone
+    if sys.argv[1:] and only not in ("14", "15", "16", "17", "18", "19", "20", "21"):
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
         return 2
     import torch
@@ -5888,10 +5983,10 @@ def main() -> int:
                "cuda": torch.version.cuda, "build_s": build_s}
     if only:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32_defaults
-        if only in ("17", "19", "20"):
+        if only in ("17", "19", "20", "21"):
             with tempfile.TemporaryDirectory(prefix=f"raie_{only}_") as work:
                 {"17": phase_spatial_train, "19": phase_tensor_train,
-                 "20": phase_orbax}[only](results, card, work)
+                 "20": phase_orbax, "21": phase_jax_state}[only](results, card, work)
             return 0
         {"14": phase_dp_serving, "15": phase_remaining_datasets,
          "16": phase_spatial, "18": phase_tensor}[only](results, card)
@@ -5948,6 +6043,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="raie_orbax_") as work:
         orbax_launches, orbax_hopper = phase_orbax(results, card, work)
     hopper_launches = {k: v + orbax_hopper[k] for k, v in hopper_launches.items()}
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="raie_jax_state_") as work:
+        phase_jax_state(results, card, work)
     results["hopper_launches"] = hopper_launches
     results["path_launches"] = dict(whole_image=whole_launches, tiled=tiled_launches,
                                     group=group_launches, zoo_cli=zoo_launches,

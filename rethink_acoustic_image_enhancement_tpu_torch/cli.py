@@ -1,8 +1,10 @@
 """Command-line entry points of the PyTorch/CUDA port.
 
-  raie-torch train -opt cfg.yml  config-driven training (auto-resume;
-                                 --launcher pytorch under torchrun or SLURM
-                                 for data parallelism)
+  raie-torch train -opt cfg.yml  config-driven training (auto-resume from
+                                 path.training_states: the port's
+                                 ckpt_<iter>.pth or a JAX run's orbax
+                                 ckpt_<iter>/; --launcher pytorch under
+                                 torchrun or SLURM for data parallelism)
   raie-torch train-asdqe ...     ASDQE quality-scorer training
   raie-torch test -opt cfg.yml   config-driven offline evaluation
   raie-torch infer-teacher ...   KDLAE-T denoise (whole image, groups, tiles)
@@ -616,7 +618,10 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="raie-torch", description=__doc__)
     sub = parser.add_subparsers(dest="cmd", required=True)
 
-    p = sub.add_parser("train", help="config-driven training")
+    p = sub.add_parser("train", help="config-driven training; resumes from the newest "
+                       "training state under path.training_states, the port's "
+                       "ckpt_<iter>.pth or a JAX run's ckpt_<iter>/ orbax directory "
+                       "(the .pth on a tie)")
     p.add_argument("-opt", required=True)
     p.add_argument("--max-iters", type=int, default=None)
     p.add_argument("--profile-steps", type=int, default=0,

@@ -13,7 +13,10 @@ of the OCDBT database (``convert/ocdbt.py``), else files in a directory per
 leaf.
 
 ``read_checkpoint(path)`` returns the nested dict of numpy arrays (Python
-ints and floats for orbax "scalar" leaves). bfloat16 arrays come back with
+ints and floats for orbax "scalar" leaves, ``None`` in place of an empty
+leaf: value type ``'None'`` with ``skip_deserialize``, as orbax saves
+optax's ``EmptyState`` and ``MaskedNode``, so that a sequence keeps its
+indices). bfloat16 arrays come back with
 dtype ``BF16`` (``V2``: the raw 16 bits, which numpy refuses to cast by
 accident); ``to_torch`` makes them ``torch.bfloat16``, ``bf16_to_float32``
 widens them. ``write_checkpoint(path, tree)`` writes the ``use_ocdbt:
@@ -207,7 +210,8 @@ def _assemble(leaves: dict[tuple, Any], kinds: dict[tuple, int]) -> dict:
 def read_checkpoint(path: str, decoder: str = "native") -> dict:
     """Every leaf of the checkpoint directory ``path``, as orbax restores it
     without a target: numpy arrays (``BF16`` for bfloat16), Python scalars
-    for "scalar" leaves, dicts (lists for sequence keys)."""
+    for "scalar" leaves, None for empty leaves, dicts (lists for sequence
+    keys)."""
     meta = _tree_metadata(path)
     if meta.get("use_zarr3"):
         raise CheckpointError(f"{path}: use_zarr3 is true; this reader knows zarr v2")
@@ -218,15 +222,19 @@ def read_checkpoint(path: str, decoder: str = "native") -> dict:
         kinds = [k["key_type"] for k in keys]
         if any(k not in (KEY_SEQUENCE, KEY_DICT) for k in kinds):
             raise CheckpointError(f"{path}: key types {kinds} of {key}")
-        value_type = info["value_metadata"]["value_type"]
-        if value_type not in ("np.ndarray", "jax.Array", "scalar"):
+        value = info["value_metadata"]
+        value_type = value["value_type"]
+        empty = value_type == "None" and value.get("skip_deserialize") is True
+        if value_type not in ("np.ndarray", "jax.Array", "scalar") and not empty:
             raise CheckpointError(f"{path}: leaf {key} of value type "
-                                  f"{value_type!r}; this reader takes arrays and scalars")
+                                  f"{value_type!r}; this reader takes arrays, scalars "
+                                  "and empty ('None', skip_deserialize) leaves")
         path_keys = tuple(str(k["key"]) for k in keys)
         entries.append((path_keys, kinds, value_type))
     with ThreadPoolExecutor(DECODE_THREADS) as pool:  # zstd releases the GIL
-        arrays = list(pool.map(lambda e: _read_array(store, ".".join(e[0]), decoder),
-                               entries))
+        arrays = list(pool.map(
+            lambda e: None if e[2] == "None" else _read_array(store, ".".join(e[0]), decoder),
+            entries))
     leaves, kinds = {}, {}
     for (keys, types, value_type), a in zip(entries, arrays):
         leaves[keys] = a.item() if value_type == "scalar" else a

@@ -8,11 +8,21 @@ scheme, base_model.py:213-351).
     ``{'params': state_dict[, 'params_ema': state_dict]}``, which
     ``convert/weights.py::load_pth`` and the CLI's ``--weights`` read.
 
+A ``training_states`` directory may also hold the JAX package's form,
+``ckpt_{iter}/`` (an orbax directory: ``_METADATA`` present; its
+``train/checkpoints.py::save_checkpoint``), which ``restore_checkpoint``
+loads through ``train/jax_state.py``. The port writes only the ``.pth``
+form. ``latest_checkpoint`` finds the highest iteration of either form
+(train.py:171-192) and says which it found. The rule: the highest
+iteration wins; on a tie the port's ``.pth`` wins, because it holds the
+loop's position and the host generators, which make its resume exact (a
+JAX state restarts its epoch and its generators, as the JAX loop does).
+``prune_checkpoints`` counts both forms, and both forms of ``net_g``.
+
 Files are written to a temporary name and renamed, so a run cut during a
 save leaves the previous checkpoint whole. In a process group only rank 0
 writes, and every rank leaves a save together (a barrier); every rank
-restores the same file onto its own device. ``find_latest_checkpoint``
-scans for the highest iteration (train.py:171-192). ``load_pretrained``
+restores the same file onto its own device. ``load_pretrained``
 reads a reference-layout ``.pth`` (a port ``net_g_*.pth`` or a reference
 one) or an orbax checkpoint directory (the JAX package's ``net_g_*``)
 strictly, or merges it non-strictly (``strict_load_g: false``,
@@ -24,14 +34,20 @@ from __future__ import annotations
 import os
 import os.path as osp
 import re
+import shutil
 from typing import Any
 
 import torch
 from torch import nn
 
-from ..convert.orbax import payload_keys
+from ..convert.orbax import is_checkpoint, payload_keys
 from ..convert.weights import arch_of, read_state_dict
 from ..parallel import barrier, is_master
+from .jax_state import load_jax_state
+
+PTH, JAX = "pth", "jax"  # the two forms of a training state
+_FORMS = {PTH: r"ckpt_(\d+)\.pth", JAX: r"ckpt_(\d+)"}
+_WEIGHT_FORMS = {PTH: r"net_g_(\d+)\.pth", JAX: r"net_g_(\d+)"}
 
 
 def _atomic_save(obj: Any, path: str) -> str:
@@ -80,9 +96,16 @@ def save_checkpoint(root: str, step: int, state, epoch: int = 0,
     return path
 
 
-def restore_checkpoint(root: str, step: int, state):
-    """Load ``ckpt_{step}.pth`` into the live ``state`` (in place);
-    returns (state, epoch, loop)."""
+def restore_checkpoint(root: str, step: int, state, form: str = PTH, spec=None):
+    """Load the training state of iteration ``step`` under ``root`` into the
+    live ``state`` (in place); returns (state, epoch, loop). ``form`` 'pth'
+    is the port's ``ckpt_{step}.pth``; 'jax' the JAX package's
+    ``ckpt_{step}/``, checked against ``spec`` (the config's
+    ``OptimizerSpec``), whose loop position is empty: the JAX loop keeps
+    none."""
+    if form == JAX:
+        state, epoch = load_jax_state(osp.join(root, f"ckpt_{step}"), state, spec)
+        return state, epoch, {}
     payload = torch.load(ckpt_path(root, step), weights_only=True,
                          map_location=_onto(next(state.model.parameters()).device))
     state.model.load_state_dict(payload["params"], strict=True)
@@ -108,33 +131,66 @@ def save_weights(root: str, step: int | str, model: nn.Module,
     return path
 
 
+def _numbered(root: str | None, forms: dict[str, str]):
+    """(entries, odd): the (iteration, form, name) of each numbered entry of
+    ``root``, a file of the '.pth' pattern or an orbax directory of the
+    other, in resume order (the highest iteration last; on a tie the .pth
+    after the JAX directory); and the paths named as JAX checkpoints that
+    are no orbax directory (no ``_METADATA``)."""
+    if not root or not osp.isdir(root):
+        return [], []
+    out, odd = [], []
+    for name in os.listdir(root):
+        for form, pat in forms.items():
+            m = re.fullmatch(pat, name)
+            if m is None:
+                continue
+            path = osp.join(root, name)
+            if form == JAX and not (osp.isdir(path) and is_checkpoint(path)):
+                odd.append(path)
+            else:
+                out.append((int(m.group(1)), form, name))
+    return sorted(out, key=lambda e: (e[0], e[1] == PTH)), odd
+
+
+def latest_checkpoint(root: str) -> tuple[int, str] | None:
+    """(iteration, form) of the training state to resume under ``root``:
+    the highest iteration, the port's '.pth' on a tie (module docstring).
+    A ``ckpt_{iter}`` that is no orbax directory raises: skipping it could
+    start the run over."""
+    found, odd = _numbered(root, _FORMS)
+    if odd:
+        raise ValueError(f"{sorted(odd)}: named as JAX training states but no orbax "
+                         "directory (no _METADATA); move them away to resume")
+    return found[-1][:2] if found else None
+
+
 def find_latest_checkpoint(root: str) -> int | None:
-    """The highest iteration with a ``ckpt_{iter}.pth`` under ``root``."""
-    if not osp.isdir(root):
-        return None
-    steps = [int(m.group(1)) for name in os.listdir(root)
-             if (m := re.fullmatch(r"ckpt_(\d+)\.pth", name))]
-    return max(steps) if steps else None
+    """The highest iteration of a training state of either form under
+    ``root``."""
+    latest = latest_checkpoint(root)
+    return None if latest is None else latest[0]
 
 
 def prune_checkpoints(states_dir: str | None, models_dir: str | None,
                       keep: int) -> list[str]:
-    """Keep the ``keep`` highest-numbered ``ckpt_{iter}.pth`` and
-    ``net_g_{iter}.pth``, delete the rest; named weights (net_g_best) are
-    never touched. Opt-in through ``logger.keep_checkpoints`` (the
-    reference keeps every checkpoint)."""
+    """Keep the ``keep`` newest training states (``ckpt_{iter}.pth`` and the
+    JAX form's ``ckpt_{iter}/``, counted together, ordered as
+    ``latest_checkpoint`` orders them) and numbered weights (``net_g_{iter}
+    .pth`` and ``net_g_{iter}/``), delete the rest, a directory with
+    ``shutil.rmtree`` as the JAX package's rotation does; named weights
+    (net_g_best) are never touched. Opt-in through
+    ``logger.keep_checkpoints`` (the reference keeps every checkpoint)."""
     removed: list[str] = []
     if keep <= 0:
         return removed
-    for root, pat in ((states_dir, r"ckpt_(\d+)\.pth"),
-                      (models_dir, r"net_g_(\d+)\.pth")):
-        if not root or not osp.isdir(root):
-            continue
-        steps = sorted((int(m.group(1)), name) for name in os.listdir(root)
-                       if (m := re.fullmatch(pat, name)))
-        for _, name in steps[:-keep]:
+    for root, forms in ((states_dir, _FORMS), (models_dir, _WEIGHT_FORMS)):
+        for _, form, name in _numbered(root, forms)[0][:-keep]:
             path = osp.join(root, name)
-            os.remove(path)
+            if form == JAX:
+                shutil.rmtree(path)
+            else:
+                os.remove(path)
             removed.append(path)
     return removed
 

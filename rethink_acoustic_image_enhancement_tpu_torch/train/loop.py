@@ -3,10 +3,17 @@ Train/basicsr/train.py main(); the JAX package's ``train/loop.py``).
 
 Data loading on worker threads, the stage subsample and the upload on a
 prefetch thread, the progressive curriculum, logging, checkpoints and
-validation on their cadence, and auto-resume from ``training_states``.
-Resuming is exact: the checkpoint holds the loop's position in its epoch
-and the states of its two host generators, so a run cut and resumed
-reads, draws and computes what an uninterrupted run would.
+validation on their cadence, and auto-resume from ``training_states``,
+which may hold training states of two forms (``train/checkpoints.py``):
+the highest iteration wins, the port's ``.pth`` on a tie. Resuming from
+the port's ``ckpt_<iter>.pth`` is exact: it holds the loop's position in
+its epoch and the states of its two host generators, so a run cut and
+resumed reads, draws and computes what an uninterrupted run would.
+Resuming from the JAX package's ``ckpt_<iter>/`` (an orbax directory;
+``train/jax_state.py``, the optimizer's moments carried into AdamW) is
+the JAX loop's own resume of it: the epoch from the state, its first
+batch next, both host generators from the seed. The log line and the
+``resume`` jsonl event name the form.
 
 Validation is dict-aware (``pred['hq']`` and, with an SR target,
 ``pred['sr']``): the reference's teacher validation crashed on dict outputs
@@ -60,7 +67,9 @@ shards' split leaves on every rank (``Trainer.whole_state``, a
 collective), and every validation the model and EMA alone
 (``Trainer.whole_modules``; a checkpoint's on the same iteration); rank 0
 then writes the reference layout and validates the whole model. A resume
-under any N, 1 included, splits it again.
+under any N, 1 included, splits it again, from either form: every rank
+reads the same file or directory, and the ranks agree on its iteration
+and form first.
 """
 
 from __future__ import annotations
@@ -95,9 +104,9 @@ from ..utils.image_io import imwrite, to_ubyte
 from ..utils.logging import MessageLogger, get_logger
 from ..utils.profiling import aggregate_trace, trace
 from ..utils.tracking import make_tracker
-from .checkpoints import (find_latest_checkpoint, load_pretrained,
-                          prune_checkpoints, restore_checkpoint,
-                          save_checkpoint, save_weights)
+from .checkpoints import JAX as JAX_FORM
+from .checkpoints import (latest_checkpoint, load_pretrained, prune_checkpoints,
+                          restore_checkpoint, save_checkpoint, save_weights)
 from .config import make_exp_dirs, validate
 from .device_corpus import build_device_corpus, seeded_generator
 from .distill import make_online_target_fn
@@ -448,14 +457,20 @@ def _train(opt: dict, device, max_iters: int | None, log,
     prefetch_rng = np.random.default_rng(seed + PREFETCH_SEED_OFFSET)
     epoch, epoch_iter = 0, 0
     restore_s = None
+    form = None
     if states_dir and opt["path"].get("resume_state", "auto") is not None:
-        latest = find_latest_checkpoint(states_dir)
-        agree(-1 if latest is None else latest, device, "the checkpoint to resume")
+        found = latest_checkpoint(states_dir)
+        latest, form = found if found is not None else (None, None)
+        agree(-1 if latest is None else 2 * latest + (form == JAX_FORM), device,
+              "the checkpoint to resume (2 x its iteration, + 1 for a JAX state)")
         if latest is not None:
             t0 = time.perf_counter()
-            # on shards: into the reference layout, then split again
+            # on shards: into the reference layout, then split again. A JAX
+            # state has no loop position: its epoch starts over and both
+            # host generators start from the seed, as in the JAX loop
             whole, epoch, pos = restore_checkpoint(states_dir, latest,
-                                                   trainer.whole_state(state))
+                                                   trainer.whole_state(state), form,
+                                                   spec=trainer.optimizer)
             state = trainer.load_whole(state, whole)
             if trainer.shards is None:
                 broadcast_module(state.model, state.ema)
@@ -464,7 +479,8 @@ def _train(opt: dict, device, max_iters: int | None, log,
             if "host_rng" in pos:
                 host_rng.bit_generator.state = pos["host_rng"]
                 prefetch_rng.bit_generator.state = pos["prefetch_rng"]
-            log(f"auto-resumed from iteration {latest} ({restore_s:.3f} s)")
+            what = "JAX orbax state, " if form == JAX_FORM else ""
+            log(f"auto-resumed from iteration {latest} ({what}{restore_s:.3f} s)")
     prefetch_state = prefetch_rng.bit_generator.state
     epoch_state = host_rng.bit_generator.state  # the device route's epoch start
 
@@ -477,7 +493,7 @@ def _train(opt: dict, device, max_iters: int | None, log,
                     if log_dir and is_master() else None),
         remote=remote)
     if restore_s is not None and msg_logger.jsonl is not None:
-        msg_logger.jsonl.write("resume", state.step, {"seconds": restore_s})
+        msg_logger.jsonl.write("resume", state.step, {"seconds": restore_s}, form=form)
     if corpus is not None and msg_logger.jsonl is not None:
         msg_logger.jsonl.write("corpus", state.step, {"upload_s": corpus.upload_s,
                                                       "mib": corpus.nbytes / 2 ** 20})
